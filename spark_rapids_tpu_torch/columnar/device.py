@@ -1,0 +1,366 @@
+"""Device-resident columnar batches on torch tensors (the counterpart of
+``spark_rapids_tpu.columnar.device``).
+
+- Every column is a pair of tensors on one ``torch.device``: fixed-width
+  ``data`` plus a ``validity`` bool mask.
+- Strings are padded byte matrices ``uint8[capacity, char_cap]`` with an
+  int32 ``lengths`` vector; decimals beyond 18 digits are two int64 limbs
+  (``hi`` signed, ``lo`` the uint64 bit pattern), as in ``ops/int128``.
+- A batch has a ``capacity`` bucketed like the JAX package's, and an
+  ``active`` row mask: filters flip mask bits, compaction is explicit.
+  Padding rows carry validity False and normalized zeros in every column.
+
+The batch model is kept as it is in the JAX package so the operators port
+one to one; the static shapes it was built for cost nothing extra here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+from spark_rapids_tpu_torch.sql import types as T
+
+MIN_CAPACITY = 64
+
+
+def bucket_capacity(n: int) -> int:
+    """Smallest {1, 1.25, 1.5, 1.75} x 2^k capacity >= n, floored at
+    MIN_CAPACITY."""
+    if n <= MIN_CAPACITY:
+        return MIN_CAPACITY
+    base = 1 << (n.bit_length() - 1)
+    if base == n:
+        return n
+    for num in (5, 6, 7):
+        cap = (base >> 2) * num
+        if cap >= n:
+            return cap
+    return base << 1
+
+
+def bucket_char_cap(max_len: int) -> int:
+    """Byte-matrix width bucket: multiple-of-8 padding, floor 8."""
+    if max_len <= 8:
+        return 8
+    return 8 * math.ceil(max_len / 8)
+
+
+def is_string_like(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.StringType, T.BinaryType))
+
+
+_NP_TO_TORCH = {
+    np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64, np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64, np.dtype(np.uint8): torch.uint8,
+}
+
+
+def torch_dtype(dt: T.DataType) -> torch.dtype:
+    """Device storage dtype for fixed-width types."""
+    return _NP_TO_TORCH[np.dtype(T.numpy_dtype(dt))]
+
+
+@dataclass
+class DeviceColumn:
+    """Fixed-width device column: data[capacity] + validity[capacity]."""
+
+    dtype: T.DataType
+    data: torch.Tensor
+    validity: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        return (self.data, self.validity)
+
+
+@dataclass
+class DeviceDecimal128Column:
+    """DECIMAL128 device column: two int64 limbs (``hi`` signed high,
+    ``lo`` the uint64 low bit pattern)."""
+
+    dtype: T.DataType
+    hi: torch.Tensor
+    lo: torch.Tensor
+    validity: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.hi.shape[0]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        return (self.hi, self.lo, self.validity)
+
+
+@dataclass
+class DeviceStringColumn:
+    """String/binary device column: padded byte matrix + lengths. Zero
+    padding past ``lengths[i]`` keeps word-wise comparison equal to
+    UTF-8 binary order (with the length as tiebreak)."""
+
+    dtype: T.DataType
+    chars: torch.Tensor    # uint8[capacity, char_cap]
+    lengths: torch.Tensor  # int32[capacity]
+    validity: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.chars.shape[0]
+
+    @property
+    def char_cap(self) -> int:
+        return self.chars.shape[1]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        return (self.chars, self.lengths, self.validity)
+
+
+AnyDeviceColumn = Union[DeviceColumn, DeviceStringColumn,
+                        DeviceDecimal128Column]
+
+
+def column_arity(dtype: T.DataType) -> int:
+    """Number of flat tensors a device column of `dtype` carries."""
+    if isinstance(dtype, (T.ArrayType, T.StructType, T.MapType)):
+        raise NotImplementedError(
+            f"nested device columns ({dtype.simple_string}) are not ported "
+            "yet to spark_rapids_tpu_torch")
+    if is_string_like(dtype) or T.is_limb_decimal(dtype):
+        return 3
+    return 2
+
+
+def make_column(dtype: T.DataType, arrs: Sequence[torch.Tensor]
+                ) -> AnyDeviceColumn:
+    column_arity(dtype)
+    if is_string_like(dtype):
+        return DeviceStringColumn(dtype, *arrs)
+    if T.is_limb_decimal(dtype):
+        return DeviceDecimal128Column(dtype, *arrs)
+    return DeviceColumn(dtype, *arrs)
+
+
+def flatten_columns(columns: Sequence[AnyDeviceColumn]
+                    ) -> Tuple[List[torch.Tensor],
+                               List[Tuple[T.DataType, int]]]:
+    """Flatten column tensors + per-column (dtype, arity) spec; inverse
+    is rebuild_columns."""
+    flat: List[torch.Tensor] = []
+    spec: List[Tuple[T.DataType, int]] = []
+    for c in columns:
+        arrs = c.arrays()
+        spec.append((c.dtype, len(arrs)))
+        flat.extend(arrs)
+    return flat, spec
+
+
+def rebuild_columns(spec: Sequence[Tuple[T.DataType, int]],
+                    outs: Sequence[torch.Tensor]) -> List[AnyDeviceColumn]:
+    cols: List[AnyDeviceColumn] = []
+    i = 0
+    for dt, n_arr in spec:
+        cols.append(make_column(dt, outs[i:i + n_arr]))
+        i += n_arr
+    return cols
+
+
+@dataclass
+class DeviceBatch:
+    """A columnar batch resident on one torch device. ``active`` marks
+    real rows; ``_num_rows`` caches the host row count."""
+
+    schema: T.StructType
+    columns: List[AnyDeviceColumn]
+    active: torch.Tensor
+    _num_rows: Optional[int] = None
+
+    @property
+    def capacity(self) -> int:
+        return int(self.active.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.active.device
+
+    def row_count(self) -> int:
+        if self._num_rows is None:
+            self._num_rows = int(self.active.sum())
+        return self._num_rows
+
+    def with_columns(self, schema: T.StructType,
+                     columns: List[AnyDeviceColumn]) -> "DeviceBatch":
+        return DeviceBatch(schema, columns, self.active, self._num_rows)
+
+    @staticmethod
+    def from_host(batch: HostBatch, device: torch.device,
+                  capacity: Optional[int] = None) -> "DeviceBatch":
+        from spark_rapids_tpu_torch.columnar.transfer import upload_batch
+        cap = capacity or bucket_capacity(max(1, batch.num_rows))
+        return upload_batch(batch, cap, device)
+
+    def to_host(self) -> HostBatch:
+        """Gather active rows back to a HostBatch (device -> host)."""
+        active = self.active.cpu().numpy()
+        idx = np.nonzero(active)[0]
+        cols = [_col_to_host(c, idx) for c in self.columns]
+        return HostBatch(self.schema, cols, len(idx))
+
+
+def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:
+    validity = c.validity.cpu().numpy()[idx]
+    if isinstance(c, DeviceStringColumn):
+        chars = c.chars.cpu().numpy()
+        lengths = c.lengths.cpu().numpy()
+        data = np.empty(len(idx), dtype=object)
+        is_binary = isinstance(c.dtype, T.BinaryType)
+        for out_i, i in enumerate(idx):
+            raw = chars[i, :lengths[i]].tobytes()
+            if is_binary:
+                data[out_i] = raw if validity[out_i] else b""
+            else:
+                data[out_i] = (raw.decode("utf-8", errors="replace")
+                               if validity[out_i] else "")
+        return HostColumn(c.dtype, data, validity)
+    if isinstance(c, DeviceDecimal128Column):
+        data = np.stack([c.hi.cpu().numpy()[idx], c.lo.cpu().numpy()[idx]],
+                        axis=1)
+        return HostColumn(c.dtype, data, validity).normalized()
+    return HostColumn(c.dtype, c.data.cpu().numpy()[idx],
+                      validity).normalized()
+
+
+def mask_col(c: AnyDeviceColumn, keep: torch.Tensor) -> AnyDeviceColumn:
+    """Null out rows outside `keep` (normalized zeros underneath)."""
+    v = c.validity & keep
+    if isinstance(c, DeviceStringColumn):
+        return DeviceStringColumn(
+            c.dtype, c.chars * v[:, None].to(c.chars.dtype),
+            torch.where(v, c.lengths, 0), v)
+    if isinstance(c, DeviceDecimal128Column):
+        return DeviceDecimal128Column(c.dtype, torch.where(v, c.hi, 0),
+                                      torch.where(v, c.lo, 0), v)
+    return DeviceColumn(c.dtype, torch.where(
+        v, c.data, torch.zeros((), dtype=c.data.dtype, device=v.device)), v)
+
+
+def sort_key_i64(k: torch.Tensor) -> torch.Tensor:
+    """A sort word as a tensor whose SIGNED order is the word's intended
+    order: bools and small ints widen, and int64 words carry uint64 bit
+    patterns (the JAX package's uint64 words), so their sign bit flips.
+    Float words sort as themselves."""
+    if k.dtype == torch.bool:
+        return k.to(torch.int64)
+    if k.dtype == torch.int64:
+        return k ^ (-(1 << 63))
+    if k.is_floating_point():
+        return k
+    return k.to(torch.int64)
+
+
+def sort_with_payload(keys: Sequence[torch.Tensor],
+                      payload: Sequence[torch.Tensor]):
+    """Stable lexicographic sort by `keys` (most significant first, each
+    in the word convention of :func:`sort_key_i64`); `payload` tensors
+    follow. A least-significant-first chain of stable single-key sorts
+    plus gathers: torch has no multi-operand sort. Returns (sorted_keys,
+    order, sorted_payload)."""
+    cap = keys[0].shape[0]
+    order = torch.arange(cap, dtype=torch.int64, device=keys[0].device)
+    for k in reversed(list(keys)):
+        kp = sort_key_i64(k)[order]
+        _s, o2 = torch.sort(kp, stable=True)
+        order = order[o2]
+    from spark_rapids_tpu_torch.ops.lanes import fused_take
+    gathered = fused_take(list(keys) + list(payload), order)
+    return (tuple(gathered[:len(keys)]), order,
+            gathered[len(keys):])
+
+
+def take_columns(columns: Sequence[AnyDeviceColumn], idx: torch.Tensor,
+                 valid_at: Optional[torch.Tensor] = None
+                 ) -> List[AnyDeviceColumn]:
+    """Gather rows by index; rows where ``valid_at`` is False become
+    null (callers clamp their indices into range first: unlike jnp.take,
+    torch raises on out-of-range indices)."""
+    from spark_rapids_tpu_torch.ops.lanes import fused_take
+    flat, spec = flatten_columns(columns)
+    out = rebuild_columns(spec, fused_take(flat, idx))
+    if valid_at is not None:
+        out = [mask_col(c, valid_at) for c in out]
+    return out
+
+
+def compact_arrays(active: torch.Tensor, flat: Sequence[torch.Tensor]):
+    """Stable compaction (active rows to the front): one stable sort for
+    the permutation + one gather per tensor; the padding tail is zeroed.
+    Returns (new_active, outs)."""
+    from spark_rapids_tpu_torch.ops.lanes import fused_take
+    cap = active.shape[0]
+    _k, idx = torch.sort((~active).to(torch.int8), stable=True)
+    pos = torch.arange(cap, device=active.device)
+    new_active = pos < active.sum()
+    outs = []
+    for g in fused_take(list(flat), idx):
+        keep = new_active[:, None] if g.dim() == 2 else new_active
+        outs.append(torch.where(keep, g, torch.zeros(
+            (), dtype=g.dtype, device=g.device)))
+    return new_active, outs
+
+
+def slice_compacted_to_bucket(batch: DeviceBatch) -> DeviceBatch:
+    """Slice an ALREADY-COMPACTED batch (active rows form a prefix) down
+    to its row count's capacity bucket."""
+    n = batch.row_count()
+    cap = bucket_capacity(max(1, n))
+    if cap >= batch.capacity:
+        return batch
+    flat, spec = flatten_columns(batch.columns)
+    return DeviceBatch(batch.schema,
+                       rebuild_columns(spec, [a[:cap] for a in flat]),
+                       batch.active[:cap], n)
+
+
+def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
+    """Device Table.concatenate: compact all actives into one batch at
+    the bucket of the total row count. String char matrices of differing
+    widths pad to the widest."""
+    assert batches
+    if len(batches) == 1:
+        return batches[0]
+    schema = batches[0].schema
+    counts = [b.row_count() for b in batches]
+    total = sum(counts)
+    cap = bucket_capacity(max(1, total))
+    dev = batches[0].device
+    flats = []
+    spec = None
+    for b in batches:
+        flat, spec = flatten_columns(b.columns)
+        idx = torch.nonzero(b.active).flatten()
+        flats.append([a[idx] for a in flat])
+    outs = []
+    for ai in range(len(flats[0])):
+        parts = [f[ai] for f in flats]
+        if parts[0].dim() == 2:
+            w = max(p.shape[1] for p in parts)
+            parts = [torch.nn.functional.pad(p, (0, w - p.shape[1]))
+                     if p.shape[1] < w else p for p in parts]
+        whole = torch.cat(parts)
+        pad = cap - whole.shape[0]
+        if pad:
+            whole = torch.cat([whole, torch.zeros(
+                (pad,) + tuple(whole.shape[1:]), dtype=whole.dtype,
+                device=dev)])
+        outs.append(whole)
+    active = torch.arange(cap, device=dev) < total
+    return DeviceBatch(schema, rebuild_columns(spec, outs), active, total)

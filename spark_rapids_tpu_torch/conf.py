@@ -1,0 +1,97 @@
+"""Typed configuration registry (the RapidsConf role), trimmed to the keys
+the ported slice reads.
+
+Entries are declared once with a key, a doc string and a typed default;
+``TorchConf`` is the bound view over one session's settings dict.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+
+@dataclass
+class ConfEntry:
+    """One typed config entry."""
+
+    key: str
+    doc: str
+    default: Any
+    converter: Callable[[str], Any]
+
+    def get(self, conf: Dict[str, Any]) -> Any:
+        raw = conf.get(self.key)
+        if raw is None:
+            return self.default
+        if isinstance(raw, str):
+            return self.converter(raw)
+        return raw
+
+
+_REGISTRY: Dict[str, ConfEntry] = {}
+
+
+def _to_bool(s: str) -> bool:
+    return s.strip().lower() in ("true", "1", "yes")
+
+
+def _entry(key: str, doc: str, default: Any,
+           converter: Callable[[str], Any]) -> ConfEntry:
+    if key in _REGISTRY:
+        raise ValueError(f"duplicate conf key {key}")
+    e = ConfEntry(key, doc, default, converter)
+    _REGISTRY[key] = e
+    return e
+
+
+SHUFFLE_PARTITIONS = _entry(
+    "spark.sql.shuffle.partitions",
+    "Partition count for hash and range exchanges (Spark SQLConf).",
+    8, int)
+
+BATCH_SIZE_ROWS = _entry(
+    "spark.rapids.sql.batchSizeRows",
+    "Target row count of a device columnar batch; the row-to-columnar "
+    "upload coalesces or splits host batches toward it.",
+    1 << 20, int)
+
+CASE_SENSITIVE = _entry(
+    "spark.sql.caseSensitive",
+    "Case sensitivity of column resolution (Spark SQLConf).",
+    False, _to_bool)
+
+KERNEL_GROUPBY_TABLE_SLOTS = _entry(
+    "spark.rapids.sql.kernel.groupbyHash.tableSlots",
+    "Hash-table capacity (slots, rounded up to a power of two) of the "
+    "partial group-by kernel. A batch with more distinct groups than "
+    "the table holds overflows and re-runs on the sort-based partial "
+    "aggregate (counted as overflowReruns).",
+    1024, int)
+
+
+class TorchConf:
+    """Bound view over a conf dict."""
+
+    def __init__(self, settings: Optional[Dict[str, Any]] = None):
+        self.settings: Dict[str, Any] = dict(settings or {})
+
+    def get(self, entry: ConfEntry) -> Any:
+        return entry.get(self.settings)
+
+    def get_key(self, key: str, default: Any = None) -> Any:
+        e = _REGISTRY.get(key)
+        if e is not None:
+            return e.get(self.settings)
+        return self.settings.get(key, default)
+
+    def set(self, key: str, value: Any) -> None:
+        self.settings[key] = value
+
+    @property
+    def batch_size_rows(self) -> int:
+        return int(self.get(BATCH_SIZE_ROWS))
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return int(self.get(SHUFFLE_PARTITIONS))

@@ -1,0 +1,36 @@
+"""Build-and-launch check of the CUDA kernel tier (the counterpart of
+``spark_rapids_tpu.device_caps.pallas_mode``).
+
+The JAX package lowers one trivial Pallas kernel to choose between
+native, interpret and off. The port has no mode to choose: ``probe``
+builds every kernel from ``csrc/`` and launches the trivial one
+(``csrc/probe.cu``, out = 2 * in), and raises on any failure.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spark_rapids_tpu_torch import kernels as KR
+
+
+def probe(device: torch.device) -> float:
+    """Build all kernels, launch the probe on ``device`` and check it;
+    returns the build seconds (0 when the libraries were up to date)."""
+    if device.type != "cuda":
+        raise KR.KernelError(f"probe needs a CUDA device, got {device}")
+    seconds = KR.build_all()
+    x = torch.arange(8, dtype=torch.int32, device=device)
+    out = torch.empty_like(x)
+    fn = KR.library("probe").probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    KR.check(fn(x.data_ptr(), out.data_ptr(), 8, KR.stream_handle(device)),
+             "probe launch")
+    torch.cuda.synchronize(device)
+    if not torch.equal(out.cpu(), (x * 2).cpu()):
+        raise KR.KernelError(f"probe kernel returned {out.tolist()}")
+    return seconds

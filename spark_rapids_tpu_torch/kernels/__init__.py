@@ -1,0 +1,156 @@
+"""Hand-written CUDA kernels for Hopper: build, load and launch support.
+
+Every kernel source under ``spark_rapids_tpu_torch/csrc/`` is a plain C
+interface over CUDA C++. At first use all of them compile together (one
+``nvcc`` process per source, started at once) into shared libraries
+under ``build/kernels/`` at the repo root, named by a hash of the source
+so an edited source rebuilds, and load through ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+Each C entry launches on the stream it is handed (PyTorch's current
+stream), never synchronises, and returns ``cudaGetLastError()``; the
+Python wrapper raises on a non-zero code. Each wrapper keeps a plain
+integer launch counter (``LAUNCHES``), bumped where it launches its
+kernel and nowhere else. Nothing here falls back: on a CUDA tensor a
+wrapper launches its kernel or raises; only a CPU tensor takes the plain
+PyTorch version beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("probe", "murmur3", "groupby_hash")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"murmur3": 0, "groupbyHash": 0}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Optional[float] = None
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, to launch, or was handed a request it
+    cannot serve."""
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all() -> float:
+    """Compile every source that has no up-to-date library yet, all
+    nvcc processes in parallel; returns the wall seconds spent."""
+    global BUILD_SECONDS
+    with _LOCK:
+        if BUILD_SECONDS is not None:
+            return BUILD_SECONDS
+        t0 = time.perf_counter()
+        todo = [n for n in SOURCES if not _lib_path(n).exists()]
+        nvcc = _nvcc() if todo else ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name in todo:
+            out = _lib_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc] + NVCC_FLAGS + ["-o", str(tmp),
+                                            str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for name, out, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise KernelError("nvcc failed:\n" + "\n".join(errors))
+        BUILD_SECONDS = time.perf_counter() - t0
+        return BUILD_SECONDS
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on first
+    use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _LIBS[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise KernelError(f"{what}: CUDA error {code}")
+
+
+def stream_handle(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(tensors, what: str) -> None:
+    """Every tensor handed to a kernel lies on one CUDA device and is
+    contiguous; anything else is a request the kernel cannot serve."""
+    dev = None
+    for t in tensors:
+        if not t.is_cuda:
+            raise KernelError(f"{what}: tensor on {t.device}, not CUDA")
+        if not t.is_contiguous():
+            raise KernelError(f"{what}: non-contiguous tensor")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise KernelError(f"{what}: tensors on {dev} and {t.device}")
+
+
+def table_slots(conf, cap: int) -> int:
+    """Group-by table capacity: the conf bound shrunk toward the batch (a
+    64-row batch cannot have 1024 groups), rounded up to a power of two
+    (the kernel masks slot indices)."""
+    from spark_rapids_tpu_torch.conf import KERNEL_GROUPBY_TABLE_SLOTS
+    want = min(int(conf.get(KERNEL_GROUPBY_TABLE_SLOTS)), max(2 * cap, 64))
+    t = 64
+    while t < want:
+        t <<= 1
+    return t

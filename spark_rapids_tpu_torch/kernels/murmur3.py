@@ -1,0 +1,85 @@
+"""Murmur3 partition-hashing kernel (CUDA, ``csrc/murmur3.cu``).
+
+Replaces ``spark_rapids_tpu/kernels/murmur3.py`` ``murmur3_columns_kernel``.
+One thread per row folds every key column with native uint32 arithmetic;
+the column descriptors (kind, data pointer, validity pointer, byte-matrix
+width, lengths pointer) ride the launch as a by-value kernel argument.
+Bound on the H100: bytes — the key columns read once plus 4 bytes
+written per row, at 3.35 TB/s.
+
+On a CPU tensor the wrapper runs the plain version,
+``ops.hashing.murmur3_columns``; on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import kernels as KR
+from spark_rapids_tpu_torch.sql import types as T
+
+MAX_COLS = 16
+_KIND = {"int": 0, "long": 1, "float": 2, "double": 3, "bytes": 4}
+
+
+def _col_desc(col) -> Tuple[str, Tuple[torch.Tensor, ...], int]:
+    """(kind, tensors the kernel reads, char_cap) for one device column."""
+    from spark_rapids_tpu_torch.columnar.device import DeviceStringColumn
+    dt = col.dtype
+    if isinstance(col, DeviceStringColumn):
+        return "bytes", (col.chars.contiguous(), col.validity,
+                         col.lengths), col.char_cap
+    if isinstance(dt, (T.BooleanType, T.ByteType, T.ShortType,
+                       T.IntegerType, T.DateType)):
+        return "int", (col.data.to(torch.int32), col.validity), 0
+    if isinstance(dt, (T.LongType, T.TimestampType)):
+        return "long", (col.data, col.validity), 0
+    if isinstance(dt, T.FloatType):
+        return "float", (col.data, col.validity), 0
+    if isinstance(dt, T.DoubleType):
+        return "double", (col.data, col.validity), 0
+    if isinstance(dt, T.DecimalType) and dt.precision <= 18:
+        return "long", (col.data, col.validity), 0
+    raise KR.KernelError(f"murmur3 kernel cannot hash {dt}")
+
+
+def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42
+                    ) -> torch.Tensor:
+    """Spark Murmur3Hash(cols, seed) per row, int32[capacity]."""
+    if not cols:
+        raise KR.KernelError("murmur3 needs at least one key column")
+    if not cols[0].validity.is_cuda:
+        from spark_rapids_tpu_torch.ops.hashing import murmur3_columns as plain
+        return plain(cols, capacity, seed)
+    if len(cols) > MAX_COLS:
+        raise KR.KernelError(f"murmur3 kernel takes at most {MAX_COLS} "
+                             f"key columns, got {len(cols)}")
+    descs: List[Tuple[str, Tuple[torch.Tensor, ...], int]] = \
+        [_col_desc(c) for c in cols]
+    tensors = [t for _k, ts, _w in descs for t in ts]
+    KR.require_cuda(tensors, "murmur3")
+    for _k, ts, _w in descs:
+        if ts[0].shape[0] != capacity:
+            raise KR.KernelError("murmur3: column capacity mismatch")
+    words = np.zeros((len(descs), 5), dtype=np.int64)
+    for i, (kind, ts, width) in enumerate(descs):
+        words[i, 0] = _KIND[kind]
+        words[i, 1] = width
+        words[i, 2] = ts[0].data_ptr()
+        words[i, 3] = ts[1].data_ptr()
+        words[i, 4] = ts[2].data_ptr() if kind == "bytes" else 0
+    fn = KR.library("murmur3").murmur3_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    device = tensors[0].device
+    out = torch.empty(capacity, dtype=torch.int32, device=device)
+    KR.count_launch("murmur3")
+    KR.check(fn(words.ctypes.data, len(descs), capacity, seed,
+                out.data_ptr(), KR.stream_handle(device)), "murmur3 launch")
+    return out

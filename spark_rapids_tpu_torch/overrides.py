@@ -1,0 +1,168 @@
+"""Plan rewrite onto torch device operators: the wrap -> tag -> convert
+core of ``spark_rapids_tpu.overrides.apply_overrides``.
+
+Each CPU physical node is wrapped in an ``ExecMeta``, tagged by its rule
+(types and expressions the port can run), and converted bottom-up; a
+``TorchRowToColumnarExec`` goes under the first device operator above a
+CPU source and a ``TorchColumnarToRowExec`` on top. The slice has rules
+for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single)
+and Sort. Anything else — another node kind, or an expression or type a
+rule cannot take — raises ``NotImplementedError`` naming what is not
+ported yet: a per-operator CPU fallback is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Type
+
+import torch
+
+from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
+                                              TorchExec,
+                                              TorchRowToColumnarExec)
+from spark_rapids_tpu_torch.ops import exprs as X
+from spark_rapids_tpu_torch.sql import physical as P
+
+# CPU sources that stay on the host; the rewrite uploads their output
+_HOST_SOURCES = (P.CpuLocalScanExec,)
+
+
+def _tag_exprs(exprs) -> Optional[str]:
+    for e in exprs:
+        r = X.unsupported_reason(e)
+        if r:
+            return r
+    return None
+
+
+def _tag_output(node: P.PhysicalPlan) -> Optional[str]:
+    for a in node.output:
+        r = X._dtype_reason(a.data_type)
+        if r:
+            return f"column {a.name}: {r}"
+    return None
+
+
+def _tag_project(node) -> Optional[str]:
+    return _tag_exprs(node.project_list)
+
+
+def _tag_filter(node) -> Optional[str]:
+    return _tag_exprs([node.condition])
+
+
+def _tag_exchange(node) -> Optional[str]:
+    p = node.partitioning
+    if isinstance(p, P.HashPartitioning):
+        from spark_rapids_tpu_torch.sql import types as T
+        for e in p.exprs:
+            dt = e.data_type
+            if isinstance(dt, T.DecimalType) and dt.precision > 18:
+                return "decimal128 hash partitioning is not ported yet"
+        return _tag_exprs(p.exprs)
+    if isinstance(p, P.RangePartitioning):
+        return _tag_exprs([o.child for o in p.order])
+    if isinstance(p, P.SinglePartitioning):
+        return None
+    return f"{type(p).__name__} is not ported yet"
+
+
+def _tag_sort(node) -> Optional[str]:
+    return _tag_exprs([o.child for o in node.order])
+
+
+def _tag_aggregate(node) -> Optional[str]:
+    from spark_rapids_tpu_torch.exec.agg import unsupported_agg_reason
+    return unsupported_agg_reason(node.grouping, node.aggregates)
+
+
+def _conv_project(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchProjectExec
+    return TorchProjectExec(node.project_list, kids[0], conf, device)
+
+
+def _conv_filter(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchFilterExec
+    return TorchFilterExec(node.condition, kids[0], conf, device)
+
+
+def _conv_exchange(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.exchange import \
+        TorchShuffleExchangeExec
+    return TorchShuffleExchangeExec(node.partitioning, kids[0], conf,
+                                    device)
+
+
+def _conv_sort(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.sort import TorchSortExec
+    return TorchSortExec(node.order, node.is_global, kids[0], conf, device)
+
+
+def _conv_aggregate(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    return TorchHashAggregateExec(node.grouping, node.aggregates,
+                                  node.mode, kids[0], node.slots, conf,
+                                  device)
+
+
+class ExecRule:
+    def __init__(self, tag: Callable, convert: Callable):
+        self.tag = tag
+        self.convert = convert
+
+
+_EXEC_RULES: Dict[Type, ExecRule] = {
+    P.CpuProjectExec: ExecRule(_tag_project, _conv_project),
+    P.CpuFilterExec: ExecRule(_tag_filter, _conv_filter),
+    P.CpuShuffleExchangeExec: ExecRule(_tag_exchange, _conv_exchange),
+    P.CpuSortExec: ExecRule(_tag_sort, _conv_sort),
+    P.CpuHashAggregateExec: ExecRule(_tag_aggregate, _conv_aggregate),
+}
+
+
+class ExecMeta:
+    """Wrapper over one CPU physical node (SparkPlanMeta role)."""
+
+    def __init__(self, wrapped: P.PhysicalPlan):
+        self.wrapped = wrapped
+        self.rule = _EXEC_RULES.get(type(wrapped))
+        self.children = [ExecMeta(c) for c in wrapped.children]
+
+    def tag(self) -> None:
+        """Raise for the first node the port cannot run on the device."""
+        for c in self.children:
+            c.tag()
+        if isinstance(self.wrapped, _HOST_SOURCES):
+            return
+        name = type(self.wrapped).__name__
+        if self.rule is None:
+            raise NotImplementedError(
+                f"{name} is not ported yet to spark_rapids_tpu_torch")
+        reason = _tag_output(self.wrapped) or self.rule.tag(self.wrapped)
+        if reason:
+            raise NotImplementedError(
+                f"{name} in spark_rapids_tpu_torch: {reason}")
+
+    def convert(self, conf: TorchConf,
+                device: torch.device) -> P.PhysicalPlan:
+        if isinstance(self.wrapped, _HOST_SOURCES):
+            return self.wrapped
+        kids: List[P.PhysicalPlan] = []
+        for c in self.children:
+            plan = c.convert(conf, device)
+            if not isinstance(plan, TorchExec):
+                plan = TorchRowToColumnarExec(plan, conf, device)
+            kids.append(plan)
+        return self.rule.convert(self.wrapped, kids, conf, device)
+
+
+def apply_overrides(physical: P.PhysicalPlan, conf: TorchConf,
+                    device: torch.device) -> P.PhysicalPlan:
+    """CPU physical plan -> device plan with explicit transitions."""
+    meta = ExecMeta(physical)
+    meta.tag()
+    plan = meta.convert(conf, device)
+    if not isinstance(plan, TorchExec):  # a bare scan still round-trips
+        plan = TorchRowToColumnarExec(plan, conf, device)
+    return TorchColumnarToRowExec(plan, conf)

@@ -1,0 +1,246 @@
+"""Physical plans: the CPU plan nodes the planner emits and the port's
+overrides rewrite onto torch device operators.
+
+Execution model mirrors RDD[ColumnarBatch]: each operator exposes
+``partitions()`` -> list of thunks yielding HostBatch. Of the CPU
+operators only the in-memory scan executes here; the others are plan
+nodes that the overrides convert (a per-operator CPU engine is not
+ported yet).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+from spark_rapids_tpu_torch.columnar.host import HostBatch
+from spark_rapids_tpu_torch.sql import types as T
+from spark_rapids_tpu_torch.sql import expressions as E
+
+PartitionThunk = Callable[[], Iterator[HostBatch]]
+
+
+class Partitioning:
+    num_partitions: int
+
+
+class SinglePartitioning(Partitioning):
+    num_partitions = 1
+
+    def __repr__(self):
+        return "SinglePartition"
+
+
+class HashPartitioning(Partitioning):
+    """Spark HashPartitioning: pmod(murmur3(keys, 42), n)."""
+
+    def __init__(self, exprs: List[E.Expression], num_partitions: int):
+        self.exprs = exprs
+        self.num_partitions = num_partitions
+
+    def __repr__(self):
+        return f"HashPartitioning({self.exprs}, {self.num_partitions})"
+
+
+class RangePartitioning(Partitioning):
+    def __init__(self, order: List[E.SortOrder], num_partitions: int):
+        self.order = order
+        self.num_partitions = num_partitions
+
+    def __repr__(self):
+        return f"RangePartitioning({self.order}, {self.num_partitions})"
+
+
+class PhysicalPlan:
+    children: List["PhysicalPlan"]
+
+    @property
+    def output(self) -> List[E.AttributeReference]:
+        raise NotImplementedError
+
+    @property
+    def schema(self) -> T.StructType:
+        return T.StructType([T.StructField(a.name, a.data_type, a.nullable)
+                             for a in self.output])
+
+    def partitions(self) -> List[PartitionThunk]:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no CPU execution in "
+            "spark_rapids_tpu_torch (not ported yet)")
+
+    def execute_collect(self) -> HostBatch:
+        """Drain all partitions in order, one after another."""
+        batches = [b for thunk in self.partitions() for b in thunk()]
+        if not batches:
+            return HostBatch.empty(self.schema)
+        return HostBatch.concat(batches)
+
+    def simple_string(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        s = " " * indent + self.simple_string()
+        for c in self.children:
+            s += "\n" + c.tree_string(indent + 2)
+        return s
+
+    def __repr__(self) -> str:
+        return self.tree_string()
+
+
+def bind_list(exprs: Sequence[E.Expression],
+              inputs: Sequence[E.AttributeReference]) -> List[E.Expression]:
+    return [E.bind_references(e, inputs) for e in exprs]
+
+
+class _UnaryPlan(PhysicalPlan):
+    @property
+    def child(self) -> PhysicalPlan:
+        return self.children[0]
+
+    @property
+    def output(self):
+        return self.child.output
+
+
+# ---------------------------------------------------------------------------
+# Sources
+# ---------------------------------------------------------------------------
+
+class CpuLocalScanExec(PhysicalPlan):
+    def __init__(self, output: List[E.AttributeReference],
+                 batches: List[HostBatch], num_partitions: int = 1):
+        self.children = []
+        self._output = output
+        self.batches = batches
+        self.num_partitions = max(1, num_partitions)
+
+    @property
+    def output(self):
+        return self._output
+
+    def partitions(self) -> List[PartitionThunk]:
+        parts: List[List[HostBatch]] = [[] for _ in
+                                        range(self.num_partitions)]
+        for i, b in enumerate(self.batches):
+            parts[i % self.num_partitions].append(b)
+        return [(lambda bs=bs: iter(bs)) for bs in parts]
+
+    def simple_string(self):
+        n = sum(b.num_rows for b in self.batches)
+        return f"LocalScan [{n} rows x {len(self._output)} cols]"
+
+
+# ---------------------------------------------------------------------------
+# Plan-only CPU operators (converted by the overrides)
+# ---------------------------------------------------------------------------
+
+class CpuProjectExec(_UnaryPlan):
+    def __init__(self, project_list: List[E.Expression], child: PhysicalPlan):
+        self.children = [child]
+        self.project_list = project_list
+
+    @property
+    def output(self):
+        return [E.named_output(e) for e in self.project_list]
+
+    def simple_string(self):
+        return f"Project {self.project_list}"
+
+
+class CpuFilterExec(_UnaryPlan):
+    def __init__(self, condition: E.Expression, child: PhysicalPlan):
+        self.children = [child]
+        self.condition = condition
+
+    def simple_string(self):
+        return f"Filter {self.condition!r}"
+
+
+class CpuShuffleExchangeExec(_UnaryPlan):
+    def __init__(self, partitioning: Partitioning, child: PhysicalPlan):
+        self.children = [child]
+        self.partitioning = partitioning
+
+    def simple_string(self):
+        return f"Exchange {self.partitioning!r}"
+
+
+class CpuSortExec(_UnaryPlan):
+    def __init__(self, order: List[E.SortOrder], is_global: bool,
+                 child: PhysicalPlan):
+        self.children = [child]
+        self.order = order
+        self.is_global = is_global
+
+    def simple_string(self):
+        return f"Sort {self.order} global={self.is_global}"
+
+
+class AggSlot:
+    """One buffer slot of one aggregate function, with its attribute."""
+
+    def __init__(self, name: str, dtype: T.DataType, update_prim: str,
+                 update_expr: E.Expression, merge_prim: str):
+        self.name = name
+        self.dtype = dtype
+        self.update_prim = update_prim
+        self.update_expr = update_expr
+        self.merge_prim = merge_prim
+        self.attr = E.AttributeReference(name, dtype, True)
+
+
+def plan_agg_slots(aggregates: List[E.Expression]) -> Dict[int, List[AggSlot]]:
+    """aggregate Alias expr_id -> its slots."""
+    out: Dict[int, List[AggSlot]] = {}
+    for e in aggregates:
+        if isinstance(e, E.Alias) and isinstance(e.child,
+                                                 E.AggregateExpression):
+            if e.child.is_distinct:
+                raise NotImplementedError(
+                    "DISTINCT aggregates are not supported yet; rewrite "
+                    "with dropDuplicates + aggregate")
+            func = e.child.func
+            out[e.expr_id] = [AggSlot(f"{e.name}_{s[0]}", s[1], s[2], s[3],
+                                      s[4])
+                              for s in func.buffer_slots()]
+    return out
+
+
+def agg_output(grouping: List[E.AttributeReference],
+               aggregates: List[E.Expression], mode: str,
+               slots: Dict[int, List[AggSlot]]) -> List[E.AttributeReference]:
+    """Output attributes of an aggregate: keys + buffer slots in partial
+    mode, the named results otherwise."""
+    if mode == "partial":
+        out = list(grouping)
+        for e in aggregates:
+            if isinstance(e, E.Alias) and isinstance(
+                    e.child, E.AggregateExpression):
+                out.extend(s.attr for s in slots[e.expr_id])
+        return out
+    return [E.named_output(e) for e in aggregates]
+
+
+class CpuHashAggregateExec(_UnaryPlan):
+    """mode: 'partial' emits keys+buffers; 'final' merges buffers and
+    projects results."""
+
+    def __init__(self, grouping: List[E.AttributeReference],
+                 aggregates: List[E.Expression], mode: str,
+                 child: PhysicalPlan,
+                 slots: Optional[Dict[int, List[AggSlot]]] = None):
+        self.children = [child]
+        self.grouping = grouping
+        self.aggregates = aggregates
+        self.mode = mode
+        self.slots = slots if slots is not None else \
+            plan_agg_slots(aggregates)
+
+    @property
+    def output(self):
+        return agg_output(self.grouping, self.aggregates, self.mode,
+                          self.slots)
+
+    def simple_string(self):
+        return (f"HashAggregate mode={self.mode} keys={self.grouping} "
+                f"aggs={self.aggregates}")

@@ -1,0 +1,171 @@
+"""TorchSparkSession: the SparkSession-shaped entry point of the port.
+
+The counterpart of ``spark_rapids_tpu.sql.session.TpuSparkSession``,
+trimmed to what the ported slice runs: ``createDataFrame`` and temp
+views, ``sql``, and execution through the CPU planner followed by the
+overrides rewrite onto torch device operators. Telemetry, plan cache,
+lifecycle, retry, memory store and serving hooks are not ported yet.
+
+The device is an explicit ``torch.device`` threaded through every
+operator. It is the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, which the tests use); a missing card raises rather
+than silently running on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Optional, Union
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.host import HostBatch
+from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.sql import logical as L
+from spark_rapids_tpu_torch.sql import types as T
+from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+from spark_rapids_tpu_torch.sql.planner import Planner
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` -> the first CUDA card (raises without one); anything
+    else is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchSparkSession needs a CUDA device; pass device='cpu' "
+                "to run the plain PyTorch versions on the host")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is absent")
+    return dev
+
+
+class RuntimeConfApi:
+    """spark.conf facade."""
+
+    def __init__(self, conf: TorchConf):
+        self._conf = conf
+
+    def set(self, key: str, value: Any) -> None:
+        self._conf.set(key, value)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self._conf.get_key(key, default)
+
+    def unset(self, key: str) -> None:
+        self._conf.settings.pop(key, None)
+
+
+class TorchSparkSession:
+    def __init__(self, conf: Optional[Dict[str, Any]] = None,
+                 device: Union[None, str, torch.device] = None):
+        self.conf_obj = TorchConf(conf)
+        self.device = resolve_device(device)
+        self.conf = RuntimeConfApi(self.conf_obj)
+        self.catalog_views: Dict[str, L.LogicalPlan] = {}
+        self.last_plan = None  # the executed physical plan, for tests
+
+    # -- data sources ------------------------------------------------------
+    def createDataFrame(self, data, schema=None,
+                        num_partitions: int = 2) -> DataFrame:
+        batch = _infer_batch(data, schema)
+        np_ = max(1, min(num_partitions, max(1, batch.num_rows)))
+        if np_ == 1 or batch.num_rows == 0:
+            batches = [batch]
+        else:
+            per = (batch.num_rows + np_ - 1) // np_
+            batches = [batch.slice(i * per, (i + 1) * per)
+                       for i in range(np_)
+                       if batch.slice(i * per, (i + 1) * per).num_rows > 0]
+        rel = L.LocalRelation(batch.schema, batches, len(batches))
+        return DataFrame(rel, self)
+
+    def table(self, name: str) -> DataFrame:
+        return DataFrame(
+            L.SubqueryAlias(name, self.catalog_views[name.lower()]), self)
+
+    def sql(self, query: str) -> DataFrame:
+        from spark_rapids_tpu_torch.sql.parser import parse_sql
+        return parse_sql(query, self)
+
+    # -- execution ---------------------------------------------------------
+    def plan_physical(self, plan: L.LogicalPlan):
+        """CPU physical plan, then the rewrite onto device operators."""
+        from spark_rapids_tpu_torch.overrides import apply_overrides
+        physical = Planner(self.conf_obj, session=self).plan(plan)
+        return apply_overrides(physical, self.conf_obj, self.device)
+
+    def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
+        physical = self.plan_physical(plan)
+        self.last_plan = physical
+        return physical.execute_collect()
+
+    def explain_string(self, plan: L.LogicalPlan, physical=None) -> str:
+        if physical is None:
+            physical = self.plan_physical(plan)
+        return f"== Logical ==\n{plan!r}\n== Physical ==\n{physical!r}"
+
+
+def _infer_batch(data, schema) -> HostBatch:
+    if isinstance(data, HostBatch):
+        return data
+    if isinstance(schema, str):
+        schema = _parse_ddl_schema(schema)
+    if isinstance(data, dict):
+        if schema is None:
+            schema = T.StructType([
+                T.StructField(k, _infer_type_from_values(v))
+                for k, v in data.items()])
+        return HostBatch.from_pydict(data, schema)
+    rows = list(data)
+    if schema is None or isinstance(schema, (list, tuple)):
+        if not rows:
+            raise ValueError("cannot infer schema from empty data")
+        first = rows[0]
+        if isinstance(first, dict):
+            names = list(first.keys())
+            cols = {n: [r.get(n) for r in rows] for n in names}
+        else:
+            names = (list(schema) if schema is not None
+                     else [f"_{i + 1}" for i in range(len(first))])
+            cols = {n: [r[i] for r in rows] for i, n in enumerate(names)}
+        schema = T.StructType([
+            T.StructField(n, _infer_type_from_values(cols[n]))
+            for n in names])
+        return HostBatch.from_pydict(cols, schema)
+    cols = {f.name: [r[i] for r in rows]
+            for i, f in enumerate(schema.fields)}
+    return HostBatch.from_pydict(cols, schema)
+
+
+def _infer_type_from_values(values: Iterable[Any]) -> T.DataType:
+    import datetime
+    for v in values:
+        if v is None:
+            continue
+        if isinstance(v, bool):
+            return T.BooleanT
+        if isinstance(v, int):
+            return T.LongT
+        if isinstance(v, float):
+            return T.DoubleT
+        if isinstance(v, str):
+            return T.StringT
+        if isinstance(v, datetime.datetime):
+            return T.TimestampT
+        if isinstance(v, datetime.date):
+            return T.DateT
+        if isinstance(v, bytes):
+            return T.BinaryT
+    return T.StringT
+
+
+def _parse_ddl_schema(ddl: str) -> T.StructType:
+    from spark_rapids_tpu_torch.sql.functions import (_parse_type,
+                                                      split_top_level)
+    fields = []
+    for part in split_top_level(ddl):
+        name, _, tp = part.strip().partition(" ")
+        fields.append(T.StructField(name.strip(), _parse_type(tp.strip())))
+    return T.StructType(fields)
