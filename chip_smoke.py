@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
-kernel against its plain PyTorch version, run TPC-H q1 at SF1 through
-``TorchSparkSession`` and check the rows against an exact reference,
-then time the query and each kernel.
+kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
+q3 (both forms) through ``TorchSparkSession`` and check the rows against
+exact references, then time the queries and each kernel.
 
     python3 chip_smoke.py
 
@@ -22,6 +22,18 @@ absent or any phase fails. Output, one line per phase:
      overflow re-run;
   5. q1 wall (one warm run, median of three) and rows/s; per-kernel
      device time, launches per q1, bound and plain-version time;
+  6. TPC-DS q3 at 2,000,000 store_sales rows (bench.py's generator,
+     seed 20260731; 8/4/4 partitions): joinProbe against its plain
+     version at q3's shapes and on a K=2 case with duplicate build keys
+     (exact); bench.py's text (sort-based FK join route, no joinProbe)
+     and the form with the dimension predicates pushed into the joins
+     (every join through joinProbe), each against an exact reference
+     computed here, with its wall (one warm run, median of three) and
+     rows/s; joinProbe's device time at q3's per-chunk shapes beside
+     its byte bound and the plain version's time;
+  with ``--breakdown``, the fact-table upload timed alone and q1 and
+  each q3 form under torch.profiler (device busy time, idle share, top
+  kernels and host ops; tables in ``chiprun_out/*_profile.txt``);
   then a ``{"kernels": [...]}`` line and, last, the contract line
   ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +73,121 @@ WHERE l_shipdate <= date '1998-09-02'
 GROUP BY l_returnflag, l_linestatus
 ORDER BY l_returnflag, l_linestatus
 """
+
+
+Q3_SALES_ROWS = 2_000_000
+Q3_SEED = 20260731
+Q3_PARTITIONS = {"store_sales": 8, "item": 4, "date_dim": 4}
+
+# TPC-DS q3 as bench.py writes it: the dimension predicates sit above
+# both joins, so the build sides are the whole dimension tables
+Q3_BENCH = """
+SELECT d_year, i_brand_id brand_id, i_brand brand,
+       sum(ss_ext_sales_price) sum_agg
+FROM store_sales
+JOIN date_dim ON d_date_sk = ss_sold_date_sk
+JOIN item ON ss_item_sk = i_item_sk
+WHERE i_manufact_id = 128 AND d_moy = 11
+GROUP BY d_year, i_brand_id, i_brand
+ORDER BY d_year, sum_agg DESC, brand_id
+LIMIT 100
+"""
+
+# the same query with the dimension predicates pushed into the joined
+# subqueries, where Spark's optimizer puts them: the broadcast build
+# sides compact to the matching rows
+Q3_PUSHED = """
+SELECT d_year, i_brand_id brand_id, i_brand brand,
+       sum(ss_ext_sales_price) sum_agg
+FROM store_sales
+JOIN (SELECT d_date_sk, d_year FROM date_dim WHERE d_moy = 11) dt
+  ON d_date_sk = ss_sold_date_sk
+JOIN (SELECT i_item_sk, i_brand_id, i_brand FROM item
+      WHERE i_manufact_id = 128) it
+  ON ss_item_sk = i_item_sk
+GROUP BY d_year, i_brand_id, i_brand
+ORDER BY d_year, sum_agg DESC, brand_id
+LIMIT 100
+"""
+
+
+def q3_tables(n_sales: int = Q3_SALES_ROWS, seed: int = Q3_SEED):
+    """bench.py's TPC-DS q3 star-schema generator: {table: [(column,
+    kind, array)]}, kind in long/int/str/dec72 (decimal(7,2) as unscaled
+    int64)."""
+    rng = np.random.default_rng(seed)
+    n_item = 20_000
+    item = [("i_item_sk", "long", np.arange(1, n_item + 1)),
+            ("i_brand_id", "int",
+             rng.integers(1, 1000, n_item).astype(np.int32)),
+            ("i_brand", "str", np.array(
+                [f"brand#{i % 997:03d}" for i in range(n_item)],
+                dtype=object)),
+            ("i_manufact_id", "int",
+             rng.integers(1, 1001, n_item).astype(np.int32))]
+    n_date = 73_049
+    days = np.arange(n_date)
+    date_dim = [("d_date_sk", "long", np.arange(1, n_date + 1)),
+                ("d_year", "int",
+                 (1998 + (days // 365) % 7).astype(np.int32)),
+                ("d_moy", "int", (1 + (days // 30) % 12).astype(np.int32))]
+    store_sales = [
+        ("ss_sold_date_sk", "long", rng.integers(1, n_date + 1, n_sales)),
+        ("ss_item_sk", "long", rng.integers(1, n_item + 1, n_sales)),
+        ("ss_ext_sales_price", "dec72",
+         rng.integers(100, 1_000_000, n_sales))]
+    return {"item": item, "date_dim": date_dim, "store_sales": store_sales}
+
+
+def q3_reference(tables):
+    """Exact q3 rows, independent of any engine: each join by key arrays
+    (searchsorted over the sorted dimension keys), the filter, the group
+    sums of the unscaled decimals as Python ints, then ORDER BY d_year,
+    sum_agg DESC, brand_id and LIMIT 100. Rows are (d_year, brand_id,
+    brand, Decimal sum_agg at scale 2)."""
+    col = {t: {name: a for name, _k, a in cols}
+           for t, cols in tables.items()}
+    ss, dd, it = col["store_sales"], col["date_dim"], col["item"]
+
+    def lookup(dim_keys, fact_keys):
+        order = np.argsort(dim_keys, kind="stable")
+        pos = np.searchsorted(dim_keys[order], fact_keys)
+        pos = np.minimum(pos, len(order) - 1)
+        hit = dim_keys[order][pos] == fact_keys
+        return order[pos], hit
+
+    drow, dhit = lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    irow, ihit = lookup(it["i_item_sk"], ss["ss_item_sk"])
+    keep = dhit & ihit & (dd["d_moy"][drow] == 11) \
+        & (it["i_manufact_id"][irow] == 128)
+    groups: dict = {}
+    for y, b, s, p in zip(dd["d_year"][drow][keep],
+                          it["i_brand_id"][irow][keep],
+                          it["i_brand"][irow][keep],
+                          ss["ss_ext_sales_price"][keep]):
+        k = (int(y), int(b), s)
+        groups[k] = groups.get(k, 0) + int(p)
+    rows = sorted(((y, b, s, v) for (y, b, s), v in groups.items()),
+                  key=lambda r: (r[0], -r[3], r[1]))
+    return [(y, b, s, decimal.Decimal(v).scaleb(-2))
+            for y, b, s, v in rows[:100]]
+
+
+def check_q3_rows(got, want, what: str) -> None:
+    """Ordered equality on the sort key; rows that tie on the whole sort
+    key (d_year, sum_agg, brand_id) may come in either order."""
+    got = [tuple(r) for r in got]
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+
+    def key(r):
+        return (r[0], r[3], r[1])
+    if [key(r) for r in got] != [key(r) for r in want]:
+        raise AssertionError(f"{what}: order or values differ: "
+                             f"{got[:3]} vs {want[:3]}")
+    for g, w in zip(sorted(got, key=repr), sorted(want, key=repr)):
+        if g != w or g[3].as_tuple().exponent != -2:
+            raise AssertionError(f"{what}: row {g} != {w}")
 
 
 def phase(name: str, **fields) -> None:
@@ -177,11 +304,15 @@ def find_exec(plan, pred):
     return None
 
 
-def plan_names(plan):
-    out = [type(plan).__name__]
+def plan_nodes_of(plan):
+    out = [plan]
     for c in plan.children:
-        out += plan_names(c)
+        out += plan_nodes_of(c)
     return out
+
+
+def plan_names(plan):
+    return [type(p).__name__ for p in plan_nodes_of(plan)]
 
 
 def table_rows(owner, add, mn, mx):
@@ -230,28 +361,14 @@ def murmur3_battery(n: int, seed: int):
     return host_batch_from_numpy(fields, arrays, valid)
 
 
-def breakdown(spark, df, arrays, fields, device, card) -> None:
-    """``--breakdown``: where one warm q1 spends its wall. Times the
-    host->device upload of the 8 partitions alone, then runs q1 under
-    torch.profiler: device-busy time (sum of kernel time), idle share,
-    and the top device kernels and host ops, the full table written to
-    chiprun_out/q1_profile.txt."""
+def profile_collect(df, name: str, card: str) -> dict:
+    """One warm ``df.collect()`` under torch.profiler: wall, device-busy
+    time (sum of device-side event time), idle share, and the top device
+    kernels and host ops; the full tables go to
+    chiprun_out/<name>_profile.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from spark_rapids_tpu_torch.columnar.device import DeviceBatch
-    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
-    whole = host_batch_from_numpy(fields, arrays)
-    per = (whole.num_rows + N_PARTITIONS - 1) // N_PARTITIONS
-    parts = [whole.slice(i * per, (i + 1) * per)
-             for i in range(N_PARTITIONS)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for p in parts:
-        DeviceBatch.from_host(p, device)
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
 
     df.collect()
     torch.cuda.synchronize()
@@ -275,18 +392,206 @@ def breakdown(spark, df, arrays, fields, device, card) -> None:
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:10]
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "q1_profile.txt"), "w") as f:
+    with open(os.path.join("chiprun_out", f"{name}_profile.txt"), "w") as f:
         f.write(card + "\n")
         f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
         f.write("\n")
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top_device_us": {e.key[:60]: dev_us(e) for e in top_dev},
+            "top_host_self_us": {e.key[:60]: e.self_cpu_time_total
+                                 for e in top_cpu}}
+
+
+def breakdown(df, arrays, fields, device, card) -> None:
+    """``--breakdown``: where one warm q1 spends its wall. Times the
+    host->device upload of the 8 partitions alone, then profiles q1
+    (``profile_collect``)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.device import DeviceBatch
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    whole = host_batch_from_numpy(fields, arrays)
+    per = (whole.num_rows + N_PARTITIONS - 1) // N_PARTITIONS
+    parts = [whole.slice(i * per, (i + 1) * per)
+             for i in range(N_PARTITIONS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in parts:
+        DeviceBatch.from_host(p, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
     phase("q1_breakdown", card=card, upload_8_partitions_s=upload_s,
-          profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
-          device_idle_share=1.0 - busy_us / 1e6 / wall,
-          top_device_us={e.key[:60]: dev_us(e) for e in top_dev},
-          top_host_self_us={e.key[:60]: e.self_cpu_time_total
-                            for e in top_cpu})
+          **profile_collect(df, "q1", card))
+
+
+def probe_case_k2(device, seed: int = 12):
+    """joinProbe inputs with K=2 key words, duplicate build keys and
+    invalid rows on both sides (5,000 build rows, 100,000 stream rows)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import groupby as G
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-2**62, 2**62, (700, 2))
+    kw_r = torch.from_numpy(base[rng.integers(0, 700, 5000)]).to(device)
+    pick = rng.integers(0, 1400, 100_000)
+    kw_l = torch.from_numpy(np.where(
+        (pick < 700)[:, None], base[np.minimum(pick, 699)],
+        rng.integers(-2**62, 2**62, (100_000, 2)))).to(device)
+    valid_r = torch.from_numpy(rng.random(5000) > 0.1).to(device)
+    valid_l = torch.from_numpy(rng.random(100_000) > 0.1).to(device)
+    h_r = G.hash_subkey_words([kw_r[:, 0], kw_r[:, 1]])
+    h_l = G.hash_subkey_words([kw_l[:, 0], kw_l[:, 1]])
+    return kw_r, h_r, valid_r, kw_l, h_l, valid_l
+
+
+def q3_phases(device, card, profiled: bool = False) -> dict:
+    """TPC-DS q3 at 2,000,000 store_sales rows in both forms: joinProbe
+    parity at q3's shapes, each form against the exact reference, the
+    walls, and joinProbe's time (with ``profiled``, also each form under
+    the profiler); returns the kernel line's numbers."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.kernels import join_probe as KJ
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    t0 = time.perf_counter()
+    tables = q3_tables()
+    want = q3_reference(tables)
+    spark = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS)})
+    for name, cols in tables.items():
+        spark.createDataFrame(
+            host_batch_from_numpy([(c, types[k]) for c, k, _a in cols],
+                                  [a for _c, _k, a in cols]),
+            num_partitions=Q3_PARTITIONS[name]).createOrReplaceTempView(name)
+    gen_s = time.perf_counter() - t0
+
+    # joinProbe's inputs at q3's shapes, from a pushed-form plan: the
+    # date_dim join (about 6,090 valid build rows at capacity 6,144
+    # against one 250,000-row stream partition) and the item join
+    df = spark.sql(Q3_PUSHED)
+    joins = [p for p in plan_nodes_of(spark.plan_physical(df.plan))
+             if isinstance(p, TorchBroadcastHashJoinExec)]
+    shapes = {}
+    for j in joins:
+        lk, rk = j._bound_keys()
+        right = next(iter(j.right.device_partitions()[0]()))
+        left = next(iter(j.left.device_partitions()[0]()))
+        which = "date_dim" if right.capacity > 64 else "item"
+        shapes[which] = J.probe_inputs(lk, rk, j.null_safe, left, right)
+    if set(shapes) != {"date_dim", "item"}:
+        raise AssertionError(f"q3 join shapes: {sorted(shapes)}")
+    cases = dict(shapes, k2_duplicates=probe_case_k2(device))
+    parity = {}
+    for name, ins in cases.items():
+        km, kf = KJ.build_probe(*ins)
+        pm, pf = KJ.build_probe_plain(*ins)
+        torch.cuda.synchronize()
+        err = max(int((km.long() - pm.long()).abs().max()),
+                  int((kf.long() - pf.long()).abs().max()))
+        if err != 0:
+            raise AssertionError(f"joinProbe != plain on {name}: {err}")
+        parity[name] = {"build_cap": int(ins[0].shape[0]),
+                        "build_valid": int(ins[2].sum()),
+                        "stream_cap": int(ins[3].shape[0]),
+                        "stream_valid": int(ins[5].sum()),
+                        "key_words": int(ins[0].shape[1]),
+                        "matched": int(km.sum()), "max_abs_err": err}
+    probe_err = max(c["max_abs_err"] for c in parity.values())
+    phase("q3_join_probe_parity", cases=parity, tolerance="exact")
+
+    if profiled:
+        from spark_rapids_tpu_torch.columnar.device import DeviceBatch
+        fact = tables["store_sales"]
+        whole = host_batch_from_numpy([(c, types[k]) for c, k, _a in fact],
+                                      [a for _c, _k, a in fact])
+        per = (whole.num_rows + N_PARTITIONS - 1) // N_PARTITIONS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_PARTITIONS):
+            DeviceBatch.from_host(whole.slice(i * per, (i + 1) * per),
+                                  device)
+        torch.cuda.synchronize()
+        phase("q3_upload", card=card,
+              upload_8_store_sales_partitions_s=time.perf_counter() - t0)
+
+    # both forms at 2,000,000 rows against the exact reference
+    forms = {}
+    for form, sql in (("bench", Q3_BENCH), ("pushed", Q3_PUSHED)):
+        df = spark.sql(sql)
+        KR.reset_launches()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(KR.LAUNCHES)
+        check_q3_rows(rows, want, f"q3 {form}")
+        names = plan_names(spark.last_plan)
+        bad = [n for i, n in enumerate(names)
+               if not n.startswith("Torch") and not (
+                   n == "CpuLocalScanExec"
+                   and names[i - 1] == "TorchRowToColumnarExec")]
+        if names[0] != "TorchColumnarToRowExec" or bad:
+            raise AssertionError(f"q3 {form} plan is not all Torch*: {names}")
+        routes = {"joinProbe": 0, "fkFastPathJoins": 0}
+        for p in plan_nodes_of(spark.last_plan):
+            for k, v in getattr(p, "route_counts", {}).items():
+                routes[k] += v
+        if form == "pushed" and (launches["joinProbe"] <= 0
+                                 or routes["joinProbe"] <= 0):
+            raise AssertionError(f"q3 pushed: no joinProbe launch: "
+                                 f"{launches} {routes}")
+        if form == "bench" and (launches["joinProbe"] != 0
+                                or routes["fkFastPathJoins"] != 2):
+            raise AssertionError(f"q3 bench: not the sort-based route: "
+                                 f"{launches} {routes}")
+        df.collect()  # warm
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            df.collect()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        forms[form] = launches
+        phase(f"q3_{form}", card=card, rows_in=Q3_SALES_ROWS,
+              partitions=Q3_PARTITIONS, rows_out=len(rows),
+              reference="exact", plan=names, launches=launches,
+              routes=routes, first_run_s=round(first_s, 4),
+              warm_runs=1, timed_runs=walls, median_s=wall,
+              rows_per_s=Q3_SALES_ROWS / wall,
+              generate_s=round(gen_s, 3))
+        if profiled:
+            phase(f"q3_{form}_breakdown", card=card,
+                  **profile_collect(df, f"q3_{form}", card))
+
+    # joinProbe at q3's per-chunk shapes
+    times = {}
+    for name in ("date_dim", "item"):
+        ins = shapes[name]
+        nbytes = sum(t.numel() * t.element_size() for t in ins) \
+            + ins[3].shape[0] * 5
+        times[name] = {
+            "ms": cuda_ms(lambda ins=ins: KJ.build_probe(*ins), 50),
+            "plain_ms": wall_ms(lambda ins=ins: KJ.build_probe_plain(*ins),
+                                5),
+            "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    launches = forms["pushed"]["joinProbe"]
+    phase("q3_join_probe_times", card=card, launches_per_q3=launches,
+          shapes=times, library_ms=None,
+          library="none: no single PyTorch call builds and probes a hash "
+                  "table")
+    d = times["date_dim"]
+    return {"launches": launches, "max_abs_err": probe_err, "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"]}
 
 
 def main() -> int:
@@ -458,7 +763,12 @@ def main() -> int:
     m3_1m_bytes = battery.capacity * 4 + sum(
         t.numel() * t.element_size() for c in battery.columns
         for t in c.arrays())
+    px = torch.arange(8, dtype=torch.int32, device=device)
+    probe_ms = cuda_ms(lambda: device_caps.launch_probe(px), 200)
+    probe_plain_ms = wall_ms(lambda: px * 2, 200)
     phase("kernel_times", card=card,
+          probe={"rows": 8, "ms": probe_ms, "plain_ms": probe_plain_ms,
+                 "bytes": 64, "bound_ms": 64 / HBM_BYTES_PER_S * 1e3},
           groupbyHash={"rows": batch.capacity, "ms": gb_ms,
                        "plain_ms": gb_plain_ms, "bytes": gb_bytes},
           murmur3_q1={"rows": part_out.capacity, "ms": m3_ms,
@@ -467,8 +777,10 @@ def main() -> int:
                       "plain_ms": m3_1m_plain_ms, "bytes": m3_1m_bytes,
                       "bound_ms": m3_1m_bytes / HBM_BYTES_PER_S * 1e3})
 
+    jp = q3_phases(device, card, "--breakdown" in sys.argv[1:])
+
     if "--breakdown" in sys.argv[1:]:
-        breakdown(spark, df, arrays, fields, device, card)
+        breakdown(df, arrays, fields, device, card)
 
     kernels = [
         {"name": "groupbyHash", "route": "cuda",
@@ -485,6 +797,13 @@ def main() -> int:
          "ms": m3_ms, "plain_ms": m3_plain_ms,
          "bound_ms": m3_bytes / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "joinProbe", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
+         "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
+         "launches": jp["launches"], "max_abs_err": jp["max_abs_err"],
+         "ms": jp["ms"], "plain_ms": jp["plain_ms"],
+         "bound_ms": jp["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

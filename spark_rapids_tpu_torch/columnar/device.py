@@ -202,6 +202,11 @@ class DeviceBatch:
         return DeviceBatch(schema, columns, self.active, self._num_rows)
 
     @staticmethod
+    def empty(schema: T.StructType, device: torch.device) -> "DeviceBatch":
+        return DeviceBatch.from_host(HostBatch.empty(schema), device,
+                                     MIN_CAPACITY)
+
+    @staticmethod
     def from_host(batch: HostBatch, device: torch.device,
                   capacity: Optional[int] = None) -> "DeviceBatch":
         from spark_rapids_tpu_torch.columnar.transfer import upload_batch

@@ -70,6 +70,28 @@ KERNEL_GROUPBY_TABLE_SLOTS = _entry(
     1024, int)
 
 
+def parse_bytes(s: str) -> int:
+    """'512m', '16g', '-1' style byte sizes (ConfHelper byteFromString)."""
+    s = s.strip().lower()
+    mult = 1
+    for suffix, m in (("k", 1 << 10), ("m", 1 << 20), ("g", 1 << 30),
+                      ("t", 1 << 40), ("b", 1)):
+        if s.endswith(suffix):
+            mult = m
+            s = s[:-1]
+            break
+    return int(float(s) * mult)
+
+
+AUTO_BROADCAST_JOIN_THRESHOLD = _entry(
+    "spark.rapids.sql.autoBroadcastJoinThreshold",
+    "Maximum estimated build-side size in bytes for a join to use a "
+    "broadcast exchange instead of a shuffled hash join; -1 disables "
+    "broadcast selection (spark.sql.autoBroadcastJoinThreshold "
+    "semantics).",
+    10 << 20, parse_bytes)
+
+
 class TorchConf:
     """Bound view over a conf dict."""
 

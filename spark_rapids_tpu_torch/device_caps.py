@@ -23,14 +23,24 @@ def probe(device: torch.device) -> float:
         raise KR.KernelError(f"probe needs a CUDA device, got {device}")
     seconds = KR.build_all()
     x = torch.arange(8, dtype=torch.int32, device=device)
+    out = launch_probe(x)
+    torch.cuda.synchronize(device)
+    if not torch.equal(out.cpu(), (x * 2).cpu()):
+        raise KR.KernelError(f"probe kernel returned {out.tolist()}")
+    return seconds
+
+
+def launch_probe(x: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/probe.cu`` on a contiguous int32 CUDA
+    tensor: returns ``2 * x`` (not synchronised)."""
+    KR.require_cuda([x], "probe")
+    if x.dtype != torch.int32:
+        raise KR.KernelError("probe: int32 input")
     out = torch.empty_like(x)
     fn = KR.library("probe").probe_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    KR.check(fn(x.data_ptr(), out.data_ptr(), 8, KR.stream_handle(device)),
-             "probe launch")
-    torch.cuda.synchronize(device)
-    if not torch.equal(out.cpu(), (x * 2).cpu()):
-        raise KR.KernelError(f"probe kernel returned {out.tolist()}")
-    return seconds
+    KR.check(fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                KR.stream_handle(x.device)), "probe launch")
+    return out

@@ -1,7 +1,8 @@
-"""Basic device operators: project and filter (the counterparts of
-``spark_rapids_tpu.exec.basic``'s TpuProjectExec and TpuFilterExec).
-Filters only flip the ``active`` mask; compaction happens at exchanges.
-Stage fusion (``exec/fused.py``) is not ported: each runs on its own.
+"""Basic device operators: project, filter and limit (the counterparts
+of ``spark_rapids_tpu.exec.basic``'s TpuProjectExec, TpuFilterExec,
+TpuLocalLimitExec and TpuGlobalLimitExec). Filters and limits only flip
+the ``active`` mask; compaction happens at exchanges. Stage fusion
+(``exec/fused.py``) is not ported: each runs on its own.
 """
 
 from __future__ import annotations
@@ -76,3 +77,59 @@ class TorchFilterExec(TorchExec):
 
     def simple_string(self):
         return f"TorchFilter {self.condition!r}"
+
+
+def _limit_mask(active: torch.Tensor, remaining: int) -> torch.Tensor:
+    """The first ``remaining`` active rows."""
+    rank = torch.cumsum(active.to(torch.int32), 0)
+    return active & (rank <= remaining)
+
+
+class TorchLocalLimitExec(TorchExec):
+    """Keeps the first n active rows of each partition by masking."""
+
+    def __init__(self, n: int, child: TorchExec, conf: TorchConf,
+                 device: torch.device):
+        super().__init__(conf, device)
+        self.children = [child]
+        self.n = n
+
+    @property
+    def child(self) -> TorchExec:
+        return self.children[0]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def device_partitions(self) -> List[DevicePartitionThunk]:
+        n = self.n
+
+        def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+            def run() -> Iterator[DeviceBatch]:
+                remaining = n
+                for b in thunk():
+                    if remaining <= 0:
+                        break
+                    cnt = b.row_count()
+                    if cnt <= remaining:
+                        remaining -= cnt
+                        yield b
+                        continue
+                    yield DeviceBatch(b.schema, b.columns,
+                                      _limit_mask(b.active, remaining),
+                                      remaining)
+                    remaining = 0
+            return run
+        return [make(t) for t in device_channel(self.child)]
+
+    def simple_string(self):
+        return f"TorchLocalLimit {self.n}"
+
+
+class TorchGlobalLimitExec(TorchLocalLimitExec):
+    """The same mask-based limit over the single post-exchange
+    partition."""
+
+    def simple_string(self):
+        return f"TorchGlobalLimit {self.n}"

@@ -1,5 +1,6 @@
-"""TorchShuffleExchangeExec: in-process device exchange (the counterpart
-of ``spark_rapids_tpu.exec.exchange.TpuShuffleExchangeExec``).
+"""TorchShuffleExchangeExec and TorchBroadcastExchangeExec: in-process
+device exchanges (the counterparts of ``spark_rapids_tpu.exec.exchange``'s
+TpuShuffleExchangeExec and TpuBroadcastExchangeExec).
 
 Hash partition ids are Spark's pmod(murmur3(keys, 42), n), hashed by the
 murmur3 kernel on the card, so rows land in exactly the partitions CPU
@@ -17,8 +18,8 @@ from typing import Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch.columnar.device import (
-    DeviceBatch, bucket_capacity, flatten_columns, rebuild_columns,
-    sort_with_payload)
+    DeviceBatch, bucket_capacity, concat_device, flatten_columns,
+    rebuild_columns, sort_with_payload)
 from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
                                               TorchExec, device_channel)
@@ -181,3 +182,38 @@ class TorchShuffleExchangeExec(TorchExec):
 
     def simple_string(self):
         return f"TorchExchange {self.partitioning!r}"
+
+
+class TorchBroadcastExchangeExec(TorchExec):
+    """Device-resident broadcast: the build side concatenates on the card
+    once (``concat_device`` compacts several batches to the bucket of
+    their row count) and every consumer shares that one batch."""
+
+    def __init__(self, child: TorchExec, conf: TorchConf,
+                 device: torch.device):
+        super().__init__(conf, device)
+        self.children = [child]
+        self._built: Optional[DeviceBatch] = None
+
+    @property
+    def child(self) -> TorchExec:
+        return self.children[0]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def materialize_device(self) -> DeviceBatch:
+        if self._built is None:
+            batches = [b for t in device_channel(self.child)
+                       for b in t() if b._num_rows != 0]
+            self._built = (concat_device(batches) if batches else
+                           DeviceBatch.empty(self.child.schema,
+                                             self.device))
+        return self._built
+
+    def device_partitions(self) -> List[DevicePartitionThunk]:
+        return [lambda: iter([self.materialize_device()])]
+
+    def simple_string(self):
+        return "TorchBroadcastExchange"

@@ -1,0 +1,260 @@
+"""TorchShuffledHashJoinExec / TorchBroadcastHashJoinExec (the
+counterparts of ``spark_rapids_tpu.exec.join``'s TpuShuffledHashJoinExec
+and TpuBroadcastHashJoinExec) over ``ops/join.device_join``.
+
+Each exec counts the route its joins took in ``route_counts``:
+``joinProbe`` (joins dispatched to the joinProbe kernel) and
+``fkFastPathJoins`` (broadcasts whose build keys were certified unique).
+Adaptive replanning, the cross-query build cache, out-of-core partitioned
+joins, spill and residual (non-equi) conditions are not ported yet:
+batches are held directly on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                    concat_device)
+from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
+                                              TorchExec, device_channel)
+from spark_rapids_tpu_torch.ops import exprs as X
+from spark_rapids_tpu_torch.ops.join import (MASK_JOINS, PAIR_JOINS,
+                                             build_key_max_multiplicity,
+                                             device_join,
+                                             right_extras_batch)
+from spark_rapids_tpu_torch.sql import expressions as E
+from spark_rapids_tpu_torch.sql import physical as P
+from spark_rapids_tpu_torch.sql import types as T
+
+
+def is_device_join(join_type: str, left_keys: List[E.Expression],
+                   right_keys: List[E.Expression]) -> Optional[str]:
+    """Tagging helper: None when the join runs on the device (the
+    planner has already refused residual conditions)."""
+    if join_type not in PAIR_JOINS + MASK_JOINS:
+        return f"join type {join_type} is not ported yet"
+    for lk, rk in zip(left_keys, right_keys):
+        for e in (lk, rk):
+            if isinstance(e.data_type, (T.ArrayType, T.MapType,
+                                        T.StructType)):
+                return "nested join keys are not ported yet"
+            r = X.unsupported_reason(e)
+            if r:
+                return r
+        if type(lk.data_type) is not type(rk.data_type):
+            return (f"mismatched join key types {lk.data_type} vs "
+                    f"{rk.data_type} are not ported yet")
+    return None
+
+
+class TorchShuffledHashJoinExec(TorchExec):
+    # join types whose per-left-row results are independent of other
+    # left rows: the stream (left) side may be joined in chunks against
+    # the whole build side. Right/full outer chunk too: each chunk joins
+    # as inner/leftouter while a matched-right mask accumulates, and the
+    # unmatched right rows emit once at the end.
+    _LEFT_STREAM_TYPES = ("inner", "cross", "left", "leftouter",
+                          "leftsemi", "leftanti")
+    _CHUNKED_OUTER = {"right": "inner", "rightouter": "inner",
+                      "full": "leftouter", "fullouter": "leftouter"}
+
+    def __init__(self, left_keys: List[E.Expression],
+                 right_keys: List[E.Expression], join_type: str,
+                 left: TorchExec, right: TorchExec,
+                 output: List[E.AttributeReference], conf: TorchConf,
+                 device: torch.device,
+                 null_safe: Optional[List[bool]] = None):
+        super().__init__(conf, device)
+        self.children = [left, right]
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.join_type = join_type
+        self._output = output
+        self.null_safe = list(null_safe or [False] * len(left_keys))
+        self.route_counts: Dict[str, int] = {"joinProbe": 0,
+                                             "fkFastPathJoins": 0}
+
+    @property
+    def left(self) -> TorchExec:
+        return self.children[0]
+
+    @property
+    def right(self) -> TorchExec:
+        return self.children[1]
+
+    @property
+    def output(self):
+        return self._output
+
+    def _pair_attrs(self):
+        return list(self.left.output) + list(self.right.output)
+
+    def _pair_schema(self) -> T.StructType:
+        return T.StructType(
+            [T.StructField(a.name, a.data_type, a.nullable)
+             for a in self._pair_attrs()])
+
+    def _bound_keys(self):
+        return (P.bind_list(self.left_keys, self.left.output),
+                P.bind_list(self.right_keys, self.right.output))
+
+    @staticmethod
+    def _whole(batches: List[DeviceBatch], schema: T.StructType,
+               device: torch.device) -> DeviceBatch:
+        return (concat_device(batches) if batches else
+                DeviceBatch.empty(schema, device))
+
+    def _join_one(self, lbatches: List[DeviceBatch],
+                  rbatches: List[DeviceBatch],
+                  fk_hint: bool = False) -> Iterator[DeviceBatch]:
+        lwhole = self._whole(lbatches, self.left.schema, self.device)
+        rwhole = self._whole(rbatches, self.right.schema, self.device)
+        lk, rk = self._bound_keys()
+        out_schema = (self.left.schema if self.join_type in MASK_JOINS
+                      else self._pair_schema())
+        out = device_join(lwhole, rwhole, lk, rk, self.join_type,
+                          out_schema, null_safe=self.null_safe,
+                          fk_hint=fk_hint, counts=self.route_counts)
+        # the exec's declared output may prune/reorder pair columns
+        if self.join_type not in MASK_JOINS:
+            out = self._project_output(out)
+        yield out
+
+    def _project_output(self, pair: DeviceBatch) -> DeviceBatch:
+        attrs = self._pair_attrs()
+        want = [a.expr_id for a in self._output]
+        if want == [a.expr_id for a in attrs]:
+            return pair
+        have = {a.expr_id: i for i, a in enumerate(attrs)}
+        return DeviceBatch(self.schema,
+                           [pair.columns[have[w]] for w in want],
+                           pair.active, pair._num_rows)
+
+    @staticmethod
+    def _chunks(batches: List[DeviceBatch], goal: int):
+        """Consecutive batches grouped up to ``goal`` rows each."""
+        i = 0
+        while i < len(batches):
+            chunk = [batches[i]]
+            rows = batches[i].row_count()
+            i += 1
+            while i < len(batches) and \
+                    rows + batches[i].row_count() <= goal:
+                rows += batches[i].row_count()
+                chunk.append(batches[i])
+                i += 1
+            yield chunk
+
+    def _broadcast_stream_thunks(self, left_src: TorchExec,
+                                 rwhole: DeviceBatch
+                                 ) -> List[DevicePartitionThunk]:
+        """Broadcast execution: the resident build side is shared by every
+        stream partition, and each stream partition joins goal-rows at a
+        time. One sizing probe covers the whole broadcast: unique build
+        keys (the dimension-table norm) certify every stream chunk for
+        the FK fast path; it is read at the first joined chunk."""
+        goal = self.conf.batch_size_rows
+        chunkable = self.join_type in self._LEFT_STREAM_TYPES
+        fk_state: dict = {}
+
+        def fk_hint() -> bool:
+            if self.join_type not in ("inner", "left", "leftouter"):
+                return False
+            if "v" not in fk_state:
+                _lk, rk = self._bound_keys()
+                fk_state["v"] = build_key_max_multiplicity(
+                    rwhole, rk, self.null_safe) <= 1
+                if fk_state["v"]:
+                    self.route_counts["fkFastPathJoins"] += 1
+            return fk_state["v"]
+
+        def make(lt: DevicePartitionThunk) -> DevicePartitionThunk:
+            def run() -> Iterator[DeviceBatch]:
+                lb = [b for b in lt() if b._num_rows != 0]
+                if not chunkable or \
+                        sum(b.row_count() for b in lb) <= goal:
+                    yield from self._join_one(lb, [rwhole],
+                                              fk_hint=fk_hint())
+                    return
+                for chunk in self._chunks(lb, goal):
+                    yield from self._join_one(chunk, [rwhole],
+                                              fk_hint=fk_hint())
+            return run
+        return [make(t) for t in device_channel(left_src)]
+
+    def device_partitions(self) -> List[DevicePartitionThunk]:
+        lparts = device_channel(self.left)
+        rparts = device_channel(self.right)
+        assert len(lparts) == len(rparts), \
+            "join children must be co-partitioned"
+        return [self._partition_join_thunk(lt, rt)
+                for lt, rt in zip(lparts, rparts)]
+
+    def _partition_join_thunk(self, lt: DevicePartitionThunk,
+                              rt: DevicePartitionThunk
+                              ) -> DevicePartitionThunk:
+        def run() -> Iterator[DeviceBatch]:
+            lb = [b for b in lt() if b._num_rows != 0]
+            rb = [b for b in rt() if b._num_rows != 0]
+            yield from self._join_items(lb, rb)
+        return run
+
+    def _join_items(self, lb: List[DeviceBatch],
+                    rb: List[DeviceBatch]) -> Iterator[DeviceBatch]:
+        """One co-partition's join. A stream side above the goal row
+        count joins in chunks against the build side concatenated once;
+        right/full outer chunks accumulate the matched-right mask and
+        emit the unmatched right rows at the end."""
+        goal = self.conf.batch_size_rows
+        chunkable = (self.join_type in self._LEFT_STREAM_TYPES
+                     or self.join_type in self._CHUNKED_OUTER)
+        if not chunkable or sum(b.row_count() for b in lb) <= goal:
+            yield from self._join_one(lb, rb)
+            return
+        rwhole = self._whole(rb, self.right.schema, self.device)
+        chunk_type = self._CHUNKED_OUTER.get(self.join_type)
+        if chunk_type is None:
+            for chunk in self._chunks(lb, goal):
+                yield from self._join_one(chunk, [rwhole])
+            return
+        lk, rk = self._bound_keys()
+        pair_schema = self._pair_schema()
+        matched_any = None
+        for chunk in self._chunks(lb, goal):
+            lwhole = concat_device(chunk)
+            out, matched = device_join(
+                lwhole, rwhole, lk, rk, chunk_type, pair_schema,
+                collect_matched_r=True, null_safe=self.null_safe,
+                counts=self.route_counts)
+            matched_any = matched if matched_any is None \
+                else matched_any | matched
+            yield self._project_output(out)
+        left_fields = [T.StructField(a.name, a.data_type, a.nullable)
+                       for a in self.left.output]
+        yield self._project_output(right_extras_batch(
+            rwhole, matched_any, left_fields, pair_schema))
+
+    def simple_string(self):
+        return (f"TorchShuffledHashJoin {self.join_type} "
+                f"l={self.left_keys} r={self.right_keys}")
+
+
+class TorchBroadcastHashJoinExec(TorchShuffledHashJoinExec):
+    """Build side (right) materialized once on the card and shared across
+    all stream partitions."""
+
+    def device_partitions(self) -> List[DevicePartitionThunk]:
+        rbatches: List[DeviceBatch] = []
+        for t in device_channel(self.right):
+            rbatches.extend(b for b in t() if b._num_rows != 0)
+        # a TorchBroadcastExchangeExec child yields its one built batch
+        rwhole = self._whole(rbatches, self.right.schema, self.device)
+        return self._broadcast_stream_thunks(self.left, rwhole)
+
+    def simple_string(self):
+        return (f"TorchBroadcastHashJoin {self.join_type} "
+                f"l={self.left_keys} r={self.right_keys}")

@@ -4,9 +4,11 @@ core of ``spark_rapids_tpu.overrides.apply_overrides``.
 Each CPU physical node is wrapped in an ``ExecMeta``, tagged by its rule
 (types and expressions the port can run), and converted bottom-up; a
 ``TorchRowToColumnarExec`` goes under the first device operator above a
-CPU source and a ``TorchColumnarToRowExec`` on top. The slice has rules
-for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single)
-and Sort. Anything else — another node kind, or an expression or type a
+CPU source and a ``TorchColumnarToRowExec`` on top. The port has rules
+for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single),
+Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
+BroadcastExchange and the shuffled and broadcast hash joins. Anything
+else — another node kind, or an expression or type a
 rule cannot take — raises ``NotImplementedError`` naming what is not
 ported yet: a per-operator CPU fallback is a later slice.
 """
@@ -77,6 +79,15 @@ def _tag_aggregate(node) -> Optional[str]:
     return unsupported_agg_reason(node.grouping, node.aggregates)
 
 
+def _tag_join(node) -> Optional[str]:
+    from spark_rapids_tpu_torch.exec.join import is_device_join
+    return is_device_join(node.join_type, node.left_keys, node.right_keys)
+
+
+def _tag_none(node) -> Optional[str]:
+    return None
+
+
 def _conv_project(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.basic import TorchProjectExec
     return TorchProjectExec(node.project_list, kids[0], conf, device)
@@ -106,6 +117,36 @@ def _conv_aggregate(node, kids, conf, device):
                                   device)
 
 
+def _conv_local_limit(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchLocalLimitExec
+    from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
+    kid = kids[0]
+    # LocalLimit over Sort fuses into TopN (TakeOrderedAndProject)
+    if type(kid) is TorchSortExec:
+        return TorchTopNExec(node.n, kid.order, kid.child, conf, device)
+    return TorchLocalLimitExec(node.n, kid, conf, device)
+
+
+def _conv_global_limit(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchGlobalLimitExec
+    return TorchGlobalLimitExec(node.n, kids[0], conf, device)
+
+
+def _conv_broadcast_exchange(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.exchange import \
+        TorchBroadcastExchangeExec
+    return TorchBroadcastExchangeExec(kids[0], conf, device)
+
+
+def _conv_join(cls_name: str):
+    def conv(node, kids, conf, device):
+        from spark_rapids_tpu_torch.exec import join as J
+        return getattr(J, cls_name)(
+            node.left_keys, node.right_keys, node.join_type, kids[0],
+            kids[1], node.output, conf, device, null_safe=node.null_safe)
+    return conv
+
+
 class ExecRule:
     def __init__(self, tag: Callable, convert: Callable):
         self.tag = tag
@@ -118,6 +159,14 @@ _EXEC_RULES: Dict[Type, ExecRule] = {
     P.CpuShuffleExchangeExec: ExecRule(_tag_exchange, _conv_exchange),
     P.CpuSortExec: ExecRule(_tag_sort, _conv_sort),
     P.CpuHashAggregateExec: ExecRule(_tag_aggregate, _conv_aggregate),
+    P.CpuLocalLimitExec: ExecRule(_tag_none, _conv_local_limit),
+    P.CpuGlobalLimitExec: ExecRule(_tag_none, _conv_global_limit),
+    P.CpuBroadcastExchangeExec: ExecRule(_tag_none,
+                                         _conv_broadcast_exchange),
+    P.CpuShuffledHashJoinExec: ExecRule(
+        _tag_join, _conv_join("TorchShuffledHashJoinExec")),
+    P.CpuBroadcastHashJoinExec: ExecRule(
+        _tag_join, _conv_join("TorchBroadcastHashJoinExec")),
 }
 
 

@@ -176,6 +176,77 @@ class CpuSortExec(_UnaryPlan):
         return f"Sort {self.order} global={self.is_global}"
 
 
+class CpuLocalLimitExec(_UnaryPlan):
+    def __init__(self, n: int, child: PhysicalPlan):
+        self.children = [child]
+        self.n = n
+
+    def simple_string(self):
+        return f"LocalLimit {self.n}"
+
+
+class CpuGlobalLimitExec(CpuLocalLimitExec):
+    """Requires single-partition input (the planner inserts the
+    exchange)."""
+
+    def simple_string(self):
+        return f"GlobalLimit {self.n}"
+
+
+class CpuShuffledHashJoinExec(PhysicalPlan):
+    def __init__(self, left_keys: List[E.Expression],
+                 right_keys: List[E.Expression], join_type: str,
+                 condition: Optional[E.Expression],
+                 left: PhysicalPlan, right: PhysicalPlan,
+                 output: List[E.AttributeReference],
+                 null_safe: Optional[List[bool]] = None):
+        self.children = [left, right]
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.join_type = join_type
+        self.condition = condition
+        self._output = output
+        # per-key <=> flags: a null-safe key matches null to null
+        # instead of excluding the row (Spark EqualNullSafe join keys)
+        self.null_safe = list(null_safe or [False] * len(left_keys))
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def output(self):
+        return self._output
+
+    def simple_string(self):
+        return (f"ShuffledHashJoin {self.join_type} l={self.left_keys} "
+                f"r={self.right_keys}")
+
+
+class CpuBroadcastExchangeExec(_UnaryPlan):
+    """Reusable broadcast exchange: the build side materializes once and
+    every stream partition shares it."""
+
+    def __init__(self, child: PhysicalPlan):
+        self.children = [child]
+
+    def simple_string(self):
+        return "BroadcastExchange"
+
+
+class CpuBroadcastHashJoinExec(CpuShuffledHashJoinExec):
+    """Build side (right) fully materialized and shared across stream
+    partitions."""
+
+    def simple_string(self):
+        return (f"BroadcastHashJoin {self.join_type} l={self.left_keys} "
+                f"r={self.right_keys}")
+
+
 class AggSlot:
     """One buffer slot of one aggregate function, with its attribute."""
 

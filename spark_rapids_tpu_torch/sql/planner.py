@@ -4,7 +4,11 @@ that the port's overrides then rewrite onto torch device operators.
 
 Planning decisions mirrored from Spark:
 - Aggregate splits into partial -> hash exchange on keys -> final.
-- Global sort inserts a range-partitioning exchange.
+- Equi-joins become exchange(left) + exchange(right) + shuffled hash join,
+  or a broadcast hash join when the build side's estimated bytes are at
+  most ``autoBroadcastJoinThreshold``.
+- Global sort inserts a range-partitioning exchange; a limit plans as
+  local limit -> single-partition exchange -> global limit.
 
 Only the logical nodes of the ported slice are planned; every other node
 raises ``NotImplementedError`` naming it.
@@ -12,12 +16,41 @@ raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
-from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.columnar.host import HostBatch
+from spark_rapids_tpu_torch.conf import (AUTO_BROADCAST_JOIN_THRESHOLD,
+                                         TorchConf)
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import logical as L
 from spark_rapids_tpu_torch.sql import physical as P
+
+
+def host_sizeof(b: HostBatch) -> int:
+    """Host bytes of a batch: fixed-width data and validity as stored,
+    strings by their text length plus one byte each."""
+    total = 0
+    for c in b.columns:
+        if c.data.dtype == object:
+            total += sum(len(str(v)) for v in c.data) + len(c.data)
+        else:
+            total += c.data.nbytes
+        total += c.validity.nbytes
+    return total
+
+
+def estimate_plan_bytes(p: L.LogicalPlan) -> Optional[int]:
+    """Size estimate of a logical subtree's output for broadcast
+    selection (the sizeInBytes statistic Spark's JoinSelection reads):
+    local relations measure their host batches; row-preserving or
+    row-reducing unary nodes pass the child's estimate through (an upper
+    bound). None = unknown (never broadcast)."""
+    if isinstance(p, L.LocalRelation):
+        return sum(host_sizeof(b) for b in p.batches)
+    if isinstance(p, (L.Project, L.Filter, L.Limit, L.Sort,
+                      L.SubqueryAlias)):
+        return estimate_plan_bytes(p.child)
+    return None
 
 
 class Planner:
@@ -49,6 +82,12 @@ class Planner:
 
     def _plan_filter(self, p: L.Filter) -> P.PhysicalPlan:
         return P.CpuFilterExec(p.condition, self.plan(p.child))
+
+    def _plan_limit(self, p: L.Limit) -> P.PhysicalPlan:
+        child = self.plan(p.child)
+        local = P.CpuLocalLimitExec(p.n, child)
+        single = P.CpuShuffleExchangeExec(P.SinglePartitioning(), local)
+        return P.CpuGlobalLimitExec(p.n, single)
 
     def _plan_sort(self, p: L.Sort) -> P.PhysicalPlan:
         child = self.plan(p.child)
@@ -153,3 +192,88 @@ class Planner:
             else:
                 outer_aggs.append(e)
         return L.Aggregate(outer_grouping, outer_aggs, inner)
+
+    # -- join --------------------------------------------------------------
+    def _plan_join(self, p: L.Join) -> P.PhysicalPlan:
+        left = self.plan(p.left)
+        right = self.plan(p.right)
+        left_keys, right_keys, null_safe, residual = split_equi_join(
+            p.condition, p.left.output, p.right.output)
+        if not left_keys:
+            raise NotImplementedError(
+                f"non-equi {p.join_type} join (nested-loop join) is not "
+                "ported yet to spark_rapids_tpu_torch")
+        if residual is not None:
+            raise NotImplementedError(
+                f"{p.join_type} join with a residual condition is not "
+                "ported yet to spark_rapids_tpu_torch")
+        threshold = int(self.conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
+        est = estimate_plan_bytes(p.right)
+        small_right = (threshold >= 0 and est is not None
+                       and est <= threshold)
+        if small_right and p.join_type in ("inner", "left", "leftouter",
+                                           "leftsemi", "leftanti", "cross"):
+            return P.CpuBroadcastHashJoinExec(
+                left_keys, right_keys, p.join_type, residual, left,
+                P.CpuBroadcastExchangeExec(right),
+                p.output, null_safe=null_safe)
+        n = self.shuffle_partitions
+        lex = P.CpuShuffleExchangeExec(P.HashPartitioning(left_keys, n),
+                                       left)
+        rex = P.CpuShuffleExchangeExec(P.HashPartitioning(right_keys, n),
+                                       right)
+        return P.CpuShuffledHashJoinExec(left_keys, right_keys, p.join_type,
+                                         residual, lex, rex, p.output,
+                                         null_safe=null_safe)
+
+
+def split_equi_join(condition: Optional[E.Expression],
+                    left_out, right_out
+                    ) -> Tuple[List[E.Expression], List[E.Expression],
+                               List[bool], Optional[E.Expression]]:
+    """Split a join condition into equi-key pairs (+ per-pair null-safe
+    flags for ``<=>``) and residual conjuncts (Spark
+    ExtractEquiJoinKeys)."""
+    if condition is None:
+        return [], [], [], None
+    left_ids = {a.expr_id for a in left_out}
+    right_ids = {a.expr_id for a in right_out}
+
+    def side(e: E.Expression) -> Optional[str]:
+        ids = {a.expr_id for a in e.references()}
+        if not ids:
+            return "none"
+        if ids <= left_ids:
+            return "left"
+        if ids <= right_ids:
+            return "right"
+        return None
+
+    lk: List[E.Expression] = []
+    rk: List[E.Expression] = []
+    ns: List[bool] = []
+    residual: List[E.Expression] = []
+    for c in split_conjuncts(condition):
+        if isinstance(c, (E.EqualTo, E.EqualNullSafe)):
+            sl, sr = side(c.left), side(c.right)
+            if sl == "left" and sr == "right":
+                lk.append(c.left)
+                rk.append(c.right)
+                ns.append(isinstance(c, E.EqualNullSafe))
+                continue
+            if sl == "right" and sr == "left":
+                lk.append(c.right)
+                rk.append(c.left)
+                ns.append(isinstance(c, E.EqualNullSafe))
+                continue
+        residual.append(c)
+    res = None
+    for r in residual:
+        res = r if res is None else E.And(res, r)
+    return lk, rk, ns, res
+
+
+def split_conjuncts(e: E.Expression) -> List[E.Expression]:
+    if isinstance(e, E.And):
+        return split_conjuncts(e.left) + split_conjuncts(e.right)
+    return [e]

@@ -14,6 +14,7 @@ from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch.columnar.device import (DeviceColumn,
                                                     DeviceDecimal128Column)
 from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+from spark_rapids_tpu_torch.kernels import join_probe as KJ
 from spark_rapids_tpu_torch.kernels import murmur3 as KM
 from spark_rapids_tpu_torch.sql import session as S
 from spark_rapids_tpu_torch.sql import types as T
@@ -129,6 +130,23 @@ def test_groupby_raises_on_unservable_cuda_requests():
     with pytest.raises(KR.KernelError, match="lanes"):
         KG.groupby_table(kw, h, valid, bad, lanes, lanes, 64)
     assert KR.LAUNCHES["groupbyHash"] == 0
+
+
+def test_join_probe_raises_on_unservable_cuda_requests():
+    KR.reset_launches()
+    n = 64
+    kw2 = _CudaTyped(torch.zeros((n, 2), dtype=torch.int64))
+    kw1 = _CudaTyped(torch.zeros((n, 1), dtype=torch.int64))
+    h = _CudaTyped(torch.zeros(n, dtype=torch.int64))
+    v = _CudaTyped(torch.ones(n, dtype=torch.bool))
+    with pytest.raises(KR.KernelError, match="not CUDA"):
+        KJ.build_probe(kw2, torch.zeros(n, dtype=torch.int64), v, kw2, h, v)
+    with pytest.raises(KR.KernelError, match="key words"):
+        KJ.build_probe(kw2, h, v, kw1, h, v)
+    h32 = _CudaTyped(torch.zeros(n, dtype=torch.int32))
+    with pytest.raises(KR.KernelError, match="int64"):
+        KJ.build_probe(kw2, h32, v, kw2, h, v)
+    assert KR.LAUNCHES["joinProbe"] == 0
 
 
 def test_missing_compiler_raises_instead_of_falling_back(monkeypatch):
