@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
-q3 (both forms) through ``TorchSparkSession`` and check the rows against
-exact references, then time the queries and each kernel.
+q3 (both forms) through ``TorchSparkSession`` from memory, then q1 and
+q3 from Parquet, and check the rows against exact references, then time
+the queries and each kernel.
 
     python3 chip_smoke.py
 
@@ -31,9 +32,21 @@ absent or any phase fails. Output, one line per phase:
      computed here, with its wall (one warm run, median of three) and
      rows/s; joinProbe's device time at q3's per-chunk shapes beside
      its byte bound and the plain version's time;
-  with ``--breakdown``, the fact-table upload timed alone and q1 and
-  each q3 form under torch.profiler (device busy time, idle share, top
-  kernels and host ops; tables in ``chiprun_out/*_profile.txt``);
+  7. Parquet (needs ``pyarrow``; data written under ``build/data/`` at
+     first use through ``DataFrame.write.parquet``, as bench.py writes
+     it): decodeFused against its plain version on the card, exactly,
+     over a decode corpus (every page class and column kind), one q1
+     row group and the ten row groups of q3's files; q1 at SF1 from 8 files (one row group each) through
+     ``read.parquet`` against the exact reference, with 8 decodeFused
+     launches and no host-decoded column or unit; bench.py's q3 text
+     from Parquet (store_sales in 8 files, item and date_dim in one
+     each) against its reference; walls (one warm run, median of three)
+     and decodeFused's device time at q1's row-group shape beside its
+     byte bound and the plain version's time;
+  with ``--breakdown``, the fact-table upload timed alone and q1 (from
+  memory and from Parquet) and each q3 form under torch.profiler (device
+  busy time, idle share, top kernels and host ops; full tables in
+  ``*_profile.txt`` files, see ``profile_collect``);
   then a ``{"kernels": [...]}`` line and, last, the contract line
   ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +225,151 @@ def lineitem_arrays(n: int = SF1_ROWS, seed: int = SEED):
     shipdate = rng.integers(lo, hi + 1, n).astype(np.int32)
     return [quantity, extendedprice, discount, tax, returnflag, linestatus,
             shipdate]
+
+
+def lineitem_fields():
+    """(name, port DataType) of the arrays ``lineitem_arrays`` makes."""
+    from spark_rapids_tpu_torch.sql import types as T
+    dec = T.DecimalType(15, 2)
+    return [("l_quantity", dec), ("l_extendedprice", dec),
+            ("l_discount", dec), ("l_tax", dec),
+            ("l_returnflag", T.StringT), ("l_linestatus", T.StringT),
+            ("l_shipdate", T.DateT)]
+
+
+def decode_corpus(root: str, q1_rows: int = 20_000) -> dict:
+    """One Parquet file per device-decode case, written with pyarrow
+    under ``root`` (the cases of tests/test_device_decode.py): PLAIN,
+    dictionary, nulls at 512-byte page boundaries, integer and string
+    dictionary overflow into PLAIN mid-chunk, decimal128 FLBA,
+    DELTA_BINARY_PACKED with nulls, DELTA_LENGTH_BYTE_ARRAY,
+    BYTE_STREAM_SPLIT float/int/double, data page v2, booleans and
+    timestamp micros, PLAIN strings with empties and nulls, narrow ints
+    and binary, a DELTA_BYTE_ARRAY column (host-decoded) beside a device
+    column, and a q1 ``lineitem`` row group of ``q1_rows`` rows. Returns
+    {case: path}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.io.arrow_convert import host_batch_to_arrow
+
+    def nulls_every(vals, k, phase=0):
+        return [None if i % k == phase else v for i, v in enumerate(vals)]
+
+    def mixed(n, seed, with_nulls):
+        rng = np.random.default_rng(seed)
+        k = 7 if with_nulls else n + 1
+        return pa.table({
+            "i64": pa.array(nulls_every(rng.integers(
+                -(1 << 40), 1 << 40, n).tolist(), k), type=pa.int64()),
+            "i32": pa.array(nulls_every(rng.integers(
+                -(1 << 30), 1 << 30, n).tolist(), k), type=pa.int32()),
+            "f32": pa.array(nulls_every(rng.standard_normal(n).astype(
+                "float32").tolist(), k), type=pa.float32()),
+            "f64": pa.array(nulls_every(rng.standard_normal(n).tolist(),
+                                        k, 2), type=pa.float64()),
+            "dec": pa.array(nulls_every(rng.integers(
+                -10**9, 10**9, n).tolist(), k), type=pa.decimal128(15, 2)),
+            "s": pa.array(nulls_every([f"word{i % 11}" for i in range(n)],
+                                      k, 3)),
+            "d": pa.array(nulls_every(rng.integers(
+                -1000, 20000, n).astype("int32").tolist(), k),
+                type=pa.date32()),
+            "b": pa.array(nulls_every((rng.integers(0, 2, n) > 0)
+                                      .tolist(), k), type=pa.bool_()),
+        })
+
+    rng = np.random.default_rng(7)
+    n = 6000
+    page_nulls = pa.table({
+        "v": pa.array([None if (i // 50) % 2 == 0 else i * 3
+                       for i in range(n)], type=pa.int64()),
+        "s": pa.array([None if (i // 37) % 3 == 1 else f"s{i % 5}"
+                       for i in range(n)])})
+    big = [None if i % 11 == 0 else
+           int(rng.integers(-10**9, 10**9)) * 10**10 + i for i in range(2000)]
+    dl_vals = ["" if i % 13 == 0 else None if i % 17 == 0
+               else f"dl-{i % 97}-{'y' * (i % 9)}" for i in range(5000)]
+    plain_str = [None if (i // 37) % 3 == 1 else "" if i % 11 == 0
+                 else "x" * (i % 23) + f"#{i}" for i in range(6000)]
+    cases = {
+        "plain": (mixed(4000, 0, False), {"use_dictionary": False}),
+        "dict": (mixed(4000, 1, True), {}),
+        "page_nulls": (page_nulls, {"data_page_size": 512}),
+        "int_dict_overflow": (pa.table({"x": pa.array(
+            rng.integers(0, 1 << 40, 30_000), type=pa.int64())}),
+            {"dictionary_pagesize_limit": 20_000, "data_page_size": 4096}),
+        "str_dict_overflow": (pa.table({"s": pa.array(
+            [f"prefix-{int(v)}-suffix" for v in
+             rng.integers(0, 6000, 12_000)])}),
+            {"dictionary_pagesize_limit": 8_000, "data_page_size": 4096}),
+        "dec128_flba": (pa.table({"d": pa.array(
+            big, type=pa.decimal128(25, 2))}), {}),
+        "delta_nulls": (pa.table({
+            "v": pa.array([None if (i // 41) % 3 == 0 else
+                           (i * 7919) % (1 << 40) - 17 for i in range(9000)],
+                          type=pa.int64()),
+            "w": pa.array(rng.integers(-(1 << 62), 1 << 62, 9000),
+                          type=pa.int64()),
+            "i32": pa.array(rng.integers(-(1 << 30), 1 << 30, 9000)
+                            .astype("int32"), type=pa.int32())}),
+            {"use_dictionary": False,
+             "column_encoding": "DELTA_BINARY_PACKED",
+             "data_page_size": 1024}),
+        "delta_length": (pa.table({
+            "s": pa.array(dl_vals),
+            "i": pa.array(np.arange(5000), type=pa.int64())}),
+            {"use_dictionary": False,
+             "column_encoding": {"s": "DELTA_LENGTH_BYTE_ARRAY",
+                                 "i": "PLAIN"},
+             "data_page_size": 2048}),
+        "bss": (pa.table({
+            "f": pa.array(rng.standard_normal(4000).astype("float32"),
+                          type=pa.float32()),
+            "d": pa.array(rng.standard_normal(4000), type=pa.float64()),
+            "i64": pa.array(rng.integers(-(1 << 50), 1 << 50, 4000),
+                            type=pa.int64()),
+            "i32": pa.array(rng.integers(-(1 << 30), 1 << 30, 4000)
+                            .astype("int32"), type=pa.int32())}),
+            {"use_dictionary": False,
+             "column_encoding": "BYTE_STREAM_SPLIT",
+             "data_page_size": 4096}),
+        "page_v2": (mixed(3000, 18, True),
+                    {"data_page_version": "2.0", "data_page_size": 2048}),
+        "bool_ts": (pa.table({
+            "b": pa.array(nulls_every((rng.integers(0, 2, 5000) > 0)
+                                      .tolist(), 9), type=pa.bool_()),
+            "ts": pa.array(nulls_every(rng.integers(
+                0, 2_000_000_000_000_000, 5000).tolist(), 13),
+                type=pa.timestamp("us"))}),
+            {"use_dictionary": False, "data_page_size": 1024}),
+        "plain_strings": (pa.table({"s": pa.array(plain_str)}),
+                          {"use_dictionary": False,
+                           "data_page_size": 512}),
+        "narrow_ints_binary": (pa.table({
+            "i8": pa.array(nulls_every(rng.integers(-128, 128, 3000)
+                                       .tolist(), 5), type=pa.int8()),
+            "i16": pa.array(rng.integers(-32768, 32768, 3000),
+                            type=pa.int16()),
+            "bin": pa.array([rng.bytes(int(rng.integers(0, 19)))
+                             for _ in range(3000)], type=pa.binary())}),
+            {"use_dictionary": ["i8"], "data_page_size": 2048}),
+        "delta_byte_array_mixed": (pa.table({
+            "dba": pa.array([f"prefix-common-{i}" for i in range(3000)]),
+            "ok": pa.array(np.arange(3000), type=pa.int64())}),
+            {"use_dictionary": False,
+             "column_encoding": {"dba": "DELTA_BYTE_ARRAY",
+                                 "ok": "PLAIN"}}),
+        "q1_row_group": (host_batch_to_arrow(host_batch_from_numpy(
+            lineitem_fields(), lineitem_arrays(q1_rows))), {}),
+    }
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for name, (tbl, kw) in cases.items():
+        out[name] = os.path.join(root, f"{name}.parquet")
+        pq.write_table(tbl, out[name], **kw)
+    return out
 
 
 def _half_up_div(num: int, den: int) -> int:
@@ -594,6 +752,311 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"]}
 
 
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "data")
+
+
+def data_key(**params) -> str:
+    """What the data under ``build/data/`` was written from: ``params``
+    (seed, rows, partitions), the writer's sources and the pyarrow
+    version. Data whose marker holds another key is written anew."""
+    import hashlib
+
+    import pyarrow
+    h = hashlib.sha256(json.dumps(params, sort_keys=True).encode())
+    h.update(pyarrow.__version__.encode())
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "spark_rapids_tpu_torch")
+    for src in ("io/writers.py", "io/arrow_convert.py",
+                "sql/dataframe.py"):
+        with open(os.path.join(pkg, src), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def write_once(directory: str, write, key: str) -> float:
+    """Run ``write(directory)`` unless the marker of an earlier run holds
+    ``key``; returns the seconds spent (0 when the data was reused)."""
+    import shutil
+    marker = os.path.join(directory, "_SUCCESS.smoke")
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read().strip() == key:
+                return 0.0
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    t0 = time.perf_counter()
+    write(directory)
+    with open(marker, "w") as f:
+        f.write(key + "\n")
+    return time.perf_counter() - t0
+
+
+def kernel_input_bytes(enc) -> int:
+    """The bytes decodeFused must read for an EncodedBatch, unpadded: the
+    packed page words, each device column's page table (dense start,
+    plain byte, page class, delta first value), its run tables (33 bytes
+    a run), its dense string lengths and its dictionaries. Host-decoded
+    columns do not pass through the kernel."""
+    total = len(enc.words) * 4
+    for plan in enc.plans.values():
+        pages = len(plan.pg_enc)
+        total += (pages + 1) * 8 + pages * (8 + 4)
+        if plan.has_delta:
+            total += pages * 8
+        total += sum(len(rt) * 33 for rt in (plan.dl, plan.vr, plan.dr)
+                     if rt is not None)
+        if plan.str_lens is not None:
+            total += plan.str_lens.nbytes
+        total += sum(da.nbytes for da in plan.dict_arrays)
+    return total
+
+
+def staged_on_card(path: str, device):
+    """The first row group of a Parquet file staged as the scan stages it
+    and uploaded: (layout, cap, n, words, extras) on ``device``, and the
+    bytes the kernel must read (``kernel_input_bytes``)."""
+    import pyarrow.parquet as pq
+    import torch
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+    from spark_rapids_tpu_torch.io import device_decode as DD
+    from spark_rapids_tpu_torch.io import readers as RD
+    from spark_rapids_tpu_torch.io.arrow_convert import arrow_schema_to_sql
+    unit = RD.plan_scan_units("parquet", [(path, {})])[0]
+    enc = DD.plan_unit_encoded(
+        unit, arrow_schema_to_sql(pq.ParquetFile(path).schema_arrow))
+    if enc is None:
+        raise AssertionError(f"{path}: no device-decoded column")
+    cap = bucket_capacity(enc.num_rows)
+    _t, _s, n, cap, words, extras, layout, _spec = \
+        X.prepare_encoded_upload(enc, cap)
+    return (layout, cap, n, torch.from_numpy(words).to(device),
+            [torch.from_numpy(np.ascontiguousarray(e)).to(device)
+             for e in extras], kernel_input_bytes(enc))
+
+
+def max_abs_diff(a, b) -> float:
+    """0 when two outputs are equal bit for bit, else their largest
+    |difference| (floats as values, everything else as integers)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"outputs differ in shape or type: "
+                             f"{a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if a.numel() == 0:
+        return 0
+    if a.dtype.is_floating_point:
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        if torch.equal(a.view(bits), b.view(bits)):
+            return 0
+        return float((a.double() - b.double()).abs().max())
+    return int((a.long() - b.long()).abs().max())
+
+
+def scan_counts(plan) -> dict:
+    """The summed counters of every Parquet scan in an executed plan."""
+    from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+    out: dict = {}
+    for p in plan_nodes_of(plan):
+        if isinstance(p, CpuFileScanExec):
+            for k, v in p.metrics.snapshot().items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def scan_walls(plan) -> dict:
+    """Seconds to drain the executed plan's Parquet scan alone: on the
+    host (footers, page reads, decompression and header parsing into
+    EncodedBatches), then through its upload and ``decodeFused``."""
+    import torch
+    from spark_rapids_tpu_torch.exec.base import TorchRowToColumnarExec
+    r2c = next(p for p in plan_nodes_of(plan)
+               if isinstance(p, TorchRowToColumnarExec))
+    scan = r2c.child
+    t0 = time.perf_counter()
+    batches = sum(1 for t in scan.partitions() for _b in t())
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in r2c.device_partitions():
+        for _b in t():
+            pass
+    torch.cuda.synchronize()
+    return {"scan_batches": batches, "scan_host_s": host_s,
+            "scan_upload_decode_s": time.perf_counter() - t0}
+
+
+def timed_collects(df) -> dict:
+    """One warm ``collect`` then three timed ones: the walls and their
+    median."""
+    import torch
+    df.collect()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"warm_runs": 1, "timed_runs": walls,
+            "median_s": statistics.median(walls)}
+
+
+def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
+    """q1 at SF1 and bench.py's q3 from Parquet through ``read.parquet``,
+    with ``decodeFused`` held against its plain version first (the decode
+    corpus, one q1 row group and q3's row groups), then timed at q1's
+    row-group shape;
+    returns the kernel line's numbers."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.kernels import decode_fused as DF
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError("the Parquet phases need pyarrow, which does "
+                           f"not import here: {e}") from e
+    spark = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS)})
+    q1_dir = os.path.join(DATA_DIR, "tpch_sf1_lineitem")
+    write_s = write_once(q1_dir, lambda d: spark.createDataFrame(
+        host_batch_from_numpy(lineitem_fields(), arrays),
+        num_partitions=N_PARTITIONS).write.mode("overwrite").parquet(d),
+        data_key(seed=SEED, rows=SF1_ROWS, partitions=N_PARTITIONS))
+    q1_files = sorted(f for f in os.listdir(q1_dir)
+                      if f.endswith(".parquet"))
+
+    tables = q3_tables()
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    q3_dir = os.path.join(DATA_DIR, "tpcds_q3")
+    q3_parts = {"item": 1, "date_dim": 1, "store_sales": N_PARTITIONS}
+
+    def write_q3(d):
+        for name, parts in q3_parts.items():
+            cols = tables[name]
+            spark.createDataFrame(host_batch_from_numpy(
+                [(c, types[k]) for c, k, _a in cols],
+                [a for _c, _k, a in cols]), num_partitions=parts).write \
+                .mode("overwrite").parquet(os.path.join(d, name))
+    q3_write_s = write_once(q3_dir, write_q3, data_key(
+        seed=Q3_SEED, rows=Q3_SALES_ROWS, partitions=q3_parts))
+
+    # -- decodeFused against its plain version on the card ---------------
+    # the corpus (every page class and kind), one q1 row group, and every
+    # row group that q3 from Parquet decodes (250,000-row store_sales
+    # groups with 4-byte FLBA decimals, item's strings, date_dim)
+    corpus = decode_corpus(os.path.join(DATA_DIR, "decode_corpus"))
+    corpus["q1_sf1_row_group"] = os.path.join(q1_dir, q1_files[0])
+    for name in q3_parts:
+        tdir = os.path.join(q3_dir, name)
+        for i, f in enumerate(sorted(f for f in os.listdir(tdir)
+                                     if f.endswith(".parquet"))):
+            corpus[f"q3_{name}_{i}"] = os.path.join(tdir, f)
+    parity = {}
+    for name, path in corpus.items():
+        layout, cap, n, w, ex, _in_bytes = staged_on_card(path, device)
+        k_active, k_outs = DF.decode_fused(layout, cap, n, w, ex)
+        p_active, p_outs = X._encoded_decode_body(layout, cap, w, n, ex)
+        torch.cuda.synchronize()
+        errs = [max_abs_diff(a, b) for a, b in
+                zip((k_active,) + tuple(k_outs), (p_active,) + tuple(p_outs))]
+        if len(k_outs) != len(p_outs) or any(errs):
+            raise AssertionError(f"decodeFused != plain on {name}: {errs}")
+        parity[name] = {"rows": n, "cap": cap, "outputs": len(errs),
+                        "device_columns": sum(e[0] == "dev" for e in layout),
+                        "max_abs_err": max(errs)}
+    df_err = max(c["max_abs_err"] for c in parity.values())
+    phase("decode_fused_parity", cases=parity, tolerance="exact")
+
+    # -- q1 at SF1 from Parquet --------------------------------------------
+    spark.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+    df = spark.sql(Q1)
+    want_rows = q1_reference(arrays)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = df.collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    check_q1_rows(rows, want_rows)
+    names = plan_names(spark.last_plan)
+    scan_at = names.index("CpuFileScanExec")
+    if names[0] != "TorchColumnarToRowExec" or scan_at != len(names) - 1 \
+            or not all(n.startswith("Torch") for n in names[:scan_at]):
+        raise AssertionError(f"q1 parquet plan is not all Torch*: {names}")
+    counts = scan_counts(spark.last_plan)
+    if launches["decodeFused"] != 8 or counts.get(
+            "deviceDecodedBatches") != 8 or counts.get(
+            "deviceFallbackColumns", 0) or counts.get(
+            "deviceFallbackUnits", 0):
+        raise AssertionError(f"q1 parquet scan route: {launches} {counts}")
+    if launches["groupbyHash"] <= 0 or launches["murmur3"] <= 0:
+        raise AssertionError(f"q1 parquet kernels: {launches}")
+    walls = timed_collects(df)
+    phase("q1_sf1_parquet", card=card, rows_in=SF1_ROWS, files=len(q1_files),
+          rows_out=len(rows), reference="exact", plan=names,
+          launches=launches, scan=counts, first_run_s=round(first_s, 4),
+          write_s=round(write_s, 3),
+          rows_per_s=SF1_ROWS / walls["median_s"], **walls)
+    if profiled:
+        phase("q1_parquet_breakdown", card=card,
+              **scan_walls(spark.last_plan),
+              **profile_collect(df, "q1_parquet", card))
+
+    # -- bench.py's q3 from Parquet ------------------------------------------
+    for name in tables:
+        spark.read.parquet(os.path.join(q3_dir, name)) \
+            .createOrReplaceTempView(name)
+    q3 = spark.sql(Q3_BENCH)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    q3_rows = q3.collect()
+    torch.cuda.synchronize()
+    q3_first_s = time.perf_counter() - t0
+    q3_launches = dict(KR.LAUNCHES)
+    check_q3_rows(q3_rows, q3_reference(tables), "q3 from parquet")
+    q3_counts = scan_counts(spark.last_plan)
+    routes = {"joinProbe": 0, "fkFastPathJoins": 0}
+    for p in plan_nodes_of(spark.last_plan):
+        for k, v in getattr(p, "route_counts", {}).items():
+            routes[k] += v
+    if q3_launches["decodeFused"] != q3_counts.get("deviceDecodedBatches"):
+        raise AssertionError(f"q3 parquet: {q3_launches} {q3_counts}")
+    q3_walls = timed_collects(q3)
+    phase("q3_bench_parquet", card=card, rows_in=Q3_SALES_ROWS,
+          rows_out=len(q3_rows), reference="exact",
+          plan=plan_names(spark.last_plan), launches=q3_launches,
+          scan=q3_counts, routes=routes, first_run_s=round(q3_first_s, 4),
+          write_s=round(q3_write_s, 3),
+          rows_per_s=Q3_SALES_ROWS / q3_walls["median_s"], **q3_walls)
+
+    # -- decodeFused at q1's row-group shape ----------------------------------
+    # the bound counts the bytes this row group needs: its unpadded
+    # inputs and each output's n rows (not the padding to cap)
+    layout, cap, n, w, ex, in_bytes = staged_on_card(
+        os.path.join(q1_dir, q1_files[0]), device)
+    active, outs = DF.decode_fused(layout, cap, n, w, ex)
+    out_bytes = sum(o.numel() * o.element_size() // cap * n
+                    for o in (active,) + tuple(outs))
+    ms = cuda_ms(lambda: DF.decode_fused(layout, cap, n, w, ex), 20)
+    plain_ms = wall_ms(lambda: X._encoded_decode_body(layout, cap, w, n, ex),
+                       3)
+    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    phase("decode_fused_times", card=card, rows=n, cap=cap,
+          launches_per_q1=launches["decodeFused"],
+          launches_per_q3=q3_launches["decodeFused"],
+          bytes_in=in_bytes, bytes_out=out_bytes, ms=ms, plain_ms=plain_ms,
+          bound_ms=bound_ms, library_ms=None,
+          library="none: no single PyTorch call decodes Parquet pages")
+    return {"launches": launches["decodeFused"], "max_abs_err": df_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -778,6 +1241,7 @@ def main() -> int:
                       "bound_ms": m3_1m_bytes / HBM_BYTES_PER_S * 1e3})
 
     jp = q3_phases(device, card, "--breakdown" in sys.argv[1:])
+    dfu = parquet_phases(device, card, arrays, "--breakdown" in sys.argv[1:])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, arrays, fields, device, card)
@@ -803,6 +1267,13 @@ def main() -> int:
          "launches": jp["launches"], "max_abs_err": jp["max_abs_err"],
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "decodeFused", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
+         "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",
+         "launches": dfu["launches"], "max_abs_err": dfu["max_abs_err"],
+         "ms": dfu["ms"], "plain_ms": dfu["plain_ms"],
+         "bound_ms": dfu["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -92,6 +92,29 @@ AUTO_BROADCAST_JOIN_THRESHOLD = _entry(
     10 << 20, parse_bytes)
 
 
+TASK_PARALLELISM = _entry(
+    "spark.rapids.sql.taskParallelism",
+    "Partition-execution threads the scan plans its splits for: the "
+    "file scan sizes partitions so its bytes spread over this many "
+    "tasks (Spark's FilePartition.maxSplitBytes).",
+    1, int)
+
+MAX_READER_BATCH_SIZE_ROWS = _entry(
+    "spark.rapids.sql.reader.batchSizeRows",
+    "Soft cap on rows per batch produced by file readers; a row group "
+    "larger than this host-decodes instead of staging for the device "
+    "decode.",
+    1 << 20, int)
+
+PARQUET_READER_TYPE = _entry(
+    "spark.rapids.sql.format.parquet.reader.type",
+    "PERFILE: the task thread reads and plans its units one by one. "
+    "MULTITHREADED and COALESCING are not ported yet (a thread pool "
+    "measured slower than the task thread on q1's host planner, which "
+    "holds the GIL).",
+    "PERFILE", str)
+
+
 class TorchConf:
     """Bound view over a conf dict."""
 

@@ -44,3 +44,11 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
     KR.check(fn(x.data_ptr(), out.data_ptr(), x.numel(),
                 KR.stream_handle(x.device)), "probe launch")
     return out
+
+
+# A float64 column decodes on the device by reinterpreting its 64-bit
+# pattern (``Tensor.view(torch.float64)`` in the plain version, a
+# ``long long`` -> ``double`` bit copy in the kernel). Both are exact on
+# the CPU and on CUDA, so no Parquet DOUBLE column falls back for want of
+# an exact bitcast (the JAX package probes its backend for this).
+F64_BITCAST_EXACT = True

@@ -4,7 +4,7 @@ TpuColumnarToRowExec).
 
 Every TorchExec produces ``device_partitions()``: thunks yielding
 ``DeviceBatch``es on the exec's ``torch.device``. Partitions run one
-after another on the device's current stream. The scan pipeline,
+after another on the device's current stream. The pipelined scan upload,
 semaphore, spill store and retry protocol of the JAX package are not
 ported yet.
 """
@@ -48,7 +48,12 @@ def device_channel(plan: P.PhysicalPlan) -> List[DevicePartitionThunk]:
 class TorchRowToColumnarExec(TorchExec):
     """CPU rows -> device batches: coalesces consecutive host batches of
     a partition up to the goal row count, then uploads each group at its
-    capacity bucket."""
+    capacity bucket. Over a Parquet scan it also takes EncodedBatches
+    (a row group's still-encoded pages) and decodes each on the device
+    with ``decodeFused``, one batch per row group, never coalesced; host
+    batches pending before one are flushed first, to keep row order.
+    The JAX package's pipelined upload-ahead ring and OOM host fallback
+    are not ported yet."""
 
     def __init__(self, child: P.PhysicalPlan, conf: TorchConf,
                  device: torch.device, goal_rows: Optional[int] = None):
@@ -65,11 +70,24 @@ class TorchRowToColumnarExec(TorchExec):
         return self.child.output
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
+        from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
+        # this transition is the scan's direct consumer: allow the scan to
+        # hand it still-encoded Parquet pages (decided here, at execution
+        # time, so no other consumer ever sees an EncodedBatch)
+        if hasattr(self.child, "emit_encoded"):
+            self.child.emit_encoded = True
+
         def make(thunk: P.PartitionThunk) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
                 pending: List[HostBatch] = []
                 rows = 0
                 for b in thunk():
+                    if isinstance(b, EncodedBatch):
+                        if pending:
+                            yield self._upload(pending)
+                            pending, rows = [], 0
+                        yield self._decode(b)
+                        continue
                     if b.num_rows == 0:
                         continue
                     pending.append(b)
@@ -86,6 +104,14 @@ class TorchRowToColumnarExec(TorchExec):
         whole = batches[0] if len(batches) == 1 else HostBatch.concat(
             batches)
         return DeviceBatch.from_host(whole, self.device)
+
+    def _decode(self, enc) -> DeviceBatch:
+        from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+        from spark_rapids_tpu_torch.columnar.transfer import (
+            finish_encoded_upload, prepare_encoded_upload)
+        cap = bucket_capacity(max(1, enc.num_rows))
+        return finish_encoded_upload(prepare_encoded_upload(enc, cap),
+                                     self.device)
 
     def simple_string(self):
         return "TorchRowToColumnar"

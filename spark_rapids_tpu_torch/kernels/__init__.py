@@ -32,13 +32,14 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("probe", "murmur3", "groupby_hash", "join_probe")
+SOURCES = ("probe", "murmur3", "groupby_hash", "join_probe",
+           "decode_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"murmur3": 0, "groupbyHash": 0,
-                             "joinProbe": 0}
+                             "joinProbe": 0, "decodeFused": 0}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -23,11 +23,14 @@ from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
                                               TorchExec,
                                               TorchRowToColumnarExec)
+from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.sql import physical as P
 
-# CPU sources that stay on the host; the rewrite uploads their output
-_HOST_SOURCES = (P.CpuLocalScanExec,)
+# CPU sources that stay on the host; the rewrite uploads their output (a
+# file scan hands still-encoded Parquet pages to the upload, which
+# decodes them on the device)
+HOST_SOURCES = (P.CpuLocalScanExec, CpuFileScanExec)
 
 
 def _tag_exprs(exprs) -> Optional[str]:
@@ -182,7 +185,7 @@ class ExecMeta:
         """Raise for the first node the port cannot run on the device."""
         for c in self.children:
             c.tag()
-        if isinstance(self.wrapped, _HOST_SOURCES):
+        if isinstance(self.wrapped, HOST_SOURCES):
             return
         name = type(self.wrapped).__name__
         if self.rule is None:
@@ -195,7 +198,7 @@ class ExecMeta:
 
     def convert(self, conf: TorchConf,
                 device: torch.device) -> P.PhysicalPlan:
-        if isinstance(self.wrapped, _HOST_SOURCES):
+        if isinstance(self.wrapped, HOST_SOURCES):
             return self.wrapped
         kids: List[P.PhysicalPlan] = []
         for c in self.children:

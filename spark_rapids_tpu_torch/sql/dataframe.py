@@ -363,8 +363,8 @@ class DataFrame:
 
     @property
     def write(self):
-        raise NotImplementedError(
-            "DataFrame.write is not ported yet to spark_rapids_tpu_torch")
+        from spark_rapids_tpu_torch.io.writers import DataFrameWriter
+        return DataFrameWriter(self)
 
     def cache(self) -> "DataFrame":
         raise NotImplementedError(

@@ -3,6 +3,9 @@ EnsureRequirements plays in the reference). Produces the CPU physical plan
 that the port's overrides then rewrite onto torch device operators.
 
 Planning decisions mirrored from Spark:
+- A file scan plans as ``CpuFileScanExec``; attribute-vs-literal
+  conjuncts of a Filter directly above it are pushed into it for
+  row-group pruning by footer statistics (the Filter stays).
 - Aggregate splits into partial -> hash exchange on keys -> final.
 - Equi-joins become exchange(left) + exchange(right) + shuffled hash join,
   or a broadcast hash join when the build side's estimated bytes are at
@@ -16,6 +19,7 @@ raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar.host import HostBatch
@@ -42,11 +46,22 @@ def host_sizeof(b: HostBatch) -> int:
 def estimate_plan_bytes(p: L.LogicalPlan) -> Optional[int]:
     """Size estimate of a logical subtree's output for broadcast
     selection (the sizeInBytes statistic Spark's JoinSelection reads):
-    local relations measure their host batches; row-preserving or
-    row-reducing unary nodes pass the child's estimate through (an upper
-    bound). None = unknown (never broadcast)."""
+    local relations measure their host batches, file scans their bytes
+    on disk; row-preserving or row-reducing unary nodes pass the child's
+    estimate through (an upper bound). None = unknown (never
+    broadcast)."""
     if isinstance(p, L.LocalRelation):
         return sum(host_sizeof(b) for b in p.batches)
+    if isinstance(p, L.FileScan):
+        total = 0
+        for path in p.paths:
+            if os.path.isdir(path):
+                for root, _dirs, files in os.walk(path):
+                    total += sum(os.path.getsize(os.path.join(root, f))
+                                 for f in files)
+            elif os.path.exists(path):
+                total += os.path.getsize(path)
+        return total
     if isinstance(p, (L.Project, L.Filter, L.Limit, L.Sort,
                       L.SubqueryAlias)):
         return estimate_plan_bytes(p.child)
@@ -76,12 +91,23 @@ class Planner:
     def _plan_localrelation(self, p: L.LocalRelation) -> P.PhysicalPlan:
         return P.CpuLocalScanExec(p.output, p.batches, p.num_partitions)
 
+    def _plan_filescan(self, p: L.FileScan) -> P.PhysicalPlan:
+        from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+        return CpuFileScanExec(p.output, p.fmt, p.paths, p.options,
+                               self.conf)
+
     # -- simple unary ------------------------------------------------------
     def _plan_project(self, p: L.Project) -> P.PhysicalPlan:
         return P.CpuProjectExec(p.project_list, self.plan(p.child))
 
     def _plan_filter(self, p: L.Filter) -> P.PhysicalPlan:
-        return P.CpuFilterExec(p.condition, self.plan(p.child))
+        child = self.plan(p.child)
+        from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+        if isinstance(child, CpuFileScanExec):
+            preds = _pushable_predicates(p.condition)
+            if preds:
+                child.set_pushdown(preds)
+        return P.CpuFilterExec(p.condition, child)
 
     def _plan_limit(self, p: L.Limit) -> P.PhysicalPlan:
         child = self.plan(p.child)
@@ -277,3 +303,57 @@ def split_conjuncts(e: E.Expression) -> List[E.Expression]:
     if isinstance(e, E.And):
         return split_conjuncts(e.left) + split_conjuncts(e.right)
     return [e]
+
+
+_PUSH_OPS = {E.EqualTo: "eq", E.LessThan: "lt", E.LessThanOrEqual: "le",
+             E.GreaterThan: "gt", E.GreaterThanOrEqual: "ge"}
+_PUSH_SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
+
+
+def _fold_literal(e: E.Expression):
+    """Storage value of a literal-only subtree (e.g. Cast('1998-09-02'
+    as date)), or None when it references columns or fails to fold."""
+    def has_attr(x) -> bool:
+        if isinstance(x, (E.AttributeReference, E.BoundReference)):
+            return True
+        return any(has_attr(c) for c in x.children)
+    if has_attr(e):
+        return None
+    from spark_rapids_tpu_torch.sql import types as T
+    try:
+        col = e.eval(HostBatch(T.StructType([]), [], 1))
+    except Exception:
+        return None  # not foldable on the host: simply not pushed
+    if not col.validity[0]:
+        return None
+    v = col.data[0]
+    if hasattr(v, "item"):
+        v = v.item()
+    return v if isinstance(v, (int, float, str)) else None
+
+
+def _pushable_predicates(condition: E.Expression) -> List[tuple]:
+    """(column, op, storage-value) conjuncts a Parquet footer can rule
+    on: attribute vs foldable literal comparisons, IsNull and IsNotNull
+    (ParquetFilters.createFilter's pushable subset)."""
+    out: List[tuple] = []
+    for conj in split_conjuncts(condition):
+        if isinstance(conj, (E.IsNotNull, E.IsNull)) and isinstance(
+                conj.child, E.AttributeReference):
+            out.append((conj.child.name,
+                        "notnull" if isinstance(conj, E.IsNotNull)
+                        else "isnull", None))
+            continue
+        op = _PUSH_OPS.get(type(conj))
+        if op is None:
+            continue
+        left, right = conj.left, conj.right
+        if isinstance(left, E.AttributeReference):
+            v = _fold_literal(right)
+            if v is not None:
+                out.append((left.name, op, v))
+        elif isinstance(right, E.AttributeReference):
+            v = _fold_literal(left)
+            if v is not None:
+                out.append((right.name, _PUSH_SWAP[op], v))
+    return out

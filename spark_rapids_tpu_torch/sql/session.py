@@ -1,10 +1,11 @@
 """TorchSparkSession: the SparkSession-shaped entry point of the port.
 
 The counterpart of ``spark_rapids_tpu.sql.session.TpuSparkSession``,
-trimmed to what the ported slice runs: ``createDataFrame`` and temp
-views, ``sql``, and execution through the CPU planner followed by the
-overrides rewrite onto torch device operators. Telemetry, plan cache,
-lifecycle, retry, memory store and serving hooks are not ported yet.
+trimmed to what the ported slices run: ``createDataFrame``,
+``read.parquet`` and temp views, ``sql``, and execution through the CPU
+planner followed by the overrides rewrite onto torch device operators.
+Telemetry, plan cache, lifecycle, retry, memory store and serving hooks
+are not ported yet.
 
 The device is an explicit ``torch.device`` threaded through every
 operator. It is the CUDA card unless the caller asks for the CPU
@@ -81,6 +82,11 @@ class TorchSparkSession:
         rel = L.LocalRelation(batch.schema, batches, len(batches))
         return DataFrame(rel, self)
 
+    @property
+    def read(self):
+        from spark_rapids_tpu_torch.io.readers import DataFrameReader
+        return DataFrameReader(self)
+
     def table(self, name: str) -> DataFrame:
         return DataFrame(
             L.SubqueryAlias(name, self.catalog_views[name.lower()]), self)
@@ -95,6 +101,17 @@ class TorchSparkSession:
         from spark_rapids_tpu_torch.overrides import apply_overrides
         physical = Planner(self.conf_obj, session=self).plan(plan)
         return apply_overrides(physical, self.conf_obj, self.device)
+
+    def host_partitions(self, plan: L.LogicalPlan):
+        """Partition thunks yielding the plan's output as HostBatches (the
+        writer's input). A plan that is only a host source needs no trip
+        to the device; anything else runs through the device plan."""
+        from spark_rapids_tpu_torch.overrides import (HOST_SOURCES,
+                                                      apply_overrides)
+        physical = Planner(self.conf_obj, session=self).plan(plan)
+        if not isinstance(physical, HOST_SOURCES):
+            physical = apply_overrides(physical, self.conf_obj, self.device)
+        return physical.partitions()
 
     def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
         physical = self.plan_physical(plan)
