@@ -13,10 +13,13 @@ absent or any phase fails. Output, one line per phase:
 
   1. the card (nvidia-smi name, power limit), torch and CUDA versions,
      whether ``pyarrow`` imports;
-  2. the nvcc build seconds and the probe launch;
+  2. the nvcc build seconds, the probe launch, and each kernel's
+     registers, spill bytes and static shared memory from ptxas;
   3. kernel parity on the card: murmur3 at 1M rows over a type battery
      and at q1's exchange shapes (exact), groupbyHash at q1's partial
-     shapes (the same groups and lanes) and an overflow case;
+     shapes and on a many-groups case (786,432 rows, 700 keys in 1,024
+     slots, 21 add + 1 min + 1 max lanes), each exact and timed beside
+     its byte bound, and an overflow case flagged by both versions;
   4. q1 at SF1 (6,001,215 rows, 8 partitions) against an exact
      reference computed here with numpy and Python ints, with the
      executed plan all ``Torch*``, both kernels launched and no
@@ -26,7 +29,9 @@ absent or any phase fails. Output, one line per phase:
   6. TPC-DS q3 at 2,000,000 store_sales rows (bench.py's generator,
      seed 20260731; 8/4/4 partitions): joinProbe against its plain
      version at q3's shapes and on a K=2 case with duplicate build keys
-     (exact); bench.py's text (sort-based FK join route, no joinProbe)
+     (exact); groupbyHash at the pushed form's partial-aggregate batch
+     (exact, timed beside its byte bound); bench.py's text (sort-based
+     FK join route, no joinProbe)
      and the form with the dimension predicates pushed into the joins
      (every join through joinProbe), each against an exact reference
      computed here, with its wall (one warm run, median of three) and
@@ -41,8 +46,10 @@ absent or any phase fails. Output, one line per phase:
      launches and no host-decoded column or unit; bench.py's q3 text
      from Parquet (store_sales in 8 files, item and date_dim in one
      each) against its reference; walls (one warm run, median of three)
-     and decodeFused's device time at q1's row-group shape beside its
-     byte bound and the plain version's time;
+     and decodeFused's device time beside its byte bound and the plain
+     version's time at q1's row group, at a 250,000-row q3 store_sales
+     row group and at the corpus's ``dict`` case (nulls and strings: the
+     3-launch scan path);
   with ``--breakdown``, the fact-table upload timed alone and q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -495,6 +502,93 @@ def compare_tables(got, want) -> int:
     return err
 
 
+def lane_count(t, rows: int) -> int:
+    """Lanes in a groupbyHash lane matrix of ``rows`` rows."""
+    return t.numel() // rows if rows else 0
+
+
+def groupby_case(ins, slots: int, reps: int = 20) -> dict:
+    """groupbyHash against its plain version on ``ins`` (exact, no
+    overflow in either), then its device time beside its byte bound: the
+    inputs read once and the ``slots``-row tables written once."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    k_out = KG.groupby_table(*ins, slots)
+    p_out = KG.groupby_table_plain(*ins, slots)
+    torch.cuda.synchronize()
+    if int(k_out[4].item()) or int(p_out[4].item()):
+        raise AssertionError("groupbyHash overflowed: kernel "
+                             f"{int(k_out[4].item())}, plain "
+                             f"{int(p_out[4].item())}")
+    err = compare_tables(table_rows(*k_out[:4]), table_rows(*p_out[:4]))
+    if err:
+        raise AssertionError(f"groupbyHash != plain: {err}")
+    kw, _h, valid, add, mn, mx = ins
+    rows, valid_rows = int(kw.shape[0]), int(valid.sum())
+    lanes = [lane_count(t, rows) for t in (add, mn, mx)]
+    tables = slots * 4 + 4 + slots * 8 * sum(lanes)
+    # what this batch needs: every validity byte, and the key words, hash
+    # and lanes of the valid rows only (an invalid row's are never read)
+    nbytes = rows + valid_rows * 8 * (int(kw.shape[1]) + 1 + sum(lanes)) \
+        + tables
+    all_rows = sum(t.numel() * t.element_size() for t in ins) + tables
+    return {"rows": rows, "valid_rows": valid_rows,
+            "key_words": int(kw.shape[1]), "slots": slots,
+            "lanes_add_min_max": lanes,
+            "groups": int((k_out[0] >= 0).sum()), "max_abs_err": err,
+            "ms": cuda_ms(lambda: KG.groupby_table(*ins, slots), reps),
+            "plain_ms": wall_ms(lambda: KG.groupby_table_plain(*ins, slots),
+                                3),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes_all_rows": all_rows,
+            "bound_all_rows_ms": all_rows / HBM_BYTES_PER_S * 1e3}
+
+
+def many_groups_inputs(device, rows: int = 786_432, keys: int = 700,
+                       seed: int = 13):
+    """groupbyHash inputs with many groups: ``rows`` rows over ``keys``
+    distinct two-word keys (hashed as the engine hashes them), 2% of rows
+    invalid, q1's 21 add lanes plus one min and one max lane."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    from spark_rapids_tpu_torch.ops import groupby as G
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-2**62, 2**62, (keys, 2))
+    kw = torch.from_numpy(base[rng.integers(0, keys, rows)]).to(device)
+    h = G.hash_subkey_words([kw[:, 0], kw[:, 1]])
+    valid = torch.from_numpy(rng.random(rows) > 0.02).to(device)
+
+    def lanes(n):
+        return KG._lane_matrix(
+            [torch.from_numpy(rng.integers(-2**40, 2**40, rows)).to(device)
+             for _ in range(n)], rows, device)
+    return kw, h, valid, lanes(21), lanes(1), lanes(1)
+
+
+def decode_case(path: str, device, reps: int = 20) -> dict:
+    """decodeFused's device time on the first row group of ``path``
+    beside its byte bound (``kernel_input_bytes`` in, each output's n
+    rows out) and the plain version's time."""
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.kernels import decode_fused as DF
+    layout, cap, n, w, ex, in_bytes = staged_on_card(path, device)
+    active, outs = DF.decode_fused(layout, cap, n, w, ex)
+    out_bytes = sum(o.numel() * o.element_size() // cap * n
+                    for o in (active,) + tuple(outs))
+    dev = [e for e in layout if e[0] == "dev"]
+    # a definition-level rank, string offsets or DELTA values take the
+    # two scan launches before the decode
+    scans = any(e[6] or (e[1] == "str" and e[13]) or e[11] for e in dev)
+    return {"rows": n, "cap": cap, "device_columns": len(dev),
+            "cuda_launches": 3 if scans else 1,
+            "bytes_in": in_bytes, "bytes_out": out_bytes,
+            "ms": cuda_ms(lambda: DF.decode_fused(layout, cap, n, w, ex),
+                          reps),
+            "plain_ms": wall_ms(lambda: X._encoded_decode_body(
+                layout, cap, w, n, ex), 3),
+            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3}
+
+
 def murmur3_battery(n: int, seed: int):
     from spark_rapids_tpu_torch.interop import host_batch_from_numpy
     from spark_rapids_tpu_torch.sql import types as T
@@ -610,8 +704,10 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
     the profiler); returns the kernel line's numbers."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
     from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
     from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     from spark_rapids_tpu_torch.kernels import join_probe as KJ
     from spark_rapids_tpu_torch.ops import join as J
     from spark_rapids_tpu_torch.sql import types as T
@@ -664,6 +760,19 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
                         "matched": int(km.sum()), "max_abs_err": err}
     probe_err = max(c["max_abs_err"] for c in parity.values())
     phase("q3_join_probe_parity", cases=parity, tolerance="exact")
+
+    # groupbyHash at q3's partial-aggregate shape: the first batch the
+    # pushed form's partial aggregate takes, as its own kernel inputs
+    agg = find_exec(spark.plan_physical(df.plan), lambda p: isinstance(
+        p, TorchHashAggregateExec) and p.mode == "partial")
+    batch = next(iter(agg.child.device_partitions()[0]()))
+    key_cols, vals, prims = agg._eval_inputs(batch)
+    kw, h, add, mn, mx, _decode = KG.table_inputs(
+        key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)],
+        batch.active)
+    gb_q3 = groupby_case((kw, h, batch.active, add, mn, mx),
+                         KR.table_slots(spark.conf_obj, batch.capacity))
+    phase("q3_groupby_hash", card=card, tolerance="exact", **gb_q3)
 
     if profiled:
         from spark_rapids_tpu_torch.columnar.device import DeviceBatch
@@ -749,7 +858,8 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
                   "table")
     d = times["date_dim"]
     return {"launches": launches, "max_abs_err": probe_err, "ms": d["ms"],
-            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"]}
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "groupby_q3": gb_q3}
 
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1035,26 +1145,28 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
           write_s=round(q3_write_s, 3),
           rows_per_s=Q3_SALES_ROWS / q3_walls["median_s"], **q3_walls)
 
-    # -- decodeFused at q1's row-group shape ----------------------------------
-    # the bound counts the bytes this row group needs: its unpadded
-    # inputs and each output's n rows (not the padding to cap)
-    layout, cap, n, w, ex, in_bytes = staged_on_card(
-        os.path.join(q1_dir, q1_files[0]), device)
-    active, outs = DF.decode_fused(layout, cap, n, w, ex)
-    out_bytes = sum(o.numel() * o.element_size() // cap * n
-                    for o in (active,) + tuple(outs))
-    ms = cuda_ms(lambda: DF.decode_fused(layout, cap, n, w, ex), 20)
-    plain_ms = wall_ms(lambda: X._encoded_decode_body(layout, cap, w, n, ex),
-                       3)
-    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    phase("decode_fused_times", card=card, rows=n, cap=cap,
+    # -- decodeFused times ---------------------------------------------------
+    # at q1's row-group shape, at one 250,000-row q3 store_sales row group
+    # (4-byte FLBA) and at a corpus case with nulls, strings and
+    # decimals, which takes the 3-launch scan path; each bound counts the
+    # bytes the row group needs: its unpadded inputs and each output's n
+    # rows (not the padding to cap)
+    cases = {"q1_row_group": decode_case(
+                 os.path.join(q1_dir, q1_files[0]), device),
+             "q3_store_sales_row_group": decode_case(
+                 corpus["q3_store_sales_0"], device),
+             "corpus_dict_scan_path": decode_case(corpus["dict"], device)}
+    if cases["corpus_dict_scan_path"]["cuda_launches"] != 3:
+        raise AssertionError("the corpus case does not take the scan path")
+    q1c = cases["q1_row_group"]
+    phase("decode_fused_times", card=card,
           launches_per_q1=launches["decodeFused"],
-          launches_per_q3=q3_launches["decodeFused"],
-          bytes_in=in_bytes, bytes_out=out_bytes, ms=ms, plain_ms=plain_ms,
-          bound_ms=bound_ms, library_ms=None,
+          launches_per_q3=q3_launches["decodeFused"], cases=cases,
+          library_ms=None,
           library="none: no single PyTorch call decodes Parquet pages")
     return {"launches": launches["decodeFused"], "max_abs_err": df_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+            "ms": q1c["ms"], "plain_ms": q1c["plain_ms"],
+            "bound_ms": q1c["bound_ms"], "cases": cases}
 
 
 def main() -> int:
@@ -1095,7 +1207,9 @@ def main() -> int:
     # -- 2. build + probe ------------------------------------------------
     build_s = device_caps.probe(device)
     phase("build", nvcc_seconds=round(build_s, 3), probe="ok",
-          libraries=sorted(os.listdir(KR.BUILD_DIR)))
+          libraries=sorted(f for f in os.listdir(KR.BUILD_DIR)
+                           if f.endswith(".so")),
+          ptxas=KR.ptxas_usage())
 
     # -- 3. kernel parity on the card ------------------------------------
     battery = DeviceBatch.from_host(murmur3_battery(1 << 20, 5), device)
@@ -1133,20 +1247,18 @@ def main() -> int:
     kw, h, add, mn, mx, _decode = KG.table_inputs(key_cols, entries,
                                                   batch.active)
     gb_in = (kw, h, batch.active, add, mn, mx)
-    k_out = KG.groupby_table(*gb_in, slots)
-    p_out = KG.groupby_table_plain(*gb_in, slots)
-    torch.cuda.synchronize()
-    if int(k_out[4].item()) or int(p_out[4].item()):
-        raise AssertionError("groupbyHash overflowed at q1 shapes")
-    gb_err = compare_tables(table_rows(*k_out[:4]), table_rows(*p_out[:4]))
-    n_groups = int((k_out[0] >= 0).sum())
+    gb_q1 = groupby_case(gb_in, slots)
+    # many groups: about 700 keys into 1024 slots, q1's add lanes plus a
+    # min and a max lane
+    gb_many = groupby_case(many_groups_inputs(device), 1024)
+    gb_err = max(gb_q1["max_abs_err"], gb_many["max_abs_err"])
     # overflow case: 5000 distinct keys into a 1024-slot table
     rng = np.random.default_rng(11)
     g = torch.from_numpy(rng.integers(0, 5000, 1 << 16)).to(device)
     okw = torch.stack([g, g * 7], dim=1).contiguous()
     oh = g * 2654435761
     ovalid = torch.ones_like(g, dtype=torch.bool)
-    olanes = torch.ones((g.shape[0], 1), dtype=torch.int64, device=device)
+    olanes = KG._lane_matrix([torch.ones_like(g)], g.shape[0], device)
     o_k = KG.groupby_table(okw, oh, ovalid, olanes, olanes, olanes, 1024)
     o_p = KG.groupby_table_plain(okw, oh, ovalid, olanes, olanes, olanes,
                                  1024)
@@ -1166,8 +1278,9 @@ def main() -> int:
     phase("kernel_parity", murmur3_rows_1m=battery.capacity,
           murmur3_max_abs_err=m3_err, groupby_cap=batch.capacity,
           groupby_key_words=int(kw.shape[1]), groupby_slots=slots,
-          groupby_lanes=[int(add.shape[1]), int(mn.shape[1]),
-                         int(mx.shape[1])], groupby_groups=n_groups,
+          groupby_lanes=gb_q1["lanes_add_min_max"],
+          groupby_groups=gb_q1["groups"],
+          groupby_many_groups=gb_many["groups"],
           groupby_max_abs_err=gb_err, overflow_case="flagged by both")
 
     # -- 4. q1 at SF1 through the session ----------------------------------
@@ -1207,11 +1320,6 @@ def main() -> int:
     phase("q1_wall", card=card, warm_runs=1, timed_runs=walls,
           median_s=wall, rows_per_s=SF1_ROWS / wall)
 
-    gb_ms = cuda_ms(lambda: KG.groupby_table(*gb_in, slots), 20)
-    gb_plain_ms = wall_ms(lambda: KG.groupby_table_plain(*gb_in, slots), 3)
-    gb_bytes = (sum(t.numel() * t.element_size() for t in gb_in)
-                + slots * 4 + 4
-                + slots * 8 * (add.shape[1] + mn.shape[1] + mx.shape[1]))
     m3_ms = cuda_ms(lambda: KM.murmur3_columns(xkeys, part_out.capacity),
                     200)
     m3_plain_ms = wall_ms(lambda: H.murmur3_columns(
@@ -1232,8 +1340,7 @@ def main() -> int:
     phase("kernel_times", card=card,
           probe={"rows": 8, "ms": probe_ms, "plain_ms": probe_plain_ms,
                  "bytes": 64, "bound_ms": 64 / HBM_BYTES_PER_S * 1e3},
-          groupbyHash={"rows": batch.capacity, "ms": gb_ms,
-                       "plain_ms": gb_plain_ms, "bytes": gb_bytes},
+          groupbyHash_q1=gb_q1, groupbyHash_many_groups=gb_many,
           murmur3_q1={"rows": part_out.capacity, "ms": m3_ms,
                       "plain_ms": m3_plain_ms, "bytes": m3_bytes},
           murmur3_1m={"rows": battery.capacity, "ms": m3_1m_ms,
@@ -1250,10 +1357,16 @@ def main() -> int:
         {"name": "groupbyHash", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/groupby_hash.cu",
          "replaces": "spark_rapids_tpu/kernels/groupby_hash.py:311",
-         "launches": launches["groupbyHash"], "max_abs_err": gb_err,
-         "ms": gb_ms, "plain_ms": gb_plain_ms,
-         "bound_ms": gb_bytes / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None},
+         "launches": launches["groupbyHash"],
+         "max_abs_err": max(gb_err, jp["groupby_q3"]["max_abs_err"]),
+         "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
+         "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "cases": {name: {k: c[k] for k in ("rows", "groups", "ms",
+                                            "plain_ms", "bound_ms")}
+                   for name, c in (("q1_partial", gb_q1),
+                                   ("q3_partial", jp["groupby_q3"]),
+                                   ("many_groups", gb_many))}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -1274,7 +1387,10 @@ def main() -> int:
          "launches": dfu["launches"], "max_abs_err": dfu["max_abs_err"],
          "ms": dfu["ms"], "plain_ms": dfu["plain_ms"],
          "bound_ms": dfu["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "cases": {name: {k: c[k] for k in ("rows", "cuda_launches", "ms",
+                                            "plain_ms", "bound_ms")}
+                   for name, c in dfu["cases"].items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ under ``build/kernels/`` at the repo root, named by a hash of the source
 so an edited source rebuilds, and load through ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
+         csrc/<name>.cu
+
+The compiler's report (``-Xptxas -v``: registers, spills and static
+shared memory of each kernel) is kept beside each library as
+``lib<name>-<hash>.ptxas``; ``ptxas_usage`` reads it.
 
 Each C entry launches on the stream it is handed (PyTorch's current
 stream), never synchronises, and returns ``cudaGetLastError()``; the
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,7 +41,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("probe", "murmur3", "groupby_hash", "join_probe",
            "decode_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"murmur3": 0, "groupbyHash": 0,
@@ -101,6 +107,7 @@ def build_all() -> float:
                 errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
             else:
                 os.replace(tmp, out)
+                out.with_suffix(".ptxas").write_bytes(log)
         if errors:
             raise KernelError("nvcc failed:\n" + "\n".join(errors))
         BUILD_SECONDS = time.perf_counter() - t0
@@ -119,6 +126,54 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _LIBS[name] = lib
     return lib
+
+
+def ptxas_usage() -> Dict[str, dict]:
+    """``{"<source>:<kernel>": {"registers", "spill_bytes", "smem_bytes"}}``
+    from the ptxas reports of the libraries built so far (static shared
+    memory only; a kernel's dynamic shared memory is set at launch)."""
+    out: Dict[str, dict] = {}
+    for name in SOURCES:
+        path = _lib_path(name).with_suffix(".ptxas")
+        if not path.exists():
+            continue
+        fn = None
+        for line in path.read_text(errors="replace").splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = f"{name}:{_kernel_name(m.group(1))}"
+                while fn in out:  # another instantiation of a template
+                    fn += "'"
+                out[fn] = {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                out[fn]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The plain name of a kernel from its mangled symbol: the last of
+    its length-prefixed name parts (``_ZN<ns><name>E...``, ``_Z<name>``)."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    i, name = m.end(), mangled
+    while True:
+        n = re.match(r"\d+", mangled[i:])
+        if not n:
+            return name
+        start = i + n.end()
+        name = mangled[start:start + int(n.group())]
+        i = start + int(n.group())
+        if not mangled.startswith("_ZN"):
+            return name
 
 
 def check(code: int, what: str) -> None:

@@ -7,6 +7,12 @@ aggregation update when every slot is in the SUM/COUNT/MIN/MAX family
 over fixed-width data. Bound on the H100: bytes — the key words, hash,
 validity and lane matrices read once, at 3.35 TB/s.
 
+Lanes are lane-major, ``(n_lanes, cap)`` int64, so the kernel's loads of
+one lane are contiguous across a warp. Each kernel block folds its rows
+into a shared-memory table of ``local_table_entries`` entries before it
+touches the global table; the sizing is plain Python, passed to the
+kernel at launch.
+
 Results equal the sort-based path by construction, as in the JAX
 package: every accumulator lane is int64 (counts, integer and decimal
 sums in the exact 32-bit-part encoding of ``seg_sums_batched``, min/max
@@ -39,6 +45,11 @@ from spark_rapids_tpu_torch.sql import types as T
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 MAX_PROBES = 64
+# shared memory for each kernel block (one block of 1024 threads per SM,
+# within the 227 KB a block may use): its group table, and the owner
+# words of a table of at most OWNER_CACHE_SLOTS slots
+LOCAL_TABLE_BYTES = 200 * 1024
+OWNER_CACHE_SLOTS = 4096
 
 _EXTREME_PRIMS = {E.PRIM_MIN, E.PRIM_MAX}
 _WORD_KEY_TYPES = (T.BooleanType, T.ByteType, T.ShortType,
@@ -194,26 +205,45 @@ def plan_lanes(entries, active: torch.Tensor):
 
 def _lane_matrix(lanes: List[torch.Tensor], cap: int,
                  device: torch.device) -> torch.Tensor:
+    """Lanes -> one lane-major ``(n_lanes, cap)`` int64 matrix."""
     if not lanes:
-        return torch.zeros((cap, 0), dtype=torch.int64, device=device)
-    return torch.stack(lanes, dim=1).contiguous()
+        return torch.zeros((0, cap), dtype=torch.int64, device=device)
+    return torch.stack(lanes, dim=0)
+
+
+def local_table_entries(n_lanes: int, slots: int) -> int:
+    """Entries of each kernel block's shared-memory group table: the
+    largest power of two, at most ``slots``, whose entries (8 bytes a
+    lane plus a slot word and a first-row word) fit in
+    ``LOCAL_TABLE_BYTES`` beside the block's cache of owner words (4
+    bytes a slot, kept when ``slots <= OWNER_CACHE_SLOTS``); 0 when not
+    even one entry fits (every group then goes to the global table)."""
+    per_entry = 8 * n_lanes + 8
+    budget = LOCAL_TABLE_BYTES - (4 * slots if slots <= OWNER_CACHE_SLOTS
+                                  else 0)
+    if per_entry > budget:
+        return 0
+    entries = 1
+    while entries * 2 <= slots and entries * 2 * per_entry <= budget:
+        entries *= 2
+    return entries
 
 
 def groupby_table_plain(kw, h, valid, add, mn, mx, slots: int):
     """Plain PyTorch version of the table pass: the same tables as the
     kernel (owner = first row per group, summed/min/max lanes, overflow
-    flag). Groups take their slots by linear probing in first-row order;
+    flag), from the same lane-major ``(n, cap)`` lane matrices. Groups take their slots by linear probing in first-row order;
     a group beyond the table or further than 64 probes from its home
     slot overflows, as in the kernel."""
     device = kw.device
     T_ = slots
     rows = torch.nonzero(valid).flatten()
     owner = torch.full((T_,), -1, dtype=torch.int32, device=device)
-    add_out = torch.zeros((T_, add.shape[1]), dtype=torch.int64,
+    add_out = torch.zeros((T_, add.shape[0]), dtype=torch.int64,
                           device=device)
-    min_out = torch.full((T_, mn.shape[1]), _I64_MAX, dtype=torch.int64,
+    min_out = torch.full((T_, mn.shape[0]), _I64_MAX, dtype=torch.int64,
                          device=device)
-    max_out = torch.full((T_, mx.shape[1]), _I64_MIN, dtype=torch.int64,
+    max_out = torch.full((T_, mx.shape[0]), _I64_MIN, dtype=torch.int64,
                          device=device)
     overflow = torch.zeros(1, dtype=torch.int32, device=device)
     if rows.numel() == 0:
@@ -249,12 +279,12 @@ def groupby_table_plain(kw, h, valid, add, mn, mx, slots: int):
     if not bool(ok.all()):
         ovf = True
     r_ok, s_ok = rows[ok], row_slot[ok]
-    if add.shape[1]:
-        add_out.index_add_(0, s_ok, add[r_ok])
-    for j in range(mn.shape[1]):
-        min_out[:, j].scatter_reduce_(0, s_ok, mn[r_ok, j], reduce="amin")
-    for j in range(mx.shape[1]):
-        max_out[:, j].scatter_reduce_(0, s_ok, mx[r_ok, j], reduce="amax")
+    if add.shape[0]:
+        add_out.index_add_(0, s_ok, add[:, r_ok].T)
+    for j in range(mn.shape[0]):
+        min_out[:, j].scatter_reduce_(0, s_ok, mn[j, r_ok], reduce="amin")
+    for j in range(mx.shape[0]):
+        max_out[:, j].scatter_reduce_(0, s_ok, mx[j, r_ok], reduce="amax")
     overflow[0] = int(ovf)
     return owner, add_out, min_out, max_out, overflow
 
@@ -272,33 +302,34 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
             or valid.dtype != torch.bool:
         raise KR.KernelError("groupbyHash: kw/h int64 and valid bool")
     for lanes in (add, mn, mx):
-        if lanes.dtype != torch.int64 or lanes.shape[0] != n:
-            raise KR.KernelError("groupbyHash: lanes (cap, n) int64")
+        if lanes.dtype != torch.int64 or lanes.dim() != 2 \
+                or lanes.shape[1] != n:
+            raise KR.KernelError("groupbyHash: lanes (n, cap) int64")
     if slots & (slots - 1) or slots <= 0:
         raise KR.KernelError(f"groupbyHash: {slots} slots, not a power "
                              "of two")
     if n >= (1 << 31):
         raise KR.KernelError("groupbyHash: row index exceeds int32")
+    n_add, n_min, n_max = add.shape[0], mn.shape[0], mx.shape[0]
     fn = KR.library("groupby_hash").groupby_hash_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, ci, vp, ci, vp, ci, vp, ci, ci,
+    fn.argtypes = [vp, ci, vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci,
                    vp, vp, vp, vp, vp, vp]
     fn.restype = ci
     device = kw.device
     owner = torch.empty(slots, dtype=torch.int32, device=device)
-    add_out = torch.empty((slots, add.shape[1]), dtype=torch.int64,
-                          device=device)
-    min_out = torch.empty((slots, mn.shape[1]), dtype=torch.int64,
-                          device=device)
-    max_out = torch.empty((slots, mx.shape[1]), dtype=torch.int64,
-                          device=device)
+    add_out = torch.empty((slots, n_add), dtype=torch.int64, device=device)
+    min_out = torch.empty((slots, n_min), dtype=torch.int64, device=device)
+    max_out = torch.empty((slots, n_max), dtype=torch.int64, device=device)
     overflow = torch.empty(1, dtype=torch.int32, device=device)
     KR.count_launch("groupbyHash")
     KR.check(fn(kw.data_ptr(), K, h.data_ptr(), valid.data_ptr(), n,
-                add.data_ptr(), add.shape[1], mn.data_ptr(), mn.shape[1],
-                mx.data_ptr(), mx.shape[1], slots, owner.data_ptr(),
-                add_out.data_ptr(), min_out.data_ptr(), max_out.data_ptr(),
-                overflow.data_ptr(), KR.stream_handle(device)),
+                add.data_ptr(), n_add, mn.data_ptr(), n_min,
+                mx.data_ptr(), n_max, slots,
+                local_table_entries(n_add + n_min + n_max, slots),
+                owner.data_ptr(), add_out.data_ptr(), min_out.data_ptr(),
+                max_out.data_ptr(), overflow.data_ptr(),
+                KR.stream_handle(device)),
              "groupbyHash launch")
     return owner, add_out, min_out, max_out, overflow
 

@@ -59,8 +59,10 @@ def _jax_table(kw, h, valid, add, mn, mx, slots):
 
 
 def _port_table(kw, h, valid, add, mn, mx, slots):
+    """The port's table pass on the same rows; its lanes are lane-major,
+    ``(n_lanes, cap)``, the transpose of the JAX kernel's."""
     t = [torch.from_numpy(np.ascontiguousarray(a))
-         for a in (kw, h, valid, add, mn, mx)]
+         for a in (kw, h, valid, add.T, mn.T, mx.T)]
     KR.reset_launches()
     owner, a, n_, x, ovf = KG.groupby_table(*t, slots)
     assert KR.LAUNCHES["groupbyHash"] == 0  # CPU tensors: plain version
@@ -208,3 +210,33 @@ def test_plan_lanes_encoding_bit_exact():
         assert len(js) == len(ps)
         for a, b in zip(js, ps):
             assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("slots", [64, 128, 1024, 1 << 16])
+def test_local_table_sizing_fits_shared_memory(slots):
+    """Each kernel block's shared-memory group table: a power of two of
+    entries (or 0), at most ``slots``, that fits in the 227 KB a block can
+    use, for 1 to 64 lanes; more lanes never get more entries."""
+    prev = None
+    for n_lanes in range(1, 65):
+        L = KG.local_table_entries(n_lanes, slots)
+        assert L == 0 or (L & (L - 1)) == 0
+        assert L <= slots
+        cache = 4 * slots if slots <= KG.OWNER_CACHE_SLOTS else 0
+        assert L * (8 * n_lanes + 8) + cache <= min(KG.LOCAL_TABLE_BYTES,
+                                                    232_448)
+        assert prev is None or L <= prev
+        prev = L
+    # q1's partial aggregate (21 add lanes, 1024 slots) gets one entry a
+    # slot; the widest case keeps a table
+    assert KG.local_table_entries(21, 1024) == 1024
+    assert KG.local_table_entries(64, slots) > 0
+    assert KG.local_table_entries(30_000, slots) == 0
+
+
+def test_lane_matrix_is_lane_major():
+    lanes = [torch.arange(5) * (j + 1) for j in range(3)]
+    m = KG._lane_matrix(lanes, 5, CPU)
+    assert m.shape == (3, 5) and m.is_contiguous()
+    assert torch.equal(m[1], lanes[1])
+    assert KG._lane_matrix([], 5, CPU).shape == (0, 5)

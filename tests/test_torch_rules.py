@@ -120,7 +120,7 @@ def test_groupby_raises_on_unservable_cuda_requests():
     kw = _CudaTyped(torch.zeros((n, 2), dtype=torch.int64))
     h = _CudaTyped(torch.zeros(n, dtype=torch.int64))
     valid = _CudaTyped(torch.ones(n, dtype=torch.bool))
-    lanes = _CudaTyped(torch.zeros((n, 1), dtype=torch.int64))
+    lanes = _CudaTyped(torch.zeros((1, n), dtype=torch.int64))
     with pytest.raises(KR.KernelError, match="not CUDA"):
         KG.groupby_table(kw, torch.zeros(n, dtype=torch.int64), valid,
                          lanes, lanes, lanes, 64)
@@ -162,10 +162,11 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch):
         KM.murmur3_columns([_cuda_long_col()], 64)
     n = 64
     t = _CudaTyped(torch.zeros((n, 1), dtype=torch.int64))
+    lanes = _CudaTyped(torch.zeros((1, n), dtype=torch.int64))
     with pytest.raises(KR.KernelError, match="nvcc"):
         KG.groupby_table(t, _CudaTyped(torch.zeros(n, dtype=torch.int64)),
                          _CudaTyped(torch.ones(n, dtype=torch.bool)),
-                         t, t, t, 64)
+                         lanes, lanes, lanes, 64)
 
 
 def test_table_slots_power_of_two():
