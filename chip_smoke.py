@@ -14,7 +14,8 @@ absent or any phase fails. Output, one line per phase:
   1. the card (nvidia-smi name, power limit), torch and CUDA versions,
      whether ``pyarrow`` imports;
   2. the nvcc build seconds, the probe launch, and each kernel's
-     registers, spill bytes and static shared memory from ptxas;
+     ``-Xptxas -v`` lines (registers, spills, static shared memory) as
+     ptxas printed them, keyed by mangled name;
   3. kernel parity on the card: murmur3 at 1M rows over a type battery
      and at q1's exchange shapes (exact), groupbyHash at q1's partial
      shapes and on a many-groups case (786,432 rows, 700 keys in 1,024
@@ -49,7 +50,8 @@ absent or any phase fails. Output, one line per phase:
      and decodeFused's device time beside its byte bound and the plain
      version's time at q1's row group, at a 250,000-row q3 store_sales
      row group and at the corpus's ``dict`` case (nulls and strings: the
-     3-launch scan path);
+     3-launch scan path), with the CUDA kernels each case ran, counted in
+     torch.profiler's device trace;
   with ``--breakdown``, the fact-table upload timed alone and q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -541,7 +543,9 @@ def groupby_case(ins, slots: int, reps: int = 20) -> dict:
                                 3),
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bytes_all_rows": all_rows,
-            "bound_all_rows_ms": all_rows / HBM_BYTES_PER_S * 1e3}
+            "bound_all_rows_ms": all_rows / HBM_BYTES_PER_S * 1e3,
+            "kernel_us": device_kernels(
+                lambda: KG.groupby_table(*ins, slots))["kernel_us"]}
 
 
 def many_groups_inputs(device, rows: int = 786_432, keys: int = 700,
@@ -575,18 +579,74 @@ def decode_case(path: str, device, reps: int = 20) -> dict:
     active, outs = DF.decode_fused(layout, cap, n, w, ex)
     out_bytes = sum(o.numel() * o.element_size() // cap * n
                     for o in (active,) + tuple(outs))
-    dev = [e for e in layout if e[0] == "dev"]
-    # a definition-level rank, string offsets or DELTA values take the
-    # two scan launches before the decode
-    scans = any(e[6] or (e[1] == "str" and e[13]) or e[11] for e in dev)
-    return {"rows": n, "cap": cap, "device_columns": len(dev),
-            "cuda_launches": 3 if scans else 1,
+    kern = device_kernels(lambda: DF.decode_fused(layout, cap, n, w, ex))
+    return {"rows": n, "cap": cap,
+            "device_columns": sum(e[0] == "dev" for e in layout),
             "bytes_in": in_bytes, "bytes_out": out_bytes,
             "ms": cuda_ms(lambda: DF.decode_fused(layout, cap, n, w, ex),
                           reps),
             "plain_ms": wall_ms(lambda: X._encoded_decode_body(
                 layout, cap, w, n, ex), 3),
-            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+            "cuda_launches": kern["launches"],
+            "kernel_us": kern["kernel_us"]}
+
+
+def ptxas_report() -> dict:
+    """Each kernel's ``-Xptxas -v`` lines (registers, spills, shared
+    memory) as ptxas printed them, keyed by the kernel's mangled name,
+    from the reports kept beside the libraries of this build."""
+    import re
+    from spark_rapids_tpu_torch import kernels as KR
+    out: dict = {}
+    for name in KR.SOURCES:
+        path = KR._lib_path(name).with_suffix(".ptxas")
+        if not path.exists():
+            continue
+        fn = None
+        for line in path.read_text(errors="replace").splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = f"{name}:{m.group(1)}"
+            elif fn and ("Used" in line or "spill" in line):
+                out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def device_kernels(fn, calls: int = 7) -> dict:
+    """The CUDA kernels the device ran for one call of ``fn``, from
+    torch.profiler's device trace of ``calls`` calls (after a warm call):
+    ``{"launches": kernels a call, "kernel_us": {name: median device
+    microseconds}}``. Calls are 5 ms apart, so each call's kernels form
+    one cluster in the trace; the trace can miss an event at its start
+    or end, so a call's count is the median cluster's. Copies and
+    memsets are not kernels."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+    events = sorted(
+        (e.start_ns(), e.duration_ns(), e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA
+        and not e.name().startswith(("Memcpy", "Memset")))
+    clusters, last_end, times = [], None, {}
+    for start, dur, name in events:
+        if last_end is None or start - last_end > 2_500_000:
+            clusters.append(0)
+        clusters[-1] += 1
+        last_end = start + dur
+        m = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
+        times.setdefault(m.group(1) if m else name, []).append(dur / 1e3)
+    return {"launches": statistics.median_low(clusters) if clusters else 0,
+            "kernel_us": {k: statistics.median(v) for k, v in times.items()}}
 
 
 def murmur3_battery(n: int, seed: int):
@@ -1156,8 +1216,12 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
              "q3_store_sales_row_group": decode_case(
                  corpus["q3_store_sales_0"], device),
              "corpus_dict_scan_path": decode_case(corpus["dict"], device)}
-    if cases["corpus_dict_scan_path"]["cuda_launches"] != 3:
-        raise AssertionError("the corpus case does not take the scan path")
+    # the corpus case takes the two scan launches before the decode; the
+    # row groups need no prefix sum
+    got = {k: c["cuda_launches"] for k, c in cases.items()}
+    if got != {"q1_row_group": 1, "q3_store_sales_row_group": 1,
+               "corpus_dict_scan_path": 3}:
+        raise AssertionError(f"decodeFused CUDA launches per batch: {got}")
     q1c = cases["q1_row_group"]
     phase("decode_fused_times", card=card,
           launches_per_q1=launches["decodeFused"],
@@ -1209,7 +1273,7 @@ def main() -> int:
     phase("build", nvcc_seconds=round(build_s, 3), probe="ok",
           libraries=sorted(f for f in os.listdir(KR.BUILD_DIR)
                            if f.endswith(".so")),
-          ptxas=KR.ptxas_usage())
+          ptxas=ptxas_report())
 
     # -- 3. kernel parity on the card ------------------------------------
     battery = DeviceBatch.from_host(murmur3_battery(1 << 20, 5), device)

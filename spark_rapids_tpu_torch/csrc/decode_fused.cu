@@ -41,6 +41,11 @@
 // - a sub-tile whose windows exceed the buffers is halved, down to one
 //   row per thread, where an oversized window is read from global
 //   memory (the same answers);
+// - a tile of one chunk (a small batch, such as a 4,000-row row group
+//   with nulls) stages nothing: each thread decodes one row, so the
+//   windows would save it no search, and their staging round trip and
+//   barriers made it slower than the first design; its searches run in
+//   global memory (L1);
 // - each thread finds the run and page of its first row there once and
 //   moves those cursors forward, never back, over its later rows;
 // - rows decode in chunks of two rows a thread (one a thread on a batch
@@ -53,11 +58,13 @@
 // (smaller chunks, four blocks a SM), and staging a chunk's PLAIN and
 // FLBA bytes in shared memory cost more in barriers than it saved, so
 // values are read from the buffer (L1). Measured (NVIDIA H100 80GB
-// HBM3, 700.00 W): 0.1425 ms at the q1 row group (8.0x its bound; was
-// 0.2174), 0.0287 ms at a 250,000-row store_sales row group (was
-// 0.0307). A lookup outside the staged
-// windows (garbage lanes, string and DELTA offsets) takes the global
-// search, so every lane computes what the JAX body computes. Every byte
+// HBM3, 700.00 W; the first design in the same run): 0.1418 ms at the
+// q1 row group (7.9x its bound; was 0.2185), 0.0294 ms at a 250,000-row
+// store_sales row group (was 0.0308), 0.0248 ms at a 4,000-row batch
+// with nulls and strings on the 3-launch scan path (was 0.0250). A
+// lookup outside the staged windows (garbage lanes, string and DELTA
+// offsets) takes the global search, so every lane computes what the JAX
+// body computes. Every byte
 // index is clamped into the buffer as jnp clamps it; a bit-packed read
 // clamps its word index instead, which leaves every in-range value
 // unchanged (invalid rows write 0 either way); all 64-bit arithmetic
@@ -695,7 +702,13 @@ decode_tiles(const int32_t* __restrict__ words, i64 nb,
     if (col != loaded) {
       if (threadIdx.x < NF)
         t.d[threadIdx.x] = desc[(i64)col * NF + threadIdx.x];
-      if (threadIdx.x == 0) t.whole = 0;
+      if (threadIdx.x == 0) {
+        // a tile of one chunk (a small batch) gives each thread one row:
+        // windows would save it no search, only add a staging round trip
+        // and barriers, so its lookups search the tables in global memory
+        t.whole = tile_rows <= kChunk;
+        if (t.whole) t.dl = t.vr = t.pg = Win{1, 0, 0, 0, 0};
+      }
       loaded = col;
       __syncthreads();
     }
@@ -914,10 +927,6 @@ cudaError_t launch_tiles(const int32_t* words, i64 nb, const i64* desc,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(
-           decode_tiles<kRows>,
-           cudaFuncAttributePreferredSharedMemoryCarveout, 44)) !=
-          cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, decode_tiles<kRows>, kThreads, 0)) != cudaSuccess)
     return err;
@@ -949,16 +958,7 @@ extern "C" int decode_fused_launch(const void* words, long long nb,
       nb <= 0 || (nb & 3) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // one L1/shared split (about 100 KB shared) for the scans and the
-  // decode, so the SM does not switch between them
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(
-           scan_blocks, cudaFuncAttributePreferredSharedMemoryCarveout,
-           44)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(
-           scan_sums, cudaFuncAttributePreferredSharedMemoryCarveout, 44)) !=
-          cudaSuccess)
-    return (int)err;
   i64 nblk = (cap + SCAN_BLOCK - 1) / SCAN_BLOCK;
   if (n_slots > 0) {
     if (nblk > 2147483647LL) return (int)cudaErrorInvalidValue;

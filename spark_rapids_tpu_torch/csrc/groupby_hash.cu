@@ -37,15 +37,21 @@
 //   global table directly, with its own atomicMin on the owner word;
 // - each used entry flushes once per block: one atomicMin on the owner
 //   word with the block's smallest row of that group, one atomic per
-//   lane.
+//   lane;
+// - a block whose first 1,024 rows hold fewer than 32 live rows (a
+//   sparse batch) keeps no table and no owner cache, and its rows
+//   update the global table directly: setting up and flushing a table
+//   for a handful of rows was most of the kernel's time there.
 // Lanes arrive lane-major, (n_lanes, n_rows), so a warp's loads of one
 // lane are contiguous; they load 8 lanes at a time, the first 8 while
 // the row probes. Every accumulator lane is an int64 combined by
 // wrapping add, min or max, so the order in which atomics land changes
-// no bit. Measured (NVIDIA H100 80GB HBM3, 700.00 W): 0.1278 ms at q1's
-// shape (2.6x its 0.0487 ms valid-row bound), 0.2180 ms at 700 groups
-// (was 0.4949); at a batch of 10 valid rows in 262,144 the block
-// table's fixed cost makes it 0.00914 ms against 0.00605 before.
+// no bit. Measured (NVIDIA H100 80GB HBM3, 700.00 W): 0.1342 ms at q1's
+// shape (2.8x its 0.0487 ms valid-row bound; the first design 1.877 ms
+// in the same run), 0.2109 ms at 700 groups (was 0.4958). At a batch of
+// 10 valid rows in 262,144 it is still slower, 0.00835 ms against
+// 0.00600: its launch of 1,024-thread blocks, the validity count and the
+// row loop cost more than the whole first kernel there.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -213,10 +219,19 @@ groupby_kernel(const i64* __restrict__ kw, int K, const i64* __restrict__ h,
   const i64 nwarps = ((i64)gridDim.x * blockDim.x) >> 5;
   extern __shared__ u64 smem[];
   const int nl = n_add + n_min + n_max;
+  // each row's validity is loaded one iteration ahead
+  bool next_live = warp0 * 32 + lane < n && valid[warp0 * 32 + lane];
+  // a block whose first rows hold under one live row in 32 (a sparse
+  // batch, such as a selective join's output) keeps no table and no
+  // owner cache: it would set up and flush them for a handful of rows,
+  // so its rows update the global table directly (local_entry answers -1
+  // when L is 0)
+  const bool sparse = __syncthreads_count(next_live) * 32 < (int)blockDim.x;
+  if (sparse) L = 0;
   u64* sacc = smem;
   int* skey = reinterpret_cast<int*>(smem + (size_t)nl * L);
   int* srow = skey + L;
-  int* sown = T <= kOwnerCache ? srow + L : nullptr;
+  int* sown = !sparse && T <= kOwnerCache ? srow + L : nullptr;
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
     skey[i] = -1;
     srow[i] = INT_MAX;
@@ -231,8 +246,6 @@ groupby_kernel(const i64* __restrict__ kw, int K, const i64* __restrict__ h,
   }
   __syncthreads();
 
-  // each row's validity is loaded one iteration ahead
-  bool next_live = warp0 * 32 + lane < n && valid[warp0 * 32 + lane];
   for (i64 base = warp0 * 32; base < n; base += nwarps * 32) {
     const int r = (int)(base + lane);
     const bool live = next_live;

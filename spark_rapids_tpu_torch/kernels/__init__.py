@@ -12,7 +12,7 @@ so an edited source rebuilds, and load through ``ctypes``:
 
 The compiler's report (``-Xptxas -v``: registers, spills and static
 shared memory of each kernel) is kept beside each library as
-``lib<name>-<hash>.ptxas``; ``ptxas_usage`` reads it.
+``lib<name>-<hash>.ptxas``.
 
 Each C entry launches on the stream it is handed (PyTorch's current
 stream), never synchronises, and returns ``cudaGetLastError()``; the
@@ -28,7 +28,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -126,54 +125,6 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _LIBS[name] = lib
     return lib
-
-
-def ptxas_usage() -> Dict[str, dict]:
-    """``{"<source>:<kernel>": {"registers", "spill_bytes", "smem_bytes"}}``
-    from the ptxas reports of the libraries built so far (static shared
-    memory only; a kernel's dynamic shared memory is set at launch)."""
-    out: Dict[str, dict] = {}
-    for name in SOURCES:
-        path = _lib_path(name).with_suffix(".ptxas")
-        if not path.exists():
-            continue
-        fn = None
-        for line in path.read_text(errors="replace").splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = f"{name}:{_kernel_name(m.group(1))}"
-                while fn in out:  # another instantiation of a template
-                    fn += "'"
-                out[fn] = {}
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and fn:
-                out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                out[fn]["registers"] = int(m.group(1))
-                m = re.search(r"(\d+) bytes smem", line)
-                out[fn]["smem_bytes"] = int(m.group(1)) if m else 0
-    return out
-
-
-def _kernel_name(mangled: str) -> str:
-    """The plain name of a kernel from its mangled symbol: the last of
-    its length-prefixed name parts (``_ZN<ns><name>E...``, ``_Z<name>``)."""
-    m = re.match(r"_ZN?", mangled)
-    if not m:
-        return mangled
-    i, name = m.end(), mangled
-    while True:
-        n = re.match(r"\d+", mangled[i:])
-        if not n:
-            return name
-        start = i + n.end()
-        name = mangled[start:start + int(n.group())]
-        i = start + int(n.group())
-        if not mangled.startswith("_ZN"):
-            return name
 
 
 def check(code: int, what: str) -> None:

@@ -232,9 +232,10 @@ def local_table_entries(n_lanes: int, slots: int) -> int:
 def groupby_table_plain(kw, h, valid, add, mn, mx, slots: int):
     """Plain PyTorch version of the table pass: the same tables as the
     kernel (owner = first row per group, summed/min/max lanes, overflow
-    flag), from the same lane-major ``(n, cap)`` lane matrices. Groups take their slots by linear probing in first-row order;
-    a group beyond the table or further than 64 probes from its home
-    slot overflows, as in the kernel."""
+    flag), from the same lane-major ``(n, cap)`` lane matrices. Groups
+    take their slots by linear probing in first-row order; a group
+    beyond the table or further than 64 probes from its home slot
+    overflows, as in the kernel."""
     device = kw.device
     T_ = slots
     rows = torch.nonzero(valid).flatten()
