@@ -16,28 +16,37 @@ absent or any phase fails. Output, one line per phase:
   2. the nvcc build seconds, the probe launch, and each kernel's
      ``-Xptxas -v`` lines (registers, spills, static shared memory) as
      ptxas printed them, keyed by mangled name;
-  3. kernel parity on the card: murmur3 at 1M rows over a type battery
-     and at q1's exchange shapes (exact), groupbyHash at q1's partial
-     shapes and on a many-groups case (786,432 rows, 700 keys in 1,024
-     slots, 21 add + 1 min + 1 max lanes), each exact and timed beside
-     its byte bound, and an overflow case flagged by both versions;
+  3. kernel parity on the card: murmur3 at 1M rows over a type battery,
+     at q1's exchange shapes, on 16 key columns (``MAX_COLS``: bool,
+     byte and short in their own widths, strings at char caps 8, 16 and
+     64) and with ``n_parts`` (the partition id in the same launch) at
+     q1's exchange shape and on the 16 columns (all exact), groupbyHash
+     at q1's partial shapes and on a many-groups case (786,432 rows, 700
+     keys in 1,024 slots, 21 add + 1 min + 1 max lanes), each exact and
+     timed beside its byte bound, and an overflow case flagged by both
+     versions;
   4. q1 at SF1 (6,001,215 rows, 8 partitions) against an exact
      reference computed here with numpy and Python ints, with the
      executed plan all ``Torch*``, both kernels launched and no
      overflow re-run;
   5. q1 wall (one warm run, median of three) and rows/s; per-kernel
-     device time, launches per q1, bound and plain-version time;
+     device time, launches per q1, bound and plain-version time, with
+     the CUDA kernels of each murmur3 case and of one ``partition_ids``
+     call at q1's exchange shape counted in torch.profiler's device trace
+     (one each, or the run fails);
   6. TPC-DS q3 at 2,000,000 store_sales rows (bench.py's generator,
      seed 20260731; 8/4/4 partitions): joinProbe against its plain
-     version at q3's shapes and on a K=2 case with duplicate build keys
-     (exact); groupbyHash at the pushed form's partial-aggregate batch
+     version at q3's shapes, on a K=2 case with duplicate build keys and
+     on builds at the 8,192-row cap with K=1 and K=3 (exact); groupbyHash at the pushed form's partial-aggregate batch
      (exact, timed beside its byte bound); bench.py's text (sort-based
      FK join route, no joinProbe)
      and the form with the dimension predicates pushed into the joins
      (every join through joinProbe), each against an exact reference
      computed here, with its wall (one warm run, median of three) and
      rows/s; joinProbe's device time at q3's per-chunk shapes beside
-     its byte bound and the plain version's time;
+     its byte bound and the plain version's time, its CUDA kernels (one,
+     or the run fails) and the time of the join's whole kernel route
+     (``probe_inputs`` + ``build_probe``);
   7. Parquet (needs ``pyarrow``; data written under ``build/data/`` at
      first use through ``DataFrame.write.parquet``, as bench.py writes
      it): decodeFused against its plain version on the card, exactly,
@@ -56,6 +65,9 @@ absent or any phase fails. Output, one line per phase:
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
   ``*_profile.txt`` files, see ``profile_collect``);
+  with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
+  (``ParentKernels``) are held against this tree's on the same inputs and
+  timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``{"kernels": [...]}`` line and, last, the contract line
   ``{"ok": true, "device": {...}}``.
 """
@@ -434,19 +446,27 @@ def check_q1_rows(got, want) -> None:
 def cuda_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn``: a spin kernel holds the
     stream while the host enqueues all calls, so the events time the
-    launches back to back rather than the host's enqueue rate."""
+    launches back to back rather than the host's enqueue rate. A call
+    whose enqueue outlasts the spin (many launches a call) is timed again
+    behind a spin long enough to cover it."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if hasattr(torch.cuda, "_sleep"):
-        torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    spin = 100_000_000  # cycles, about 50 ms at the H100's clocks
+    for _ in range(2):
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s < 0.025:
+            break
+        spin = int(spin * enqueue_s / 0.02)
     return start.elapsed_time(end) / reps
 
 
@@ -617,10 +637,13 @@ def device_kernels(fn, calls: int = 7) -> dict:
     """The CUDA kernels the device ran for one call of ``fn``, from
     torch.profiler's device trace of ``calls`` calls (after a warm call):
     ``{"launches": kernels a call, "kernel_us": {name: median device
-    microseconds}}``. Calls are 5 ms apart, so each call's kernels form
-    one cluster in the trace; the trace can miss an event at its start
-    or end, so a call's count is the median cluster's. Copies and
-    memsets are not kernels."""
+    microseconds}, "busy_us": device time a call, "span_us": first
+    kernel's start to last kernel's end, "gaps_us": the idle time between
+    consecutive kernels of a call}``, the last three medians over the
+    calls whose count is ``launches``. Calls are 5 ms apart, so each
+    call's kernels form one cluster in the trace; the trace can miss an
+    event at its start or end, so a call's count is the median
+    cluster's. Copies and memsets are not kernels."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -640,13 +663,23 @@ def device_kernels(fn, calls: int = 7) -> dict:
     clusters, last_end, times = [], None, {}
     for start, dur, name in events:
         if last_end is None or start - last_end > 2_500_000:
-            clusters.append(0)
-        clusters[-1] += 1
+            clusters.append([])
+        clusters[-1].append((start, dur))
         last_end = start + dur
         m = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
         times.setdefault(m.group(1) if m else name, []).append(dur / 1e3)
-    return {"launches": statistics.median_low(clusters) if clusters else 0,
-            "kernel_us": {k: statistics.median(v) for k, v in times.items()}}
+    n = statistics.median_low([len(c) for c in clusters]) if clusters else 0
+    full = [c for c in clusters if len(c) == n] if n else []
+
+    def med(vals):
+        return statistics.median(vals) if vals else None
+    return {"launches": n,
+            "kernel_us": {k: statistics.median(v) for k, v in times.items()},
+            "busy_us": med([sum(d for _s, d in c) / 1e3 for c in full]),
+            "span_us": med([(c[-1][0] + c[-1][1] - c[0][0]) / 1e3
+                            for c in full]),
+            "gaps_us": [med([(c[i + 1][0] - c[i][0] - c[i][1]) / 1e3
+                             for c in full]) for i in range(n - 1)]}
 
 
 def murmur3_battery(n: int, seed: int):
@@ -669,6 +702,49 @@ def murmur3_battery(n: int, seed: int):
               rng.integers(-11000, 47000, n).astype(np.int32),
               rng.integers(-10**10, 10**10, n),
               pool[rng.integers(0, len(pool), n)]]
+    valid = [rng.random(n) > 0.15 for _ in arrays]
+    return host_batch_from_numpy(fields, arrays, valid)
+
+
+def murmur3_wide_batch(n: int, seed: int):
+    """murmur3's widest request: 16 key columns (``MAX_COLS``) of every
+    kind the kernel reads, bool, byte and short in their own widths, and
+    strings at char caps 8, 16 and 64 with every length up to the cap."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    rng = np.random.default_rng(seed)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789\x00"
+                             "\x7f") + ["é", "ÿ"], dtype=object)
+
+    def strings(cap):
+        lens = rng.integers(0, cap + 1, n)
+        chars = alphabet[rng.integers(0, len(alphabet), (n, cap))]
+        # é and ÿ take two bytes: cut each string back to ``cap`` bytes
+        return np.array([("".join(chars[i, :lens[i]]).encode()[:cap]
+                          .decode(errors="ignore")) for i in range(n)],
+                        dtype=object)
+    fields = [("b", T.BooleanT), ("y", T.ByteT), ("h", T.ShortT),
+              ("i", T.IntegerT), ("l", T.LongT), ("f", T.FloatT),
+              ("d", T.DoubleT), ("dt", T.DateT), ("ts", T.TimestampT),
+              ("dec", T.DecimalType(18, 4)), ("s8", T.StringT),
+              ("s16", T.StringT), ("s64", T.StringT), ("y2", T.ByteT),
+              ("h2", T.ShortT), ("s8b", T.StringT)]
+    arrays = [rng.integers(0, 2, n).astype(bool),
+              rng.integers(-128, 128, n).astype(np.int8),
+              rng.integers(-2**15, 2**15, n).astype(np.int16),
+              rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(
+                  np.int32),
+              rng.integers(-2**62, 2**62, n),
+              np.where(rng.random(n) < 0.1, -0.0,
+                       rng.standard_normal(n)).astype(np.float32),
+              np.where(rng.random(n) < 0.1, -0.0, rng.standard_normal(n)),
+              rng.integers(-11000, 47000, n).astype(np.int32),
+              rng.integers(-10**15, 10**15, n),
+              rng.integers(-10**17, 10**17, n),
+              strings(8), strings(16), strings(64),
+              rng.integers(-128, 128, n).astype(np.int8),
+              rng.integers(-2**15, 2**15, n).astype(np.int16),
+              strings(8)]
     valid = [rng.random(n) > 0.15 for _ in arrays]
     return host_batch_from_numpy(fields, arrays, valid)
 
@@ -738,26 +814,160 @@ def breakdown(df, arrays, fields, device, card) -> None:
           **profile_collect(df, "q1", card))
 
 
-def probe_case_k2(device, seed: int = 12):
-    """joinProbe inputs with K=2 key words, duplicate build keys and
-    invalid rows on both sides (5,000 build rows, 100,000 stream rows)."""
+def probe_case(device, n_r: int, n_l: int, K: int, keys: int,
+               seed: int):
+    """joinProbe inputs ``(kw_r, valid_r, kw_l, valid_l)``: ``n_r`` build
+    rows over ``keys`` distinct K-word keys (so duplicates where
+    ``keys`` < ``n_r``), half the stream rows drawn from those keys,
+    10% of the rows invalid on both sides."""
     import torch
-    from spark_rapids_tpu_torch.ops import groupby as G
     rng = np.random.default_rng(seed)
-    base = rng.integers(-2**62, 2**62, (700, 2))
-    kw_r = torch.from_numpy(base[rng.integers(0, 700, 5000)]).to(device)
-    pick = rng.integers(0, 1400, 100_000)
+    base = rng.integers(-2**62, 2**62, (keys, K))
+    kw_r = torch.from_numpy(base[rng.permutation(n_r) % keys]).to(device)
+    pick = rng.integers(0, 2 * keys, n_l)
     kw_l = torch.from_numpy(np.where(
-        (pick < 700)[:, None], base[np.minimum(pick, 699)],
-        rng.integers(-2**62, 2**62, (100_000, 2)))).to(device)
-    valid_r = torch.from_numpy(rng.random(5000) > 0.1).to(device)
-    valid_l = torch.from_numpy(rng.random(100_000) > 0.1).to(device)
-    h_r = G.hash_subkey_words([kw_r[:, 0], kw_r[:, 1]])
-    h_l = G.hash_subkey_words([kw_l[:, 0], kw_l[:, 1]])
-    return kw_r, h_r, valid_r, kw_l, h_l, valid_l
+        (pick < keys)[:, None], base[np.minimum(pick, keys - 1)],
+        rng.integers(-2**62, 2**62, (n_l, K)))).to(device)
+    valid_r = torch.from_numpy(rng.random(n_r) > 0.1).to(device)
+    valid_l = torch.from_numpy(rng.random(n_l) > 0.1).to(device)
+    return kw_r, valid_r, kw_l, valid_l
 
 
-def q3_phases(device, card, profiled: bool = False) -> dict:
+class ParentKernels:
+    """The parent tree's joinProbe and murmur3, for timing beside this
+    tree's in one process: ``csrc/join_probe.cu`` and ``csrc/murmur3.cu``
+    of the checkout at ``root`` built with this tree's nvcc flags into
+    ``build/kernels-parent/``, and called as that tree's wrappers called
+    them. That tree's joinProbe takes each side's ``hash_subkey_words``
+    and runs three kernels on an owner table in device memory; its
+    murmur3 widens bool/byte/short columns to int32 first and has no
+    ``n_parts``. ``route`` and ``partition_ids`` repeat that tree's
+    ``ops/join.py`` ``probe_inputs`` and ``ops/hashing.py``
+    ``partition_ids``."""
+
+    def __init__(self, root: str):
+        import ctypes
+        from spark_rapids_tpu_torch import kernels as KR
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "kernels-parent")
+        os.makedirs(out, exist_ok=True)
+        procs = {}
+        for name in ("join_probe", "murmur3"):
+            src = os.path.join(root, "spark_rapids_tpu_torch", "csrc",
+                               f"{name}.cu")
+            lib = os.path.join(out, f"lib{name}.so")
+            procs[name] = (lib, subprocess.Popen(
+                [KR._nvcc()] + KR.NVCC_FLAGS + ["-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        self.libs, self.ptxas = {}, {}
+        for name, (lib, p) in procs.items():
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"parent {name}.cu: {log.decode()}")
+            self.ptxas[name] = [ln.split(":", 1)[-1].strip() for ln in
+                                log.decode(errors="replace").splitlines()
+                                if "Used" in ln or "spill" in ln]
+            self.libs[name] = ctypes.CDLL(lib)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn = self.libs["join_probe"].join_probe_launch
+        fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp,
+                       vp]
+        fn.restype = ci
+        fn = self.libs["murmur3"].murmur3_launch
+        fn.argtypes = [vp, ci, ci, ci, vp, vp]
+        fn.restype = ci
+
+    def build_probe(self, kw_r, h_r, valid_r, kw_l, h_l, valid_l):
+        import torch
+        from spark_rapids_tpu_torch import kernels as KR
+        from spark_rapids_tpu_torch.kernels.join_probe import \
+            probe_table_slots
+        n_r, K = kw_r.shape
+        n_l = kw_l.shape[0]
+        slots = probe_table_slots(n_r)
+        dev = kw_l.device
+        owner = torch.empty(slots, dtype=torch.int32, device=dev)
+        matched = torch.empty(n_l, dtype=torch.bool, device=dev)
+        first_row = torch.empty(n_l, dtype=torch.int32, device=dev)
+        KR.check(self.libs["join_probe"].join_probe_launch(
+            kw_r.data_ptr(), h_r.data_ptr(), valid_r.data_ptr(), n_r,
+            kw_l.data_ptr(), h_l.data_ptr(), valid_l.data_ptr(), n_l, K,
+            slots, owner.data_ptr(), matched.data_ptr(),
+            first_row.data_ptr(), KR.stream_handle(dev)), "parent joinProbe")
+        return matched, first_row
+
+    @staticmethod
+    def hashed(ins):
+        """This tree's probe inputs with the parent's hash vectors."""
+        from spark_rapids_tpu_torch.ops import groupby as G
+        kw_r, valid_r, kw_l, valid_l = ins
+        h_r = G.hash_subkey_words([kw_r[:, i] for i in range(kw_r.shape[1])])
+        h_l = G.hash_subkey_words([kw_l[:, i] for i in range(kw_l.shape[1])])
+        return kw_r, h_r, valid_r, kw_l, h_l, valid_l
+
+    def route(self, lkeys, rkeys, null_safe, left, right):
+        from spark_rapids_tpu_torch.kernels.groupby_hash import \
+            pack_words_i64
+        from spark_rapids_tpu_torch.ops import groupby as G
+        from spark_rapids_tpu_torch.ops import join as J
+        kl, kr, valid_l, valid_r = J._eval_keys(lkeys, rkeys, left, right,
+                                                null_safe)
+        kl, kr = J._align_string_caps(kl, kr)
+        wl = J._key_words(kl, null_safe)
+        wr = J._key_words(kr, null_safe)
+        return self.build_probe(
+            pack_words_i64(wr), G.hash_subkey_words(wr),
+            valid_r.contiguous(), pack_words_i64(wl),
+            G.hash_subkey_words(wl), valid_l.contiguous())
+
+    def murmur3(self, cols, capacity: int, seed: int = 42):
+        import torch
+        from spark_rapids_tpu_torch import kernels as KR
+        from spark_rapids_tpu_torch.kernels import murmur3 as KM
+        words = np.zeros((len(cols), 5), dtype=np.int64)
+        keep = []
+        for i, c in enumerate(cols):
+            kind, ts, width = KM._col_desc(c)
+            if kind in ("int8", "int16") or (kind == "int"
+                                             and ts[0].dtype != torch.int32):
+                kind, ts = "int", (ts[0].to(torch.int32), ts[1])
+            keep.append(ts)
+            words[i] = [KM._KIND[kind], width, ts[0].data_ptr(),
+                        ts[1].data_ptr(),
+                        ts[2].data_ptr() if kind == "bytes" else 0]
+        dev = cols[0].validity.device
+        out = torch.empty(capacity, dtype=torch.int32, device=dev)
+        KR.check(self.libs["murmur3"].murmur3_launch(
+            words.ctypes.data, len(cols), capacity, seed, out.data_ptr(),
+            KR.stream_handle(dev)), "parent murmur3")
+        return out
+
+    def partition_ids(self, cols, capacity: int, n_parts: int):
+        import torch
+        hv = self.murmur3(cols, capacity, 42)
+        return torch.remainder(hv.to(torch.int64), n_parts).to(torch.int32)
+
+
+def ab_case(parent_fn, change_fn, reps: int) -> dict:
+    """The parent's and this tree's version of one call, timed in turns
+    (parent, change, change, parent) with ``cuda_ms``, and each traced
+    once (``device_kernels``)."""
+    p1 = cuda_ms(parent_fn, reps)
+    c1 = cuda_ms(change_fn, reps)
+    c2 = cuda_ms(change_fn, reps)
+    p2 = cuda_ms(parent_fn, reps)
+    pk, ck = device_kernels(parent_fn), device_kernels(change_fn)
+    return {"parent_ms": [p1, p2], "change_ms": [c1, c2],
+            "parent_mean_ms": (p1 + p2) / 2, "change_mean_ms": (c1 + c2) / 2,
+            "parent_cuda_launches": pk["launches"],
+            "change_cuda_launches": ck["launches"],
+            "parent_kernel_us": pk["kernel_us"],
+            "change_kernel_us": ck["kernel_us"],
+            "parent_busy_us": pk["busy_us"], "change_busy_us": ck["busy_us"]}
+
+
+def q3_phases(device, card, profiled: bool = False,
+              parent: "ParentKernels | None" = None) -> dict:
     """TPC-DS q3 at 2,000,000 store_sales rows in both forms: joinProbe
     parity at q3's shapes, each form against the exact reference, the
     walls, and joinProbe's time (with ``profiled``, also each form under
@@ -793,16 +1003,24 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
     df = spark.sql(Q3_PUSHED)
     joins = [p for p in plan_nodes_of(spark.plan_physical(df.plan))
              if isinstance(p, TorchBroadcastHashJoinExec)]
-    shapes = {}
+    shapes, join_args = {}, {}
     for j in joins:
         lk, rk = j._bound_keys()
         right = next(iter(j.right.device_partitions()[0]()))
         left = next(iter(j.left.device_partitions()[0]()))
         which = "date_dim" if right.capacity > 64 else "item"
-        shapes[which] = J.probe_inputs(lk, rk, j.null_safe, left, right)
+        join_args[which] = (lk, rk, j.null_safe, left, right)
+        shapes[which] = J.probe_inputs(*join_args[which])
     if set(shapes) != {"date_dim", "item"}:
         raise AssertionError(f"q3 join shapes: {sorted(shapes)}")
-    cases = dict(shapes, k2_duplicates=probe_case_k2(device))
+    # beside q3's two shapes: K=2 with duplicate build keys, and builds
+    # at the 8,192-row cap (16,384 slots) with K=1 (owners and key words
+    # in shared memory) and K=3 (key words too wide for it: read from
+    # device memory)
+    cases = dict(shapes,
+                 k2_duplicates=probe_case(device, 5000, 100_000, 2, 700, 12),
+                 cap_8192_k1=probe_case(device, 8192, 262_144, 1, 7000, 14),
+                 cap_8192_k3=probe_case(device, 8192, 262_144, 3, 3000, 15))
     parity = {}
     for name, ins in cases.items():
         km, kf = KJ.build_probe(*ins)
@@ -813,10 +1031,11 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
         if err != 0:
             raise AssertionError(f"joinProbe != plain on {name}: {err}")
         parity[name] = {"build_cap": int(ins[0].shape[0]),
-                        "build_valid": int(ins[2].sum()),
-                        "stream_cap": int(ins[3].shape[0]),
-                        "stream_valid": int(ins[5].sum()),
+                        "build_valid": int(ins[1].sum()),
+                        "stream_cap": int(ins[2].shape[0]),
+                        "stream_valid": int(ins[3].sum()),
                         "key_words": int(ins[0].shape[1]),
+                        "slots": KJ.probe_table_slots(int(ins[0].shape[0])),
                         "matched": int(km.sum()), "max_abs_err": err}
     probe_err = max(c["max_abs_err"] for c in parity.values())
     phase("q3_join_probe_parity", cases=parity, tolerance="exact")
@@ -899,18 +1118,53 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
             phase(f"q3_{form}_breakdown", card=card,
                   **profile_collect(df, f"q3_{form}", card))
 
-    # joinProbe at q3's per-chunk shapes
+    # joinProbe at q3's per-chunk shapes, alone and with the key
+    # evaluation that feeds it (the join's kernel route: probe_inputs +
+    # build_probe); the bound reads the key words and validity of both
+    # sides once and writes 5 bytes a stream row
     times = {}
     for name in ("date_dim", "item"):
-        ins = shapes[name]
+        ins, args = shapes[name], join_args[name]
         nbytes = sum(t.numel() * t.element_size() for t in ins) \
-            + ins[3].shape[0] * 5
+            + ins[2].shape[0] * 5
+        kern = device_kernels(lambda ins=ins: KJ.build_probe(*ins))
+        route = device_kernels(
+            lambda a=args: KJ.build_probe(*J.probe_inputs(*a)))
         times[name] = {
             "ms": cuda_ms(lambda ins=ins: KJ.build_probe(*ins), 50),
             "plain_ms": wall_ms(lambda ins=ins: KJ.build_probe_plain(*ins),
                                 5),
             "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "cuda_launches": kern["launches"],
+            "kernel_us": kern["kernel_us"], "gaps_us": kern["gaps_us"],
+            "span_us": kern["span_us"],
+            "route_ms": cuda_ms(
+                lambda a=args: KJ.build_probe(*J.probe_inputs(*a)), 50),
+            "route_cuda_launches": route["launches"],
+            "route_busy_us": route["busy_us"],
+            "route_span_us": route["span_us"]}
+        if kern["launches"] != 1:
+            raise AssertionError(f"joinProbe ran {kern['launches']} CUDA "
+                                 f"kernels at the {name} shape, not 1")
+    ab = {}
+    if parent is not None:
+        for name in ("date_dim", "item", "cap_8192_k1"):
+            ins = cases[name]
+            old = ParentKernels.hashed(ins)
+            pm, pf = parent.build_probe(*old)
+            km, kf = KJ.build_probe(*ins)
+            if not (torch.equal(pm, km) and torch.equal(pf, kf)):
+                raise AssertionError(f"parent joinProbe differs on {name}")
+            ab[name] = ab_case(lambda o=old: parent.build_probe(*o),
+                               lambda i=ins: KJ.build_probe(*i), 50)
+        for name in ("date_dim", "item"):
+            args = join_args[name]
+            ab[f"{name}_route"] = ab_case(
+                lambda a=args: parent.route(*a),
+                lambda a=args: KJ.build_probe(*J.probe_inputs(*a)), 50)
+        phase("ab_join_probe", card=card, cases=ab,
+              parent_ptxas=parent.ptxas["join_probe"])
     launches = forms["pushed"]["joinProbe"]
     phase("q3_join_probe_times", card=card, launches_per_q3=launches,
           shapes=times, library_ms=None,
@@ -919,7 +1173,10 @@ def q3_phases(device, card, profiled: bool = False) -> dict:
     d = times["date_dim"]
     return {"launches": launches, "max_abs_err": probe_err, "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-            "groupby_q3": gb_q3}
+            "groupby_q3": gb_q3,
+            "cases": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms",
+                                             "route_ms")}
+                      for k, t in times.items()}}
 
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1270,6 +1527,9 @@ def main() -> int:
 
     # -- 2. build + probe ------------------------------------------------
     build_s = device_caps.probe(device)
+    args = sys.argv[1:]
+    parent = ParentKernels(args[args.index("--ab") + 1]) \
+        if "--ab" in args else None
     phase("build", nvcc_seconds=round(build_s, 3), probe="ok",
           libraries=sorted(f for f in os.listdir(KR.BUILD_DIR)
                            if f.endswith(".so")),
@@ -1339,7 +1599,32 @@ def main() -> int:
     m3_err = max(m3_err, int((mk.long() - mp.long()).abs().max()))
     if m3_err != 0:
         raise AssertionError("murmur3 kernel != plain at q1 shapes")
+    # the widest request (16 columns, strings at char caps 8, 16, 64)
+    # and the exchange's partition ids at q1's shape, each against the
+    # plain version
+    wide = DeviceBatch.from_host(murmur3_wide_batch(1 << 16, 6), device)
+    caps = sorted(c.char_cap for c in wide.columns if hasattr(c, "char_cap"))
+    if len(wide.columns) != KM.MAX_COLS or caps != [8, 8, 16, 64]:
+        raise AssertionError(f"murmur3 wide batch: {len(wide.columns)} "
+                             f"columns, char caps {caps}")
+    m3_cases = {"wide_16_columns": (wide.columns, wide.capacity, 0),
+                "q1_exchange_n_parts": (xkeys, part_out.capacity,
+                                        N_PARTITIONS),
+                "wide_n_parts_200": (wide.columns, wide.capacity, 200)}
+    for name, (cols, cap, n_parts) in m3_cases.items():
+        got = KM.murmur3_columns(cols, cap, 42, n_parts=n_parts)
+        want = H.murmur3_columns(cols, cap, 42)
+        if n_parts:
+            want = torch.remainder(want.to(torch.int64),
+                                   n_parts).to(torch.int32)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"murmur3 kernel != plain on {name}: {err}")
     phase("kernel_parity", murmur3_rows_1m=battery.capacity,
+          murmur3_cases={k: {"rows": v[1], "columns": len(v[0]),
+                             "n_parts": v[2]} for k, v in m3_cases.items()},
+          murmur3_char_caps=caps,
           murmur3_max_abs_err=m3_err, groupby_cap=batch.capacity,
           groupby_key_words=int(kw.shape[1]), groupby_slots=slots,
           groupby_lanes=gb_q1["lanes_add_min_max"],
@@ -1398,6 +1683,23 @@ def main() -> int:
     m3_1m_bytes = battery.capacity * 4 + sum(
         t.numel() * t.element_size() for c in battery.columns
         for t in c.arrays())
+    wide_bytes = wide.capacity * 4 + sum(
+        t.numel() * t.element_size() for c in wide.columns
+        for t in c.arrays())
+    m3_wide_ms = cuda_ms(lambda: KM.murmur3_columns(
+        wide.columns, wide.capacity), 50)
+    m3_wide_k = device_kernels(
+        lambda: KM.murmur3_columns(wide.columns, wide.capacity))
+    m3_q1_k = device_kernels(
+        lambda: KM.murmur3_columns(xkeys, part_out.capacity))
+    m3_1m_k = device_kernels(
+        lambda: KM.murmur3_columns(battery.columns, battery.capacity))
+    # the exchange's partition ids at q1's shape, as hash_partition_ids
+    # asks for them
+    pid_k = device_kernels(
+        lambda: H.partition_ids(xkeys, part_out.capacity, N_PARTITIONS))
+    pid_ms = cuda_ms(lambda: H.partition_ids(
+        xkeys, part_out.capacity, N_PARTITIONS), 200)
     px = torch.arange(8, dtype=torch.int32, device=device)
     probe_ms = cuda_ms(lambda: device_caps.launch_probe(px), 200)
     probe_plain_ms = wall_ms(lambda: px * 2, 200)
@@ -1406,12 +1708,59 @@ def main() -> int:
                  "bytes": 64, "bound_ms": 64 / HBM_BYTES_PER_S * 1e3},
           groupbyHash_q1=gb_q1, groupbyHash_many_groups=gb_many,
           murmur3_q1={"rows": part_out.capacity, "ms": m3_ms,
-                      "plain_ms": m3_plain_ms, "bytes": m3_bytes},
+                      "plain_ms": m3_plain_ms, "bytes": m3_bytes,
+                      "cuda_launches": m3_q1_k["launches"],
+                      "kernel_us": m3_q1_k["kernel_us"]},
           murmur3_1m={"rows": battery.capacity, "ms": m3_1m_ms,
                       "plain_ms": m3_1m_plain_ms, "bytes": m3_1m_bytes,
-                      "bound_ms": m3_1m_bytes / HBM_BYTES_PER_S * 1e3})
+                      "bound_ms": m3_1m_bytes / HBM_BYTES_PER_S * 1e3,
+                      "cuda_launches": m3_1m_k["launches"],
+                      "kernel_us": m3_1m_k["kernel_us"]},
+          murmur3_wide={"rows": wide.capacity,
+                        "columns": len(wide.columns), "ms": m3_wide_ms,
+                        "bytes": wide_bytes,
+                        "bound_ms": wide_bytes / HBM_BYTES_PER_S * 1e3,
+                        "cuda_launches": m3_wide_k["launches"],
+                        "kernel_us": m3_wide_k["kernel_us"]},
+          partition_ids_q1={"rows": part_out.capacity,
+                            "n_parts": N_PARTITIONS, "ms": pid_ms,
+                            "cuda_launches": pid_k["launches"],
+                            "kernel_us": pid_k["kernel_us"],
+                            "busy_us": pid_k["busy_us"],
+                            "span_us": pid_k["span_us"]})
 
-    jp = q3_phases(device, card, "--breakdown" in sys.argv[1:])
+    if pid_k["launches"] != 1 or m3_1m_k["launches"] != 1:
+        raise AssertionError(
+            f"murmur3 CUDA kernels: {m3_1m_k['launches']} at 1M rows, "
+            f"{pid_k['launches']} for q1's partition ids (want 1 each)")
+    if parent is not None:
+        ab = {}
+        for name, (p_fn, c_fn, reps) in {
+                "q1_exchange_hash": (
+                    lambda: parent.murmur3(xkeys, part_out.capacity),
+                    lambda: KM.murmur3_columns(xkeys, part_out.capacity),
+                    200),
+                "q1_partition_ids": (
+                    lambda: parent.partition_ids(xkeys, part_out.capacity,
+                                                 N_PARTITIONS),
+                    lambda: H.partition_ids(xkeys, part_out.capacity,
+                                            N_PARTITIONS), 200),
+                "battery_1m": (
+                    lambda: parent.murmur3(battery.columns,
+                                           battery.capacity),
+                    lambda: KM.murmur3_columns(battery.columns,
+                                               battery.capacity), 20),
+                "wide_16_columns": (
+                    lambda: parent.murmur3(wide.columns, wide.capacity),
+                    lambda: KM.murmur3_columns(wide.columns,
+                                               wide.capacity), 50)}.items():
+            if not torch.equal(p_fn(), c_fn()):
+                raise AssertionError(f"parent murmur3 differs on {name}")
+            ab[name] = ab_case(p_fn, c_fn, reps)
+        phase("ab_murmur3", card=card, cases=ab,
+              parent_ptxas=parent.ptxas["murmur3"])
+
+    jp = q3_phases(device, card, "--breakdown" in sys.argv[1:], parent)
     dfu = parquet_phases(device, card, arrays, "--breakdown" in sys.argv[1:])
 
     if "--breakdown" in sys.argv[1:]:
@@ -1437,14 +1786,27 @@ def main() -> int:
          "launches": launches["murmur3"], "max_abs_err": m3_err,
          "ms": m3_ms, "plain_ms": m3_plain_ms,
          "bound_ms": m3_bytes / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "cases": {"q1_exchange": {"rows": part_out.capacity, "ms": m3_ms,
+                                   "bound_ms": m3_bytes / HBM_BYTES_PER_S
+                                   * 1e3},
+                   "battery_1m": {"rows": battery.capacity, "ms": m3_1m_ms,
+                                  "bound_ms": m3_1m_bytes / HBM_BYTES_PER_S
+                                  * 1e3},
+                   "wide_16_columns": {"rows": wide.capacity,
+                                       "ms": m3_wide_ms,
+                                       "bound_ms": wide_bytes
+                                       / HBM_BYTES_PER_S * 1e3},
+                   "q1_partition_ids": {"rows": part_out.capacity,
+                                        "ms": pid_ms,
+                                        "cuda_launches": pid_k["launches"]}}},
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
          "launches": jp["launches"], "max_abs_err": jp["max_abs_err"],
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "cases": jp["cases"]},
         {"name": "decodeFused", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
          "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",

@@ -11,9 +11,13 @@ covers the two join forms whose results need no pair expansion:
   ``ops.join.build_key_max_multiplicity``): ``(matched, first_row)`` is
   the gather map, with no count pass and no sizing sync.
 
-The table has ``probe_table_slots(cap_r)`` slots (load factor <= 0.5), so
-every probe walk ends at an empty slot: overflow cannot happen. Bound on
-the H100: bytes (both key-word matrices, hashes and validity read once,
+The table has at least ``probe_table_slots(cap_r)`` slots (load factor
+<= 0.5), so every probe walk ends at an empty slot: overflow cannot
+happen. The kernel is one launch: each block builds its own copy of the
+table in shared memory (the build validity and key words where they fit,
+and int32 owners, up to 4 slots a build row and at most ``MAX_SLOTS``),
+hashing the key words itself, then probes its share of the stream rows.
+Bound on the H100: bytes (both key-word matrices and validity read once,
 5 bytes written per left row).
 
 On CPU tensors ``build_probe`` runs its plain PyTorch version; on CUDA
@@ -30,6 +34,9 @@ import torch
 from spark_rapids_tpu_torch import kernels as KR
 
 
+MAX_SLOTS = 32768  # 128 KB of int32 owners in one block's shared memory
+
+
 def probe_table_slots(cap_r: int) -> int:
     """Power-of-two table capacity >= max(64, 2 * build capacity)."""
     t = 64
@@ -38,14 +45,12 @@ def probe_table_slots(cap_r: int) -> int:
     return t
 
 
-def build_probe_plain(kw_r: torch.Tensor, h_r: torch.Tensor,
-                      valid_r: torch.Tensor, kw_l: torch.Tensor,
-                      h_l: torch.Tensor, valid_l: torch.Tensor
+def build_probe_plain(kw_r: torch.Tensor, valid_r: torch.Tensor,
+                      kw_l: torch.Tensor, valid_l: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: one ``unique`` over the valid build keys and
     every stream key gives each key an id; the smallest build row per id
-    is its first row. The hashes play no part in the result."""
-    del h_r, h_l
+    is its first row."""
     rows_r = torch.nonzero(valid_r).flatten()
     n_r = int(rows_r.shape[0])
     cap_l = kw_l.shape[0]
@@ -61,47 +66,46 @@ def build_probe_plain(kw_r: torch.Tensor, h_r: torch.Tensor,
     return matched, first_row
 
 
-def build_probe(kw_r: torch.Tensor, h_r: torch.Tensor,
-                valid_r: torch.Tensor, kw_l: torch.Tensor,
-                h_l: torch.Tensor, valid_l: torch.Tensor
+def build_probe(kw_r: torch.Tensor, valid_r: torch.Tensor,
+                kw_l: torch.Tensor, valid_l: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(matched, first_row)`` per LEFT row: ``matched`` only for valid
     left rows whose key words equal those of a valid right row;
     ``first_row`` is the smallest such right row (0 where unmatched).
     ``kw_*`` are ``(cap, K)`` int64 word matrices in one layout on both
-    sides (string char caps padded alike); ``h_*`` their int64 hashes."""
+    sides (string char caps padded alike); the kernel hashes them."""
     if not kw_l.is_cuda:
-        return build_probe_plain(kw_r, h_r, valid_r, kw_l, h_l, valid_l)
-    KR.require_cuda([kw_r, h_r, valid_r, kw_l, h_l, valid_l], "joinProbe")
+        return build_probe_plain(kw_r, valid_r, kw_l, valid_l)
+    KR.require_cuda([kw_r, valid_r, kw_l, valid_l], "joinProbe")
     n_r, K = kw_r.shape
     n_l = kw_l.shape[0]
     if kw_l.shape[1] != K:
         raise KR.KernelError(f"joinProbe: {K} build key words, "
                              f"{kw_l.shape[1]} stream key words")
-    for t, what in ((kw_r, "kw_r"), (kw_l, "kw_l"), (h_r, "h_r"),
-                    (h_l, "h_l")):
+    for t, what in ((kw_r, "kw_r"), (kw_l, "kw_l")):
         if t.dtype != torch.int64:
             raise KR.KernelError(f"joinProbe: {what} must be int64")
     if valid_r.dtype != torch.bool or valid_l.dtype != torch.bool:
         raise KR.KernelError("joinProbe: validity must be bool")
-    if h_r.shape[0] != n_r or valid_r.shape[0] != n_r \
-            or h_l.shape[0] != n_l or valid_l.shape[0] != n_l:
+    if valid_r.shape[0] != n_r or valid_l.shape[0] != n_l:
         raise KR.KernelError("joinProbe: row counts differ")
-    if K == 0 or max(n_r, n_l) >= (1 << 30):
+    if K == 0 or n_l >= (1 << 30):
         raise KR.KernelError("joinProbe: no key words, or too many rows")
     slots = probe_table_slots(n_r)
+    if slots > MAX_SLOTS:
+        raise KR.KernelError(f"joinProbe: {n_r} build rows need {slots} "
+                             f"slots, over the {MAX_SLOTS} one block holds")
     fn = KR.library("join_probe").join_probe_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
+    fn.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, vp, vp, vp]
     fn.restype = ci
     device = kw_l.device
-    owner = torch.empty(slots, dtype=torch.int32, device=device)
     matched = torch.empty(n_l, dtype=torch.bool, device=device)
     first_row = torch.empty(n_l, dtype=torch.int32, device=device)
     KR.count_launch("joinProbe")
-    KR.check(fn(kw_r.data_ptr(), h_r.data_ptr(), valid_r.data_ptr(), n_r,
-                kw_l.data_ptr(), h_l.data_ptr(), valid_l.data_ptr(), n_l,
-                K, slots, owner.data_ptr(), matched.data_ptr(),
-                first_row.data_ptr(), KR.stream_handle(device)),
+    KR.check(fn(kw_r.data_ptr(), valid_r.data_ptr(), n_r,
+                kw_l.data_ptr(), valid_l.data_ptr(), n_l, K, slots,
+                matched.data_ptr(), first_row.data_ptr(),
+                KR.stream_handle(device)),
              "joinProbe launch")
     return matched, first_row

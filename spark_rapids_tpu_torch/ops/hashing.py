@@ -143,7 +143,6 @@ def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42
 def partition_ids(key_cols: Sequence, capacity: int, n_parts: int
                   ) -> torch.Tensor:
     """pmod(murmur3(keys, 42), n) per row — Spark HashPartitioning
-    placement, hashed by the murmur3 kernel on the card."""
+    placement; on the card one murmur3 launch hashes and takes the pmod."""
     from spark_rapids_tpu_torch.kernels import murmur3 as KM
-    hv = KM.murmur3_columns(key_cols, capacity, 42)
-    return torch.remainder(hv.to(torch.int64), n_parts).to(torch.int32)
+    return KM.murmur3_columns(key_cols, capacity, 42, n_parts=n_parts)

@@ -301,17 +301,16 @@ def _probe_kernel_eligible(lkeys, rkeys, cap_r: int) -> bool:
 def probe_inputs(lkeys, rkeys, null_safe, left: DeviceBatch,
                  right: DeviceBatch):
     """The joinProbe kernel's arguments: evaluated keys in one word
-    layout on both sides, their hashes, and the sort plan's exact valid
-    sets. Returns ``(kw_r, h_r, valid_r, kw_l, h_l, valid_l)``."""
+    layout on both sides and the sort plan's exact valid sets. Returns
+    ``(kw_r, valid_r, kw_l, valid_l)``."""
     from spark_rapids_tpu_torch.kernels.groupby_hash import pack_words_i64
     kl, kr, valid_l, valid_r = _eval_keys(lkeys, rkeys, left, right,
                                           null_safe)
     kl, kr = _align_string_caps(kl, kr)
     wl = _key_words(kl, null_safe)
     wr = _key_words(kr, null_safe)
-    return (pack_words_i64(wr), G.hash_subkey_words(wr),
-            valid_r.contiguous(), pack_words_i64(wl),
-            G.hash_subkey_words(wl), valid_l.contiguous())
+    return (pack_words_i64(wr), valid_r.contiguous(), pack_words_i64(wl),
+            valid_l.contiguous())
 
 
 def _kernel_probe(lkeys, rkeys, null_safe, left: DeviceBatch,

@@ -1,9 +1,12 @@
 """The port's joinProbe (its plain version behind the kernel wrapper, on
 CPU tensors) against the JAX package's Pallas ``build_probe`` run in
 interpret mode: ``matched`` and ``first_row`` equal per row, for raw key
-words and for evaluated key columns (a long plus a padded string key),
-with duplicate build keys, invalid rows on both sides and stream keys
-that match nothing. Inputs are made with numpy from a seed."""
+words and for evaluated key columns (a long plus a padded string key,
+and a string key alone), with duplicate build keys, invalid rows on both
+sides (up to every row of one side), stream keys that match nothing and
+a build side at the 8,192-row cap (16,384 slots). The JAX kernel takes
+its own hashes; the port's kernel hashes the key words itself, so its
+wrapper takes none. Inputs are made with numpy from a seed."""
 
 import jax
 import jax.numpy as jnp
@@ -56,9 +59,8 @@ def _port_probe(kw_r, valid_r, kw_l, valid_l):
     wr = [t[0][:, i] for i in range(t[0].shape[1])]
     wl = [t[2][:, i] for i in range(t[2].shape[1])]
     KR.reset_launches()
-    m, ri = KJ.build_probe(KG.pack_words_i64(wr), G.hash_subkey_words(wr),
-                           t[1], KG.pack_words_i64(wl),
-                           G.hash_subkey_words(wl), t[3])
+    m, ri = KJ.build_probe(KG.pack_words_i64(wr), t[1],
+                           KG.pack_words_i64(wl), t[3])
     assert KR.LAUNCHES["joinProbe"] == 0  # CPU tensors: plain version
     assert m.dtype == torch.bool and ri.dtype == torch.int32
     return m.numpy(), ri.numpy()
@@ -128,6 +130,49 @@ def test_build_probe_smallest_row_of_duplicate_keys():
     assert np.array_equal(pm, jm) and np.array_equal(pri, jri)
 
 
+def _edge_case(name):
+    """Raw inputs for the named edge case."""
+    if name == "cap_8192_k1":  # a build side at the cap: 16,384 slots
+        return _raw_case(8192, 1024, 1, 7000, 21, dup=False)
+    if name == "cap_8192_k2_duplicates":
+        return _raw_case(8192, 1024, 2, 600, 22, dup=True)
+    if name == "every_build_row_invalid":
+        kw_r, valid_r, kw_l, valid_l = _raw_case(300, 512, 2, 40, 23)
+        return kw_r, np.zeros_like(valid_r), kw_l, valid_l
+    if name == "every_stream_row_invalid":
+        kw_r, valid_r, kw_l, valid_l = _raw_case(300, 512, 1, 40, 24)
+        return kw_r, valid_r, kw_l, np.zeros_like(valid_l)
+    # eight copies of every key at random rows, a third of them invalid:
+    # first_row is the smallest valid copy
+    rng = np.random.default_rng(25)
+    keys = rng.integers(-2**62, 2**62, (500, 1))
+    kw_r = keys[rng.permutation(np.repeat(np.arange(500), 8))]
+    valid_r = rng.random(4000) > 0.33
+    kw_l = np.concatenate([keys, keys + 1])
+    return kw_r, valid_r, kw_l, np.ones(1000, bool)
+
+
+@pytest.mark.parametrize("name", [
+    "cap_8192_k1", "cap_8192_k2_duplicates", "every_build_row_invalid",
+    "every_stream_row_invalid", "duplicates_smallest_valid_row"])
+def test_build_probe_edge_cases_match_jax_kernel(name):
+    kw_r, valid_r, kw_l, valid_l = ins = _edge_case(name)
+    jm, jri = _jax_probe(*ins)
+    pm, pri = _port_probe(*ins)
+    assert np.array_equal(pm, jm)
+    assert np.array_equal(pri, jri)
+    if name.startswith("cap_8192"):
+        assert KJ.probe_table_slots(kw_r.shape[0]) == 16384
+        assert jm.any() and not jm.all()
+    if name.startswith("every"):
+        assert not pm.any() and (pri == 0).all()
+    if name == "duplicates_smallest_valid_row":
+        for i in np.nonzero(pm)[0]:
+            rows = np.nonzero((kw_r[:, 0] == kw_l[i, 0]) & valid_r)[0]
+            assert pri[i] == rows.min()
+        assert pm[:500].sum() > 490 and not pm[500:].any()
+
+
 def _key_batches(n, seed, strings):
     """Right and left sides with a long key and a string key; the left
     side's strings are longer, so its char capacity is wider."""
@@ -191,12 +236,51 @@ def test_key_columns_long_and_padded_string(null_safe):
         vr, JKG.pack_words_i64(wl),
         JG.hash_subkey_words(wl).view(jnp.int64), vl))(
             jwr, valid_of(jr, ns), jwl, valid_of(jl, ns))
-    pm, pri = KJ.build_probe(
-        KG.pack_words_i64(pwr), G.hash_subkey_words(pwr), valid_of(pr, ns),
-        KG.pack_words_i64(pwl), G.hash_subkey_words(pwl), valid_of(pl, ns))
+    pm, pri = KJ.build_probe(KG.pack_words_i64(pwr), valid_of(pr, ns),
+                             KG.pack_words_i64(pwl), valid_of(pl, ns))
     assert np.asarray(jm).any()
     assert np.array_equal(pm.numpy(), np.asarray(jm))
     assert np.array_equal(pri.numpy(), np.asarray(jri))
+
+
+def test_key_column_padded_string_alone():
+    """A string key alone: the build side's char cap (8) padded to the
+    stream side's (24) before the words are made; the same words, then
+    the same probe result as the JAX kernel."""
+    strings = ["", "a", "ab", "abcdefgh", "abcdefghijklmnopqrstu", "x\x00y",
+               "abcdefg\xff"]
+    rng = np.random.default_rng(31)
+    sides = []
+    for n, width in ((200, 8), (700, 24)):
+        s = np.array([strings[i][:width]
+                      for i in rng.integers(0, len(strings), n)],
+                     dtype=object)
+        v = rng.random(n) > 0.1
+        jschema = JT.StructType([JT.StructField("s", JT.StringT)])
+        jb = JDeviceBatch.from_host(JHostBatch(jschema, [
+            JHostColumn(JT.StringT, s, v).normalized()], n))
+        pb = DeviceBatch.from_host(host_batch_from_numpy(
+            [("s", PT.StringT)], [s], [v]), CPU)
+        sides.append((jb, pb))
+    (jr, pr), (jl, pl) = sides
+    assert pr.columns[0].char_cap != pl.columns[0].char_cap
+    jkl, jkr = JJ._align_string_caps(jl.columns, jr.columns)
+    pkl, pkr = J._align_string_caps(pl.columns, pr.columns)
+    jwl, jwr = JJ._key_words(jkl, [False]), JJ._key_words(jkr, [False])
+    pwl, pwr = J._key_words(pkl, [False]), J._key_words(pkr, [False])
+    assert len(pwl) == len(jwl) >= 2
+    for jw, pw in ((jwl, pwl), (jwr, pwr)):
+        assert np.array_equal(np.asarray(JKG.pack_words_i64(jw)),
+                              KG.pack_words_i64(pw).numpy())
+    vr = pr.active & pr.columns[0].validity
+    vl = pl.active & pl.columns[0].validity
+    jm, jri = _jax_probe(KG.pack_words_i64(pwr).numpy(), vr.numpy(),
+                         KG.pack_words_i64(pwl).numpy(), vl.numpy())
+    pm, pri = KJ.build_probe(KG.pack_words_i64(pwr), vr,
+                             KG.pack_words_i64(pwl), vl)
+    assert jm.any() and not jm.all()
+    assert np.array_equal(pm.numpy(), jm)
+    assert np.array_equal(pri.numpy(), jri)
 
 
 @pytest.mark.parametrize("n_r,routed", [(300, 1), (9000, 0)])

@@ -52,7 +52,8 @@ def _battery(n, seed):
 
 
 def _types(mod):
-    return {"bool": mod.BooleanT, "int": mod.IntegerT, "long": mod.LongT,
+    return {"bool": mod.BooleanT, "byte": mod.ByteT, "short": mod.ShortT,
+            "int": mod.IntegerT, "long": mod.LongT,
             "float": mod.FloatT, "double": mod.DoubleT, "date": mod.DateT,
             "ts": mod.TimestampT, "dec": mod.DecimalType(15, 2),
             "str": mod.StringT}
@@ -122,3 +123,79 @@ def test_q1_partition_ids_match_jax():
     db = _port_batch(cols, valid)
     got = H.partition_ids(db.columns, db.capacity, 8).numpy()[:n]
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_parts", [1, 8, 200])
+def test_partition_ids_match_jax_pmod(n_parts):
+    """The port's partition ids (the wrapper's ``n_parts`` path on CPU
+    tensors: the plain hash, then ``remainder``) against the JAX
+    package's pmod(murmur3) over the whole battery, negative hashes
+    included."""
+    n = 700
+    cols, valid = _battery(n, 40 + n_parts)
+    jplain, _jk = _jax_hashes(cols, valid, n)
+    assert (jplain < 0).any() and (jplain > 0).any()
+    want = np.mod(jplain.astype(np.int64), n_parts)
+    db = _port_batch(cols, valid)
+    KR.reset_launches()
+    got = H.partition_ids(db.columns, db.capacity, n_parts)
+    wrapped = KM.murmur3_columns(db.columns, db.capacity, 42,
+                                 n_parts=n_parts)
+    assert KR.LAUNCHES["murmur3"] == 0
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy()[:n], want)
+    assert np.array_equal(wrapped.numpy()[:n], want)
+
+
+@pytest.mark.parametrize("kind", ["byte", "short"])
+def test_murmur3_narrow_column_alone(kind):
+    """A byte or short key alone, every value of its range's edges
+    included and a sixth of the rows null: hashInt of the sign-extended
+    value, as the JAX package hashes it."""
+    n = 600
+    rng = np.random.default_rng(50)
+    dt = np.int8 if kind == "byte" else np.int16
+    info = np.iinfo(dt)
+    vals = rng.integers(info.min, info.max + 1, n).astype(dt)
+    vals[:4] = [info.min, -1, 0, info.max]
+    cols = [("x", kind, vals)]
+    valid = [rng.random(n) > 0.16]
+    jplain, jkern = _jax_hashes(cols, valid, n)
+    assert np.array_equal(jplain, jkern)
+    db = _port_batch(cols, valid)
+    assert db.columns[0].data.dtype == (torch.int8 if kind == "byte"
+                                        else torch.int16)
+    got = KM.murmur3_columns(db.columns, db.capacity, 42).numpy()[:n]
+    assert np.array_equal(got, jplain)
+
+
+def test_murmur3_strings_of_every_length():
+    """Strings of every length from 0 to the column's char cap (24), with
+    high-bit bytes in every position, so each tail length (0-3) follows
+    each number of whole words."""
+    rng = np.random.default_rng(51)
+    alphabet = [chr(c) for c in range(1, 128)] + ["\x80", "\xff"]
+    strs = []
+    for length in range(0, 25):
+        for _ in range(3):
+            chars = [alphabet[i] for i in rng.integers(0, len(alphabet),
+                                                       length)]
+            # latin-1 code points above 127 take two UTF-8 bytes: keep
+            # the byte length exact by using ASCII for them
+            strs.append("".join(c if ord(c) < 128 else "\x7f"
+                                for c in chars))
+    strs.append("\x7f" * 24)
+    hi = "".join(chr(0x80 + i % 60) for i in range(12))  # 24 UTF-8 bytes
+    strs += [hi[:k] for k in range(13)]
+    n = len(strs)
+    cols = [("s", "str", np.array(strs, dtype=object))]
+    valid = [np.ones(n, bool)]
+    jplain, jkern = _jax_hashes(cols, valid, n)
+    assert np.array_equal(jplain, jkern)
+    db = _port_batch(cols, valid)
+    col = db.columns[0]
+    assert col.char_cap == 24
+    lengths = col.lengths.numpy()[:n]
+    assert set(range(25)) <= set(lengths.tolist())
+    got = KM.murmur3_columns(db.columns, db.capacity, 42).numpy()[:n]
+    assert np.array_equal(got, jplain)

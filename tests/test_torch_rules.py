@@ -111,6 +111,11 @@ def test_murmur3_raises_on_unservable_cuda_requests():
         KM.murmur3_columns([mixed], 64)
     with pytest.raises(KR.KernelError, match="capacity"):
         KM.murmur3_columns([_cuda_long_col(64)], 128)
+    with pytest.raises(KR.KernelError, match="n_parts"):
+        KM.murmur3_columns([_cuda_long_col()], 64, n_parts=-1)
+    wide = DeviceColumn(T.IntegerT, _CudaTyped(z), _CudaTyped(z.bool()))
+    with pytest.raises(KR.KernelError, match="stored as"):
+        KM.murmur3_columns([wide], 64)
     assert KR.LAUNCHES["murmur3"] == 0
 
 
@@ -137,15 +142,18 @@ def test_join_probe_raises_on_unservable_cuda_requests():
     n = 64
     kw2 = _CudaTyped(torch.zeros((n, 2), dtype=torch.int64))
     kw1 = _CudaTyped(torch.zeros((n, 1), dtype=torch.int64))
-    h = _CudaTyped(torch.zeros(n, dtype=torch.int64))
     v = _CudaTyped(torch.ones(n, dtype=torch.bool))
     with pytest.raises(KR.KernelError, match="not CUDA"):
-        KJ.build_probe(kw2, torch.zeros(n, dtype=torch.int64), v, kw2, h, v)
+        KJ.build_probe(kw2, torch.ones(n, dtype=torch.bool), kw2, v)
     with pytest.raises(KR.KernelError, match="key words"):
-        KJ.build_probe(kw2, h, v, kw1, h, v)
-    h32 = _CudaTyped(torch.zeros(n, dtype=torch.int32))
+        KJ.build_probe(kw2, v, kw1, v)
+    kw32 = _CudaTyped(torch.zeros((n, 2), dtype=torch.int32))
     with pytest.raises(KR.KernelError, match="int64"):
-        KJ.build_probe(kw2, h32, v, kw2, h, v)
+        KJ.build_probe(kw32, v, kw2, v)
+    big = 20_000  # 65,536 slots: more than one block's shared memory
+    with pytest.raises(KR.KernelError, match="one block holds"):
+        KJ.build_probe(_CudaTyped(torch.zeros((big, 2), dtype=torch.int64)),
+                       _CudaTyped(torch.ones(big, dtype=torch.bool)), kw2, v)
     assert KR.LAUNCHES["joinProbe"] == 0
 
 
