@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
-q3 (both forms) through ``TorchSparkSession`` from memory, then q1 and
-q3 from Parquet, and check the rows against exact references, then time
-the queries and each kernel.
+q3 (both forms) through ``TorchSparkSession`` from memory, a user
+repartition, then q1 and q3 from Parquet, and check the rows against
+exact references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
 
@@ -27,8 +27,9 @@ absent or any phase fails. Output, one line per phase:
      versions;
   4. q1 at SF1 (6,001,215 rows, 8 partitions) against an exact
      reference computed here with numpy and Python ints, with the
-     executed plan all ``Torch*``, both kernels launched and no
-     overflow re-run;
+     executed plan all ``Torch*``, groupbyHash launched, no murmur3
+     (one card coalesces the planner's exchanges to one partition, as
+     the JAX package does) and no overflow re-run;
   5. q1 wall (one warm run, median of three) and rows/s; per-kernel
      device time, launches per q1, bound and plain-version time, with
      the CUDA kernels of each murmur3 case and of one ``partition_ids``
@@ -61,10 +62,29 @@ absent or any phase fails. Output, one line per phase:
      row group and at the corpus's ``dict`` case (nulls and strings: the
      3-launch scan path), with the CUDA kernels each case ran, counted in
      torch.profiler's device trace;
-  with ``--breakdown``, the fact-table upload timed alone and q1 (from
+  8. the user repartition path: q3's store_sales through
+     ``.repartition(8, "ss_item_sk").groupBy("ss_item_sk").agg(sum,
+     count)``, 20,000 groups against an exact reference, with 8 murmur3
+     launches (one per 250,000-row input batch), and murmur3 held
+     against its plain version and timed at that shape;
+  9. the upload split of q1 from memory (``upload_split``): string
+     encoding by this port's route and by the JAX package's, the rest
+     of the packing, the write into one host buffer and the copy to the
+     card (on pageable and on pinned memory), and the decode;
+  10. the upload ring (``ring_phases``): q1 from memory and from Parquet,
+     both q3 forms and the repartition path at ``maxInFlight`` 0 and 2,
+     each exact, with walls, and for q1 the device's idle share and the
+     ring's counters (``uploadAheadBatches`` above 0 at depth 2, every
+     upload copied from a pinned slot on the copy stream); the
+     repartition path run by run at both depths (``ring_runs``); the
+     main q1 phases check the ring's choice with its key unset (from
+     memory synchronous, from Parquet running ahead);
+  with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
   ``*_profile.txt`` files, see ``profile_collect``);
+  with ``--walls``, only the query walls (``walls_only``), to compare two
+  checkouts in one call;
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
@@ -502,6 +522,35 @@ def plan_names(plan):
     return [type(p).__name__ for p in plan_nodes_of(plan)]
 
 
+def r2c_metrics(plan) -> dict:
+    """The summed metrics of every row-to-columnar transition of an
+    executed plan."""
+    from spark_rapids_tpu_torch.exec.base import TorchRowToColumnarExec
+    out: dict = {}
+    for p in plan_nodes_of(plan):
+        if isinstance(p, TorchRowToColumnarExec):
+            for k, v in p.metrics.snapshot().items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_default_ring(plan, want_ahead: bool, what: str) -> dict:
+    """With the ring's key unset, the upload runs ahead over a file scan
+    of several units a partition and not over data in host memory;
+    every upload is copied from a pinned slot on the ring's copy
+    stream either way. Returns the R2C's counters."""
+    m = r2c_metrics(plan)
+    ahead = m.get("uploadAheadBatches", 0)
+    pinned = m.get("pinnedStreamCopies", 0)
+    if (ahead > 0) != want_ahead or pinned != m["numOutputBatches"]:
+        raise AssertionError(
+            f"{what} with the ring's key unset: uploadAheadBatches "
+            f"{ahead}, pinnedStreamCopies {pinned} of "
+            f"{m['numOutputBatches']} uploads")
+    return {"upload_ahead_batches": ahead, "pinned_stream_copies": pinned,
+            "r2c_batches": m["numOutputBatches"]}
+
+
 def table_rows(owner, add, mn, mx):
     """{first row: (add lanes, min lanes, max lanes)} of the used slots."""
     owner = owner.cpu().numpy()
@@ -793,25 +842,381 @@ def profile_collect(df, name: str, card: str) -> dict:
                                  for e in top_cpu}}
 
 
-def breakdown(df, arrays, fields, device, card) -> None:
-    """``--breakdown``: where one warm q1 spends its wall. Times the
-    host->device upload of the 8 partitions alone, then profiles q1
-    (``profile_collect``)."""
+def breakdown(df, card) -> None:
+    """``--breakdown``: where one warm q1 spends its wall, under the
+    profiler (``profile_collect``); the upload alone is ``upload_split``."""
+    phase("q1_breakdown", card=card, **profile_collect(df, "q1", card))
+
+
+def repartition_reference(tables) -> dict:
+    """Exact rows of the repartition query, independent of any engine:
+    ss_item_sk -> (sum of the unscaled ss_ext_sales_price as a Python
+    int, row count)."""
+    col = {name: a for name, _k, a in tables["store_sales"]}
+    keys, inv = np.unique(col["ss_item_sk"], return_inverse=True)
+    counts = np.bincount(inv)
+    # unscaled prices stay below 1e6 and a group below 1e4 rows, so the
+    # int64 sums are exact
+    sums = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(sums, inv, col["ss_ext_sales_price"])
+    return {int(k): (int(v), int(c)) for k, v, c in zip(keys, sums, counts)}
+
+
+def repartition_df(spark, tables):
+    """The repartition query over q3's store_sales (8 partitions)."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql import types as T
+    types = {"long": T.LongT, "dec72": T.DecimalType(7, 2)}
+    cols = tables["store_sales"]
+    sales = spark.createDataFrame(
+        host_batch_from_numpy([(c, types[k]) for c, k, _a in cols],
+                              [a for _c, _k, a in cols]),
+        num_partitions=Q3_PARTITIONS["store_sales"])
+    return sales.repartition(N_PARTITIONS, "ss_item_sk") \
+        .groupBy("ss_item_sk") \
+        .agg(F.sum("ss_ext_sales_price").alias("s"),
+             F.count("*").alias("c"))
+
+
+def check_repartition_rows(rows, want: dict) -> int:
+    got = {}
+    for r in rows:
+        k, v, c = tuple(r)
+        if not isinstance(v, decimal.Decimal) or \
+                v.as_tuple().exponent != -2:
+            raise AssertionError(f"repartition: sum {v!r} is not a "
+                                 "scale-2 Decimal")
+        got[int(k)] = (int(v.scaleb(2)), int(c))
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]][:3]
+        raise AssertionError(f"repartition: {len(got)} groups, want "
+                             f"{len(want)}; first differences at {bad}")
+    return len(got)
+
+
+def repartition_phase(device, card, tables) -> dict:
+    """The user repartition path: q3's store_sales (2,000,000 rows in 8
+    partitions) through ``.repartition(8, "ss_item_sk")`` (a user's
+    exchange keeps its 8 partitions: one murmur3 launch an input batch),
+    then ``groupBy("ss_item_sk").agg(sum, count)``, against the exact
+    reference; murmur3 held against its plain version at the exchange's
+    shape and timed there. Returns the kernel line's murmur3 numbers."""
     import torch
-    from spark_rapids_tpu_torch.columnar.device import DeviceBatch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+    from spark_rapids_tpu_torch.kernels import murmur3 as KM
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    want = repartition_reference(tables)
+    spark = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS)})
+    df = repartition_df(spark, tables)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = df.collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    groups = check_repartition_rows(rows, want)
+    exchanges = [p.partitioning.num_partitions
+                 for p in plan_nodes_of(spark.last_plan)
+                 if isinstance(p, TorchShuffleExchangeExec)]
+    if launches["murmur3"] != N_PARTITIONS or \
+            launches["groupbyHash"] <= 0 or exchanges != [1, N_PARTITIONS]:
+        raise AssertionError(f"repartition route: launches {launches}, "
+                             f"exchange partitions {exchanges}")
+    walls = timed_collects(df)
+    phase("repartition", card=card, rows_in=Q3_SALES_ROWS,
+          partitions_in=Q3_PARTITIONS["store_sales"],
+          repartition=N_PARTITIONS, groups=groups, reference="exact",
+          plan=plan_names(spark.last_plan),
+          exchange_partitions=exchanges, launches=launches,
+          first_run_s=round(first_s, 4),
+          rows_per_s=Q3_SALES_ROWS / walls["median_s"], **walls)
+
+    # murmur3 at the exchange's shape: one 250,000-row input batch's
+    # key column, with the partition id in the same launch
+    keys = next(iter(find_exec(spark.last_plan, lambda p: isinstance(
+        p, TorchShuffleExchangeExec) and p.partitioning.num_partitions
+        == N_PARTITIONS).child.device_partitions()[0]()))
+    key_cols = [keys.columns[1]]
+    cap = keys.capacity
+    k_out = KM.murmur3_columns(key_cols, cap, 42, n_parts=N_PARTITIONS)
+    p_out = torch.remainder(H.murmur3_columns(key_cols, cap, 42)
+                            .to(torch.int64), N_PARTITIONS).to(torch.int32)
+    torch.cuda.synchronize()
+    err = int((k_out.long() - p_out.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"murmur3 != plain at the repartition: {err}")
+    # the key column and its validity read once, the partition ids
+    # written once, for the batch's real rows
+    n = keys.row_count()
+    nbytes = n * (8 + 1 + 4)
+    ms = cuda_ms(lambda: KM.murmur3_columns(key_cols, cap, 42,
+                                            n_parts=N_PARTITIONS), 50)
+    plain_ms = wall_ms(lambda: torch.remainder(H.murmur3_columns(
+        key_cols, cap, 42).to(torch.int64), N_PARTITIONS), 5)
+    kern = device_kernels(lambda: KM.murmur3_columns(
+        key_cols, cap, 42, n_parts=N_PARTITIONS))
+    case = {"rows": n, "cap": cap, "n_parts": N_PARTITIONS, "ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "cuda_launches": kern["launches"],
+            "kernel_us": kern["kernel_us"], "max_abs_err": err}
+    phase("repartition_murmur3", card=card, tolerance="exact", **case)
+    return {"launches": launches["murmur3"], "case": case}
+
+
+def upload_split(fields, arrays, device, card) -> None:
+    """Where q1's upload from memory spends its time, over the 8
+    partitions of 750,152 rows (summed): the string encoding by this
+    port's ``"".join`` route and, beside it, by the JAX package's
+    code-point route that it replaced; the rest of the packing (null
+    normalisation and narrowing); writing the staged buffers into one
+    host buffer; the host-to-device copy; the decode on the card. The
+    write and the copy are taken on pageable memory (a fresh buffer, as
+    ``upload_batch`` does) and on pinned memory (a slot allocated
+    before, as the upload ring reuses it). Then the whole upload of the
+    8 partitions through ``DeviceBatch.from_host``
+    (``upload_8_partitions_s``)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        bucket_capacity,
+                                                        is_string_like)
     from spark_rapids_tpu_torch.interop import host_batch_from_numpy
     whole = host_batch_from_numpy(fields, arrays)
     per = (whole.num_rows + N_PARTITIONS - 1) // N_PARTITIONS
     parts = [whole.slice(i * per, (i + 1) * per)
              for i in range(N_PARTITIONS)]
+    acc = {k: 0.0 for k in (
+        "strings_join_s", "strings_codepoints_s", "pack_s",
+        "pageable_write_s", "pageable_h2d_s", "pinned_alloc_s",
+        "pinned_write_s", "pinned_h2d_s", "decode_s")}
+    staged_bytes = 0
+    for p in parts:
+        n = p.num_rows
+        for f, c in zip(p.schema.fields, p.columns):
+            if is_string_like(f.data_type):
+                v = np.ascontiguousarray(c.validity[:n])
+                t0 = time.perf_counter()
+                a = X._ascii_join(c.data, v, n)
+                acc["strings_join_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                b = X._ascii_codepoints(c.data, v, n)
+                acc["strings_codepoints_s"] += time.perf_counter() - t0
+                if a is None or b is None or a[0].tobytes() != \
+                        b[0].tobytes() or a[1].tobytes() != b[1].tobytes():
+                    raise AssertionError("string routes differ")
+        t0 = time.perf_counter()
+        staged = X.prepare_upload(p, bucket_capacity(n))
+        acc["pack_s"] += time.perf_counter() - t0
+        wires, offsets, total = X.wire_layout(staged)
+        staged_bytes += total
+        t0 = time.perf_counter()
+        pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        acc["pinned_alloc_s"] += time.perf_counter() - t0
+        for mem, host in (("pageable", None), ("pinned", pinned)):
+            t0 = time.perf_counter()
+            if host is None:
+                host = torch.empty(total, dtype=torch.uint8)
+            X.write_wires(wires, offsets, host.numpy())
+            acc[f"{mem}_write_s"] += time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev = torch.empty(total, dtype=torch.uint8, device=device)
+            dev.copy_(host, non_blocking=True)
+            torch.cuda.synchronize()
+            acc[f"{mem}_h2d_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        X.decode_staged(staged, dev, offsets)
+        torch.cuda.synchronize()
+        acc["decode_s"] += time.perf_counter() - t0
+    acc["normalise_narrow_s"] = acc["pack_s"] - acc["strings_join_s"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in parts:
         DeviceBatch.from_host(p, device)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    phase("q1_breakdown", card=card, upload_8_partitions_s=upload_s,
-          **profile_collect(df, "q1", card))
+    phase("upload_split", card=card, partitions=N_PARTITIONS,
+          rows=whole.num_rows, staged_bytes=staged_bytes,
+          pageable_gb_per_s=staged_bytes / acc["pageable_h2d_s"] / 1e9,
+          pinned_gb_per_s=staged_bytes / acc["pinned_h2d_s"] / 1e9,
+          upload_8_partitions_s=upload_s, **acc)
+
+
+def ring_phases(card, fields, arrays, q1_dir, tables) -> None:
+    """The main paths with the upload ring off (``maxInFlight`` 0) and at
+    its default depth 2, in turns (0, 2, 2, 0, so that a drift of the
+    host over the phase weighs on both). q1 at SF1 from memory and from
+    Parquet: rows
+    exact, the walls (one warm run, median of three), the device's idle
+    share from one profiled run, and the ring's counters
+    (``uploadAheadBatches`` must be 0 at depth 0 and above 0 at depth
+    2; ``pinnedStreamCopies`` must count every upload at both). Both q3
+    forms and the repartition path: rows exact and the walls. Then
+    ``ring_runs``: the repartition path run by run at both depths."""
+    import torch
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    want = q1_reference(arrays)
+    want_q3 = q3_reference(tables)
+    want_rp = repartition_reference(tables)
+    batch = host_batch_from_numpy(fields, arrays)
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    for turn, depth in enumerate((0, 2, 2, 0)):
+        spark = TorchSparkSession({
+            "spark.sql.shuffle.partitions": str(N_PARTITIONS),
+            "spark.rapids.sql.format.parquet.deviceDecode.maxInFlight":
+                str(depth)})
+        spark.createDataFrame(batch, num_partitions=N_PARTITIONS) \
+            .createOrReplaceTempView("lineitem")
+        spark.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
+        for name, cols in tables.items():
+            spark.createDataFrame(
+                host_batch_from_numpy([(c, types[k]) for c, k, _a in cols],
+                                      [a for _c, _k, a in cols]),
+                num_partitions=Q3_PARTITIONS[name]) \
+                .createOrReplaceTempView(name)
+        for source, sql in (("memory", Q1), ("parquet", Q1.replace(
+                "FROM lineitem", "FROM lineitem_pq"))):
+            df = spark.sql(sql)
+            check_q1_rows(df.collect(), want)
+            torch.cuda.synchronize()
+            m = r2c_metrics(spark.last_plan)
+            ahead = m.get("uploadAheadBatches", 0)
+            pinned = m.get("pinnedStreamCopies", 0)
+            if (depth == 0) != (ahead == 0) or \
+                    pinned != m["numOutputBatches"]:
+                raise AssertionError(
+                    f"depth {depth}: uploadAheadBatches {ahead}, "
+                    f"pinnedStreamCopies {pinned} of "
+                    f"{m['numOutputBatches']} uploads")
+            walls = timed_collects(df)
+            prof = profile_collect(
+                df, f"q1_{source}_depth{depth}_turn{turn}", card)
+            phase("upload_ring", card=card, query="q1", source=source,
+                  max_in_flight=depth, turn=turn, reference="exact",
+                  upload_ahead_batches=ahead, pinned_stream_copies=pinned,
+                  r2c_batches=m["numOutputBatches"],
+                  copy_to_device_s=m.get("copyToDeviceTime", 0) / 1e9,
+                  pack_s=m.get("packBatchTime", 0) / 1e9,
+                  prefetch_s=m.get("scanPrefetchTime", 0) / 1e9,
+                  **walls, **{k: prof[k] for k in (
+                      "profiled_wall_s", "device_busy_s",
+                      "device_idle_share")})
+        for query, df in (("q3_bench", spark.sql(Q3_BENCH)),
+                          ("q3_pushed", spark.sql(Q3_PUSHED)),
+                          ("repartition", repartition_df(spark, tables))):
+            rows = df.collect()
+            torch.cuda.synchronize()
+            if query == "repartition":
+                check_repartition_rows(rows, want_rp)
+            else:
+                check_q3_rows(rows, want_q3, f"{query} at depth {depth}")
+            m = r2c_metrics(spark.last_plan)
+            if m.get("pinnedStreamCopies", 0) != m["numOutputBatches"]:
+                raise AssertionError(f"{query} at depth {depth}: {m}")
+            phase("upload_ring", card=card, query=query, source="memory",
+                  max_in_flight=depth, turn=turn, reference="exact",
+                  upload_ahead_batches=m.get("uploadAheadBatches", 0),
+                  pinned_stream_copies=m["pinnedStreamCopies"],
+                  **timed_collects(df))
+    ring_runs(card, tables, want_rp)
+
+
+def ring_runs(card, tables, want, pairs: int = 6) -> None:
+    """The repartition path at ``maxInFlight`` 0 and 2 in alternate runs,
+    each run with its wall and what could make one run slow: the R2C's
+    host times, the garbage collector's passes and seconds, and the
+    device and pinned-host allocations the caching allocators made. Then
+    ``drain_runs``: the same plan drained to its host batches without
+    building the result's ``Row`` objects, which tells the collector's
+    passes that ``collect`` makes from those the plan makes."""
+    import gc
+    import torch
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    gc_s = [0.0]
+    t_gc = [0.0]
+
+    def on_gc(ev, _info):
+        if ev == "start":
+            t_gc[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - t_gc[0]
+
+    def alloc_counts() -> dict:
+        d = torch.cuda.memory_stats()
+        h = torch.cuda.host_memory_stats() \
+            if hasattr(torch.cuda, "host_memory_stats") else {}
+        return {"device_allocs": d.get("num_device_alloc", 0),
+                "device_frees": d.get("num_device_free", 0),
+                "alloc_retries": d.get("num_alloc_retries", 0),
+                "host_allocs": h.get("num_host_alloc", 0),
+                "host_frees": h.get("num_host_free", 0)}
+
+    dfs = {}
+    for depth in (0, 2):
+        spark = TorchSparkSession({
+            "spark.sql.shuffle.partitions": str(N_PARTITIONS),
+            "spark.rapids.sql.format.parquet.deviceDecode.maxInFlight":
+                str(depth)})
+        dfs[depth] = (spark, repartition_df(spark, tables))
+        dfs[depth][1].collect()  # warm
+    runs = []
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(2 * pairs):
+            depth = (0, 2)[i % 2]
+            spark, df = dfs[depth]
+            before, gcs = alloc_counts(), [g["collections"]
+                                           for g in gc.get_stats()]
+            gc_s[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = df.collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_repartition_rows(rows, want)
+            after = alloc_counts()
+            m = r2c_metrics(spark.last_plan)
+            runs.append(dict(
+                depth=depth, wall_s=wall,
+                pack_s=m.get("packBatchTime", 0) / 1e9,
+                copy_to_device_s=m.get("copyToDeviceTime", 0) / 1e9,
+                prefetch_s=m.get("scanPrefetchTime", 0) / 1e9,
+                gc_passes=[g["collections"] - c for g, c in
+                           zip(gc.get_stats(), gcs)],
+                gc_s=gc_s[0],
+                **{k: after[k] - before[k] for k in after}))
+        drains = []
+        for i in range(2 * pairs):
+            depth = (0, 2)[i % 2]
+            spark, df = dfs[depth]
+            plan = spark.plan_physical(df.plan)
+            gcs = [g["collections"] for g in gc.get_stats()]
+            gc_s[0] = 0.0
+            t0 = time.perf_counter()
+            n = sum(b.num_rows for t in plan.partitions() for b in t())
+            torch.cuda.synchronize()
+            drains.append(dict(
+                depth=depth, wall_s=time.perf_counter() - t0, rows=n,
+                gc_passes=[g["collections"] - c for g, c in
+                           zip(gc.get_stats(), gcs)], gc_s=gc_s[0]))
+            if n != len(want):
+                raise AssertionError(f"drained {n} rows, want {len(want)}")
+    finally:
+        gc.callbacks.remove(on_gc)
+    phase("ring_runs", card=card, query="repartition", reference="exact",
+          runs=runs, drain_runs=drains,
+          gc_tracked_objects=len(gc.get_objects()), **{f"median_depth{d}_s": statistics.median(
+              r["wall_s"] for r in runs if r["depth"] == d)
+              for d in (0, 2)})
 
 
 def probe_case(device, n_r: int, n_l: int, K: int, keys: int,
@@ -1422,12 +1827,16 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
             "deviceFallbackColumns", 0) or counts.get(
             "deviceFallbackUnits", 0):
         raise AssertionError(f"q1 parquet scan route: {launches} {counts}")
-    if launches["groupbyHash"] <= 0 or launches["murmur3"] <= 0:
+    # one card: the planner's exchanges coalesce to one partition, so q1
+    # hashes no partition ids (as in the JAX package)
+    if launches["groupbyHash"] <= 0 or launches["murmur3"] != 0:
         raise AssertionError(f"q1 parquet kernels: {launches}")
+    ring = check_default_ring(spark.last_plan, True, "q1 from Parquet")
     walls = timed_collects(df)
     phase("q1_sf1_parquet", card=card, rows_in=SF1_ROWS, files=len(q1_files),
           rows_out=len(rows), reference="exact", plan=names,
-          launches=launches, scan=counts, first_run_s=round(first_s, 4),
+          launches=launches, scan=counts, ring=ring,
+          first_run_s=round(first_s, 4),
           write_s=round(write_s, 3),
           rows_per_s=SF1_ROWS / walls["median_s"], **walls)
     if profiled:
@@ -1485,7 +1894,8 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
           launches_per_q3=q3_launches["decodeFused"], cases=cases,
           library_ms=None,
           library="none: no single PyTorch call decodes Parquet pages")
-    return {"launches": launches["decodeFused"], "max_abs_err": df_err,
+    return {"q1_dir": q1_dir,
+            "launches": launches["decodeFused"], "max_abs_err": df_err,
             "ms": q1c["ms"], "plain_ms": q1c["plain_ms"],
             "bound_ms": q1c["bound_ms"], "cases": cases}
 
@@ -1648,13 +2058,18 @@ def main() -> int:
         raise AssertionError(f"q1 plan is not all Torch*: {names}")
     partial = find_exec(spark.last_plan, lambda p: isinstance(
         p, TorchHashAggregateExec) and p.mode == "partial")
-    if launches["groupbyHash"] <= 0 or launches["murmur3"] <= 0:
-        raise AssertionError(f"q1 did not launch both kernels: {launches}")
+    # one card: the planner's exchanges coalesce to one partition, so q1
+    # hashes no partition ids (as in the JAX package)
+    if launches["groupbyHash"] <= 0 or launches["murmur3"] != 0:
+        raise AssertionError(f"q1 kernels: {launches} (want groupbyHash "
+                             "launched and no murmur3)")
     if partial.overflow_reruns != 0:
         raise AssertionError(f"{partial.overflow_reruns} overflow re-runs")
+    ring = check_default_ring(spark.last_plan, False, "q1 from memory")
     phase("q1_sf1", rows_in=SF1_ROWS, partitions=N_PARTITIONS,
           rows_out=len(rows), reference="exact", plan=names,
           launches=launches, overflow_reruns=partial.overflow_reruns,
+          ring=ring,
           first_run_s=round(first_s, 4), generate_s=round(gen_s, 3))
 
     # -- 5. times -------------------------------------------------------------
@@ -1761,10 +2176,14 @@ def main() -> int:
               parent_ptxas=parent.ptxas["murmur3"])
 
     jp = q3_phases(device, card, "--breakdown" in sys.argv[1:], parent)
+    tables = q3_tables()
+    rp = repartition_phase(device, card, tables)
     dfu = parquet_phases(device, card, arrays, "--breakdown" in sys.argv[1:])
+    upload_split(fields, arrays, device, card)
+    ring_phases(card, fields, arrays, dfu["q1_dir"], tables)
 
     if "--breakdown" in sys.argv[1:]:
-        breakdown(df, arrays, fields, device, card)
+        breakdown(df, card)
 
     kernels = [
         {"name": "groupbyHash", "route": "cuda",
@@ -1783,11 +2202,15 @@ def main() -> int:
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
-         "launches": launches["murmur3"], "max_abs_err": m3_err,
-         "ms": m3_ms, "plain_ms": m3_plain_ms,
-         "bound_ms": m3_bytes / HBM_BYTES_PER_S * 1e3,
+         "launches": rp["launches"],
+         "max_abs_err": max(m3_err, rp["case"]["max_abs_err"]),
+         "ms": rp["case"]["ms"], "plain_ms": rp["case"]["plain_ms"],
+         "bound_ms": rp["case"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "cases": {"q1_exchange": {"rows": part_out.capacity, "ms": m3_ms,
+         "cases": {"repartition_exchange": {
+                       k: rp["case"][k] for k in ("rows", "ms", "plain_ms",
+                                                  "bound_ms")},
+                   "q1_exchange": {"rows": part_out.capacity, "ms": m3_ms,
                                    "bound_ms": m3_bytes / HBM_BYTES_PER_S
                                    * 1e3},
                    "battery_1m": {"rows": battery.capacity, "ms": m3_1m_ms,
@@ -1825,5 +2248,90 @@ def main() -> int:
     return 0
 
 
+def walls_only(card: str, runs: int = 5) -> None:
+    """``--walls``: q1 from memory, both q3 forms and the repartition path
+    through the session's entry points, each exact, with the upload
+    ring's key unset and set to 0: one warm run, then ``runs`` timed
+    runs, each with the seconds the garbage collector took in it. Uses
+    only the session's API, so a copy of this script placed in another
+    checkout times that checkout's package: run two checkouts in turns
+    in one call to compare them on one card."""
+    import gc
+    import torch
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    fields = lineitem_fields()
+    arrays = lineitem_arrays()
+    tables = q3_tables()
+    want = {"q1": q1_reference(arrays), "q3": q3_reference(tables),
+            "repartition": repartition_reference(tables)}
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    gc_s, t_gc = [0.0], [0.0]
+
+    def on_gc(ev, _info):
+        if ev == "start":
+            t_gc[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - t_gc[0]
+    gc.callbacks.append(on_gc)
+    try:
+        for ring in ("unset", "0"):
+            conf = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+            if ring != "unset":
+                conf["spark.rapids.sql.format.parquet.deviceDecode."
+                     "maxInFlight"] = ring
+            spark = TorchSparkSession(conf)
+            spark.createDataFrame(host_batch_from_numpy(fields, arrays),
+                                  num_partitions=N_PARTITIONS) \
+                .createOrReplaceTempView("lineitem")
+            for name, cols in tables.items():
+                spark.createDataFrame(
+                    host_batch_from_numpy(
+                        [(c, types[k]) for c, k, _a in cols],
+                        [a for _c, _k, a in cols]),
+                    num_partitions=Q3_PARTITIONS[name]) \
+                    .createOrReplaceTempView(name)
+            for query, df in (("q1", spark.sql(Q1)),
+                              ("q3_pushed", spark.sql(Q3_PUSHED)),
+                              ("q3_bench", spark.sql(Q3_BENCH)),
+                              ("repartition", repartition_df(spark, tables))):
+                df.collect()  # warm
+                walls, gcs = [], []
+                for _ in range(runs):
+                    gc_s[0] = 0.0
+                    t0 = time.perf_counter()
+                    rows = df.collect()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    gcs.append(gc_s[0])
+                if query == "q1":
+                    check_q1_rows(rows, want["q1"])
+                elif query == "repartition":
+                    check_repartition_rows(rows, want["repartition"])
+                else:
+                    check_q3_rows(rows, want["q3"], query)
+                phase("walls", card=card, query=query, max_in_flight=ring,
+                      reference="exact", timed_runs=walls, gc_s=gcs,
+                      median_s=statistics.median(walls),
+                      median_less_gc_s=statistics.median(
+                          w - g for w, g in zip(walls, gcs)))
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 if __name__ == "__main__":
+    if "--walls" in sys.argv[1:]:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            sys.exit(2)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(card, flush=True)
+        walls_only(card)
+        sys.exit(0)
     sys.exit(main())

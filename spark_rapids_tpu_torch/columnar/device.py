@@ -214,11 +214,53 @@ class DeviceBatch:
         return upload_batch(batch, cap, device)
 
     def to_host(self) -> HostBatch:
-        """Gather active rows back to a HostBatch (device -> host)."""
+        """Gather active rows back to a HostBatch (device -> host), one
+        blocking copy per array (the columnar-to-row transition uses
+        ``start_to_host`` / ``finish_to_host`` instead)."""
         active = self.active.cpu().numpy()
         idx = np.nonzero(active)[0]
         cols = [_col_to_host(c, idx) for c in self.columns]
         return HostBatch(self.schema, cols, len(idx))
+
+
+def start_to_host(batch: DeviceBatch, stream=None):
+    """Non-blocking half of a device -> host fetch: on a CUDA device the
+    active rows are compacted to the front (cut to the row count where it
+    is known) and every array is copied into a pinned host buffer on
+    ``stream``, after the current stream's work, ending in an event.
+    Returns a token for ``finish_to_host``. On the CPU the arrays are
+    already host memory."""
+    flat, spec = flatten_columns(batch.columns)
+    if batch.device.type != "cuda":
+        return (batch.schema, spec, [batch.active] + flat, None, None)
+    active, outs = compact_arrays(batch.active, flat)
+    arrays = [active] + outs
+    if batch._num_rows is not None:
+        arrays = [a[:batch._num_rows] for a in arrays]
+    stream.wait_stream(torch.cuda.current_stream(batch.device))
+    hosts = []
+    with torch.cuda.stream(stream):
+        for a in arrays:
+            h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            h.copy_(a, non_blocking=True)
+            hosts.append(h)
+        event = torch.cuda.Event()
+        event.record(stream)
+    # the device arrays stay referenced by the token until the event has
+    # completed, so the allocator cannot reuse them under the copies
+    return (batch.schema, spec, hosts, event, arrays)
+
+
+def finish_to_host(token) -> HostBatch:
+    """Blocking half of ``start_to_host``: wait for the copies' event,
+    then read the host arrays."""
+    schema, spec, hosts, event, _arrays = token
+    if event is not None:
+        event.synchronize()
+    idx = np.nonzero(hosts[0].numpy())[0]
+    cols = [_col_to_host(c, idx)
+            for c in rebuild_columns(spec, hosts[1:])]
+    return HostBatch(schema, cols, len(idx))
 
 
 def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:

@@ -50,6 +50,15 @@ SHUFFLE_PARTITIONS = _entry(
     "Partition count for hash and range exchanges (Spark SQLConf).",
     8, int)
 
+DEVICE_SHUFFLE_PARTITIONS = _entry(
+    "spark.rapids.sql.shuffle.devicePartitions",
+    "Partition count for device hash and range exchanges that the "
+    "planner inserted; 0 = auto, which is 1 on one card (the port has "
+    "no mesh). One card runs every partition's work one after another, "
+    "so extra in-process partitions only add splits and launches. A "
+    "user's repartition(n, ...) keeps its n.",
+    0, int)
+
 BATCH_SIZE_ROWS = _entry(
     "spark.rapids.sql.batchSizeRows",
     "Target row count of a device columnar batch; the row-to-columnar "
@@ -114,6 +123,21 @@ PARQUET_READER_TYPE = _entry(
     "holds the GIL).",
     "PERFILE", str)
 
+PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT = _entry(
+    "spark.rapids.sql.format.parquet.deviceDecode.maxInFlight",
+    "Upload pipeline depth of the row-to-columnar transition: how many "
+    "staged batches may have their host-to-device copy in flight (the "
+    "copy issued on the copy stream, the decode not yet run) ahead of "
+    "the consuming operator, per partition. A producer thread reads, "
+    "coalesces and packs batch k+1 into a pinned staging slot while "
+    "batch k's bytes move and batch k-1 computes. 1 = a producer thread "
+    "without upload-ahead; 0 = fully synchronous uploads on the task "
+    "thread. Left unset, the ring runs at the default depth only over "
+    "a file scan partition of several units (row groups), where there "
+    "is reading to overlap; data already in host memory uploads "
+    "synchronously. Set, the depth applies to every source.",
+    2, int)
+
 
 class TorchConf:
     """Bound view over a conf dict."""
@@ -129,6 +153,9 @@ class TorchConf:
         if e is not None:
             return e.get(self.settings)
         return self.settings.get(key, default)
+
+    def is_set(self, entry: ConfEntry) -> bool:
+        return self.settings.get(entry.key) is not None
 
     def set(self, key: str, value: Any) -> None:
         self.settings[key] = value

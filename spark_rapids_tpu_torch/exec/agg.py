@@ -182,6 +182,7 @@ class TorchHashAggregateExec(TorchExec):
         key_cols, vals, prims = self._eval_inputs(batch)
         slots = KR.table_slots(self.conf, batch.capacity)
         entries = [(v, p, dt) for v, (p, dt) in zip(vals, prims)]
+        self.metrics.create("kernelDispatchCount.groupbyHash").add(1)
         key_out, buffers, used, overflow = KG.hash_groupby(
             key_cols, entries, batch.active, slots)
         return self._compacted(list(key_out) + list(buffers), used), \

@@ -1,23 +1,32 @@
-"""TorchExec base + row/columnar transitions (the counterparts of
-``spark_rapids_tpu.exec.base``'s TpuExec, TpuRowToColumnarExec and
-TpuColumnarToRowExec).
+"""TorchExec base, the row/columnar transitions and the batch coalescer
+(the counterparts of ``spark_rapids_tpu.exec.base``'s TpuExec,
+TpuRowToColumnarExec, TpuColumnarToRowExec and TpuCoalesceBatchesExec).
 
 Every TorchExec produces ``device_partitions()``: thunks yielding
-``DeviceBatch``es on the exec's ``torch.device``. Partitions run one
-after another on the device's current stream. The pipelined scan upload,
-semaphore, spill store and retry protocol of the JAX package are not
-ported yet.
+``DeviceBatch``es on the exec's ``torch.device``, and owns a
+``MetricRegistry`` as ``self.metrics``. A consumer reads a child through
+``device_channel``, which counts each batch the child yields in its
+``numOutputRows`` and ``numOutputBatches``. Partitions run one after another
+on the device's current stream. The semaphore, spill store, retry
+protocol and the upload's OOM fallback of the JAX package are not ported
+yet: an out-of-memory error raises.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Callable, Iterator, List, Optional
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.device import DeviceBatch
+from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                    bucket_capacity,
+                                                    concat_device)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
-from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.conf import (PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT,
+                                         TorchConf)
 from spark_rapids_tpu_torch.sql import physical as P
 
 DevicePartitionThunk = Callable[[], Iterator[DeviceBatch]]
@@ -30,9 +39,31 @@ class TorchExec(P.PhysicalPlan):
     def __init__(self, conf: TorchConf, device: torch.device):
         self.conf = conf
         self.device = device
+        self.metrics = M.MetricRegistry()
+        # created up front, so an operator that saw no rows reports 0
+        self.metrics.create(M.NUM_OUTPUT_ROWS)
+        self.metrics.create(M.NUM_OUTPUT_BATCHES)
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         raise NotImplementedError
+
+    def counted_partitions(self) -> List[DevicePartitionThunk]:
+        """``device_partitions`` with every yielded batch counted in
+        ``numOutputRows`` and ``numOutputBatches``. A row count not yet
+        known on the host is added as a device scalar and read back only
+        when the metric is read, so counting never synchronises."""
+        rows = self.metrics.create(M.NUM_OUTPUT_ROWS)
+        batches = self.metrics.create(M.NUM_OUTPUT_BATCHES)
+
+        def count(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+            def run() -> Iterator[DeviceBatch]:
+                for b in thunk():
+                    batches.add(1)
+                    rows.add(b._num_rows if b._num_rows is not None
+                             else b.active.sum())
+                    yield b
+            return run
+        return [count(t) for t in self.device_partitions()]
 
 
 def device_channel(plan: P.PhysicalPlan) -> List[DevicePartitionThunk]:
@@ -42,18 +73,53 @@ def device_channel(plan: P.PhysicalPlan) -> List[DevicePartitionThunk]:
             f"device operator consuming non-device child "
             f"{plan.simple_string()}; the rewrite must insert "
             "TorchRowToColumnarExec")
-    return plan.device_partitions()
+    return plan.counted_partitions()
+
+
+def _groups(batches: Iterator, goal_rows: int) -> Iterator:
+    """The upload units of a partition: consecutive host batches
+    coalesced up to ``goal_rows`` (as a list), and each EncodedBatch on
+    its own, never coalesced, after the host batches pending before it."""
+    from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
+    pending: List[HostBatch] = []
+    rows = 0
+    for b in batches:
+        if isinstance(b, EncodedBatch):
+            if pending:
+                yield pending
+                pending, rows = [], 0
+            yield b
+            continue
+        if b.num_rows == 0:
+            continue
+        pending.append(b)
+        rows += b.num_rows
+        if rows >= goal_rows:
+            yield pending
+            pending, rows = [], 0
+    if pending:
+        yield pending
 
 
 class TorchRowToColumnarExec(TorchExec):
-    """CPU rows -> device batches: coalesces consecutive host batches of
-    a partition up to the goal row count, then uploads each group at its
-    capacity bucket. Over a Parquet scan it also takes EncodedBatches
-    (a row group's still-encoded pages) and decodes each on the device
-    with ``decodeFused``, one batch per row group, never coalesced; host
-    batches pending before one are flushed first, to keep row order.
-    The JAX package's pipelined upload-ahead ring and OOM host fallback
-    are not ported yet."""
+    """CPU rows -> device batches. Coalesces consecutive host batches of
+    a partition up to the goal row count and uploads each group through
+    the packed codec (``columnar/transfer.py``). Over a Parquet scan it
+    also takes EncodedBatches (a row group's still-encoded pages) and
+    decodes each on the device with ``decodeFused``.
+
+    The upload ring (``spark.rapids.sql.format.parquet.deviceDecode.
+    maxInFlight``, default 2): a producer thread reads, coalesces and
+    packs each upload unit into a slot of a ``StagingRing`` (pinned host
+    memory on a CUDA device) behind a bounded queue, while the task
+    thread issues each unit's copy on the ring's copy stream up to
+    ``depth`` units ahead of its decode. So batch k+1's bytes move while
+    batch k decodes and computes, and batch k+2 is read and packed. At 1
+    the producer thread runs without upload-ahead; at 0 everything runs
+    on the task thread. With the key unset the ring runs only over a
+    file scan partition of several units: a partition already in host
+    memory has no read to overlap, and its packing holds the GIL
+    against the task thread."""
 
     def __init__(self, child: P.PhysicalPlan, conf: TorchConf,
                  device: torch.device, goal_rows: Optional[int] = None):
@@ -70,59 +136,147 @@ class TorchRowToColumnarExec(TorchExec):
         return self.child.output
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
-        from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
         # this transition is the scan's direct consumer: allow the scan to
         # hand it still-encoded Parquet pages (decided here, at execution
         # time, so no other consumer ever sees an EncodedBatch)
         if hasattr(self.child, "emit_encoded"):
             self.child.emit_encoded = True
+        thunks = self.child.partitions()
+        depths = self.ring_depths(len(thunks))
 
-        def make(thunk: P.PartitionThunk) -> DevicePartitionThunk:
-            def run() -> Iterator[DeviceBatch]:
-                pending: List[HostBatch] = []
-                rows = 0
-                for b in thunk():
-                    if isinstance(b, EncodedBatch):
-                        if pending:
-                            yield self._upload(pending)
-                            pending, rows = [], 0
-                        yield self._decode(b)
-                        continue
-                    if b.num_rows == 0:
-                        continue
-                    pending.append(b)
-                    rows += b.num_rows
-                    if rows >= self.goal_rows:
-                        yield self._upload(pending)
-                        pending, rows = [], 0
-                if pending:
-                    yield self._upload(pending)
-            return run
-        return [make(t) for t in self.child.partitions()]
+        def make(thunk: P.PartitionThunk, depth: int) -> DevicePartitionThunk:
+            if depth <= 0:
+                return lambda: self._run_sync(thunk)
+            return lambda: self._run_pipelined(thunk, depth)
+        return [make(t, d) for t, d in zip(thunks, depths)]
 
-    def _upload(self, batches: List[HostBatch]) -> DeviceBatch:
-        whole = batches[0] if len(batches) == 1 else HostBatch.concat(
-            batches)
-        return DeviceBatch.from_host(whole, self.device)
+    def ring_depths(self, n_parts: int) -> List[int]:
+        """The upload ring's depth for each partition: the key's value
+        where the session sets it, else its default over a file scan
+        partition of more than one unit and 0 elsewhere."""
+        depth = int(self.conf.get(PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT))
+        if self.conf.is_set(PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT):
+            return [depth] * n_parts
+        units = getattr(self.child, "units_per_partition", None)
+        if units is None:
+            return [0] * n_parts
+        return [depth if u > 1 else 0 for u in units()]
 
-    def _decode(self, enc) -> DeviceBatch:
-        from spark_rapids_tpu_torch.columnar.device import bucket_capacity
-        from spark_rapids_tpu_torch.columnar.transfer import (
-            finish_encoded_upload, prepare_encoded_upload)
-        cap = bucket_capacity(max(1, enc.num_rows))
-        return finish_encoded_upload(prepare_encoded_upload(enc, cap),
-                                     self.device)
+    def _run_sync(self, thunk: P.PartitionThunk) -> Iterator[DeviceBatch]:
+        """maxInFlight 0: read, pack, copy and decode one unit at a time
+        on the task thread."""
+        from spark_rapids_tpu_torch.columnar.transfer import StagingRing
+        ring = StagingRing(self.device, 2)
+        for unit in _groups(thunk(), self.goal_rows):
+            yield self._finish(self._start(ring, self._prepare(unit, ring)))
+
+    def _run_pipelined(self, thunk: P.PartitionThunk, depth: int
+                       ) -> Iterator[DeviceBatch]:
+        """The producer thread and the upload-ahead ring. A producer
+        error is raised on the task thread; a consumer that stops early
+        (the generator closed) stops, drains and joins the producer."""
+        from spark_rapids_tpu_torch.columnar.transfer import StagingRing
+        # the producer holds at most one slot beside the queue's ``depth``
+        ring = StagingRing(self.device, depth + 2)
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer() -> None:
+            gen = thunk()
+            try:
+                for unit in _groups(gen, self.goal_rows):
+                    if stop.is_set():
+                        return
+                    with self.metrics.timed(M.SCAN_PREFETCH_TIME):
+                        placed = self._prepare(unit, ring)
+                    if not put(("unit", placed)):
+                        return
+                put(("done", None))
+            except BaseException as e:  # raised again on the task thread
+                put(("error", e))
+            finally:
+                # a closed consumer must not leave the scan mid-read: a
+                # generator's close runs its cleanup
+                if hasattr(gen, "close"):
+                    gen.close()
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="torch-upload-prefetch")
+        t.start()
+        inflight: List = []
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "done":
+                    break
+                if kind == "error":
+                    raise item
+                inflight.append(self._start(ring, item))
+                self.metrics.create(M.UPLOAD_AHEAD_BATCHES).add(1)
+                while len(inflight) >= depth:
+                    yield self._finish(inflight.pop(0))
+            while inflight:
+                yield self._finish(inflight.pop(0))
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join()
+
+    def _prepare(self, unit, ring):
+        """Stage one upload unit on the host and write it into a slot of
+        ``ring``."""
+        from spark_rapids_tpu_torch.columnar.transfer import prepare_upload
+        if isinstance(unit, list):
+            whole = unit[0] if len(unit) == 1 else HostBatch.concat(unit)
+        else:
+            whole = unit  # an EncodedBatch stages as itself
+        cap = bucket_capacity(max(1, whole.num_rows))
+        with self.metrics.timed(M.PACK_TIME):
+            return ring.place(prepare_upload(whole, cap))
+
+    def _start(self, ring, placed):
+        """Issue a placed unit's copy, counting it in
+        ``pinnedStreamCopies`` when its slot is pinned and the copy runs
+        on the ring's own stream, not the task's."""
+        if ring.cuda and placed.slot.buf.is_pinned() and \
+                ring.stream != torch.cuda.current_stream(self.device):
+            self.metrics.create(M.PINNED_STREAM_COPIES).add(1)
+        return ring.start(placed)
+
+    def _finish(self, started) -> DeviceBatch:
+        from spark_rapids_tpu_torch.columnar.transfer import finish_started
+        with self.metrics.timed(M.COPY_TO_DEVICE_TIME):
+            out = finish_started(started)
+        if started.staged[0] == "encoded":
+            self.metrics.create("kernelDispatchCount.decodeFused").add(1)
+        return out
 
     def simple_string(self):
         return "TorchRowToColumnar"
 
 
 class TorchColumnarToRowExec(P.PhysicalPlan):
-    """Device batches -> CPU rows (the plan's root transition)."""
+    """Device batches -> CPU rows (the plan's root transition), one batch
+    ahead: batch k+1's compaction and copies into pinned host buffers are
+    in flight on a copy stream while batch k converts on the host."""
 
     def __init__(self, child: TorchExec, conf: TorchConf):
         self.children = [child]
         self.conf = conf
+        self.metrics = M.MetricRegistry()
 
     @property
     def child(self) -> TorchExec:
@@ -133,12 +287,80 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
         return self.child.output
 
     def partitions(self) -> List[P.PartitionThunk]:
+        from spark_rapids_tpu_torch.columnar.device import (finish_to_host,
+                                                            start_to_host)
+        device = self.child.device
+
+        def convert(tok) -> HostBatch:
+            with self.metrics.timed(M.COPY_FROM_DEVICE_TIME):
+                h = finish_to_host(tok)
+            self.metrics.create(M.NUM_OUTPUT_ROWS).add(h.num_rows)
+            return h
+
         def make(thunk: DevicePartitionThunk) -> P.PartitionThunk:
             def run() -> Iterator[HostBatch]:
+                stream = torch.cuda.Stream(device) \
+                    if device.type == "cuda" else None
+                prev = None
                 for b in thunk():
-                    yield b.to_host()
+                    tok = start_to_host(b, stream)
+                    if prev is not None:
+                        yield convert(prev)
+                    prev = tok
+                if prev is not None:
+                    yield convert(prev)
             return run
-        return [make(t) for t in self.child.device_partitions()]
+        return [make(t) for t in device_channel(self.child)]
 
     def simple_string(self):
         return "TorchColumnarToRow"
+
+
+class TorchCoalesceBatchesExec(TorchExec):
+    """Concatenates small device batches up to the goal row count;
+    ``require_single_batch`` makes one batch of the whole partition."""
+
+    def __init__(self, child: TorchExec, conf: TorchConf,
+                 device: torch.device, goal_rows: Optional[int] = None,
+                 require_single_batch: bool = False):
+        super().__init__(conf, device)
+        self.children = [child]
+        self.goal_rows = goal_rows or conf.batch_size_rows
+        self.require_single_batch = require_single_batch
+
+    @property
+    def child(self) -> TorchExec:
+        return self.children[0]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def device_partitions(self) -> List[DevicePartitionThunk]:
+        def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+            def run() -> Iterator[DeviceBatch]:
+                pending: List[DeviceBatch] = []
+                rows = 0
+                for b in thunk():
+                    n = b.row_count()
+                    if n == 0:
+                        continue
+                    pending.append(b)
+                    rows += n
+                    if not self.require_single_batch and \
+                            rows >= self.goal_rows:
+                        yield self._emit(pending)
+                        pending, rows = [], 0
+                if pending:
+                    yield self._emit(pending)
+            return run
+        return [make(t) for t in device_channel(self.child)]
+
+    def _emit(self, pending: List[DeviceBatch]) -> DeviceBatch:
+        with self.metrics.timed(M.CONCAT_TIME):
+            return concat_device(pending)
+
+    def simple_string(self):
+        goal = ("RequireSingleBatch" if self.require_single_batch
+                else f"TargetSize({self.goal_rows})")
+        return f"TorchCoalesceBatches {goal}"

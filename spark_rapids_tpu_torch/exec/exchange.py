@@ -140,6 +140,7 @@ class TorchShuffleExchangeExec(TorchExec):
             bound = P.bind_list(p.exprs, self.child.output)
             for thunk in device_channel(self.child):
                 for b in thunk():
+                    self.metrics.create("kernelDispatchCount.murmur3").add(1)
                     parts = split_by_pid(b, hash_partition_ids(bound, b, n),
                                          n)
                     for pid, part in enumerate(parts):

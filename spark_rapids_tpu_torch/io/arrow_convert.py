@@ -114,6 +114,31 @@ def _fill_for(dt: T.DataType):
     return 0
 
 
+def _string_varbytes(arr: pa.Array):
+    """The compact ``(utf8_bytes, raw_lengths)`` of an Arrow string or
+    binary array, for the upload codec (``HostColumn.varbytes``), or
+    None where the array has no data buffer. ``raw_lengths`` are the
+    unmasked offset deltas: their cumsum gives the byte starts exactly
+    (a null slot may own bytes; the decode masks the output lengths
+    with validity, not the starts)."""
+    if not (pa.types.is_string(arr.type) or pa.types.is_binary(arr.type)
+            or pa.types.is_large_string(arr.type)
+            or pa.types.is_large_binary(arr.type)):
+        return None
+    n = len(arr)
+    dbuf = arr.buffers()[2]
+    if n == 0 or dbuf is None:
+        return None
+    wide = (pa.types.is_large_string(arr.type)
+            or pa.types.is_large_binary(arr.type))
+    offs = np.frombuffer(arr.buffers()[1],
+                         dtype=np.int64 if wide else np.int32,
+                         count=arr.offset + n + 1)[arr.offset:]
+    lengths = np.diff(offs).astype(np.int32)
+    raw = np.frombuffer(dbuf, dtype=np.uint8, count=int(offs[-1]))
+    return np.ascontiguousarray(raw[int(offs[0]):]), lengths
+
+
 def arrow_column_to_host(arr: pa.ChunkedArray | pa.Array,
                          dt: T.DataType) -> HostColumn:
     if isinstance(arr, pa.ChunkedArray):
@@ -174,7 +199,7 @@ def arrow_column_to_host(arr: pa.ChunkedArray | pa.Array,
         if arr.null_count:
             data = data.copy()
             data[~validity] = ""
-        return HostColumn(dt, data, validity)
+        return HostColumn(dt, data, validity, _string_varbytes(arr))
     if isinstance(dt, T.TimestampType):
         arr = arr.cast(pa.timestamp("us"))
         data = np.asarray(arr.cast(pa.int64()).fill_null(0),

@@ -380,6 +380,11 @@ class CpuFileScanExec(P.PhysicalPlan):
     def output(self):
         return self._output
 
+    def units_per_partition(self) -> List[int]:
+        """The units (row groups) of each partition, from the footers,
+        before any read."""
+        return [len(us) for us in self._parts]
+
     def simple_string(self):
         s = (f"FileScan {self.fmt} [{len(self.files)} files, "
              f"{len(self._parts)} partitions")

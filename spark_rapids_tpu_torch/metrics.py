@@ -1,0 +1,107 @@
+"""Operator metrics (the counterpart of ``spark_rapids_tpu.metrics``,
+trimmed to what the port records).
+
+Every ``TorchExec`` owns a ``MetricRegistry`` as ``self.metrics``: named
+integer metrics, created on first use. Timers are host wall-clock
+nanoseconds. The JAX package's verbosity levels, trace spans, epochs,
+retired totals and live-registry walk are not ported yet: the port
+keeps every metric it records.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Dict, Iterator, List
+
+import torch
+
+NUM_OUTPUT_ROWS = "numOutputRows"
+NUM_OUTPUT_BATCHES = "numOutputBatches"
+COPY_TO_DEVICE_TIME = "copyToDeviceTime"
+COPY_FROM_DEVICE_TIME = "copyFromDeviceTime"
+PACK_TIME = "packBatchTime"  # host-side staging half of an upload
+CONCAT_TIME = "concatTime"
+SCAN_PREFETCH_TIME = "scanPrefetchTime"
+UPLOAD_AHEAD_BATCHES = "uploadAheadBatches"
+# uploads copied from a pinned staging slot on the ring's own copy stream
+PINNED_STREAM_COPIES = "pinnedStreamCopies"
+
+
+class Metric:
+    """A thread-safe integer: the upload's producer thread and the task
+    thread update one operator's metrics concurrently. ``add`` also
+    takes a 0-d device tensor (a batch's row count still on the card),
+    read back only when ``value`` is read, so counting never waits for
+    the card."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0
+        self._pending: List[torch.Tensor] = []
+        self._lock = threading.Lock()
+
+    def add(self, v) -> None:
+        with self._lock:
+            if isinstance(v, torch.Tensor):
+                self._pending.append(v)
+            else:
+                self._value += int(v)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            if self._pending:
+                self._value += int(torch.stack(self._pending).sum())
+                self._pending = []
+            return self._value
+
+
+class MetricRegistry:
+    """One exec's metric map."""
+
+    def __init__(self):
+        self.metrics: Dict[str, Metric] = {}
+        self._lock = threading.Lock()
+
+    def create(self, name: str) -> Metric:
+        with self._lock:
+            m = self.metrics.get(name)
+            if m is None:
+                m = self.metrics[name] = Metric(name)
+            return m
+
+    def value(self, name: str) -> int:
+        m = self.metrics.get(name)
+        return m.value if m else 0
+
+    @contextlib.contextmanager
+    def timed(self, name: str) -> Iterator[None]:
+        """Add the host wall time of the block, in nanoseconds. It never
+        calls ``torch.cuda.synchronize()``: a synchronise inside a timer
+        would serialise the upload ring, so a timer around device work
+        measures its enqueue, not its run on the card."""
+        m = self.create(name)
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            m.add(time.perf_counter_ns() - t0)
+
+    def snapshot(self) -> Dict[str, int]:
+        return {k: m.value for k, m in list(self.metrics.items())}
+
+
+def plan_metrics(plan) -> Dict[str, int]:
+    """Every exec registry of an executed plan summed by name (the JAX
+    package's ``registry_snapshot(plans)["metrics"]``)."""
+    out: Dict[str, int] = {}
+    ms = getattr(plan, "metrics", None)
+    if isinstance(ms, MetricRegistry):
+        for k, v in ms.snapshot().items():
+            out[k] = out.get(k, 0) + v
+    for c in getattr(plan, "children", []):
+        for k, v in plan_metrics(c).items():
+            out[k] = out.get(k, 0) + v
+    return out

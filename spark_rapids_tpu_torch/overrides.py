@@ -5,7 +5,9 @@ Each CPU physical node is wrapped in an ``ExecMeta``, tagged by its rule
 (types and expressions the port can run), and converted bottom-up; a
 ``TorchRowToColumnarExec`` goes under the first device operator above a
 CPU source and a ``TorchColumnarToRowExec`` on top. The port has rules
-for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single),
+for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single;
+planner-inserted hash and range exchanges coalesce to
+``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
 BroadcastExchange and the shuffled and broadcast hash joins. Anything
 else — another node kind, or an expression or type a
@@ -91,21 +93,58 @@ def _tag_none(node) -> Optional[str]:
     return None
 
 
+def _coalesced(kid, conf, device):
+    """A TorchCoalesceBatchesExec over a device exchange, so that a
+    per-batch operator sees goal-sized batches instead of the exchange's
+    per-input splits (operators that concatenate whole partitions anyway
+    skip it)."""
+    from spark_rapids_tpu_torch.exec.base import TorchCoalesceBatchesExec
+    from spark_rapids_tpu_torch.exec.exchange import \
+        TorchShuffleExchangeExec
+    if isinstance(kid, TorchShuffleExchangeExec):
+        return TorchCoalesceBatchesExec(kid, conf, device)
+    return kid
+
+
 def _conv_project(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.basic import TorchProjectExec
-    return TorchProjectExec(node.project_list, kids[0], conf, device)
+    return TorchProjectExec(node.project_list,
+                            _coalesced(kids[0], conf, device), conf, device)
 
 
 def _conv_filter(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.basic import TorchFilterExec
-    return TorchFilterExec(node.condition, kids[0], conf, device)
+    return TorchFilterExec(node.condition,
+                           _coalesced(kids[0], conf, device), conf, device)
+
+
+def device_shuffle_partitions(conf: TorchConf, n: int) -> int:
+    """Partition count of a planner-inserted device hash or range
+    exchange: ``spark.rapids.sql.shuffle.devicePartitions``, where auto
+    (0) is 1 on one card, never above the planner's ``n``."""
+    from spark_rapids_tpu_torch.conf import DEVICE_SHUFFLE_PARTITIONS
+    want = int(conf.get(DEVICE_SHUFFLE_PARTITIONS))
+    if want <= 0:
+        want = 1
+    return max(1, min(n, want))
 
 
 def _conv_exchange(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.exchange import \
         TorchShuffleExchangeExec
-    return TorchShuffleExchangeExec(node.partitioning, kids[0], conf,
-                                    device)
+    p = node.partitioning
+    # a planner-inserted distribution is met by any partition count, so
+    # it coalesces; a user's repartition(n, ...) keeps its n
+    if not p.user_specified:
+        if isinstance(p, P.HashPartitioning):
+            n = device_shuffle_partitions(conf, p.num_partitions)
+            if n != p.num_partitions:
+                p = P.HashPartitioning(p.exprs, n)
+        elif isinstance(p, P.RangePartitioning):
+            n = device_shuffle_partitions(conf, p.num_partitions)
+            if n != p.num_partitions:
+                p = P.RangePartitioning(p.order, n)
+    return TorchShuffleExchangeExec(p, kids[0], conf, device)
 
 
 def _conv_sort(node, kids, conf, device):

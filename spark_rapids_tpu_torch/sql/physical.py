@@ -21,6 +21,9 @@ PartitionThunk = Callable[[], Iterator[HostBatch]]
 
 class Partitioning:
     num_partitions: int
+    # set by the planner for df.repartition(n, ...): an explicit user ask
+    # that the device rewrite keeps, unlike a planner-inserted exchange
+    user_specified = False
 
 
 class SinglePartitioning(Partitioning):
@@ -39,6 +42,14 @@ class HashPartitioning(Partitioning):
 
     def __repr__(self):
         return f"HashPartitioning({self.exprs}, {self.num_partitions})"
+
+
+class RoundRobinPartitioning(Partitioning):
+    def __init__(self, num_partitions: int):
+        self.num_partitions = num_partitions
+
+    def __repr__(self):
+        return f"RoundRobinPartitioning({self.num_partitions})"
 
 
 class RangePartitioning(Partitioning):

@@ -123,6 +123,15 @@ class Planner:
                 child)
         return P.CpuSortExec(p.order, p.is_global, child)
 
+    def _plan_repartition(self, p: L.Repartition) -> P.PhysicalPlan:
+        child = self.plan(p.child)
+        if p.by is not None:
+            part: P.Partitioning = P.HashPartitioning(p.by, p.num_partitions)
+        else:
+            part = P.RoundRobinPartitioning(p.num_partitions)
+        part.user_specified = True
+        return P.CpuShuffleExchangeExec(part, child)
+
     # -- aggregate ---------------------------------------------------------
     def _plan_aggregate(self, p: L.Aggregate) -> P.PhysicalPlan:
         rewritten = self._rewrite_distinct(p)

@@ -34,6 +34,8 @@ from spark_rapids_tpu_torch.io import device_decode as PDD
 from spark_rapids_tpu_torch.io import readers as PR
 from spark_rapids_tpu_torch.kernels import decode_fused as PDF
 
+torch.set_num_threads(2)
+
 CASES = ["plain", "dict", "page_nulls", "int_dict_overflow",
          "str_dict_overflow", "dec128_flba", "delta_nulls", "delta_length",
          "bss", "page_v2", "bool_ts", "plain_strings",

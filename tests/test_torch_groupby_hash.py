@@ -27,6 +27,8 @@ from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.sql import expressions as PE
 from spark_rapids_tpu_torch.sql import types as PT
 
+torch.set_num_threads(2)
+
 CPU = torch.device("cpu")
 
 

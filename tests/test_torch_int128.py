@@ -16,6 +16,8 @@ from spark_rapids_tpu_torch.ops import decimal_ops as PD
 from spark_rapids_tpu_torch.ops import int128 as PI
 from spark_rapids_tpu_torch.sql import types as PT
 
+torch.set_num_threads(2)
+
 _EDGE = [0, 1, -1, 2, -2, 5, -5, 15, 25, -25, 35, 10**18, -10**18,
          2**31, 2**32 - 1, 2**32, 2**32 + 1, 2**63 - 1, -2**63 + 1,
          2**63, 2**64 - 1, 2**64, -2**64, 2**64 + 5, 2**96 + 12345,

@@ -35,6 +35,8 @@ from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import join as J
 from spark_rapids_tpu_torch.sql import types as PT
 
+torch.set_num_threads(2)
+
 CPU = torch.device("cpu")
 
 

@@ -24,6 +24,8 @@ from spark_rapids_tpu_torch.kernels import murmur3 as KM
 from spark_rapids_tpu_torch.ops import hashing as H
 from spark_rapids_tpu_torch.sql import types as PT
 
+torch.set_num_threads(2)
+
 _POOL = ["", "a", "ab", "abc", "abcd", "abcde", "\x00", "x\x00y",
          "\x7f\x00", "éä", "ÿþ", "0123456789abcdef", "tailé", "A", "N",
          "R", "O", "F"]

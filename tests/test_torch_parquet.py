@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pyarrow.parquet as pq
 import pytest
+import torch
 
 from chip_smoke import (Q1, Q3_BENCH, check_q1_rows, check_q3_rows,
                         decode_corpus, lineitem_arrays, lineitem_fields,
@@ -25,6 +26,8 @@ from spark_rapids_tpu_torch.io.arrow_convert import host_batch_to_arrow
 from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
 from spark_rapids_tpu_torch.sql import types as PT
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+torch.set_num_threads(2)
 
 JAX_CONF = {"spark.rapids.sql.enabled": "true"}
 SCAN_KEYS = ("deviceDecodedBatches", "deviceFallbackColumns",
@@ -43,9 +46,10 @@ def _nodes(plan):
     return out
 
 
-def _jax_run(views, sql, conf=None):
+def _jax_run(views, sql, conf=None, plans_out=None):
     """(rows, metric snapshot, pruned units) of ``sql`` in the JAX
-    package over ``views`` {name: path}."""
+    package over ``views`` {name: path}; the captured plans are appended
+    to ``plans_out`` where one is given."""
     s = TpuSparkSession(dict(JAX_CONF, **(conf or {})))
     try:
         for name, path in views.items():
@@ -54,6 +58,8 @@ def _jax_run(views, sql, conf=None):
         s.start_capture()
         rows = [tuple(r) for r in df.collect()]
         plans = s.get_captured_plans()
+        if plans_out is not None:
+            plans_out.extend(plans)
         snap = registry_snapshot(plans)["metrics"]
         pruned = sum(getattr(n, "pruned_units", 0)
                      for p in plans for n in _nodes(p))
@@ -204,6 +210,32 @@ def test_q3_bench_text_identical_to_jax_package(q3_files):
     assert routes["fkFastPathJoins"] == snap.get("fkFastPathJoins", 0)
     names = [type(n).__name__ for n in _nodes(plan)]
     assert names.count("TorchBroadcastHashJoinExec") == 2
+
+
+@pytest.mark.parametrize("query", ["q1", "q3"])
+def test_plans_and_dispatches_match_jax_package(q1_files, q3_files, query):
+    """From Parquet, too: the JAX package's operators and exchange
+    partition counts (one partition on one card: no murmur3), and the
+    same groupbyHash and decodeFused dispatches."""
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    from test_torch_runtime import dispatches, plan_shape
+    if query == "q1":
+        views, sql = {"lineitem": q1_files[0]}, Q1
+    else:
+        views, sql = q3_files[0], Q3_BENCH
+    jplans: list = []
+    want, snap, _ = _jax_run(views, sql, plans_out=jplans)
+    got, _counts, _, plan = _port_run(views, sql)
+    assert got == want
+    (jplan,) = jplans
+    kinds, exchanges = plan_shape(plan)
+    assert (kinds, exchanges) == plan_shape(jplan)
+    assert all(n == 1 for _p, n in exchanges)
+    d = dispatches(plan_metrics(plan))
+    assert d == dispatches(snap)
+    assert d["kernelDispatchCount.murmur3"] == 0
+    assert d["kernelDispatchCount.decodeFused"] == (24 if query == "q1"
+                                                    else 10)
 
 
 def test_writer_matches_jax_writer(tmp_path):

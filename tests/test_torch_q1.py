@@ -6,6 +6,7 @@ packages as the same arrays."""
 
 import numpy as np
 import pytest
+import torch
 
 from bench import Q1
 from spark_rapids_tpu.columnar.host import HostBatch as JHostBatch
@@ -16,6 +17,8 @@ from spark_rapids_tpu.sql.session import TpuSparkSession
 from spark_rapids_tpu_torch.interop import host_batch_from_numpy
 from spark_rapids_tpu_torch.sql import types as PT
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+torch.set_num_threads(2)
 
 N_ROWS = 3000
 N_PARTS = 3

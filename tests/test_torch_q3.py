@@ -13,6 +13,7 @@ matching rows and every join goes through joinProbe."""
 
 import numpy as np
 import pytest
+import torch
 
 from chip_smoke import (Q3_BENCH, Q3_PARTITIONS, Q3_PUSHED, check_q3_rows,
                         q3_reference, q3_tables)
@@ -25,6 +26,8 @@ from spark_rapids_tpu.sql.session import TpuSparkSession
 from spark_rapids_tpu_torch.interop import host_batch_from_numpy
 from spark_rapids_tpu_torch.sql import types as PT
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+torch.set_num_threads(2)
 
 N_SALES = 20_000
 JAX_CONF = {"spark.rapids.sql.enabled": "true"}
@@ -86,9 +89,11 @@ def q3_runs():
         for form, sql in (("bench", Q3_BENCH), ("pushed", Q3_PUSHED)):
             jax_s.start_capture()
             want = [tuple(r) for r in jax_s.sql(sql).collect()]
-            snap = registry_snapshot(jax_s.get_captured_plans())["metrics"]
+            jplans = jax_s.get_captured_plans()
+            snap = registry_snapshot(jplans)["metrics"]
             got = [tuple(r) for r in port.sql(sql).collect()]
             out[form] = (want, got, snap, port.last_plan)
+            out[form + "_jax_plans"] = jplans
     finally:
         jax_s.stop()
     return out
@@ -134,6 +139,24 @@ def test_q3_plan_is_all_torch_between_transitions(q3_runs, form):
     for n in ("TorchBroadcastHashJoinExec", "TorchBroadcastExchangeExec",
               "TorchTopNExec", "TorchGlobalLimitExec"):
         assert n in names
+
+
+@pytest.mark.parametrize("form", ["bench", "pushed"])
+def test_q3_plan_and_dispatches_match_jax_package(q3_runs, form):
+    """The same operators and exchange partition counts as the JAX
+    package's plan (planner-inserted exchanges coalesced to one partition
+    on one card: no murmur3), and the same kernel dispatches."""
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    from test_torch_runtime import dispatches, plan_shape
+    _w, _g, jsnap, plan = q3_runs[form]
+    (jplan,) = q3_runs[form + "_jax_plans"]
+    kinds, exchanges = plan_shape(plan)
+    assert (kinds, exchanges) == plan_shape(jplan)
+    assert all(n == 1 for _p, n in exchanges)
+    got = dispatches(plan_metrics(plan))
+    assert got == dispatches(jsnap)
+    assert got["kernelDispatchCount.murmur3"] == 0
+    assert got["kernelDispatchCount.groupbyHash"] == 8
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,8 @@ from spark_rapids_tpu.ops import rle as J
 
 from spark_rapids_tpu_torch.ops import rle as P
 
+torch.set_num_threads(2)
+
 
 def _jnp(a):
     import jax.numpy as jnp

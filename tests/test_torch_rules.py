@@ -19,6 +19,8 @@ from spark_rapids_tpu_torch.kernels import murmur3 as KM
 from spark_rapids_tpu_torch.sql import session as S
 from spark_rapids_tpu_torch.sql import types as T
 
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
