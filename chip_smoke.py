@@ -79,12 +79,22 @@ absent or any phase fails. Output, one line per phase:
      repartition path run by run at both depths (``ring_runs``); the
      main q1 phases check the ring's choice with its key unset (from
      memory synchronous, from Parquet running ahead);
+  11. whole-stage fusion (``stage_fusion_phase``): q1 from memory and from
+     Parquet and both q3 forms with ``spark.rapids.sql.stageFusion.
+     enabled`` on and off in turns (on, off, off, on), each exact, with
+     capture seconds, walls, graph replays against the stages'
+     ``dispatchCount``, kernel and graph launch calls and their host
+     microseconds, device kernels, busy time and idle share from
+     torch.profiler (8 groupbyHash kernels per q1 in the device trace),
+     and ``memory_reserved``; then 8 stage outputs of one partition held
+     together and read back exact (``held_outputs_check``);
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
   ``*_profile.txt`` files, see ``profile_collect``);
   with ``--walls``, only the query walls (``walls_only``), to compare two
-  checkouts in one call;
+  checkouts in one call; with ``--fusion``, only the build and phase 11
+  (``fusion_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
@@ -502,8 +512,11 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def find_exec(plan, pred):
-    if pred(plan):
-        return plan
+    """The first node of ``plan`` (fused-stage constituents included)
+    that ``pred`` accepts."""
+    for node in [plan] + list(getattr(plan, "fused_ops", [])):
+        if pred(node):
+            return node
     for c in plan.children:
         hit = find_exec(c, pred)
         if hit is not None:
@@ -1450,11 +1463,10 @@ def q3_phases(device, card, profiled: bool = False,
     agg = find_exec(spark.plan_physical(df.plan), lambda p: isinstance(
         p, TorchHashAggregateExec) and p.mode == "partial")
     batch = next(iter(agg.child.device_partitions()[0]()))
-    key_cols, vals, prims = agg._eval_inputs(batch)
+    key_cols, vals, prims, active = agg.update_inputs(batch)
     kw, h, add, mn, mx, _decode = KG.table_inputs(
-        key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)],
-        batch.active)
-    gb_q3 = groupby_case((kw, h, batch.active, add, mn, mx),
+        key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)], active)
+    gb_q3 = groupby_case((kw, h, active, add, mn, mx),
                          KR.table_slots(spark.conf_obj, batch.capacity))
     phase("q3_groupby_hash", card=card, tolerance="exact", **gb_q3)
 
@@ -1733,6 +1745,18 @@ def timed_collects(df) -> dict:
             "median_s": statistics.median(walls)}
 
 
+def write_q1_parquet(spark, arrays):
+    """q1's lineitem written once under ``build/data/`` from 8 partitions
+    (8 files of one row group): ``(directory, seconds spent writing)``."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    q1_dir = os.path.join(DATA_DIR, "tpch_sf1_lineitem")
+    write_s = write_once(q1_dir, lambda d: spark.createDataFrame(
+        host_batch_from_numpy(lineitem_fields(), arrays),
+        num_partitions=N_PARTITIONS).write.mode("overwrite").parquet(d),
+        data_key(seed=SEED, rows=SF1_ROWS, partitions=N_PARTITIONS))
+    return q1_dir, write_s
+
+
 def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
     """q1 at SF1 and bench.py's q3 from Parquet through ``read.parquet``,
     with ``decodeFused`` held against its plain version first (the decode
@@ -1754,11 +1778,7 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
                            f"not import here: {e}") from e
     spark = TorchSparkSession({"spark.sql.shuffle.partitions":
                                str(N_PARTITIONS)})
-    q1_dir = os.path.join(DATA_DIR, "tpch_sf1_lineitem")
-    write_s = write_once(q1_dir, lambda d: spark.createDataFrame(
-        host_batch_from_numpy(lineitem_fields(), arrays),
-        num_partitions=N_PARTITIONS).write.mode("overwrite").parquet(d),
-        data_key(seed=SEED, rows=SF1_ROWS, partitions=N_PARTITIONS))
+    q1_dir, write_s = write_q1_parquet(spark, arrays)
     q1_files = sorted(f for f in os.listdir(q1_dir)
                       if f.endswith(".parquet"))
 
@@ -1900,6 +1920,223 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
             "bound_ms": q1c["bound_ms"], "cases": cases}
 
 
+def stage_profile(df) -> dict:
+    """One warm ``df.collect()`` under torch.profiler, read for what
+    stage fusion changes: the host's kernel-launch and graph-launch
+    calls (count and host microseconds), the device's kernels (count,
+    busy time, idle share of the wall, time in device-to-device copies)
+    and groupbyHash's own kernels (``groupby_kernel``) in the device
+    trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host = {}
+    for e in prof.key_averages():
+        if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch")):
+            k = "graph" if e.key.startswith("cudaGraphLaunch") else "kernel"
+            n, us = host.get(k, (0, 0.0))
+            host[k] = (n + e.count, us + e.self_cpu_time_total)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
+                  .events() if e.device_type() == DeviceType.CUDA)
+    # device-to-device copies: fused, these hold each replay's copies
+    # into the graph's static inputs and out of its memory pool
+    d2d_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
+                 .events() if e.device_type() == DeviceType.CUDA
+                 and e.name().startswith("Memcpy DtoD"))
+    return {"wall_s": wall, "device_d2d_copy_s": d2d_ns / 1e9,
+            "launch_kernel_calls": host.get("kernel", (0, 0.0))[0],
+            "launch_kernel_host_us": host.get("kernel", (0, 0.0))[1],
+            "graph_launch_calls": host.get("graph", (0, 0.0))[0],
+            "graph_launch_host_us": host.get("graph", (0, 0.0))[1],
+            "device_kernels": len(kernels),
+            "device_busy_s": busy_ns / 1e9,
+            "device_idle_share": 1.0 - busy_ns / 1e9 / wall,
+            "groupby_kernels": sum("groupby_kernel" in e.name()
+                                   for e in kernels)}
+
+
+def stage_metrics(plan) -> dict:
+    """The fused stages' counters of an executed plan (each stage node
+    with its constituents) and the number of stages."""
+    from spark_rapids_tpu_torch.exec.fused import TorchFusedStageExec
+    out = {"stages": 0, "dispatchCount": 0, "stageCompileTime": 0,
+           "compileCacheMisses": 0, "compileCacheHits": 0}
+    for p in plan_nodes_of(plan):
+        if isinstance(p, TorchFusedStageExec):
+            out["stages"] += 1
+            for node in [p] + p.fused_ops:
+                m = node.metrics.snapshot()
+                for k in out:
+                    out[k] += m.get(k, 0)
+    return out
+
+
+def held_outputs_check(spark, q1_dir: str) -> dict:
+    """A filter/project stage over q1's lineitem from Parquet (8 row
+    groups in one scan partition): every stage output of the partition
+    is held until the last has been produced, then each is read back
+    and the rows are held against the unfused plan's. A replay that
+    overwrote an earlier batch's buffers would show here."""
+    import torch
+    from spark_rapids_tpu_torch.exec.fused import TorchFusedStageExec
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    sql = ("SELECT l_returnflag, l_linestatus, "
+           "l_extendedprice * (1 - l_discount) AS disc_price, l_quantity "
+           "FROM lineitem_pq WHERE l_shipdate <= date '1998-09-02'")
+    plan = spark.plan_physical(spark.sql(sql).plan)
+    stage = find_exec(plan, lambda p: isinstance(p, TorchFusedStageExec))
+    if stage is None or stage.sink_agg is not None:
+        raise AssertionError(f"held-outputs query: no filter/project "
+                             f"stage in {plan_names(plan)}")
+    (thunk,) = stage.device_partitions()
+    held = list(thunk())
+    torch.cuda.synchronize()
+    got = sorted(r for b in held for r in b.to_host().rows())
+    plain = TorchSparkSession({"spark.rapids.sql.stageFusion.enabled":
+                               "false"})
+    plain.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
+    want = sorted(tuple(r) for r in plain.sql(sql).collect())
+    if len(held) != 8 or got != want:
+        raise AssertionError(f"held stage outputs: {len(held)} batches, "
+                             f"{len(got)} rows vs {len(want)} unfused, "
+                             f"equal={got == want}")
+    return {"batches_held": len(held), "rows": len(got),
+            "reference": "the unfused plan, exact"}
+
+
+def stage_fusion_phase(card, fields, arrays, q1_dir, tables) -> None:
+    """Whole-stage fusion on and off, in turns (on, off, off, on): q1 from
+    memory and from Parquet and both q3 forms, each exact. Per query and
+    turn: the first run (every turn starts with an empty stage cache,
+    so a fused turn captures: ``stageCompileTime``, captures), the walls
+    (one warm run,
+    median of three), a counted run (graph replays against the stages'
+    ``dispatchCount``, kernel launches, the host time of the replay calls
+    without the profiler), a profiled run
+    (``stage_profile``), and ``torch.cuda.memory_reserved()`` after the
+    query and after ``empty_cache`` (what the cached graphs' pools and
+    live tensors keep). Fused, every stage program runs as a graph
+    replay (replays equal ``dispatchCount`` in a warm run, and q1's
+    trace shows one graph launch per partial-aggregate batch); unfused,
+    no graph runs. Every turn: 8 groupbyHash kernels per q1 in the
+    device trace, no murmur3, every upload from a pinned slot. Then
+    ``held_outputs_check``."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec import fused as F
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    want_q1 = q1_reference(arrays)
+    want_q3 = q3_reference(tables)
+    batch = host_batch_from_numpy(fields, arrays)
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    q3_batches = {name: host_batch_from_numpy(
+        [(c, types[k]) for c, k, _a in cols], [a for _c, _k, a in cols])
+        for name, cols in tables.items()}
+    spark = None
+    for turn, fused in enumerate((True, False, False, True)):
+        # each turn starts with no cached graph, so the fused turns both
+        # capture and the memory of the turns compares like with like
+        F.STAGE_CACHE.clear()
+        torch.cuda.empty_cache()
+        spark = TorchSparkSession({
+            "spark.sql.shuffle.partitions": str(N_PARTITIONS),
+            "spark.rapids.sql.stageFusion.enabled": str(fused).lower()})
+        spark.createDataFrame(batch, num_partitions=N_PARTITIONS) \
+            .createOrReplaceTempView("lineitem")
+        spark.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
+        for name, b in q3_batches.items():
+            spark.createDataFrame(b, num_partitions=Q3_PARTITIONS[name]) \
+                .createOrReplaceTempView(name)
+        for query, df in (
+                ("q1_memory", spark.sql(Q1)),
+                ("q1_parquet", spark.sql(Q1.replace("FROM lineitem",
+                                                    "FROM lineitem_pq"))),
+                ("q3_bench", spark.sql(Q3_BENCH)),
+                ("q3_pushed", spark.sql(Q3_PUSHED))):
+            F.reset_graph_counts()
+            t0 = time.perf_counter()
+            rows = df.collect()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            first = stage_metrics(spark.last_plan)
+            captures = F.GRAPH_COUNTS["captures"]
+            if query.startswith("q1"):
+                check_q1_rows(rows, want_q1)
+            else:
+                check_q3_rows(rows, want_q3, f"{query} fused={fused}")
+            walls = timed_collects(df)
+            KR.reset_launches()
+            F.reset_graph_counts()
+            rows = df.collect()
+            torch.cuda.synchronize()
+            launches = dict(KR.LAUNCHES)
+            counted = stage_metrics(spark.last_plan)
+            replays = F.GRAPH_COUNTS["replays"]
+            replay_host_ns = F.GRAPH_COUNTS["replay_host_ns"]
+            m = r2c_metrics(spark.last_plan)
+            prof = stage_profile(df)
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.empty_cache()
+            reserved_kept = torch.cuda.memory_reserved()
+            partial = find_exec(spark.last_plan, lambda p: isinstance(
+                p, TorchHashAggregateExec) and p.mode == "partial")
+            agg_programs = partial.metrics.value("dispatchCount")
+            fields_out = {
+                "first_run_s": first_s, "captures": captures,
+                "capture_s": first["stageCompileTime"] / 1e9,
+                "stages": counted["stages"],
+                "dispatch_count": counted["dispatchCount"],
+                "graph_replays": replays,
+                # host time of the replay calls, without the profiler
+                "replay_host_us": replay_host_ns / 1e3,
+                "partial_agg_programs": agg_programs,
+                "launches": launches, **walls, **prof,
+                "memory_reserved": reserved,
+                "memory_reserved_after_empty_cache": reserved_kept}
+            bad = []
+            if fused:
+                if counted["stages"] == 0 or \
+                        replays != counted["dispatchCount"] or \
+                        F.GRAPH_COUNTS["captures"]:
+                    bad.append("stage programs are not all graph replays")
+                if query.startswith("q1") and \
+                        prof["graph_launch_calls"] != agg_programs:
+                    bad.append("q1: not one graph launch per "
+                               "partial-aggregate program")
+            elif counted["stages"] or replays or \
+                    prof["graph_launch_calls"]:
+                bad.append("a graph ran with fusion off")
+            if query.startswith("q1") and (
+                    prof["groupby_kernels"] != N_PARTITIONS
+                    or launches["groupbyHash"] != N_PARTITIONS):
+                bad.append("q1: groupbyHash launches "
+                           f"{launches['groupbyHash']}, trace "
+                           f"{prof['groupby_kernels']}")
+            if launches["murmur3"] or \
+                    m.get("pinnedStreamCopies", 0) != m["numOutputBatches"]:
+                bad.append(f"murmur3 or pinned uploads: {launches} {m}")
+            phase("stage_fusion", card=card, query=query, fused=fused,
+                  turn=turn, reference="exact", **fields_out)
+            if bad:
+                raise AssertionError(f"{query} fused={fused}: {bad}")
+    held = held_outputs_check(spark, q1_dir)
+    phase("stage_fusion_held_outputs", card=card, **held)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1975,12 +2212,12 @@ def main() -> int:
     agg = find_exec(probe_plan, lambda p: isinstance(
         p, TorchHashAggregateExec) and p.mode == "partial")
     batch = next(iter(agg.child.device_partitions()[0]()))
-    key_cols, vals, prims = agg._eval_inputs(batch)
+    key_cols, vals, prims, active = agg.update_inputs(batch)
     entries = [(v, p, dt) for v, (p, dt) in zip(vals, prims)]
     slots = KR.table_slots(spark.conf_obj, batch.capacity)
     kw, h, add, mn, mx, _decode = KG.table_inputs(key_cols, entries,
-                                                  batch.active)
-    gb_in = (kw, h, batch.active, add, mn, mx)
+                                                  active)
+    gb_in = (kw, h, active, add, mn, mx)
     gb_q1 = groupby_case(gb_in, slots)
     # many groups: about 700 keys into 1024 slots, q1's add lanes plus a
     # min and a max lane
@@ -2181,6 +2418,7 @@ def main() -> int:
     dfu = parquet_phases(device, card, arrays, "--breakdown" in sys.argv[1:])
     upload_split(fields, arrays, device, card)
     ring_phases(card, fields, arrays, dfu["q1_dir"], tables)
+    stage_fusion_phase(card, fields, arrays, dfu["q1_dir"], tables)
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -2321,8 +2559,22 @@ def walls_only(card: str, runs: int = 5) -> None:
         gc.callbacks.remove(on_gc)
 
 
+def fusion_only(card: str) -> None:
+    """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    phase("build", nvcc_seconds=round(device_caps.probe(
+        torch.device("cuda", 0)), 3), torch=torch.__version__,
+        cuda=torch.version.cuda)
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    stage_fusion_phase(card, lineitem_fields(), arrays, q1_dir,
+                       q3_tables())
+
+
 if __name__ == "__main__":
-    if "--walls" in sys.argv[1:]:
+    if "--walls" in sys.argv[1:] or "--fusion" in sys.argv[1:]:
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2332,6 +2584,9 @@ if __name__ == "__main__":
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         print(card, flush=True)
-        walls_only(card)
+        if "--fusion" in sys.argv[1:]:
+            fusion_only(card)
+        else:
+            walls_only(card)
         sys.exit(0)
     sys.exit(main())

@@ -177,12 +177,17 @@ def rebuild_columns(spec: Sequence[Tuple[T.DataType, int]],
 @dataclass
 class DeviceBatch:
     """A columnar batch resident on one torch device. ``active`` marks
-    real rows; ``_num_rows`` caches the host row count."""
+    real rows; ``_num_rows`` caches the host row count. ``_num_rows_dev``
+    is the count as a 0-d device tensor, attached by producers that
+    compute it anyway (a stage program's filter, a compaction), so
+    neither they nor a consumer that only counts has to read it on the
+    host."""
 
     schema: T.StructType
     columns: List[AnyDeviceColumn]
     active: torch.Tensor
     _num_rows: Optional[int] = None
+    _num_rows_dev: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -194,12 +199,23 @@ class DeviceBatch:
 
     def row_count(self) -> int:
         if self._num_rows is None:
-            self._num_rows = int(self.active.sum())
+            n = self._num_rows_dev
+            self._num_rows = int(self.active.sum() if n is None else n)
         return self._num_rows
+
+    def row_count_lazy(self):
+        """The row count as the host knows it, else as a device scalar
+        (read back by whoever needs the number)."""
+        if self._num_rows is not None:
+            return self._num_rows
+        if self._num_rows_dev is not None:
+            return self._num_rows_dev
+        return self.active.sum()
 
     def with_columns(self, schema: T.StructType,
                      columns: List[AnyDeviceColumn]) -> "DeviceBatch":
-        return DeviceBatch(schema, columns, self.active, self._num_rows)
+        return DeviceBatch(schema, columns, self.active, self._num_rows,
+                           self._num_rows_dev)
 
     @staticmethod
     def empty(schema: T.StructType, device: torch.device) -> "DeviceBatch":

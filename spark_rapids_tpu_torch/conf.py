@@ -138,6 +138,27 @@ PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT = _entry(
     "synchronously. Set, the depth applies to every source.",
     2, int)
 
+STAGE_FUSION_ENABLED = _entry(
+    "spark.rapids.sql.stageFusion.enabled",
+    "Fuse maximal linear chains of per-batch device operators "
+    "(filter -> project -> partial hash-aggregate update) into ONE "
+    "stage program per batch (TorchFusedStageExec) — the whole-"
+    "stage-codegen / GpuTieredProject analogue. On a CUDA device each "
+    "stage program is captured once as a CUDA graph per input shape "
+    "and replayed for every batch; on the CPU it runs eagerly. Results "
+    "are bit-identical to the unfused plan. Per-operator metrics still "
+    "report: fused nodes fan updates back to their constituent execs.",
+    True, _to_bool)
+
+STAGE_FUSION_MAX_IN_FLIGHT = _entry(
+    "spark.rapids.sql.stageFusion.maxInFlight",
+    "Pipeline window of a fused stage: how many batches may be in "
+    "flight (dispatched to the device but not yet yielded downstream) "
+    "at once. Batch k+1's dispatch overlaps batch k's device compute; "
+    "the value bounds device memory held by outstanding batches. 1 = "
+    "sequential per-batch draining.",
+    2, int)
+
 
 class TorchConf:
     """Bound view over a conf dict."""

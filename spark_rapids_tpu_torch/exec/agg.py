@@ -9,22 +9,33 @@ batch whose hash table overflowed re-runs on the sort-based partial
 aggregate (``ops/groupby``), counted in ``overflow_reruns``. Everything
 else — the final merge, and partial aggregates the kernel does not take
 — is the sort-based path in plain PyTorch, as it is plain XLA in the JAX
-package. Out-of-core staging, spill and retry are not ported yet.
+package. A partition's partial results are merged into one batch when
+they fit (``_run_partial``), as in the JAX package.
+
+Under stage fusion a partial aggregate absorbs the filter/project chain
+below it (``absorb_prelude``): the prelude, the key and value
+expressions, the groupbyHash launch, the decode of the table's lanes and
+the compaction run as ONE stage program per batch (``_update_program``,
+a CUDA graph replay on the card, ``exec/fused.py``). Every program the
+exec runs counts one ``dispatchCount``. Out-of-core staging, spill and
+retry are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import kernels as KR
+from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceBatch, DeviceColumn, DeviceDecimal128Column,
     compact_arrays, concat_device, flatten_columns, mask_col,
     rebuild_columns, slice_compacted_to_bucket)
 from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
 from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.exec import fused as F
 from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
                                               TorchExec, device_channel)
 from spark_rapids_tpu_torch.kernels import groupby_hash as KG
@@ -108,6 +119,87 @@ def dev_evaluate(func: E.AggregateFunction,
         f"aggregate {type(func).__name__} is not ported yet")
 
 
+def _eval_values(ctx: X.Ctx, key_bound, slot_srcs):
+    """Evaluated key columns and per-slot value columns; a source shared
+    by several slots (sum(x) + avg(x)) is evaluated once."""
+    key_cols = [X.dev_eval(e, ctx) for e in key_bound]
+    uniq: Dict[tuple, AnyDeviceColumn] = {}
+    vals = []
+    for e in slot_srcs:
+        k = X.expr_key(e)
+        if k not in uniq:
+            uniq[k] = X.dev_eval(e, ctx)
+        vals.append(uniq[k])
+    return key_cols, vals
+
+
+def _sort_path(key_cols, vals, prims, active: torch.Tensor, hashed: bool):
+    """Sort-based aggregation: (key columns, buffers, out_active) at
+    segment-end rows of the sorted layout."""
+    flat, spec = flatten_columns(key_cols + vals)
+    build = G.build_segments_hashed if hashed else G.build_segments
+    seg = build(key_cols, active, payload=flat)
+    sorted_cols = rebuild_columns(spec, seg.payload)
+    keys_s = sorted_cols[:len(key_cols)]
+    vals_s = sorted_cols[len(key_cols):]
+    buffers: List[Optional[AnyDeviceColumn]] = [None] * len(prims)
+    entries, entry_pos = [], []
+    for i, ((p, dt), v) in enumerate(zip(prims, vals_s)):
+        if p in _SUM_KINDS:
+            entries.append((v, _SUM_KINDS[p], dt))
+            entry_pos.append(i)
+        elif p in (E.PRIM_MIN, E.PRIM_MAX):
+            buffers[i] = G.seg_extreme(seg, v, p == E.PRIM_MIN)
+        else:
+            raise NotImplementedError(
+                f"aggregate primitive {p} is not ported yet")
+    for i, c in zip(entry_pos, G.seg_sums_batched(seg, entries)):
+        buffers[i] = c
+    key_out = [mask_col(c, seg.out_active) for c in keys_s]
+    return key_out, buffers, seg.out_active
+
+
+def _update_program(kind: str, prelude_steps, key_bound, slot_srcs, prims,
+                    slots: Optional[int], spec, layout,
+                    device: torch.device) -> F.ProgramFn:
+    """One batch's partial-mode program over flat inputs (columns, active,
+    literal tensors): the absorbed filter/project prelude, the key and
+    value expressions, then the groupbyHash table (``kind`` "kernel") or
+    the sort-based aggregate ("sorted"; "merge" re-groups partial
+    buffers), and the compaction of the groups to the front. Outputs:
+    the compacted columns, their active mask, the group count and, for
+    the kernel, its overflow flag, then the prelude's per-step row
+    counts, all on the device: nothing here reads a value on the host."""
+    n = sum(arity for _dt, arity in spec)
+    all_exprs = list(key_bound) + list(slot_srcs)
+
+    def fn(flat):
+        cols = rebuild_columns(spec, flat[:n])
+        active = flat[n]
+        lits = F.unflatten_literals(flat[n + 1:], layout)
+        counts: List[torch.Tensor] = []
+        if prelude_steps:
+            cols, active, counts = X.trace_stage_steps(
+                prelude_steps, cols, active, lits[:-1], device)
+        ctx = X.Ctx(cols, active.shape[0], device, all_exprs, lits[-1])
+        key_cols, vals = _eval_values(ctx, key_bound, slot_srcs)
+        extra: List[torch.Tensor] = []
+        if kind == "kernel":
+            entries = [(v, p, dt) for v, (p, dt) in zip(vals, prims)]
+            key_out, buffers, keep, overflow = KG.hash_groupby(
+                key_cols, entries, active, slots)
+            out_cols = list(key_out) + list(buffers)
+            extra = [overflow]
+        else:
+            key_out, buffers, keep = _sort_path(key_cols, vals, prims,
+                                                active, hashed=True)
+            out_cols = key_out + buffers
+        flat_o, ospec = flatten_columns(out_cols)
+        new_active, outs = compact_arrays(keep, flat_o)
+        return outs + [new_active, keep.sum()] + extra + counts, ospec
+    return fn
+
+
 class TorchHashAggregateExec(TorchExec):
     def __init__(self, grouping: List[E.AttributeReference],
                  aggregates: List[E.Expression], mode: str,
@@ -122,6 +214,25 @@ class TorchHashAggregateExec(TorchExec):
         # batches whose groupbyHash table overflowed and re-ran on the
         # sort-based partial aggregate
         self.overflow_reruns = 0
+        # stage fusion (exec/fused.py): a filter/project prelude run
+        # inside this exec's per-batch program
+        self._prelude_ops = None
+        self._prelude_steps = None
+        self._prelude_bind_out = None
+
+    def absorb_prelude(self, prelude_ops, source) -> None:
+        """Absorb a fusible filter/project chain into this partial
+        aggregate's per-batch program. ``source`` becomes the direct
+        child; the aggregate's expressions keep binding against the chain
+        top's output (the attributes they were resolved to)."""
+        if self.mode != "partial":
+            raise ValueError(f"only a partial aggregate absorbs a prelude, "
+                             f"not mode {self.mode}")
+        from spark_rapids_tpu_torch.exec.fused import bind_chain_steps
+        self._prelude_ops = list(prelude_ops)
+        self._prelude_steps = bind_chain_steps(self._prelude_ops)
+        self._prelude_bind_out = prelude_ops[-1].output
+        self.children = [source]
 
     @property
     def child(self) -> TorchExec:
@@ -137,89 +248,117 @@ class TorchHashAggregateExec(TorchExec):
                 if isinstance(e, E.Alias)
                 and isinstance(e.child, E.AggregateExpression)]
 
-    def _bound_slot_sources(self) -> Tuple[List[E.Expression],
-                                           List[Tuple[str, T.DataType]]]:
-        """Per-slot (bound source expression, (prim, out_type))."""
-        child_out = self.child.output
+    def _bound_inputs(self, merge: bool = False):
+        """``(key exprs, per-slot source exprs, per-slot (prim,
+        out_type))``, bound. A partial update binds against its input (the
+        absorbed prelude's output, where there is one) with the update
+        primitives; ``merge`` (and the final mode) bind the slots'
+        buffer attributes with the merge primitives, against this exec's
+        own output for a merge of partial results."""
+        if merge:
+            bind = self.output
+        elif self._prelude_bind_out is not None:
+            bind = self._prelude_bind_out
+        else:
+            bind = self.child.output
+        update = self.mode == "partial" and not merge
         srcs, prims = [], []
         for alias in self._agg_aliases():
             for s in self.slots[alias.expr_id]:
-                if self.mode == "partial":
-                    prim, src = s.update_prim, s.update_expr
-                else:
-                    prim, src = s.merge_prim, s.attr
-                srcs.append(E.bind_references(src, child_out))
+                prim, src = ((s.update_prim, s.update_expr) if update
+                             else (s.merge_prim, s.attr))
+                srcs.append(E.bind_references(src, bind))
                 prims.append((prim, s.dtype))
-        return srcs, prims
+        keys = [E.bind_references(g, bind) for g in self.grouping]
+        return keys, srcs, prims
 
-    def _eval_inputs(self, batch: DeviceBatch):
-        """Evaluated key columns and per-slot value columns; a source
-        shared by several slots (sum(x) + avg(x)) is evaluated once."""
-        key_bound = [E.bind_references(g, self.child.output)
-                     for g in self.grouping]
-        slot_srcs, prims = self._bound_slot_sources()
-        ctx = X.Ctx(batch.columns, batch.capacity, batch.device)
-        key_cols = [X.dev_eval(e, ctx) for e in key_bound]
-        uniq: Dict[tuple, AnyDeviceColumn] = {}
-        vals = []
-        for e in slot_srcs:
-            k = X.expr_key(e)
-            if k not in uniq:
-                uniq[k] = X.dev_eval(e, ctx)
-            vals.append(uniq[k])
-        return key_cols, vals, prims
+    def update_inputs(self, batch: DeviceBatch):
+        """``(key columns, slot values, prims, active)`` of one batch's
+        partial update after the absorbed prelude: what the groupbyHash
+        kernel is handed, evaluated eagerly."""
+        key_bound, slot_srcs, prims = self._bound_inputs()
+        cols, active = batch.columns, batch.active
+        if self._prelude_steps:
+            cols, active, _n = X.trace_stage_steps(
+                self._prelude_steps, cols, active,
+                X.stage_literal_values(self._prelude_steps, self.device),
+                self.device)
+        ctx = X.Ctx(cols, batch.capacity, self.device)
+        key_cols, vals = _eval_values(ctx, key_bound, slot_srcs)
+        return key_cols, vals, prims, active
 
-    def _compacted(self, cols: List[AnyDeviceColumn],
-                   keep: torch.Tensor) -> DeviceBatch:
-        flat, spec = flatten_columns(cols)
-        new_active, outs = compact_arrays(keep, flat)
-        out = DeviceBatch(self.schema, rebuild_columns(spec, outs),
-                          new_active, int(keep.sum()))
-        return slice_compacted_to_bucket(out)
-
-    def _partial_kernel(self, batch: DeviceBatch):
-        """The groupbyHash path: (compacted partial batch, overflow)."""
-        key_cols, vals, prims = self._eval_inputs(batch)
-        slots = KR.table_slots(self.conf, batch.capacity)
-        entries = [(v, p, dt) for v, (p, dt) in zip(vals, prims)]
-        self.metrics.create("kernelDispatchCount.groupbyHash").add(1)
-        key_out, buffers, used, overflow = KG.hash_groupby(
-            key_cols, entries, batch.active, slots)
-        return self._compacted(list(key_out) + list(buffers), used), \
-            overflow
-
-    def _sort_path(self, batch: DeviceBatch, hashed: bool):
-        """Sort-based aggregation: (key columns, buffers, out_active) at
-        segment-end rows of the sorted layout."""
-        key_cols, vals, prims = self._eval_inputs(batch)
-        flat, spec = flatten_columns(key_cols + vals)
-        build = G.build_segments_hashed if hashed else G.build_segments
-        seg = build(key_cols, batch.active, payload=flat)
-        sorted_cols = rebuild_columns(spec, seg.payload)
-        keys_s = sorted_cols[:len(key_cols)]
-        vals_s = sorted_cols[len(key_cols):]
-        buffers: List[Optional[AnyDeviceColumn]] = [None] * len(prims)
-        entries, entry_pos = [], []
-        for i, ((p, dt), v) in enumerate(zip(prims, vals_s)):
-            if p in _SUM_KINDS:
-                entries.append((v, _SUM_KINDS[p], dt))
-                entry_pos.append(i)
-            elif p in (E.PRIM_MIN, E.PRIM_MAX):
-                buffers[i] = G.seg_extreme(seg, v, p == E.PRIM_MIN)
+    def _programs(self) -> dict:
+        """Per execution: for the partial update and the merge of partial
+        results, the bound inputs, the literal tensors and the program's
+        structural key."""
+        out = {}
+        for merge in (False, True):
+            key_bound, slot_srcs, prims = self._bound_inputs(merge)
+            steps = None if merge else self._prelude_steps
+            lits = X.literal_values(key_bound + slot_srcs, self.device)
+            if steps:
+                lits = list(X.stage_literal_values(steps, self.device)) \
+                    + [lits]
             else:
-                raise NotImplementedError(
-                    f"aggregate primitive {p} is not ported yet")
-        for i, c in zip(entry_pos, G.seg_sums_batched(seg, entries)):
-            buffers[i] = c
-        key_out = [mask_col(c, seg.out_active) for c in keys_s]
-        return key_out, buffers, seg.out_active
+                lits = [lits]
+            flat_lits, layout = F.flatten_literals(lits)
+            # which slot sources _eval_values evaluates once for several
+            # slots: it compares values, which the program key leaves out
+            first: Dict[tuple, int] = {}
+            shared = tuple(first.setdefault(X.expr_key(e), i)
+                           for i, e in enumerate(slot_srcs))
+            skey = (tuple(X.expr_key(e, program=True) for e in key_bound),
+                    tuple(X.expr_key(e, program=True) for e in slot_srcs),
+                    shared, tuple((p, repr(dt)) for p, dt in prims),
+                    X.stage_structural_key(steps) if steps else None,
+                    layout)
+            out["merge" if merge else "update"] = (
+                steps, key_bound, slot_srcs, prims, flat_lits, layout, skey)
+        return out
 
-    def _partial_sorted(self, batch: DeviceBatch) -> DeviceBatch:
-        key_out, buffers, out_active = self._sort_path(batch, hashed=True)
-        return self._compacted(key_out + buffers, out_active)
+    def _aggregate(self, batch: DeviceBatch, kind: str, programs: dict):
+        """Run one partial-mode program (``kind`` "kernel", "sorted" or
+        "merge") over ``batch``: ``(groups compacted to the front at the
+        input's capacity, with the count as a device scalar; the
+        kernel's overflow flag or None)``. A fused stage's sink runs it
+        through the stage cache (a CUDA graph replay on the card);
+        otherwise it runs eagerly. Either way it counts one
+        ``dispatchCount``, as the JAX package's ``_aggregate_batch``
+        does for each program it runs."""
+        steps, key_bound, slot_srcs, prims, flat_lits, layout, skey = \
+            programs["merge" if kind == "merge" else "update"]
+        flat, spec = flatten_columns(batch.columns)
+        slots = (KR.table_slots(self.conf, batch.capacity)
+                 if kind == "kernel" else None)
+        fn = _update_program(kind, steps, key_bound, slot_srcs, prims,
+                             slots, spec, layout, self.device)
+        flat_in = flat + [batch.active] + flat_lits
+        if kind == "kernel":
+            self.metrics.create("kernelDispatchCount.groupbyHash").add(1)
+        if self._prelude_ops is None:
+            self.metrics.create(M.DISPATCH_COUNT).add(1)
+            outs, ospec = fn(flat_in)
+        else:
+            key = ("agg", kind, skey, slots,
+                   tuple((repr(dt), a) for dt, a in spec))
+            outs, ospec = F.run_program(key, fn, flat_in, self.metrics)
+        n = sum(a for _dt, a in ospec)
+        out = DeviceBatch(self.schema, rebuild_columns(ospec, outs[:n]),
+                          outs[n], None, outs[n + 1])
+        rest = outs[n + 2:]
+        overflow = None
+        if kind == "kernel":
+            overflow, rest = rest[0], rest[1:]
+        if steps:
+            F.count_steps(self._prelude_ops, rest)
+        return out, overflow
 
     def _final(self, batch: DeviceBatch) -> DeviceBatch:
-        key_out, buffers, out_active = self._sort_path(batch, hashed=False)
+        key_bound, slot_srcs, prims = self._bound_inputs()
+        ctx = X.Ctx(batch.columns, batch.capacity, batch.device)
+        key_cols, vals = _eval_values(ctx, key_bound, slot_srcs)
+        key_out, buffers, out_active = _sort_path(
+            key_cols, vals, prims, batch.active, hashed=False)
         by_alias: Dict[int, List[AnyDeviceColumn]] = {}
         off = 0
         for a in self._agg_aliases():
@@ -251,43 +390,65 @@ class TorchHashAggregateExec(TorchExec):
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         grouped = len(self.grouping) > 0
-        _srcs, prims = self._bound_slot_sources()
-        use_kernel = KG.agg_kernel_eligible(self.mode, self.grouping, prims)
+        if self.mode == "partial":
+            programs = self._programs()
+            use_kernel = KG.agg_kernel_eligible(
+                self.mode, self.grouping, programs["update"][3])
 
         def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
                 if self.mode == "partial":
-                    yield from self._run_partial(thunk, use_kernel)
+                    yield from self._run_partial(thunk, use_kernel,
+                                                 programs)
                     return
                 batches = [b for b in thunk() if b.row_count() != 0]
                 if not batches:
                     if not grouped:
                         yield self._empty_global_result()
                     return
+                self.metrics.create(M.DISPATCH_COUNT).add(1)
                 yield self._final(concat_device(batches))
             return run
         return [make(t) for t in device_channel(self.child)]
 
-    def _run_partial(self, thunk: DevicePartitionThunk, use_kernel: bool
-                     ) -> Iterator[DeviceBatch]:
-        """Partial mode. Kernel outputs wait with their inputs until the
-        partition is drained, then the overflow flags are read together;
-        an overflowed batch's kernel output is discarded and the batch
-        re-runs on the sort-based partial aggregate."""
-        if not use_kernel:
-            for b in thunk():
-                yield self._partial_sorted(b)
-            return
-        pending = [(b,) + self._partial_kernel(b) for b in thunk()]
+    def _run_partial(self, thunk: DevicePartitionThunk, use_kernel: bool,
+                     programs: dict) -> Iterator[DeviceBatch]:
+        """Partial mode, as the JAX package drains it. Each batch's
+        program compacts its groups and leaves their count on the device;
+        kernel outputs wait with their inputs until the partition is
+        drained, then every count and overflow flag is read in one copy.
+        An overflowed batch's kernel output is discarded and the batch
+        re-runs on the sort-based partial aggregate. The outputs are cut
+        to their capacity buckets and, when several together fit in one
+        batch, merged into one (the pre-shuffle reduction of
+        aggregate.scala)."""
+        kind = "kernel" if use_kernel else "sorted"
+        pending = []
+        for b in thunk():
+            out, overflow = self._aggregate(b, kind, programs)
+            pending.append((b if use_kernel else None, out, overflow))
         if not pending:
             return
-        flags = torch.cat([o for _b, _out, o in pending]).cpu().tolist()
-        for (b, out, _o), ovf in zip(pending, flags):
+        host = torch.cat(
+            [out._num_rows_dev.reshape(1) for _b, out, _o in pending]
+            + [o.to(torch.int64) for _b, _out, o in pending
+               if o is not None]).cpu().tolist()
+        flags = host[len(pending):] or [0] * len(pending)
+        shrunk = []
+        for (b, out, _o), n, ovf in zip(pending, host, flags):
             if ovf:
                 self.overflow_reruns += 1
-                yield self._partial_sorted(b)
-            else:
-                yield out
+                out, _o = self._aggregate(b, "sorted", programs)
+                n = out.row_count()
+            out._num_rows = n
+            shrunk.append(slice_compacted_to_bucket(out))
+        total = sum(b._num_rows for b in shrunk)
+        if len(shrunk) > 1 and total <= self.conf.batch_size_rows:
+            merged, _o = self._aggregate(concat_device(shrunk), "merge",
+                                         programs)
+            yield merged
+            return
+        yield from shrunk
 
     def simple_string(self):
         return (f"TorchHashAggregate mode={self.mode} "

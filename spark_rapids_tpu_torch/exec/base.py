@@ -59,8 +59,7 @@ class TorchExec(P.PhysicalPlan):
             def run() -> Iterator[DeviceBatch]:
                 for b in thunk():
                     batches.add(1)
-                    rows.add(b._num_rows if b._num_rows is not None
-                             else b.active.sum())
+                    rows.add(b.row_count_lazy())
                     yield b
             return run
         return [count(t) for t in self.device_partitions()]

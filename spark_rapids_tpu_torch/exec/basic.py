@@ -1,8 +1,12 @@
 """Basic device operators: project, filter and limit (the counterparts
 of ``spark_rapids_tpu.exec.basic``'s TpuProjectExec, TpuFilterExec,
 TpuLocalLimitExec and TpuGlobalLimitExec). Filters and limits only flip
-the ``active`` mask; compaction happens at exchanges. Stage fusion
-(``exec/fused.py``) is not ported: each runs on its own.
+the ``active`` mask; compaction happens at exchanges. Under stage fusion
+(``exec/fused.py``, on by default) a chain of filters and projects runs
+as one stage program and these operators' own ``device_partitions`` do
+not run; they are the unfused plan's
+(``spark.rapids.sql.stageFusion.enabled=false``) and a lone filter's or
+project's.
 """
 
 from __future__ import annotations

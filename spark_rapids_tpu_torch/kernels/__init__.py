@@ -18,13 +18,17 @@ Each C entry launches on the stream it is handed (PyTorch's current
 stream), never synchronises, and returns ``cudaGetLastError()``; the
 Python wrapper raises on a non-zero code. Each wrapper keeps a plain
 integer launch counter (``LAUNCHES``), bumped where it launches its
-kernel and nowhere else. Nothing here falls back: on a CUDA tensor a
+kernel and nowhere else. A launch made while a stage program is being
+captured as a CUDA graph does not run then: ``recording_launches``
+records it instead, and every replay of that graph adds the recorded
+kernels (``count_replay``). Nothing here falls back: on a CUDA tensor a
 wrapper launches its kernel or raises; only a CPU tensor takes the plain
 PyTorch version beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +37,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,6 +53,8 @@ LAUNCHES: Dict[str, int] = {"murmur3": 0, "groupbyHash": 0,
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Optional[float] = None
+# per thread: the kernel names launched into a graph being captured
+_CAPTURE = threading.local()
 
 
 class KernelError(RuntimeError):
@@ -62,7 +68,29 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    names = getattr(_CAPTURE, "names", None)
+    if names is not None:
+        names.append(name)
+    else:
+        LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[List[str]]:
+    """Around a CUDA graph capture on this thread: the launches inside
+    are recorded in the yielded list, not counted."""
+    names: List[str] = []
+    _CAPTURE.names = names
+    try:
+        yield names
+    finally:
+        _CAPTURE.names = None
+
+
+def count_replay(names: List[str]) -> None:
+    """One replay of a captured graph launched these kernels."""
+    for n in names:
+        LAUNCHES[n] += 1
 
 
 def _nvcc() -> str:

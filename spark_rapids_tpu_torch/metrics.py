@@ -27,6 +27,12 @@ SCAN_PREFETCH_TIME = "scanPrefetchTime"
 UPLOAD_AHEAD_BATCHES = "uploadAheadBatches"
 # uploads copied from a pinned staging slot on the ring's own copy stream
 PINNED_STREAM_COPIES = "pinnedStreamCopies"
+# stage fusion (TorchFusedStageExec and prelude-absorbing aggregates)
+DISPATCH_COUNT = "dispatchCount"        # stage programs run
+STAGE_COMPILE_TIME = "stageCompileTime"  # a new program's warm-up + capture
+FUSED_OPS = "fusedOps"                  # operators collapsed into a stage
+COMPILE_CACHE_HITS = "compileCacheHits"
+COMPILE_CACHE_MISSES = "compileCacheMisses"
 
 
 class Metric:
@@ -94,13 +100,15 @@ class MetricRegistry:
 
 
 def plan_metrics(plan) -> Dict[str, int]:
-    """Every exec registry of an executed plan summed by name (the JAX
-    package's ``registry_snapshot(plans)["metrics"]``)."""
+    """Every exec registry of an executed plan summed by name, fused-stage
+    constituents included (the JAX package's
+    ``registry_snapshot(plans)["metrics"]``)."""
     out: Dict[str, int] = {}
-    ms = getattr(plan, "metrics", None)
-    if isinstance(ms, MetricRegistry):
-        for k, v in ms.snapshot().items():
-            out[k] = out.get(k, 0) + v
+    for node in [plan] + list(getattr(plan, "fused_ops", [])):
+        ms = getattr(node, "metrics", None)
+        if isinstance(ms, MetricRegistry):
+            for k, v in ms.snapshot().items():
+                out[k] = out.get(k, 0) + v
     for c in getattr(plan, "children", []):
         for k, v in plan_metrics(c).items():
             out[k] = out.get(k, 0) + v

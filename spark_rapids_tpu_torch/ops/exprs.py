@@ -11,8 +11,19 @@ evaluator and broadcast. Any other expression raises
 
 Semantics are the CPU engine's (sql/expressions.py): every column
 carries a validity mask; invalid slots hold zeros ("normalized"), and
-operators combine child validities. PyTorch runs eagerly, so there is no
-compile cache: ``expr_key`` survives only to deduplicate slot sources.
+operators combine child validities.
+
+Whole-stage fusion (``exec/fused.py``) runs a chain of filter and
+project steps, and an aggregate's update, as one stage program per
+batch: ``trace_stage_steps`` and ``build_stage_fn`` compose it, and
+``stage_structural_key`` keys it. Every literal, and every column-free
+subtree the host folds, is an input tensor of such a program
+(``literal_values``), not a constant inside it: a CUDA graph captured
+for one literal value then serves every other, as one XLA program does
+in the JAX package, and no host-to-device copy happens while a graph is
+captured. Numeric literal values are left out of the structural key
+(``expr_key(e, program=True)``); string, boolean, 128-bit decimal and
+null literals stay in it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,9 +42,17 @@ from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import types as T
 
 
-def expr_key(e: E.Expression) -> Tuple:
+def expr_key(e: E.Expression, program: bool = False) -> Tuple:
     """Structural identity of an expression (ignores expr_ids and alias
-    names); equal keys evaluate to equal columns."""
+    names); equal keys evaluate to equal columns. With ``program`` the
+    key identifies a stage program instead: a literal or folded subtree
+    keys by its type alone where its value is an input of the program
+    (``_traced``)."""
+    if program and _is_literal_input(e):
+        v = _host_literal(e)
+        if _traced(e.data_type, v):
+            return ("lit", repr(e.data_type))
+        return ("lit", repr(e.data_type), repr(v))
     parts: List[Any] = [type(e).__name__]
     if isinstance(e, E.BoundReference):
         parts.append(("ord", e.ordinal, repr(e.data_type)))
@@ -43,18 +62,28 @@ def expr_key(e: E.Expression) -> Tuple:
         parts.append(("to", repr(e.data_type), e.ansi))
     elif isinstance(e, E.SortOrder):
         parts.append(("dir", e.ascending, e.nulls_first))
-    parts.append(tuple(expr_key(c) for c in e.children))
+    parts.append(tuple(expr_key(c, program) for c in e.children))
     return tuple(parts)
 
 
 class Ctx:
-    """Evaluation context: the batch's columns, its capacity and device."""
+    """Evaluation context: the batch's columns, its capacity and device,
+    and for a stage program the tensors of its literal inputs
+    (``lit_vals``, in ``collect_literals`` order over ``exprs``)."""
 
     def __init__(self, inputs: Sequence[AnyDeviceColumn], capacity: int,
-                 device: torch.device):
+                 device: torch.device,
+                 exprs: Sequence[E.Expression] = (),
+                 lit_vals: Optional[Sequence[Tuple[torch.Tensor, ...]]]
+                 = None):
         self.inputs = list(inputs)
         self.capacity = capacity
         self.device = device
+        self.lit_vals = lit_vals
+        self.lit_index: Dict[int, int] = {}
+        if lit_vals is not None:
+            for i, node in enumerate(collect_literals(exprs)):
+                self.lit_index[id(node)] = i
 
     def ones(self) -> torch.Tensor:
         return torch.ones(self.capacity, dtype=torch.bool,
@@ -85,8 +114,7 @@ def unsupported_reason(e: E.Expression) -> Optional[str]:
     """None when the tree evaluates on the device, else what is missing."""
     if isinstance(e, (E.AttributeReference, E.BoundReference)):
         return _dtype_reason(e.data_type)
-    if isinstance(e, E.Literal) or (_foldable(e)
-                                    and not isinstance(e, E.Alias)):
+    if _is_literal_input(e):
         return _dtype_reason(e.data_type)
     if type(e) not in _HANDLERS:
         return f"expression {type(e).__name__} is not ported yet"
@@ -128,10 +156,12 @@ def _dtype_reason(dt: T.DataType) -> Optional[str]:
 
 
 def dev_eval(e: E.Expression, ctx: Ctx) -> AnyDeviceColumn:
-    if isinstance(e, E.Literal):
-        return _literal(e.value, e.data_type, ctx)
-    if _foldable(e) and not isinstance(e, E.Alias):
-        return _fold(e, ctx)
+    i = ctx.lit_index.get(id(e))
+    if i is not None:
+        return _input_literal(e.data_type, ctx.lit_vals[i], ctx)
+    if _is_literal_input(e):
+        return _input_literal(e.data_type, _literal_tensors(
+            _host_literal(e), e.data_type, ctx.device), ctx)
     h = _HANDLERS.get(type(e))
     if h is None:
         raise NotImplementedError(
@@ -140,45 +170,103 @@ def dev_eval(e: E.Expression, ctx: Ctx) -> AnyDeviceColumn:
     return h(e, ctx)
 
 
-def _fold(e: E.Expression, ctx: Ctx) -> AnyDeviceColumn:
-    """Evaluate a column-free subtree once with the CPU evaluator."""
-    from spark_rapids_tpu_torch.columnar.host import HostBatch
+def _host_literal(e: E.Expression):
+    """The storage value of a literal or column-free subtree, evaluated on
+    the host; None for null."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, _to_storage
+    if isinstance(e, E.Literal):
+        return None if e.value is None else _to_storage(e.value,
+                                                        e.data_type)
     hc = e.eval(HostBatch(T.StructType([]), [], 1))
     if not bool(hc.validity[0]):
-        return _literal(None, e.data_type, ctx)
-    v = hc.data[0]
+        return None
     if T.is_limb_decimal(e.data_type):
-        v = I.to_pyints(hc.data[:1, 0], hc.data[:1, 1])[0]
-    return _storage_literal(v, e.data_type, ctx)
+        return I.to_pyints(hc.data[:1, 0], hc.data[:1, 1])[0]
+    return hc.data[0]
 
 
-def _literal(value, dt: T.DataType, ctx: Ctx) -> AnyDeviceColumn:
-    from spark_rapids_tpu_torch.columnar.host import _to_storage
-    if value is None:
-        return _null_column(dt, ctx)
-    return _storage_literal(_to_storage(value, dt), dt, ctx)
+# ---------------------------------------------------------------------------
+# Literals: host value, then tensors, then a broadcast column (a stage
+# program takes the tensors as inputs)
+# ---------------------------------------------------------------------------
+
+def _is_literal_input(e: E.Expression) -> bool:
+    """A leaf that a stage program takes as input tensors: a literal, or
+    a column-free subtree the host folds to one value."""
+    return isinstance(e, E.Literal) or (_foldable(e)
+                                        and not isinstance(e, E.Alias))
 
 
-def _storage_literal(v, dt: T.DataType, ctx: Ctx) -> AnyDeviceColumn:
-    cap, dev = ctx.capacity, ctx.device
+def _traced(dt: T.DataType, v) -> bool:
+    """A literal whose value is left out of the structural key: numeric
+    and non-null, within 64 bits (the JAX package's rule)."""
+    return (v is not None and not T.is_limb_decimal(dt)
+            and not isinstance(dt, (T.StringType, T.BinaryType,
+                                    T.BooleanType, T.NullType)))
+
+
+def collect_literals(exprs: Sequence[E.Expression]) -> List[E.Expression]:
+    """Pre-order walk gathering every literal input; defines the order
+    shared between a stage program and its callers."""
+    out: List[E.Expression] = []
+
+    def walk(e: E.Expression):
+        if _is_literal_input(e):
+            out.append(e)
+            return
+        for c in e.children:
+            walk(c)
+    for e in exprs:
+        walk(e)
+    return out
+
+
+def _literal_tensors(v, dt: T.DataType, device: torch.device
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The tensors of one literal's storage value ``v``: one 0-d tensor in
+    the storage dtype; two int64 limbs for a 128-bit decimal; a char row
+    and a length for a string; none for null."""
+    if v is None:
+        return ()
     if T.is_limb_decimal(dt):
         hi, lo = I.from_pyints([int(v)])
-        return DeviceDecimal128Column(
-            dt, torch.full((cap,), int(hi[0]), device=dev),
-            torch.full((cap,), int(lo[0]), device=dev), ctx.ones())
+        return (torch.full((), int(hi[0]), dtype=torch.int64, device=device),
+                torch.full((), int(lo[0]), dtype=torch.int64, device=device))
     if isinstance(dt, (T.StringType, T.BinaryType)):
         raw = v.encode("utf-8") if isinstance(v, str) else bytes(v)
-        cc = bucket_char_cap(max(1, len(raw)))
-        row = np.zeros(cc, dtype=np.uint8)
+        row = np.zeros(bucket_char_cap(max(1, len(raw))), dtype=np.uint8)
         row[:len(raw)] = np.frombuffer(raw, dtype=np.uint8)
-        chars = torch.from_numpy(row).to(dev).expand(cap, cc)
-        return DeviceStringColumn(
-            dt, chars, torch.full((cap,), len(raw), dtype=torch.int32,
-                                  device=dev), ctx.ones())
+        return (torch.from_numpy(row).to(device),
+                torch.full((), len(raw), dtype=torch.int32, device=device))
     if isinstance(v, np.generic):
         v = v.item()
-    return DeviceColumn(dt, torch.full((cap,), v, dtype=torch_dtype(dt),
-                                       device=dev), ctx.ones())
+    return (torch.full((), v, dtype=torch_dtype(dt), device=device),)
+
+
+def literal_values(exprs: Sequence[E.Expression], device: torch.device
+                   ) -> List[Tuple[torch.Tensor, ...]]:
+    """The input tensors of every literal of ``exprs`` on ``device``, in
+    ``collect_literals`` order."""
+    return [_literal_tensors(_host_literal(node), node.data_type, device)
+            for node in collect_literals(exprs)]
+
+
+def _input_literal(dt: T.DataType, ts: Tuple[torch.Tensor, ...],
+                   ctx: Ctx) -> AnyDeviceColumn:
+    """A literal column broadcast to the batch's capacity from its
+    tensors (``_literal_tensors``)."""
+    cap = ctx.capacity
+    if not ts:
+        return _null_column(dt, ctx)
+    if T.is_limb_decimal(dt):
+        return DeviceDecimal128Column(
+            dt, ts[0].expand(cap).contiguous(),
+            ts[1].expand(cap).contiguous(), ctx.ones())
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        return DeviceStringColumn(dt, ts[0].expand(cap, ts[0].shape[0]),
+                                  ts[1].expand(cap).contiguous(),
+                                  ctx.ones())
+    return DeviceColumn(dt, ts[0].expand(cap).contiguous(), ctx.ones())
 
 
 def _null_column(dt: T.DataType, ctx: Ctx) -> AnyDeviceColumn:
@@ -474,3 +562,69 @@ def run_filter(cond: E.Expression, batch: DeviceBatch) -> DeviceBatch:
     p = dev_eval(cond, ctx)
     new_active = batch.active & p.validity & _as_bool(p)
     return DeviceBatch(batch.schema, batch.columns, new_active, None)
+
+
+def _needs_part_ctx(exprs) -> bool:
+    """Partition-context expressions carry per-partition state a stage
+    program does not thread through."""
+    def walk(e):
+        if isinstance(e, (E.SparkPartitionID, E.MonotonicallyIncreasingID)):
+            return True
+        return any(walk(c) for c in e.children)
+    return any(walk(e) for e in exprs)
+
+
+# ---------------------------------------------------------------------------
+# Whole-stage fusion: a chain of filter/project steps as ONE program
+# (exec/fused.py owns the plan-level pass and runs the program)
+# ---------------------------------------------------------------------------
+
+# A step is ("filter", (bound_cond,)) or ("project", (bound_exprs...)).
+StageSteps = Tuple[Tuple[str, Tuple[E.Expression, ...]], ...]
+
+
+def stage_structural_key(steps: StageSteps) -> Tuple:
+    """Structural identity of a fused chain (the per-step twin of
+    ``expr_key(e, program=True)``)."""
+    return tuple((kind, tuple(expr_key(e, program=True) for e in exprs))
+                 for kind, exprs in steps)
+
+
+def stage_literal_values(steps: StageSteps, device: torch.device
+                         ) -> Tuple[list, ...]:
+    """Per-step literal input tensors, in step order."""
+    return tuple(literal_values(list(exprs), device)
+                 for _kind, exprs in steps)
+
+
+def trace_stage_steps(steps: StageSteps, cols, active, lits_per_step,
+                      device: torch.device):
+    """Run every step of a fused chain over ``(cols, active)``. Returns
+    ``(cols, active, counts)``: filters only update the mask (the same
+    no-data-movement discipline as ``run_filter``), projects rebuild the
+    column list masked to the current active rows (what the unfused
+    operators produce, bit for bit), and ``counts`` holds each step's
+    output row count as a 0-d device tensor."""
+    counts: List[torch.Tensor] = []
+    for (kind, exprs), lv in zip(steps, lits_per_step):
+        ctx = Ctx(cols, active.shape[0], device, exprs, lv)
+        if kind == "filter":
+            p = dev_eval(exprs[0], ctx)
+            active = active & p.validity & _as_bool(p)
+        else:
+            cols = [mask_col(dev_eval(e, ctx), active) for e in exprs]
+        counts.append(active.sum())
+    return cols, active, counts
+
+
+def build_stage_fn(steps: StageSteps, device: torch.device) -> Callable:
+    """Compose a fused chain into one function:
+    ``fn(cols, active, lits_per_step) -> (out_cols, out_active,
+    counts)``. It makes no host synchronisation, so on a CUDA device it
+    can be captured as one graph."""
+    steps_t = tuple(steps)
+
+    def fn(cols, active, lits_per_step):
+        return trace_stage_steps(steps_t, cols, active, lits_per_step,
+                                 device)
+    return fn

@@ -150,7 +150,7 @@ def _boundaries(sorted_keys: Sequence[torch.Tensor],
     differs = torch.zeros(cap, dtype=torch.bool, device=active_s.device)
     for k in list(sorted_keys) + [active_s]:
         differs[1:] |= k[1:] != k[:-1]
-    differs[0] = True
+    differs[:1].fill_(True)  # a fill, not a host-to-device copy
     is_end = torch.cat([differs[1:], differs.new_ones(1)])
     return differs, is_end
 

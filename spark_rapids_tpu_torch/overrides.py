@@ -9,7 +9,10 @@ for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single;
 planner-inserted hash and range exchanges coalesce to
 ``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
-BroadcastExchange and the shuffled and broadcast hash joins. Anything
+BroadcastExchange and the shuffled and broadcast hash joins. Last,
+under ``spark.rapids.sql.stageFusion.enabled`` (default true),
+``fuse_stages`` collapses each filter/project chain, with the partial
+aggregate above it, into a ``TorchFusedStageExec``. Anything
 else — another node kind, or an expression or type a
 rule cannot take — raises ``NotImplementedError`` naming what is not
 ported yet: a per-operator CPU fallback is a later slice.
@@ -21,7 +24,7 @@ from typing import Callable, Dict, List, Optional, Type
 
 import torch
 
-from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.conf import STAGE_FUSION_ENABLED, TorchConf
 from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
                                               TorchExec,
                                               TorchRowToColumnarExec)
@@ -256,4 +259,10 @@ def apply_overrides(physical: P.PhysicalPlan, conf: TorchConf,
     plan = meta.convert(conf, device)
     if not isinstance(plan, TorchExec):  # a bare scan still round-trips
         plan = TorchRowToColumnarExec(plan, conf, device)
-    return TorchColumnarToRowExec(plan, conf)
+    plan = TorchColumnarToRowExec(plan, conf)
+    # whole-stage fusion last: a fused stage never crosses the boundaries
+    # the conversion inserted (transitions, exchanges, coalesce)
+    if conf.get(STAGE_FUSION_ENABLED):
+        from spark_rapids_tpu_torch.exec.fused import fuse_stages
+        plan = fuse_stages(plan, conf)
+    return plan

@@ -5,9 +5,10 @@ batch coalescer over an exchange), the upload ring of the row-to-columnar
 transition at every ``maxInFlight`` depth, and the operator metrics.
 
 ``plan_shape`` puts a plan of either package in one form: the node kinds
-from the root down (a JAX fused stage in place of its operators, ``Tpu``
-read as ``Torch``) and each shuffle exchange's partitioning and count.
-``test_torch_q3.py`` and ``test_torch_parquet.py`` import it."""
+from the root down (a fused stage's operators in place of the stage,
+``Tpu`` read as ``Torch``) and each shuffle exchange's partitioning and
+count. ``test_torch_q3.py`` and ``test_torch_parquet.py`` import it;
+``fused_shape`` keeps each fused stage whole (``test_torch_fused.py``)."""
 
 import os
 import sys
@@ -61,6 +62,28 @@ def plan_shape(plan):
             walk(c)
     walk(plan)
     return [k.replace("Tpu", "Torch", 1) for k in kinds], exchanges
+
+
+def fused_shape(plan):
+    """The node kinds of a plan of either package from the root down, as
+    ``plan_shape`` reads them but with each fused stage kept whole:
+    ``(kind, (constituent kinds...), sink kind or None)``."""
+    def name(o):
+        return type(o).__name__.replace("Tpu", "Torch", 1)
+    out = []
+
+    def walk(p):
+        ops = getattr(p, "fused_ops", None)
+        if ops:
+            sink = p.sink_agg
+            out.append((name(p), tuple(name(o) for o in ops),
+                        None if sink is None else name(sink)))
+        else:
+            out.append(name(p))
+        for c in p.children:
+            walk(c)
+    walk(plan)
+    return out
 
 
 def dispatches(metrics: dict) -> dict:
@@ -210,7 +233,11 @@ def test_filter_over_exchange_coalesces_batches():
 
 
 def _port_ops(plan, kind):
-    return [p for p in _nodes(plan) if type(p).__name__ == kind]
+    """The plan's operators of ``kind``, fused-stage constituents
+    included (as the JAX side is read below)."""
+    return [o for p in _nodes(plan)
+            for o in getattr(p, "fused_ops", None) or [p]
+            if type(o).__name__ == kind]
 
 
 def test_operator_output_counts_match_jax_package():
