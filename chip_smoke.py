@@ -254,8 +254,14 @@ def check_q3_rows(got, want, what: str) -> None:
             raise AssertionError(f"{what}: row {g} != {w}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, **fields,
+                      "elapsed_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def lineitem_arrays(n: int = SF1_ROWS, seed: int = SEED):
@@ -2137,6 +2143,528 @@ def stage_fusion_phase(card, fields, arrays, q1_dir, tables) -> None:
     phase("stage_fusion_held_outputs", card=card, **held)
 
 
+# ---------------------------------------------------------------------------
+# The memory phase: spill, retry and planned out-of-core (slice 8)
+# ---------------------------------------------------------------------------
+
+# the counters the retry protocol bumps; without an injector, a budget or
+# a pool they must stay 0 on every collect (``gate_protocol``)
+PROTOCOL_COUNTERS = ("retryCount", "splitRetryCount",
+                     "deviceDecodeOomFallbacks")
+PRESSURE_KEYS = ("spark.rapids.sql.test.injectOOM",
+                 "spark.rapids.sql.test.injectIOError",
+                 "spark.rapids.sql.memory.deviceBudgetBytes",
+                 "spark.rapids.memory.tpu.poolSize",
+                 "spark.rapids.memory.host.spillStorageSize")
+GATE = {"collects": 0, "skipped": 0, "off": False}
+MEMORY_COUNTERS = PROTOCOL_COUNTERS + (
+    "ioRetryCount", "spillBytesOnRetry", "retryBlockTime",
+    "plannedPartitions", "plannedOutOfCoreEscalations",
+    "budgetPressurePeak", "spillBytes", "kernelDispatchCount.murmur3",
+    "kernelDispatchCount.decodeFused")
+
+
+def protocol_counts(plan) -> dict:
+    """The retry protocol's counters of an executed plan, summed over its
+    operators (host integers: reading them never waits for the card)."""
+    out = dict.fromkeys(PROTOCOL_COUNTERS, 0)
+
+    def walk(p):
+        for node in [p] + list(getattr(p, "fused_ops", [])):
+            reg = getattr(node, "metrics", None)
+            for k in PROTOCOL_COUNTERS:
+                m = getattr(reg, "metrics", {}).get(k)
+                if m is not None:
+                    out[k] += m.value
+        for c in p.children:
+            walk(c)
+    walk(plan)
+    return out
+
+
+def gate_protocol() -> None:
+    """From here on, every collect of a session that arms no injector and
+    sets no budget, pool or host spill size must leave ``retryCount``,
+    ``splitRetryCount`` and ``deviceDecodeOomFallbacks`` at 0: the
+    protocol never runs silently on a normal run. It wraps
+    ``TorchSparkSession.execute_plan``, the entry every collect takes."""
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    plain = TorchSparkSession.execute_plan
+
+    def checked(self, plan):
+        out = plain(self, plan)
+        if GATE["off"] or any(self.conf_obj.settings.get(k)
+                              for k in PRESSURE_KEYS):
+            GATE["skipped"] += 1
+            return out
+        bad = {k: v for k, v in protocol_counts(self.last_plan).items()
+               if v}
+        if bad:
+            raise AssertionError(
+                f"retry protocol ran on a run without pressure: {bad}")
+        GATE["collects"] += 1
+        return out
+    TorchSparkSession.execute_plan = checked
+
+
+def stage_buckets() -> list:
+    """The capacity buckets of the cached stage programs (a program's key
+    holds its inputs' shapes; the first is the batch's capacity)."""
+    from spark_rapids_tpu_torch.exec import fused as F
+    return sorted({sig[1][0][0] for _key, sig in F.STAGE_CACHE.keys()})
+
+
+def memory_counters(plan) -> dict:
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    m = plan_metrics(plan)
+    return {k: m.get(k, 0) for k in MEMORY_COUNTERS}
+
+
+def murmur3_case(cols, cap: int, n_parts: int, reps: int = 50) -> dict:
+    """murmur3 with the partition id in the same launch, against its plain
+    version (exact), and its device time beside its byte bound (the key
+    tensors read once, the ids written once)."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import murmur3 as KM
+    from spark_rapids_tpu_torch.ops import hashing as H
+
+    def plain():
+        return torch.remainder(H.murmur3_columns(cols, cap, 42).long(),
+                               n_parts).to(torch.int32)
+    got = KM.murmur3_columns(cols, cap, 42, n_parts=n_parts)
+    want = plain()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"murmur3 != plain at {cap} rows: {err}")
+    nbytes = cap * 4 + sum(t.numel() * t.element_size() for c in cols
+                           for t in c.arrays())
+    return {"rows": cap, "columns": len(cols), "n_parts": n_parts,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: KM.murmur3_columns(cols, cap, 42,
+                                                     n_parts=n_parts), reps),
+            "plain_ms": wall_ms(plain, 5), "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def key_columns(exprs, batch):
+    """Evaluated key columns of one batch, as ``hash_partition_ids``
+    evaluates them."""
+    from spark_rapids_tpu_torch.ops import exprs as X
+    ctx = X.Ctx(batch.columns, batch.capacity, batch.device)
+    return [X.dev_eval(e, ctx) for e in exprs]
+
+
+def memory_phase(card, fields, arrays, q1_dir, tables, device=None) -> dict:
+    """Spill, the retry protocol and planned out-of-core at full width:
+    q1 at SF1 and q3 at bench's scale, every case exact.
+
+    1. injected faults: q1 from memory under ``injectOOM`` 3, 2:2 and
+       split:4 (``retryCount`` or ``splitRetryCount`` above 0, the stage
+       graphs' buckets after the splits), q1 from Parquet under
+       ``injectIOError=3`` (``ioRetryCount``), ``site:upload:2:2`` (the
+       ring shrinks, the retries absorb every fault, all 8 row groups
+       decode with ``decodeFused``) and ``site:upload:2:5`` (on the card
+       the row group's OOM propagates: the query fails with every permit
+       and store handle back and no host decode, and the next query is
+       exact; on the CPU the row group takes its host decode);
+    2. planned out-of-core: an unpressured run records what the planned
+       operators estimate (``plannedWorkingSetBytes``); then
+       ``deviceBudgetBytes`` at 1/8 of it: q1 and q3's shuffled form
+       (``autoBroadcastJoinThreshold=-1``; at most 16 planned partitions
+       and one level of re-planning) with ``plannedPartitions`` above 0,
+       no retry, murmur3 launched on q1;
+    3. spill tiers: q3's shuffled form under a 1 MiB pool
+       (``spillCount`` above 0), then with a 64 KiB host tier (disk files
+       written; none live after the store closes);
+    4. on the card only, a real CUDA OOM: q1's peaks at full and at half
+       batches, the allocator capped between them
+       (``set_per_process_memory_fraction``, stepped down until a full
+       batch fails), q1 again with no injector (exact, ``retryCount``
+       and ``splitRetryCount`` at least 1); then a
+       stage program whose capture hits a real OOM (no cache entry, the
+       reserved bytes back after release, the next batch runs);
+       groupbyHash at the split buckets and murmur3 at the out-of-core
+       shapes against their plain versions;
+    5. the store's cost on an unpressured q1: the default pool against a
+       pool too large to spill, in turns.
+
+    Returns the new kernel cases for the ``kernels`` line."""
+    import glob
+
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import memory as MEM
+    from spark_rapids_tpu_torch import retry as R
+    from spark_rapids_tpu_torch.exec import fused as F
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    cuda = device is None or device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    want_q1 = q1_reference(arrays)
+    want_q3 = q3_reference(tables)
+    batch = host_batch_from_numpy(fields, arrays)
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    q3_batches = {name: host_batch_from_numpy(
+        [(c, types[k]) for c, k, _a in cols], [a for _c, _k, a in cols])
+        for name, cols in tables.items()}
+    spill_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "spill")
+    no_bcast = {"spark.rapids.sql.autoBroadcastJoinThreshold": "-1"}
+    q1_pq = Q1.replace("FROM lineitem", "FROM lineitem_pq")
+
+    def session(extra=None, q1_parts=N_PARTITIONS):
+        s = TorchSparkSession({
+            "spark.sql.shuffle.partitions": str(N_PARTITIONS),
+            "spark.rapids.memory.spillDirectory": spill_dir,
+            **(extra or {})}, device=device)
+        s.createDataFrame(batch, num_partitions=q1_parts) \
+            .createOrReplaceTempView("lineitem")
+        s.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
+        for name, b in q3_batches.items():
+            s.createDataFrame(b, num_partitions=Q3_PARTITIONS[name]) \
+                .createOrReplaceTempView(name)
+        return s
+
+    def run(s, sql: str) -> dict:
+        R.reset_fault_injection()
+        KR.reset_launches()
+        F.reset_graph_counts()
+        t0 = time.perf_counter()
+        rows = s.sql(sql).collect()
+        sync()
+        wall = time.perf_counter() - t0
+        if "l_returnflag" in sql:
+            check_q1_rows(rows, want_q1)
+        else:
+            check_q3_rows(rows, want_q3, "q3 (memory phase)")
+        return {"reference": "exact", "wall_s": wall,
+                "counters": memory_counters(s.last_plan),
+                "launches": dict(KR.LAUNCHES),
+                "graph": {k: F.GRAPH_COUNTS[k]
+                          for k in ("captures", "replays")},
+                "stage_buckets": stage_buckets()}
+
+    def require(what: str, ok: bool, out: dict) -> None:
+        if not ok:
+            raise AssertionError(f"memory phase, {what}: {out}")
+
+    def launched(out: dict, kernel: str) -> int:
+        """Launches on the card; on the CPU, where the plain versions run,
+        the operators' dispatch counts."""
+        if cuda:
+            return out["launches"][kernel]
+        return out["counters"][f"kernelDispatchCount.{kernel}"]
+
+    # -- 1. injected faults ------------------------------------------------
+    for sched in ("3", "2:2", "split:4"):
+        # an empty stage cache: the split buckets capture in this run
+        F.STAGE_CACHE.clear()
+        out = run(session({"spark.rapids.sql.test.injectOOM": sched}), Q1)
+        need = "splitRetryCount" if sched.startswith("split") \
+            else "retryCount"
+        phase("memory_inject", card=card, query="q1_memory",
+              injectOOM=sched, **out)
+        require(f"injectOOM={sched}", out["counters"][need] > 0, out)
+    out = run(session({"spark.rapids.sql.test.injectIOError": "3"}), q1_pq)
+    phase("memory_inject", card=card, query="q1_parquet", injectIOError="3",
+          **out)
+    require("injectIOError=3", out["counters"]["ioRetryCount"] > 0
+            and launched(out, "decodeFused") > 0, out)
+    # every 2nd copy to the card fails twice: the retries absorb it, and
+    # each of the 8 row groups is decoded by decodeFused, none on the host
+    out = run(session({"spark.rapids.sql.test.injectOOM":
+                       "site:upload:2:2"}), q1_pq)
+    phase("memory_inject", card=card, query="q1_parquet",
+          injectOOM="site:upload:2:2", **out)
+    require("site:upload:2:2",
+            out["counters"]["deviceDecodeOomFallbacks"] == 0
+            and out["counters"]["retryCount"] > 0
+            and launched(out, "decodeFused") == N_PARTITIONS, out)
+    # a streak longer than the retries: on the card the row group's OOM
+    # propagates (its decode never moves to the host); the query fails
+    # with every permit and store handle back, and the next query runs
+    s = session({"spark.rapids.sql.test.injectOOM": "site:upload:2:5"})
+    if cuda:
+        R.reset_fault_injection()
+        try:
+            s.sql(q1_pq).collect()
+            raised = None
+        except R.TorchRetryOOM as e:
+            raised = str(e)
+        from spark_rapids_tpu_torch.resource import get_semaphore
+        left = {"raised": raised,
+                "permits_in_use": get_semaphore(s.conf_obj).in_use,
+                "live_handles": MEM.get_device_store(s.conf_obj)
+                .stats()["liveHandles"],
+                "deviceDecodeOomFallbacks": memory_counters(s.last_plan)[
+                    "deviceDecodeOomFallbacks"]}
+        out = run(session(), q1_pq)
+        phase("memory_inject", card=card, query="q1_parquet",
+              injectOOM="site:upload:2:5", exhausted=left,
+              next_query=out)
+        require("site:upload:2:5", raised is not None
+                and left["permits_in_use"] == 0
+                and left["live_handles"] == 0
+                and left["deviceDecodeOomFallbacks"] == 0
+                and launched(out, "decodeFused") == N_PARTITIONS, left)
+    else:
+        out = run(s, q1_pq)
+        phase("memory_inject", card=card, query="q1_parquet",
+              injectOOM="site:upload:2:5", **out)
+        require("site:upload:2:5",
+                out["counters"]["deviceDecodeOomFallbacks"] > 0, out)
+
+    # -- 2. planned out-of-core ---------------------------------------------
+    ooc = {}
+    # q3's shuffled joins hold both sides in the store, so at this budget
+    # the headroom is 0 and every bucket re-plans: 16 partitions and one
+    # level of recursion bound the buckets to 32 a join (the CPU tests
+    # run the defaults)
+    q3_bounds = {"spark.rapids.sql.outOfCore.maxPartitions": "16",
+                 "spark.rapids.sql.outOfCore.maxRecursion": "1"}
+    for query, sql, extra in (("q1_memory", Q1, {}),
+                              ("q3_shuffled", Q3_BENCH,
+                               {**no_bcast, **q3_bounds})):
+        s = session(extra)
+        run(s, sql)
+        estimates = {}
+        for i, p in enumerate(plan_nodes_of(s.last_plan)):
+            reg = getattr(p, "metrics", None)
+            v = reg.value("plannedWorkingSetBytes") if reg else 0
+            if v:
+                estimates[f"{type(p).__name__}#{i}"] = v
+        estimate = max(estimates.values())
+        budget = max(1, estimate // 8)
+        s = session({**extra, "spark.rapids.sql.memory.deviceBudgetBytes":
+                     str(budget)})
+        out = run(s, sql)
+        phase("memory_out_of_core", card=card, query=query,
+              estimates_bytes=estimates, estimate_bytes=estimate,
+              budget_bytes=budget, **out)
+        c = out["counters"]
+        require(f"{query} out of core", c["plannedPartitions"] > 0
+                and c["retryCount"] == 0 and c["splitRetryCount"] == 0
+                and (query != "q1_memory"
+                     or launched(out, "murmur3") > 0), out)
+        ooc[query] = s
+
+    # -- 3. spill tiers -----------------------------------------------------
+    # q3's shuffled form: its exchanges and joins hold store_sales
+    pool = {**no_bcast, "spark.rapids.memory.tpu.poolSize": str(1 << 20)}
+    s = session(pool)
+    out = run(s, Q3_BENCH)
+    stats = MEM.get_device_store(s.conf_obj).stats()
+    phase("memory_spill", card=card, query="q3_shuffled",
+          pool_bytes=1 << 20, store=stats, **out)
+    require("pool spill", stats["spillCount"] > 0, stats)
+    disk_dir = os.path.join(spill_dir, "disk_tier")
+    s = session({**pool, "spark.rapids.memory.host.spillStorageSize":
+                 str(64 << 10),
+                 "spark.rapids.memory.spillDirectory": disk_dir})
+    out = run(s, Q3_BENCH)
+    store = MEM.get_device_store(s.conf_obj)
+    used = store.stats()
+    store.close()
+    closed = store.stats()
+    left = glob.glob(os.path.join(disk_dir, "spill-*.bin"))
+    phase("memory_spill", card=card, query="q3_shuffled",
+          pool_bytes=1 << 20, host_spill_bytes=64 << 10, store=used,
+          after_close=closed,
+          disk_files_left=len(left), **out)
+    require("disk tier", used["diskSpillCount"] > 0
+            and closed["diskFilesLive"] == 0 and not left, used)
+
+    cases = {}
+    if cuda:
+        cases = oom_cases(card, session, run, require, ooc)
+
+    # -- 5. the store's cost on an unpressured q1 ---------------------------
+    walls = []
+    for turn, pool_size in enumerate((None, 1 << 40, 1 << 40, None)):
+        extra = {} if pool_size is None else {
+            "spark.rapids.memory.tpu.poolSize": str(pool_size)}
+        s = session(extra)
+        # the store is per process and conf: count this turn's spills only
+        spills = MEM.get_device_store(s.conf_obj).stats()["spillCount"]
+        df = s.sql(Q1)
+        check_q1_rows(df.collect(), want_q1)
+        w = timed_collects(df) if cuda else {}
+        spills = MEM.get_device_store(s.conf_obj).stats()["spillCount"] \
+            - spills
+        walls.append({"turn": turn, "pool": pool_size or "default",
+                      "spills": spills, **w})
+        require("unpressured q1 spilled", spills == 0, walls[-1])
+    phase("memory_store_cost", card=card, turns=walls)
+    return cases
+
+
+def oom_cases(card, session, run, require, ooc) -> dict:
+    """Case 4 of ``memory_phase`` (the card only): a real CUDA OOM, a
+    capture that runs out of memory, and the kernels at the new shapes."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import retry as R
+    from spark_rapids_tpu_torch.exec import fused as F
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.exec.join import TorchShuffledHashJoinExec
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    from spark_rapids_tpu_torch.metrics import MetricRegistry
+
+    def fresh():
+        F.STAGE_CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def peak(parts: int) -> dict:
+        fresh()
+        s = session(q1_parts=parts)
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out = run(s, Q1)
+        return {"partitions": parts, "stage_buckets": out["stage_buckets"],
+                "peak_allocated": torch.cuda.max_memory_allocated() - a0,
+                "peak_reserved": torch.cuda.max_memory_reserved() - r0,
+                "wall_s": out["wall_s"]}
+
+    full, half = peak(N_PARTITIONS), peak(2 * N_PARTITIONS)
+    require("peaks", full["peak_reserved"] > half["peak_reserved"],
+            {"full": full, "half": half})
+    fresh()
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_reserved()
+    # the allocator's cap bounds its reserved bytes, and how much a batch
+    # needs under it depends on fragmentation: step the cap down from
+    # three quarters of the way between the half batches' reserved peak
+    # and the full batches' until a full batch fails and splits (its
+    # halves, with the full batch still alive, need about half's peak
+    # plus one batch)
+    levels = []
+    for f in (0.75, 0.6, 0.45, 0.3):
+        cap = base + half["peak_reserved"] + int(
+            f * (full["peak_reserved"] - half["peak_reserved"]))
+        fresh()
+        GATE["off"] = True
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            out = run(session(), Q1)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            GATE["off"] = False
+        levels.append({"between": f, "cap_bytes": cap,
+                       "fraction": cap / total,
+                       "retryCount": out["counters"]["retryCount"],
+                       "splitRetryCount": out["counters"]["splitRetryCount"],
+                       "wall_s": out["wall_s"]})
+        if out["counters"]["splitRetryCount"]:
+            break
+    phase("memory_real_oom", card=card, query="q1_memory", injector=None,
+          full=full, half=half, base_reserved=base, total_bytes=total,
+          levels=levels, cap_bytes=cap, fraction=cap / total, **out)
+    require("real OOM", out["counters"]["retryCount"] >= 1
+            and out["counters"]["splitRetryCount"] >= 1, out)
+
+    # a stage program whose capture runs out of memory for real: the
+    # allocator cannot give 1 TiB, inside the capture only
+    fresh()
+    dev = torch.device("cuda", 0)
+    metrics = MetricRegistry()
+    flat = [torch.arange(1 << 20, dtype=torch.int64, device=dev)]
+    key = ("memory-phase-capture-oom",)
+    fail = [True]
+
+    def fn(x):
+        if fail[0] and torch.cuda.is_current_stream_capturing():
+            torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+        return [x[0] * 2], None
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    raised = None
+    try:
+        F.run_program(key, fn, flat, metrics)
+    except torch.OutOfMemoryError as e:
+        raised = type(e).__name__
+    full_key = (key, F.input_signature(flat))
+    cached_after_fail = full_key in F.STAGE_CACHE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after_fail = torch.cuda.memory_reserved()
+    fail[0] = False
+    outs, _m = F.run_program(key, fn, flat, metrics)  # builds, captures
+    nxt = [flat[0] + 1]
+    outs2, _m = F.run_program(key, fn, nxt, metrics)  # the next batch
+    ok = bool(torch.equal(outs[0], flat[0] * 2)
+              and torch.equal(outs2[0], nxt[0] * 2))
+    with_entry = torch.cuda.memory_reserved()
+    del outs, outs2, nxt
+    F.release_stage_programs(everything=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    released = torch.cuda.memory_reserved()
+    cap_case = {"raised": raised, "cache_entry_after_failure":
+                cached_after_fail, "reserved_before": before,
+                "reserved_after_failure": after_fail,
+                "reserved_with_entry": with_entry,
+                "reserved_after_release": released, "next_batch_exact": ok}
+    phase("memory_capture_oom", card=card, **cap_case)
+    require("capture OOM", raised == "OutOfMemoryError"
+            and not cached_after_fail and after_fail == before
+            and released == before and ok, cap_case)
+
+    # groupbyHash at the split buckets: q1's first batch, halved, then
+    # halved again, each half through the partial aggregate's inputs
+    s = session()
+    plan = s.plan_physical(s.sql(Q1).plan)
+    agg = find_exec(plan, lambda p: isinstance(
+        p, TorchHashAggregateExec) and p.mode == "partial")
+    b = next(iter(agg.child.device_partitions()[0]()))
+    cases = {"groupbyHash": {}, "murmur3": {}}
+    for name in ("q1_split_half", "q1_split_quarter"):
+        b = R.split_device_batch(b)[0]
+        key_cols, vals, prims, active = agg.update_inputs(b)
+        kw, h, add, mn, mx, _d = KG.table_inputs(
+            key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)],
+            active)
+        cases["groupbyHash"][name] = groupby_case(
+            (kw, h, active, add, mn, mx),
+            KR.table_slots(s.conf_obj, b.capacity))
+    # murmur3 at the out-of-core splits: q1's final-aggregate input (the
+    # partial results) and q3's date_dim join, both sides
+    s1 = ooc["q1_memory"]
+    final = find_exec(s1.plan_physical(s1.sql(Q1).plan), lambda p:
+                      isinstance(p, TorchHashAggregateExec)
+                      and p.mode == "final")
+    b = next(iter(final.child.device_partitions()[0]()))
+    cases["murmur3"]["ooc_agg_q1"] = murmur3_case(
+        b.columns[:len(final.grouping)], b.capacity, 64)
+    s3 = ooc["q3_shuffled"]
+    plan3 = s3.plan_physical(s3.sql(Q3_BENCH).plan)
+    joins = [p for p in plan_nodes_of(plan3)
+             if isinstance(p, TorchShuffledHashJoinExec)]
+    join = next((p for p in joins if any(
+        getattr(k, "name", "") == "d_date_sk" for k in p.right_keys)),
+        joins[0])
+    lk, rk = join._bound_keys()
+    left = next(iter(join.left.device_partitions()[0]()))
+    right = next(iter(join.right.device_partitions()[0]()))
+    side = [getattr(k, "name", repr(k)) for k in join.right_keys]
+    cases["murmur3"]["ooc_join_q3_stream"] = dict(murmur3_case(
+        key_columns(lk, left), left.capacity, 64), build_keys=side)
+    cases["murmur3"]["ooc_join_q3_build"] = dict(murmur3_case(
+        key_columns(rk, right), right.capacity, 64), build_keys=side)
+    phase("memory_kernel_shapes", card=card, tolerance="exact", **cases)
+    return cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2171,6 +2699,8 @@ def main() -> int:
           cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
           pyarrow_importable=pyarrow_ok,
           pyarrow_spec=importlib.util.find_spec("pyarrow") is not None)
+
+    gate_protocol()
 
     # -- 2. build + probe ------------------------------------------------
     build_s = device_caps.probe(device)
@@ -2419,16 +2949,27 @@ def main() -> int:
     upload_split(fields, arrays, device, card)
     ring_phases(card, fields, arrays, dfu["q1_dir"], tables)
     stage_fusion_phase(card, fields, arrays, dfu["q1_dir"], tables)
+    mem = memory_phase(card, fields, arrays, dfu["q1_dir"], tables)
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"],
+          counters=list(PROTOCOL_COUNTERS))
+    if GATE["collects"] == 0:
+        raise AssertionError("no collect was checked by the protocol gate")
+
+    def case_fields(c):
+        return {k: c[k] for k in ("rows", "ms", "plain_ms", "bound_ms")}
 
     kernels = [
         {"name": "groupbyHash", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/groupby_hash.cu",
          "replaces": "spark_rapids_tpu/kernels/groupby_hash.py:311",
          "launches": launches["groupbyHash"],
-         "max_abs_err": max(gb_err, jp["groupby_q3"]["max_abs_err"]),
+         "max_abs_err": max([gb_err, jp["groupby_q3"]["max_abs_err"]]
+                            + [c["max_abs_err"]
+                               for c in mem["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -2436,12 +2977,15 @@ def main() -> int:
                                             "plain_ms", "bound_ms")}
                    for name, c in (("q1_partial", gb_q1),
                                    ("q3_partial", jp["groupby_q3"]),
-                                   ("many_groups", gb_many))}},
+                                   ("many_groups", gb_many))
+                   + tuple(mem["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
          "launches": rp["launches"],
-         "max_abs_err": max(m3_err, rp["case"]["max_abs_err"]),
+         "max_abs_err": max([m3_err, rp["case"]["max_abs_err"]]
+                            + [c["max_abs_err"]
+                               for c in mem["murmur3"].values()]),
          "ms": rp["case"]["ms"], "plain_ms": rp["case"]["plain_ms"],
          "bound_ms": rp["case"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -2460,7 +3004,9 @@ def main() -> int:
                                        / HBM_BYTES_PER_S * 1e3},
                    "q1_partition_ids": {"rows": part_out.capacity,
                                         "ms": pid_ms,
-                                        "cuda_launches": pid_k["launches"]}}},
+                                        "cuda_launches": pid_k["launches"]},
+                   **{name: case_fields(c)
+                      for name, c in mem["murmur3"].items()}}},
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
@@ -2487,8 +3033,9 @@ def main() -> int:
 
 
 def walls_only(card: str, runs: int = 5) -> None:
-    """``--walls``: q1 from memory, both q3 forms and the repartition path
-    through the session's entry points, each exact, with the upload
+    """``--walls``: q1 from memory and from Parquet, both q3 forms and the
+    repartition path through the session's entry points, each exact, with
+    the upload
     ring's key unset and set to 0: one warm run, then ``runs`` timed
     runs, each with the seconds the garbage collector took in it. Uses
     only the session's API, so a copy of this script placed in another
@@ -2506,6 +3053,7 @@ def walls_only(card: str, runs: int = 5) -> None:
             "repartition": repartition_reference(tables)}
     types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
              "dec72": T.DecimalType(7, 2)}
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
     gc_s, t_gc = [0.0], [0.0]
 
     def on_gc(ev, _info):
@@ -2524,6 +3072,7 @@ def walls_only(card: str, runs: int = 5) -> None:
             spark.createDataFrame(host_batch_from_numpy(fields, arrays),
                                   num_partitions=N_PARTITIONS) \
                 .createOrReplaceTempView("lineitem")
+            spark.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
             for name, cols in tables.items():
                 spark.createDataFrame(
                     host_batch_from_numpy(
@@ -2531,7 +3080,9 @@ def walls_only(card: str, runs: int = 5) -> None:
                         [a for _c, _k, a in cols]),
                     num_partitions=Q3_PARTITIONS[name]) \
                     .createOrReplaceTempView(name)
-            for query, df in (("q1", spark.sql(Q1)),
+            q1_pq = spark.sql(Q1.replace("FROM lineitem",
+                                         "FROM lineitem_pq"))
+            for query, df in (("q1", spark.sql(Q1)), ("q1_parquet", q1_pq),
                               ("q3_pushed", spark.sql(Q3_PUSHED)),
                               ("q3_bench", spark.sql(Q3_BENCH)),
                               ("repartition", repartition_df(spark, tables))):
@@ -2544,7 +3095,7 @@ def walls_only(card: str, runs: int = 5) -> None:
                     torch.cuda.synchronize()
                     walls.append(time.perf_counter() - t0)
                     gcs.append(gc_s[0])
-                if query == "q1":
+                if query.startswith("q1"):
                     check_q1_rows(rows, want["q1"])
                 elif query == "repartition":
                     check_repartition_rows(rows, want["repartition"])
@@ -2557,6 +3108,22 @@ def walls_only(card: str, runs: int = 5) -> None:
                           w - g for w, g in zip(walls, gcs)))
     finally:
         gc.callbacks.remove(on_gc)
+
+
+def memory_only(card: str) -> None:
+    """``--memory``: the kernels' build and ``memory_phase`` alone."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    gate_protocol()
+    phase("build", nvcc_seconds=round(device_caps.probe(
+        torch.device("cuda", 0)), 3), torch=torch.__version__,
+        cuda=torch.version.cuda)
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    memory_phase(card, lineitem_fields(), arrays, q1_dir, q3_tables())
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
 
 
 def fusion_only(card: str) -> None:
@@ -2574,7 +3141,7 @@ def fusion_only(card: str) -> None:
 
 
 if __name__ == "__main__":
-    if "--walls" in sys.argv[1:] or "--fusion" in sys.argv[1:]:
+    if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2586,6 +3153,8 @@ if __name__ == "__main__":
         print(card, flush=True)
         if "--fusion" in sys.argv[1:]:
             fusion_only(card)
+        elif "--memory" in sys.argv[1:]:
+            memory_only(card)
         else:
             walls_only(card)
         sys.exit(0)

@@ -217,6 +217,24 @@ class DeviceBatch:
         return DeviceBatch(schema, columns, self.active, self._num_rows,
                            self._num_rows_dev)
 
+    def sizeof(self) -> int:
+        """Device bytes this batch's tensors hold, reckoned from shapes and
+        dtypes only (no synchronise): the active mask at one byte a row
+        plus every column tensor. The spill store accounts with it and the
+        out-of-core planner sizes its partitions from it. The layouts of
+        the two packages agree (int64 limbs for a decimal above 18 digits,
+        one byte a bool, a ``uint8[capacity, char_cap]`` string matrix),
+        so for the same tensors this is what the JAX package's
+        ``DeviceBatch.sizeof`` counts. A string column's ``char_cap`` is
+        chosen by whichever path built the batch (the upload codec, a
+        concatenation padding to the widest), so the same rows can count
+        different bytes after different paths in either package."""
+        total = self.active.numel()
+        for c in self.columns:
+            for a in c.arrays():
+                total += a.numel() * a.element_size()
+        return total
+
     @staticmethod
     def empty(schema: T.StructType, device: torch.device) -> "DeviceBatch":
         return DeviceBatch.from_host(HostBatch.empty(schema), device,

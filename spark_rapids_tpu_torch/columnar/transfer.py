@@ -581,9 +581,18 @@ class StagingRing:
         write_wires(wires, offsets, slot.buf[:total].numpy())
         return Placed(staged, slot, offsets, total)
 
+    def release(self, placed: Placed) -> None:
+        """Hand back a placed unit's slot without copying it (an upload
+        that gave up on the device and degrades from its source)."""
+        with self._cv:
+            self._free.append(placed.slot)
+            self._cv.notify()
+
     def start(self, placed: Placed) -> Started:
         """Issue the slot's copy to the device and hand the slot back,
-        tagged with the copy's event."""
+        tagged with the copy's event. If the device buffer cannot be
+        allocated, the error propagates and the slot stays the caller's
+        (to retry, or to ``release``)."""
         host = placed.slot.buf[:placed.nbytes]
         event = None
         if self.cuda:

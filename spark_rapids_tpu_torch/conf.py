@@ -7,6 +7,8 @@ Entries are declared once with a key, a doc string and a typed default;
 
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -158,6 +160,133 @@ STAGE_FUSION_MAX_IN_FLIGHT = _entry(
     "the value bounds device memory held by outstanding batches. 1 = "
     "sequential per-batch draining.",
     2, int)
+
+
+# -- memory store, spill, retry and planned out-of-core (the JAX package's
+#    names and defaults) -----------------------------------------------------
+
+DEVICE_MEMORY_LIMIT = _entry(
+    "spark.rapids.memory.tpu.poolSize",
+    "Device bytes the spill store lets registered batches hold before it "
+    "demotes the least recently used to host memory; 0 = 80% of the "
+    "card's memory (torch.cuda.mem_get_info).",
+    0, parse_bytes)
+
+HOST_SPILL_STORAGE_SIZE = _entry(
+    "spark.rapids.memory.host.spillStorageSize",
+    "Host bytes the spill store keeps before it writes the least "
+    "recently used spilled batches to the disk tier.",
+    1 << 30, parse_bytes)
+
+SPILL_DIR = _entry(
+    "spark.rapids.memory.spillDirectory",
+    "Directory of the disk spill tier's files (columnar/serde.py "
+    "format); every file is removed when its store closes. Default: "
+    "srt_spill under the temporary directory ($TMPDIR, else /tmp).",
+    os.path.join(tempfile.gettempdir(), "srt_spill"), str)
+
+MEMORY_DEBUG = _entry(
+    "spark.rapids.memory.tpu.debug",
+    "Log every spill store transition (register, spill, promote).",
+    False, _to_bool)
+
+DEVICE_BUDGET_BYTES = _entry(
+    "spark.rapids.sql.memory.deviceBudgetBytes",
+    "Planned out-of-core budget in bytes: the working-set ceiling the "
+    "budget oracle hands operators before they materialize, so a join "
+    "build side or an aggregation estimated over its share partitions "
+    "up front instead of riding the OOM-retry protocol. 0 = 80% of the "
+    "card's memory.",
+    0, parse_bytes)
+
+OUT_OF_CORE_ENABLED = _entry(
+    "spark.rapids.sql.outOfCore.enabled",
+    "Planned out-of-core execution: operators consult the budget oracle "
+    "before materializing and partition their working set (hash join, "
+    "final aggregate) when it is over their share; rows are identical "
+    "to the in-memory paths.",
+    True, _to_bool)
+
+OUT_OF_CORE_BUDGET_SHARE = _entry(
+    "spark.rapids.sql.outOfCore.budgetShare",
+    "Fraction of the device budget's headroom one operator's working "
+    "set may claim before the planned out-of-core tier engages.",
+    0.5, float)
+
+OUT_OF_CORE_MAX_PARTITIONS = _entry(
+    "spark.rapids.sql.outOfCore.maxPartitions",
+    "Ceiling on the partition count the budget oracle plans up front "
+    "(estimate / share, rounded up to a power of two); a partition that "
+    "still overflows re-partitions recursively.",
+    64, int)
+
+OUT_OF_CORE_MAX_RECURSION = _entry(
+    "spark.rapids.sql.outOfCore.maxRecursion",
+    "Bound on recursive re-partitioning (each level doubles the hash "
+    "modulus); past it the partition rides the OOM-retry protocol.",
+    3, int)
+
+RETRY_MAX_RETRIES = _entry(
+    "spark.rapids.sql.retry.maxRetries",
+    "OOM retries of one device operation before the failure escalates "
+    "(split-and-retry where the operator splits its input, else the "
+    "error is raised). Each retry releases cached stage graphs, spills "
+    "the store down and backs off.",
+    3, int)
+
+RETRY_BACKOFF_MS = _entry(
+    "spark.rapids.sql.retry.backoffMs",
+    "Base backoff in milliseconds between OOM retries; doubles per "
+    "attempt up to retry.maxBackoffMs (reported as retryBlockTime).",
+    1, int)
+
+RETRY_MAX_BACKOFF_MS = _entry(
+    "spark.rapids.sql.retry.maxBackoffMs",
+    "Upper bound in milliseconds on the OOM-retry backoff.",
+    100, int)
+
+READER_MAX_RETRIES = _entry(
+    "spark.rapids.sql.reader.maxRetries",
+    "Retries of a transient IO error in the Parquet reader; the original "
+    "error is raised after them.",
+    3, int)
+
+READER_RETRY_BACKOFF_MS = _entry(
+    "spark.rapids.sql.reader.retryBackoffMs",
+    "Base backoff in milliseconds between reader IO retries; doubles per "
+    "attempt (bounded at 1 s).",
+    5, int)
+
+CONCURRENT_GPU_TASKS = _entry(
+    "spark.rapids.sql.concurrentGpuTasks",
+    "Tasks that may use the card at once (the device semaphore's "
+    "permits). The port runs one task thread, so the semaphore is "
+    "uncontended; it keeps its contract that a failed query returns "
+    "every permit.",
+    2, int)
+
+SHUFFLE_COMPRESSION_CODEC = _entry(
+    "spark.rapids.shuffle.compression.codec",
+    "Codec of serialized batch payloads in the disk spill tier: none, "
+    "zlib or zstd.",
+    "none", str)
+
+INJECT_OOM = _entry(
+    "spark.rapids.sql.test.injectOOM",
+    "Testing: deterministic synthetic-OOM schedule for the retry "
+    "protocol. 'N' = every Nth wrapped allocation throws TorchRetryOOM; "
+    "'N:K' = K consecutive failures at every Nth; 'split:N' = "
+    "TorchSplitAndRetryOOM every Nth; 'seed:S:P' = seeded random with "
+    "probability P; 'site:NAME:SPEC' scopes any form to the named site "
+    "(site:upload = the upload's copy to the card); site:budget makes "
+    "every Nth budget-oracle query report half the real headroom.",
+    "", str)
+
+INJECT_IO_ERROR = _entry(
+    "spark.rapids.sql.test.injectIOError",
+    "Testing: deterministic synthetic IO-error schedule for the Parquet "
+    "reader; the same 'N' / 'N:K' / 'seed:S:P' grammar as injectOOM.",
+    "", str)
 
 
 class TorchConf:

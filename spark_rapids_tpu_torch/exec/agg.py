@@ -17,8 +17,21 @@ below it (``absorb_prelude``): the prelude, the key and value
 expressions, the groupbyHash launch, the decode of the table's lanes and
 the compaction run as ONE stage program per batch (``_update_program``,
 a CUDA graph replay on the card, ``exec/fused.py``). Every program the
-exec runs counts one ``dispatchCount``. Out-of-core staging, spill and
-retry are not ported yet.
+exec runs counts one ``dispatchCount``.
+
+Memory, as in the JAX package: each partial batch runs under
+``with_split_retry`` (an out-of-memory error recovers and retries, then
+the batch splits in half by rows; the halves' partial results merge
+downstream like any two batches), and the partial outputs, and the
+kernel's inputs until their overflow flags are read, wait in the spill
+store. The final aggregate stages its inputs in the store, merges them
+in chunks of at most ``batchSizeRows`` rows (``_merge_bounded``) and
+finishes under ``with_retry``. When the budget oracle says the staged
+bytes are over the operator's share, the final aggregate runs out of
+core (``_ooc_aggregate``): its inputs split by
+``pmod(murmur3(grouping), modulus)`` into spill-backed buckets (the
+murmur3 kernel on the card) aggregated one at a time, and a bucket still
+over the share re-buckets at a doubled modulus.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import torch
 
 from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceBatch, DeviceColumn, DeviceDecimal128Column,
     compact_arrays, concat_device, flatten_columns, mask_col,
@@ -353,7 +367,10 @@ class TorchHashAggregateExec(TorchExec):
             F.count_steps(self._prelude_ops, rest)
         return out, overflow
 
-    def _final(self, batch: DeviceBatch) -> DeviceBatch:
+    def _group_buffers(self, batch: DeviceBatch):
+        """Final-mode grouping of a batch of partial buffers by key:
+        ``(keys by attribute id, buffers by alias id, active)``, one
+        group per active row."""
         key_bound, slot_srcs, prims = self._bound_inputs()
         ctx = X.Ctx(batch.columns, batch.capacity, batch.device)
         key_cols, vals = _eval_values(ctx, key_bound, slot_srcs)
@@ -367,6 +384,10 @@ class TorchHashAggregateExec(TorchExec):
             off += n
         key_by_attr = {a.expr_id: kc for a, kc in
                        zip(self.grouping, key_out)}
+        return key_by_attr, by_alias, out_active
+
+    def _final(self, batch: DeviceBatch) -> DeviceBatch:
+        key_by_attr, by_alias, out_active = self._group_buffers(batch)
         out_cols = []
         for e in self.aggregates:
             if isinstance(e, E.Alias) and isinstance(
@@ -378,6 +399,98 @@ class TorchHashAggregateExec(TorchExec):
             else:
                 out_cols.append(key_by_attr[e.child.expr_id])
         return DeviceBatch(self.schema, out_cols, out_active, None)
+
+    def _merge_buffers(self, batch: DeviceBatch) -> DeviceBatch:
+        """Final mode: merge a batch of partial buffers by key, keeping
+        the buffer layout (the child's columns), groups compacted to the
+        front with their count read on the host."""
+        by_id, by_alias, out_active = self._group_buffers(batch)
+        for a in self._agg_aliases():
+            by_id.update((s.attr.expr_id, c) for s, c in
+                         zip(self.slots[a.expr_id], by_alias[a.expr_id]))
+        cols = [by_id[a.expr_id] for a in self.child.output]
+        flat, spec = flatten_columns(cols)
+        active, outs = compact_arrays(out_active, flat)
+        return DeviceBatch(self.child.schema, rebuild_columns(spec, outs),
+                           active, int(out_active.sum()))
+
+    def _merge_bounded(self, handles: List, store) -> DeviceBatch:
+        """Final staging: merge chunks of buffer batches whose rows stay
+        within ``batchSizeRows`` (aggregate.scala:224-245), round after
+        round, the inputs and each round's results behind spillable
+        handles, so the partition never has to fit on the card at once.
+        When everything fits one chunk the batches concatenate and the
+        final program merges them itself."""
+        limit = max(self.conf.batch_size_rows, 2)
+        if sum(h.rows for h in handles) <= limit:
+            whole = concat_device([h.get() for h in handles])
+            for h in handles:
+                h.close()
+            return whole
+        while len(handles) > 1:
+            merged: List = []
+            i = 0
+            while i < len(handles):
+                chunk = [handles[i]]
+                rows = handles[i].rows
+                i += 1
+                # at least 2 a chunk (progress), more while within limit
+                while i < len(handles) and (
+                        len(chunk) < 2
+                        or rows + handles[i].rows <= limit):
+                    rows += handles[i].rows
+                    chunk.append(handles[i])
+                    i += 1
+                if len(chunk) == 1:
+                    merged.append(chunk[0])
+                    continue
+                whole = concat_device([h.get() for h in chunk])
+                self.metrics.create(M.DISPATCH_COUNT).add(1)
+                out = R.with_retry(lambda w=whole: self._merge_buffers(w),
+                                   self.conf, self.metrics)
+                for h in chunk:
+                    h.close()
+                merged.append(self.register_spillable(
+                    store, slice_compacted_to_bucket(out)))
+            handles = merged
+        final = handles[0].get()
+        handles[0].close()
+        return final
+
+    def _finish_final(self, whole: DeviceBatch) -> DeviceBatch:
+        self.metrics.create(M.DISPATCH_COUNT).add(1)
+        return R.with_retry(lambda: self._final(whole), self.conf,
+                            self.metrics)
+
+    def _ooc_aggregate(self, store, handles: List, modulus: int, oracle,
+                       depth: int) -> Iterator[DeviceBatch]:
+        """Planned out-of-core final aggregate: the partition's buffer
+        batches split by pmod(murmur3(grouping), modulus) into buckets,
+        each merged and finished on its own. The modulus starts at the
+        planned partitions times the co-partition count: the rows here
+        already satisfy pmod(h, P) == pid, so a modulus dividing P would
+        put every row in one bucket. A bucket whose bytes still exceed
+        the share re-buckets at a doubled modulus, up to
+        ``outOfCore.maxRecursion``; past it the retry protocol is the
+        backstop."""
+        from spark_rapids_tpu_torch.exec.exchange import hash_buckets
+        # murmur3 of the grouping keys, never a range: a run of equal keys
+        # never straddles two buckets
+        buckets = hash_buckets(
+            self, store, handles,
+            P.bind_list(self.grouping, self.child.output), modulus)
+        share = oracle.operator_share()
+        for pid in range(modulus):
+            bh = buckets[pid]
+            if not bh:
+                continue
+            if sum(h.sizeof() for h in bh) > share \
+                    and depth < oracle.max_recursion:
+                self.metrics.create(M.PLANNED_OOC_ESCALATIONS).add(1)
+                yield from self._ooc_aggregate(store, bh, modulus * 2,
+                                               oracle, depth + 1)
+                continue
+            yield self._finish_final(self._merge_bounded(bh, store))
 
     def _empty_global_result(self) -> DeviceBatch:
         cols: List[HostColumn] = []
@@ -395,60 +508,111 @@ class TorchHashAggregateExec(TorchExec):
             use_kernel = KG.agg_kernel_eligible(
                 self.mode, self.grouping, programs["update"][3])
 
-        def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+        def make(thunk: DevicePartitionThunk,
+                 co_parts: int) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
+                from spark_rapids_tpu_torch.memory import (get_budget_oracle,
+                                                           get_device_store)
+                store = get_device_store(self.conf)
                 if self.mode == "partial":
                     yield from self._run_partial(thunk, use_kernel,
-                                                 programs)
+                                                 programs, store)
                     return
-                batches = [b for b in thunk() if b.row_count() != 0]
-                if not batches:
+                handles = [self.register_spillable(store, b)
+                           for b in thunk() if b.row_count() != 0]
+                if not handles:
                     if not grouped:
                         yield self._empty_global_result()
                     return
-                self.metrics.create(M.DISPATCH_COUNT).add(1)
-                yield self._final(concat_device(batches))
+                # planned out-of-core: staged bytes over the operator's
+                # share bucket by the grouping keys' hash up front
+                if grouped:
+                    oracle = get_budget_oracle(self.conf)
+                    if oracle.enabled:
+                        n = oracle.plan_partitions(
+                            sum(h.sizeof() for h in handles), self.metrics)
+                        if n > 1:
+                            yield from self._ooc_aggregate(
+                                store, handles, n * max(1, co_parts),
+                                oracle, depth=0)
+                            return
+                yield self._finish_final(
+                    self._merge_bounded(handles, store))
             return run
-        return [make(t) for t in device_channel(self.child)]
+        thunks = device_channel(self.child)
+        return [make(t, len(thunks)) for t in thunks]
 
     def _run_partial(self, thunk: DevicePartitionThunk, use_kernel: bool,
-                     programs: dict) -> Iterator[DeviceBatch]:
+                     programs: dict, store) -> Iterator[DeviceBatch]:
         """Partial mode, as the JAX package drains it. Each batch's
-        program compacts its groups and leaves their count on the device;
-        kernel outputs wait with their inputs until the partition is
-        drained, then every count and overflow flag is read in one copy.
-        An overflowed batch's kernel output is discarded and the batch
+        program compacts its groups and leaves their count on the device,
+        under ``with_split_retry``. The outputs wait in the spill store,
+        the kernel's with their inputs, until the partition is drained;
+        then every count and overflow flag is read in one copy. An
+        overflowed batch's kernel output is discarded and the batch
         re-runs on the sort-based partial aggregate. The outputs are cut
         to their capacity buckets and, when several together fit in one
         batch, merged into one (the pre-shuffle reduction of
         aggregate.scala)."""
         kind = "kernel" if use_kernel else "sorted"
+
+        def run_piece(piece: DeviceBatch):
+            out, overflow = self._aggregate(piece, kind, programs)
+            return piece, out, overflow
+
+        def run_piece_sorted(piece: DeviceBatch):
+            out, overflow = self._aggregate(piece, "sorted", programs)
+            return piece, out, overflow
+
         pending = []
         for b in thunk():
-            out, overflow = self._aggregate(b, kind, programs)
-            pending.append((b if use_kernel else None, out, overflow))
+            for piece, out, overflow in R.with_split_retry(
+                    b, run_piece, self.conf, self.metrics):
+                h_in = (self.register_spillable(store, piece)
+                        if use_kernel else None)
+                pending.append((h_in, self.register_spillable(store, out),
+                                out._num_rows_dev, overflow))
         if not pending:
             return
         host = torch.cat(
-            [out._num_rows_dev.reshape(1) for _b, out, _o in pending]
-            + [o.to(torch.int64) for _b, _out, o in pending
+            [cnt.reshape(1) for _i, _h, cnt, _o in pending]
+            + [o.to(torch.int64) for _i, _h, _c, o in pending
                if o is not None]).cpu().tolist()
         flags = host[len(pending):] or [0] * len(pending)
         shrunk = []
-        for (b, out, _o), n, ovf in zip(pending, host, flags):
+        for (h_in, h, _c, _o), n, ovf in zip(pending, host, flags):
             if ovf:
                 self.overflow_reruns += 1
-                out, _o = self._aggregate(b, "sorted", programs)
-                n = out.row_count()
+                h.close()
+                whole = h_in.get()
+                h_in.close()
+                for _p, out, _o2 in R.with_split_retry(
+                        whole, run_piece_sorted, self.conf, self.metrics):
+                    out._num_rows = out.row_count()
+                    shrunk.append(self.register_spillable(
+                        store, slice_compacted_to_bucket(out)))
+                continue
+            out = h.get()
+            h.close()
+            if h_in is not None:
+                h_in.close()
             out._num_rows = n
-            shrunk.append(slice_compacted_to_bucket(out))
-        total = sum(b._num_rows for b in shrunk)
+            shrunk.append(self.register_spillable(
+                store, slice_compacted_to_bucket(out)))
+        total = sum(h.rows for h in shrunk)
         if len(shrunk) > 1 and total <= self.conf.batch_size_rows:
-            merged, _o = self._aggregate(concat_device(shrunk), "merge",
-                                         programs)
+            whole = concat_device([h.get() for h in shrunk])
+            for h in shrunk:
+                h.close()
+            merged, _o = R.with_retry(
+                lambda: self._aggregate(whole, "merge", programs),
+                self.conf, self.metrics)
             yield merged
             return
-        yield from shrunk
+        for h in shrunk:
+            b = h.get()
+            h.close()
+            yield b
 
     def simple_string(self):
         return (f"TorchHashAggregate mode={self.mode} "

@@ -7,9 +7,21 @@ Every TorchExec produces ``device_partitions()``: thunks yielding
 ``MetricRegistry`` as ``self.metrics``. A consumer reads a child through
 ``device_channel``, which counts each batch the child yields in its
 ``numOutputRows`` and ``numOutputBatches``. Partitions run one after another
-on the device's current stream. The semaphore, spill store, retry
-protocol and the upload's OOM fallback of the JAX package are not ported
-yet: an out-of-memory error raises.
+on the device's current stream. An operator that holds batches across
+yields registers them with the spill store (``register_spillable``).
+
+The upload takes the device semaphore before its first device write
+(``TorchColumnarToRowExec`` releases it when its partition ends or
+fails) and runs under the retry protocol: an out-of-memory error while
+issuing a copy or decoding recovers and retries, then degrades
+(``_upload_degraded``: a HostBatch uploads in halves by rows). On a CUDA
+device an EncodedBatch does not degrade: its row group is decoded by the
+``decodeFused`` kernel or the error propagates, so the decode never moves
+to the host. On the CPU it takes its host decode for that batch only,
+counted in ``deviceDecodeOomFallbacks``, as the JAX package does. An OOM
+while the ring issues a copy ahead
+shrinks the ring: the older in-flight uploads complete first, then the
+unit takes the synchronous protocol.
 """
 
 from __future__ import annotations
@@ -21,12 +33,14 @@ from typing import Callable, Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     bucket_capacity,
                                                     concat_device)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.conf import (PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT,
                                          TorchConf)
+from spark_rapids_tpu_torch.resource import get_semaphore
 from spark_rapids_tpu_torch.sql import physical as P
 
 DevicePartitionThunk = Callable[[], Iterator[DeviceBatch]]
@@ -46,6 +60,13 @@ class TorchExec(P.PhysicalPlan):
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         raise NotImplementedError
+
+    def register_spillable(self, store, batch: DeviceBatch):
+        """Register a batch this operator holds across yields, with the
+        operator as its owner (the store's per-operator ledger, this
+        exec's ``peakDeviceMemory`` and ``spillBytes``)."""
+        return store.register(batch, owner=type(self).__name__,
+                              metrics=self.metrics)
 
     def counted_partitions(self) -> List[DevicePartitionThunk]:
         """``device_partitions`` with every yielded batch counted in
@@ -167,7 +188,7 @@ class TorchRowToColumnarExec(TorchExec):
         from spark_rapids_tpu_torch.columnar.transfer import StagingRing
         ring = StagingRing(self.device, 2)
         for unit in _groups(thunk(), self.goal_rows):
-            yield self._finish(self._start(ring, self._prepare(unit, ring)))
+            yield from self._upload_sync(ring, *self._prepare(unit, ring))
 
     def _run_pipelined(self, thunk: P.PartitionThunk, depth: int
                        ) -> Iterator[DeviceBatch]:
@@ -196,8 +217,8 @@ class TorchRowToColumnarExec(TorchExec):
                     if stop.is_set():
                         return
                     with self.metrics.timed(M.SCAN_PREFETCH_TIME):
-                        placed = self._prepare(unit, ring)
-                    if not put(("unit", placed)):
+                        prepared = self._prepare(unit, ring)
+                    if not put(("unit", prepared)):
                         return
                 put(("done", None))
             except BaseException as e:  # raised again on the task thread
@@ -219,12 +240,22 @@ class TorchRowToColumnarExec(TorchExec):
                     break
                 if kind == "error":
                     raise item
-                inflight.append(self._start(ring, item))
+                placed, src = item
+                started = self._start_ahead(ring, placed)
+                if started is None:
+                    # OOM issuing the copy ahead: shrink the ring (the
+                    # older in-flight uploads complete and free their
+                    # buffers), then the synchronous protocol
+                    while inflight:
+                        yield from self._finish(*inflight.pop(0))
+                    yield from self._upload_sync(ring, placed, src)
+                    continue
+                inflight.append((started, src))
                 self.metrics.create(M.UPLOAD_AHEAD_BATCHES).add(1)
                 while len(inflight) >= depth:
-                    yield self._finish(inflight.pop(0))
+                    yield from self._finish(*inflight.pop(0))
             while inflight:
-                yield self._finish(inflight.pop(0))
+                yield from self._finish(*inflight.pop(0))
         finally:
             stop.set()
             try:
@@ -236,7 +267,9 @@ class TorchRowToColumnarExec(TorchExec):
 
     def _prepare(self, unit, ring):
         """Stage one upload unit on the host and write it into a slot of
-        ``ring``."""
+        ``ring``: ``(placed, source)``. The source (the HostBatch, or the
+        EncodedBatch) rides along for the OOM fallback: at most one extra
+        host reference per unit in flight."""
         from spark_rapids_tpu_torch.columnar.transfer import prepare_upload
         if isinstance(unit, list):
             whole = unit[0] if len(unit) == 1 else HostBatch.concat(unit)
@@ -244,24 +277,98 @@ class TorchRowToColumnarExec(TorchExec):
             whole = unit  # an EncodedBatch stages as itself
         cap = bucket_capacity(max(1, whole.num_rows))
         with self.metrics.timed(M.PACK_TIME):
-            return ring.place(prepare_upload(whole, cap))
+            return ring.place(prepare_upload(whole, cap)), whole
 
     def _start(self, ring, placed):
         """Issue a placed unit's copy, counting it in
         ``pinnedStreamCopies`` when its slot is pinned and the copy runs
-        on the ring's own stream, not the task's."""
+        on the ring's own stream, not the task's. The slot goes back to
+        the ring only once the copy is issued."""
+        get_semaphore(self.conf).acquire_if_necessary(self.metrics)
+        started = ring.start(placed)
         if ring.cuda and placed.slot.buf.is_pinned() and \
                 ring.stream != torch.cuda.current_stream(self.device):
             self.metrics.create(M.PINNED_STREAM_COPIES).add(1)
-        return ring.start(placed)
+        return started
 
-    def _finish(self, started) -> DeviceBatch:
+    def _start_ahead(self, ring, placed):
+        """The ring's copy issued ahead of its decode (injection site
+        ``upload``), or None on an out-of-memory error: the caller then
+        shrinks the ring. Not retried here."""
+        inj = R.get_fault_injector(self.conf)
+        try:
+            if inj is not None:
+                inj.on_alloc("upload")
+            return self._start(ring, placed)
+        except Exception as e:
+            if not R.is_oom_error(e):
+                raise
+            return None
+
+    def _finish(self, started, src) -> List[DeviceBatch]:
+        """Decode a started upload under the retry protocol; when it runs
+        out, the unit degrades (``_upload_degraded``)."""
         from spark_rapids_tpu_torch.columnar.transfer import finish_started
-        with self.metrics.timed(M.COPY_TO_DEVICE_TIME):
-            out = finish_started(started)
+        try:
+            with self.metrics.timed(M.COPY_TO_DEVICE_TIME):
+                out = [R.with_retry(lambda: finish_started(started),
+                                    self.conf, self.metrics,
+                                    splittable=True)]
+        except R.TorchRetryOOM:
+            return self._upload_degraded(src)
         if started.staged[0] == "encoded":
             self.metrics.create("kernelDispatchCount.decodeFused").add(1)
         return out
+
+    def _upload_sync(self, ring, placed, src) -> List[DeviceBatch]:
+        """The synchronous protocol: the copy issued under the retry
+        protocol (injection site ``upload``; the slot stays this unit's
+        until the copy is issued), then ``_finish``."""
+        try:
+            started = R.with_retry(lambda: self._start(ring, placed),
+                                   self.conf, self.metrics,
+                                   splittable=True, site="upload")
+        except R.TorchRetryOOM:
+            ring.release(placed)
+            return self._upload_degraded(src)
+        return self._finish(started, src)
+
+    def _upload_degraded(self, src) -> List[DeviceBatch]:
+        """OOM recovery for one upload unit: a HostBatch uploads in halves
+        by rows, each half on its own (the consumer sees the halves in
+        order, so rows do not change). An EncodedBatch on a CUDA device
+        raises: swapping ``decodeFused`` for the pyarrow decode would move
+        the row group's decode to the host. On the CPU, where the plain
+        version decodes anyway, it takes the pyarrow host decode of its
+        row group for this batch only, as the JAX package does. The
+        replacement uploads keep the split-retry protocol, with injection
+        suppressed."""
+        from spark_rapids_tpu_torch.columnar.transfer import upload_batch
+        from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
+
+        def upload_host(hb: HostBatch) -> DeviceBatch:
+            return upload_batch(hb, bucket_capacity(max(1, hb.num_rows)),
+                                self.device)
+
+        if isinstance(src, EncodedBatch):
+            if self.device.type != "cpu":
+                raise R.TorchRetryOOM(
+                    "out of memory decoding a row group on the device, "
+                    "retries exhausted")
+            if src.host_fallback is None:
+                raise R.TorchRetryOOM(
+                    "upload out of memory and the encoded batch has no "
+                    "host decode attached")
+            self.metrics.create(M.DEVICE_DECODE_OOM_FALLBACKS).add(1)
+            with R.suppress_injection():
+                hbs = [hb for hb in src.host_fallback() if hb.num_rows]
+                return [d for hb in hbs
+                        for d in R.with_split_retry(
+                            hb, upload_host, self.conf, self.metrics,
+                            split=R.split_host_batch)]
+        return R.with_split_retry(src, upload_host, self.conf,
+                                  self.metrics, split=R.split_host_batch,
+                                  split_first=True)
 
     def simple_string(self):
         return "TorchRowToColumnar"
@@ -296,18 +403,24 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
             self.metrics.create(M.NUM_OUTPUT_ROWS).add(h.num_rows)
             return h
 
+        sem = get_semaphore(self.conf)
+
         def make(thunk: DevicePartitionThunk) -> P.PartitionThunk:
             def run() -> Iterator[HostBatch]:
                 stream = torch.cuda.Stream(device) \
                     if device.type == "cuda" else None
                 prev = None
-                for b in thunk():
-                    tok = start_to_host(b, stream)
+                try:
+                    for b in thunk():
+                        tok = start_to_host(b, stream)
+                        if prev is not None:
+                            yield convert(prev)
+                        prev = tok
                     if prev is not None:
                         yield convert(prev)
-                    prev = tok
-                if prev is not None:
-                    yield convert(prev)
+                finally:
+                    # the partition's device work is done or failed
+                    sem.release_if_necessary()
             return run
         return [make(t) for t in device_channel(self.child)]
 

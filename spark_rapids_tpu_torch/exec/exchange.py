@@ -8,7 +8,13 @@ Spark would use. Range partitioning ranks every row globally (an exact,
 not sampled, equal-depth split) as the JAX package does. ``split_by_pid``
 sorts a batch by partition id and slices each partition out at its own
 capacity bucket. The exchange materializes once into a list per
-partition; the ICI/mesh, external and adaptive paths are not ported.
+partition, each piece retained in the spill store as a
+``SpillableBatch`` (the exchange holds the whole dataset across yields);
+an aborted materialization closes the handles it had registered. The
+hash split runs under ``with_retry``. A range exchange stages its inputs
+in the store while it ranks their keys; a spilled input comes back
+compacted, so its partition ids are remapped (``realign_spilled_pids``).
+The ICI/mesh, external and adaptive paths are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (
     DeviceBatch, bucket_capacity, concat_device, flatten_columns,
     rebuild_columns, sort_with_payload)
@@ -111,6 +119,42 @@ def split_by_pid(batch: DeviceBatch, pids: torch.Tensor, n: int
     return out
 
 
+def hash_buckets(op: TorchExec, store, handles: List, bound_keys,
+                 modulus: int) -> List[List]:
+    """The planned out-of-core split (final aggregate, shuffled join):
+    every handle's batch split into ``modulus`` spill-backed buckets by
+    the exchange's murmur3 partition id of ``bound_keys``, registered by
+    ``op``. Each input handle closes once split, so one source batch is
+    on the card at a time."""
+    buckets: List[List] = [[] for _ in range(modulus)]
+    for h in handles:
+        b = h.get()
+        with op.metrics.timed(M.PARTITION_TIME):
+            parts = R.with_retry(
+                lambda b=b: split_by_pid(
+                    b, hash_partition_ids(bound_keys, b, modulus), modulus),
+                op.conf, op.metrics)
+        op.metrics.create("kernelDispatchCount.murmur3").add(1)
+        h.close()
+        for pid, part in enumerate(parts):
+            if part is not None:
+                buckets[pid].append(op.register_spillable(store, part))
+    return buckets
+
+
+def realign_spilled_pids(handle, pids: torch.Tensor, act: torch.Tensor):
+    """``(batch, pids)``: re-promote a handle whose per-slot ``pids`` were
+    computed against the registered layout. A spill round trip compacts
+    the batch (active rows become a prefix, in order), so the pids are
+    remapped through the same compaction. Shared by the range exchange
+    and the out-of-core sort."""
+    b = handle.get()
+    if handle.ever_spilled or b.capacity != act.shape[0]:
+        comp = torch.argsort((~act).to(torch.int8), stable=True)
+        pids = pids[comp][:b.capacity]
+    return b, pids
+
+
 class TorchShuffleExchangeExec(TorchExec):
     def __init__(self, partitioning: P.Partitioning, child: TorchExec,
                  conf: TorchConf, device: torch.device):
@@ -127,57 +171,98 @@ class TorchShuffleExchangeExec(TorchExec):
     def output(self):
         return self.child.output
 
-    def _materialize(self) -> List[List[DeviceBatch]]:
-        if self._cache is not None:
+    def _materialize(self) -> List[List]:
+        """The partitions' handles, materialized once; again after the
+        session released them (``release_plan_handles``), should the plan
+        run a second time."""
+        if self._cache is not None and not any(
+                h.closed for part in self._cache for h in part):
             return self._cache
+        from spark_rapids_tpu_torch.memory import get_device_store
+        store = get_device_store(self.conf)
         p = self.partitioning
         n = p.num_partitions
-        out: List[List[DeviceBatch]] = [[] for _ in range(n)]
-        if isinstance(p, P.SinglePartitioning) or n == 1:
-            for thunk in device_channel(self.child):
-                out[0].extend(b for b in thunk() if b.row_count())
-        elif isinstance(p, P.HashPartitioning):
-            bound = P.bind_list(p.exprs, self.child.output)
-            for thunk in device_channel(self.child):
-                for b in thunk():
-                    self.metrics.create("kernelDispatchCount.murmur3").add(1)
-                    parts = split_by_pid(b, hash_partition_ids(bound, b, n),
-                                         n)
-                    for pid, part in enumerate(parts):
-                        if part is not None:
-                            out[pid].append(part)
-        elif isinstance(p, P.RangePartitioning):
-            self._materialize_range(p, n, out)
-        else:
-            raise NotImplementedError(
-                f"{type(p).__name__} is not ported yet to "
-                "spark_rapids_tpu_torch")
+        out: List[List] = [[] for _ in range(n)]
+
+        def keep(pid: int, part: DeviceBatch) -> None:
+            out[pid].append(self.register_spillable(store, part))
+
+        try:
+            if isinstance(p, P.SinglePartitioning) or n == 1:
+                for thunk in device_channel(self.child):
+                    for b in thunk():
+                        if b.row_count():
+                            keep(0, b)
+            elif isinstance(p, P.HashPartitioning):
+                bound = P.bind_list(p.exprs, self.child.output)
+                for thunk in device_channel(self.child):
+                    for b in thunk():
+                        self.metrics.create(
+                            "kernelDispatchCount.murmur3").add(1)
+                        # the split is pure over b: a retry re-runs it
+                        with self.metrics.timed(M.PARTITION_TIME):
+                            parts = R.with_retry(
+                                lambda b=b: split_by_pid(
+                                    b, hash_partition_ids(bound, b, n), n),
+                                self.conf, self.metrics)
+                        for pid, part in enumerate(parts):
+                            if part is not None:
+                                keep(pid, part)
+            elif isinstance(p, P.RangePartitioning):
+                self._materialize_range(p, n, store, keep)
+            else:
+                raise NotImplementedError(
+                    f"{type(p).__name__} is not ported yet to "
+                    "spark_rapids_tpu_torch")
+        except BaseException:
+            # an aborted attempt leaves nothing registered in the store
+            for part in out:
+                for h in part:
+                    h.close()
+            raise
         self._cache = out
         return out
 
-    def _materialize_range(self, p: P.RangePartitioning, n: int,
-                           out: List[List[DeviceBatch]]) -> None:
+    def _materialize_range(self, p: P.RangePartitioning, n: int, store,
+                           keep) -> None:
+        """Two passes: the order keys of each batch are evaluated while
+        the batch itself waits in the store, then all keys rank globally
+        and each batch splits by its partition ids."""
         bound = P.bind_list([o.child for o in p.order], self.child.output)
-        batches, keycols = [], []
-        for thunk in device_channel(self.child):
-            for b in thunk():
-                if b.row_count() == 0:
-                    continue
-                keycols.append(range_key_columns(bound, b))
-                batches.append(b)
-        if not batches:
-            return
-        pids = global_range_pids(p.order, keycols,
-                                 [b.active for b in batches], n)
-        for b, pid_t in zip(batches, pids):
-            for pid, part in enumerate(split_by_pid(b, pid_t, n)):
-                if part is not None:
-                    out[pid].append(part)
+        handles, keycols, actives = [], [], []
+        try:
+            for thunk in device_channel(self.child):
+                for b in thunk():
+                    if b.row_count() == 0:
+                        continue
+                    keycols.append(range_key_columns(bound, b))
+                    actives.append(b.active)
+                    handles.append(self.register_spillable(store, b))
+            if not handles:
+                return
+            with self.metrics.timed(M.PARTITION_TIME):
+                pids = R.with_retry(
+                    lambda: global_range_pids(p.order, keycols, actives, n),
+                    self.conf, self.metrics)
+            for h, pid_t, act in zip(handles, pids, actives):
+                b, pid_t = realign_spilled_pids(h, pid_t, act)
+                with self.metrics.timed(M.PARTITION_TIME):
+                    parts = R.with_retry(
+                        lambda b=b, pid_t=pid_t: split_by_pid(b, pid_t, n),
+                        self.conf, self.metrics)
+                h.close()
+                for pid, part in enumerate(parts):
+                    if part is not None:
+                        keep(pid, part)
+        finally:
+            for h in handles:
+                h.close()
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         def make(pid: int) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
-                yield from self._materialize()[pid]
+                for h in self._materialize()[pid]:
+                    yield h.get()
             return run
         return [make(i) for i in range(self.partitioning.num_partitions)]
 

@@ -40,8 +40,19 @@ Metrics: per-operator counts still report under each constituent exec
 ``numOutputBatches``), plus ``fusedOps``, ``dispatchCount``,
 ``stageCompileTime`` (a new program's warm-up and capture wall) and the
 cache's ``compileCacheHits``/``compileCacheMisses``. JAX's buffer
-donation has no counterpart here, and its ``with_split_retry`` around
-each batch is not ported yet: an out-of-memory error raises.
+donation has no counterpart here.
+
+Memory: each batch of a chain runs under ``with_split_retry`` (as the
+JAX package's ``run_one`` does): an out-of-memory error in the warm-up,
+the capture or a replay recovers and retries, then splits the batch in
+half by rows; each half lands in a smaller capacity bucket, so it gets
+its own key and capture. A build that fails caches nothing
+(``JitCache.get_or_build``), and a failed capture releases its graph and
+private pool before the error propagates. Each program records the
+bytes its capture reserved (``pool_bytes``); the retry protocol's
+recovery releases least-recently-used programs first
+(``release_stage_programs``), since a cached graph holds memory that no
+spill can free.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch
 
 from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     flatten_columns,
                                                     rebuild_columns)
@@ -62,7 +74,8 @@ from spark_rapids_tpu_torch.conf import STAGE_FUSION_MAX_IN_FLIGHT, TorchConf
 from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
                                               TorchExec, device_channel)
 from spark_rapids_tpu_torch.exec.basic import TorchFilterExec, TorchProjectExec
-from spark_rapids_tpu_torch.jit_cache import JitCache, mirror_to_metrics
+from spark_rapids_tpu_torch.jit_cache import (JitCache, mirror_to_metrics,
+                                             release_values)
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
@@ -134,6 +147,9 @@ class StageProgram:
         self._static_in: List[torch.Tensor] = []
         self._static_out: List[torch.Tensor] = []
         self._out_from_input: List[Optional[int]] = []
+        # device bytes the capture reserved: its static inputs and the
+        # graph's private pool (0 on the CPU)
+        self.pool_bytes = 0
         self._lock = threading.Lock()
 
     @classmethod
@@ -152,7 +168,9 @@ class StageProgram:
         side.synchronize()
         for t in outs:
             t.record_stream(cur)
+        before = torch.cuda.memory_reserved(device)
         prog._capture(flat_in, side)
+        prog.pool_bytes = max(0, torch.cuda.memory_reserved(device) - before)
         return prog, (outs, meta)
 
     def _capture(self, flat_in: List[torch.Tensor], side) -> None:
@@ -171,6 +189,13 @@ class StageProgram:
                     graph.capture_end()
                 except RuntimeError:
                     pass  # the original error is the one to report
+                # leave nothing behind: the half-captured graph and its
+                # private pool, and the static inputs
+                try:
+                    graph.reset()
+                except RuntimeError:
+                    pass
+                self._static_in = []
                 raise
             graph.capture_end()
         GRAPH_COUNTS["captures"] += 1
@@ -244,6 +269,20 @@ def run_program(key, fn: ProgramFn, flat_in: List[torch.Tensor],
         metrics.create(M.STAGE_COMPILE_TIME).add(
             time.perf_counter_ns() - t0)
     return out
+
+
+def release_stage_programs(everything: bool) -> int:
+    """Release the least recently used half of the cached stage programs
+    (rounded down: a lone program stays) or, when ``everything``, all of
+    them, freeing their graphs' pools; returns the bytes their captures
+    had reserved."""
+    n = len(STAGE_CACHE) if everything else len(STAGE_CACHE) // 2
+    if n == 0:
+        return 0
+    progs = STAGE_CACHE.pop_lru(n)
+    freed = sum(p.pool_bytes for p in progs)
+    release_values(progs)
+    return freed
 
 
 def flatten_literals(lits: Sequence[Sequence[Tuple[torch.Tensor, ...]]]
@@ -376,8 +415,11 @@ class TorchFusedStageExec(TorchExec):
                 # the deque bounds the device memory they hold
                 window: deque = deque()
                 for b in thunk():
-                    window.append(run_one(b))
-                    if len(window) >= window_n:
+                    # an OOM retries, then splits the batch by rows: the
+                    # pieces' outputs follow in row order
+                    window.extend(R.with_split_retry(
+                        b, run_one, self.conf, metrics))
+                    while len(window) >= window_n:
                         yield window.popleft()
                 while window:
                     yield window.popleft()

@@ -5,17 +5,27 @@ and TpuBroadcastHashJoinExec) over ``ops/join.device_join``.
 Each exec counts the route its joins took in ``route_counts``:
 ``joinProbe`` (joins dispatched to the joinProbe kernel) and
 ``fkFastPathJoins`` (broadcasts whose build keys were certified unique).
-Adaptive replanning, the cross-query build cache, out-of-core partitioned
-joins, spill and residual (non-equi) conditions are not ported yet:
-batches are held directly on the card.
+
+Memory, as in the JAX package: every join runs under ``with_retry``; a
+shuffled join's stream side waits in the spill store while the build
+side is read. When the budget oracle says the build side's bytes are
+over the operator's share, the shuffled join runs out of core
+(``_ooc_join``): both sides split by ``pmod(murmur3(keys), modulus)``
+into spill-backed buckets (the murmur3 kernel on the card), and each
+bucket pair joins through the usual route (joinProbe or the sort path);
+a bucket still over the share re-partitions at a doubled modulus.
+Adaptive replanning, the cross-query build cache and residual (non-equi)
+conditions are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     concat_device)
 from spark_rapids_tpu_torch.conf import TorchConf
@@ -116,9 +126,11 @@ class TorchShuffledHashJoinExec(TorchExec):
         lk, rk = self._bound_keys()
         out_schema = (self.left.schema if self.join_type in MASK_JOINS
                       else self._pair_schema())
-        out = device_join(lwhole, rwhole, lk, rk, self.join_type,
-                          out_schema, null_safe=self.null_safe,
-                          fk_hint=fk_hint, counts=self.route_counts)
+        out = R.with_retry(
+            lambda: device_join(lwhole, rwhole, lk, rk, self.join_type,
+                                out_schema, null_safe=self.null_safe,
+                                fk_hint=fk_hint, counts=self.route_counts),
+            self.conf, self.metrics)
         # the exec's declared output may prune/reorder pair columns
         if self.join_type not in MASK_JOINS:
             out = self._project_output(out)
@@ -135,17 +147,17 @@ class TorchShuffledHashJoinExec(TorchExec):
                            pair.active, pair._num_rows)
 
     @staticmethod
-    def _chunks(batches: List[DeviceBatch], goal: int):
-        """Consecutive batches grouped up to ``goal`` rows each."""
+    def _chunks(items: List, goal: int, rows: Callable[[Any], int]):
+        """Consecutive items (batches or spillable handles) grouped up to
+        ``goal`` rows each, ``rows`` giving an item's row count."""
         i = 0
-        while i < len(batches):
-            chunk = [batches[i]]
-            rows = batches[i].row_count()
+        while i < len(items):
+            chunk = [items[i]]
+            total = rows(items[i])
             i += 1
-            while i < len(batches) and \
-                    rows + batches[i].row_count() <= goal:
-                rows += batches[i].row_count()
-                chunk.append(batches[i])
+            while i < len(items) and total + rows(items[i]) <= goal:
+                total += rows(items[i])
+                chunk.append(items[i])
                 i += 1
             yield chunk
 
@@ -180,7 +192,7 @@ class TorchShuffledHashJoinExec(TorchExec):
                     yield from self._join_one(lb, [rwhole],
                                               fk_hint=fk_hint())
                     return
-                for chunk in self._chunks(lb, goal):
+                for chunk in self._chunks(lb, goal, DeviceBatch.row_count):
                     yield from self._join_one(chunk, [rwhole],
                                               fk_hint=fk_hint())
             return run
@@ -191,48 +203,118 @@ class TorchShuffledHashJoinExec(TorchExec):
         rparts = device_channel(self.right)
         assert len(lparts) == len(rparts), \
             "join children must be co-partitioned"
-        return [self._partition_join_thunk(lt, rt)
+        return [self._partition_join_thunk(lt, rt, len(lparts))
                 for lt, rt in zip(lparts, rparts)]
 
     def _partition_join_thunk(self, lt: DevicePartitionThunk,
-                              rt: DevicePartitionThunk
+                              rt: DevicePartitionThunk, co_parts: int
                               ) -> DevicePartitionThunk:
         def run() -> Iterator[DeviceBatch]:
-            lb = [b for b in lt() if b._num_rows != 0]
+            from spark_rapids_tpu_torch.memory import (get_budget_oracle,
+                                                       get_device_store)
+            store = get_device_store(self.conf)
+            # the stream side waits in the store, so a skewed partition
+            # never pins both sides at once
+            lhandles = [self.register_spillable(store, b)
+                        for b in lt() if b._num_rows != 0]
             rb = [b for b in rt() if b._num_rows != 0]
-            yield from self._join_items(lb, rb)
+            # planned out-of-core: a build side over the operator's share
+            # partitions both sides up front
+            oracle = get_budget_oracle(self.conf)
+            if rb and oracle.enabled and self._ooc_eligible():
+                n = oracle.plan_partitions(sum(b.sizeof() for b in rb),
+                                           self.metrics)
+                if n > 1:
+                    rhandles = [self.register_spillable(store, b)
+                                for b in rb]
+                    rb = []  # only the store holds the build side now
+                    yield from self._ooc_join(store, lhandles, rhandles,
+                                              n * max(1, co_parts), oracle,
+                                              depth=0)
+                    return
+            yield from self._join_items(lhandles, rb)
         return run
 
-    def _join_items(self, lb: List[DeviceBatch],
+    def _ooc_eligible(self) -> bool:
+        """A partitioned join needs equi-keys to hash (a cross join has
+        none: every row would land in one bucket)."""
+        return bool(self.left_keys)
+
+    def _ooc_join(self, store, lhandles: List, rhandles: List, modulus: int,
+                  oracle, depth: int) -> Iterator[DeviceBatch]:
+        """Planned partitioned hash join: both sides split by
+        pmod(murmur3(keys), modulus), then each bucket pair joins on its
+        own through ``_join_items``. A bucket whose build bytes still
+        exceed the share re-partitions at a doubled modulus
+        (pmod(h, 2N) refines pmod(h, N)), up to
+        ``outOfCore.maxRecursion``; past it the retry protocol is the
+        backstop."""
+        from spark_rapids_tpu_torch.exec.exchange import hash_buckets
+        # equal keys land in the same bucket on both sides
+        lk, rk = self._bound_keys()
+        lbuckets = hash_buckets(self, store, lhandles, lk, modulus)
+        rbuckets = hash_buckets(self, store, rhandles, rk, modulus)
+        share = oracle.operator_share()
+        for pid in range(modulus):
+            lhs, rhs = lbuckets[pid], rbuckets[pid]
+            if not lhs and not rhs:
+                continue
+            if sum(h.sizeof() for h in rhs) > share \
+                    and depth < oracle.max_recursion:
+                self.metrics.create(M.PLANNED_OOC_ESCALATIONS).add(1)
+                yield from self._ooc_join(store, lhs, rhs, modulus * 2,
+                                          oracle, depth + 1)
+                continue
+            rb = [h.get() for h in rhs]
+            rwhole = R.with_retry(
+                lambda rb=rb: self._whole(rb, self.right.schema,
+                                          self.device),
+                self.conf, self.metrics)
+            for h in rhs:
+                h.close()
+            yield from self._join_items(lhs, [rwhole])
+
+    def _join_items(self, lhandles: List,
                     rb: List[DeviceBatch]) -> Iterator[DeviceBatch]:
-        """One co-partition's join. A stream side above the goal row
-        count joins in chunks against the build side concatenated once;
-        right/full outer chunks accumulate the matched-right mask and
-        emit the unmatched right rows at the end."""
+        """One co-partition's join, the stream side as spillable
+        handles (the in-memory path and each out-of-core bucket). A
+        stream side above the goal row count joins in chunks against the
+        build side concatenated once, each chunk re-promoted as it is
+        joined; right/full outer chunks accumulate the matched-right mask
+        and emit the unmatched right rows at the end."""
         goal = self.conf.batch_size_rows
         chunkable = (self.join_type in self._LEFT_STREAM_TYPES
                      or self.join_type in self._CHUNKED_OUTER)
-        if not chunkable or sum(b.row_count() for b in lb) <= goal:
+        if not chunkable or sum(h.rows for h in lhandles) <= goal:
+            lb = [h.get() for h in lhandles]
+            for h in lhandles:
+                h.close()
             yield from self._join_one(lb, rb)
             return
         rwhole = self._whole(rb, self.right.schema, self.device)
         chunk_type = self._CHUNKED_OUTER.get(self.join_type)
-        if chunk_type is None:
-            for chunk in self._chunks(lb, goal):
-                yield from self._join_one(chunk, [rwhole])
-            return
         lk, rk = self._bound_keys()
         pair_schema = self._pair_schema()
         matched_any = None
-        for chunk in self._chunks(lb, goal):
-            lwhole = concat_device(chunk)
-            out, matched = device_join(
-                lwhole, rwhole, lk, rk, chunk_type, pair_schema,
-                collect_matched_r=True, null_safe=self.null_safe,
-                counts=self.route_counts)
+        for chunk in self._chunks(lhandles, goal, lambda h: h.rows):
+            lb = [h.get() for h in chunk]
+            for h in chunk:
+                h.close()
+            if chunk_type is None:
+                yield from self._join_one(lb, [rwhole])
+                continue
+            lwhole = concat_device(lb)
+            out, matched = R.with_retry(
+                lambda: device_join(
+                    lwhole, rwhole, lk, rk, chunk_type, pair_schema,
+                    collect_matched_r=True, null_safe=self.null_safe,
+                    counts=self.route_counts),
+                self.conf, self.metrics)
             matched_any = matched if matched_any is None \
                 else matched_any | matched
             yield self._project_output(out)
+        if chunk_type is None:
+            return
         left_fields = [T.StructField(a.name, a.data_type, a.nullable)
                        for a in self.left.output]
         yield self._project_output(right_extras_batch(

@@ -1,9 +1,19 @@
 """TorchSortExec / TorchTopNExec: per-partition device sort (the
 counterparts of ``spark_rapids_tpu.exec.sort``'s TpuSortExec and
-TpuTopNExec). A partition's batches concatenate and sort in one pass;
-TopN then keeps the first n rows through the active mask. The
-out-of-core rank-split path is not ported yet (a partition must fit on
-the card).
+TpuTopNExec).
+
+A partition's batches wait in the spill store with only their order keys
+evaluated. A partition of at most ``batchSizeRows`` rows (or of one
+batch) concatenates and sorts in one pass. A larger one takes the
+out-of-core path (GpuOutOfCoreSortIterator, as the JAX package has it):
+exact global ranks over the resident keys split every batch into
+rank-contiguous sub-ranges of at most ``batchSizeRows`` rows, each
+sub-range waits in the store, then is concatenated, sorted and emitted
+in order, so the partition is never whole on the card; stable rank
+splitting keeps the rows identical to one stable sort. TopN sorts the
+concatenated partition and keeps the first n rows through the active
+mask. Every sort runs under ``with_retry`` (a sort does not split by
+rows: the out-of-core path is its split).
 """
 
 from __future__ import annotations
@@ -12,6 +22,7 @@ from typing import Iterator, List
 
 import torch
 
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (
     DeviceBatch, concat_device, mask_col, take_columns)
 from spark_rapids_tpu_torch.conf import TorchConf
@@ -63,14 +74,94 @@ class TorchSortExec(TorchExec):
                             self.child.output)
         limit = self._limit()
 
+        goal = self.conf.batch_size_rows
+
         def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
-                batches = [b for b in thunk() if b.row_count() != 0]
-                if batches:
-                    yield sorted_batch(self.order, bound,
-                                       concat_device(batches), limit)
+                if limit >= 0:
+                    batches = [b for b in thunk() if b.row_count() != 0]
+                    if batches:
+                        whole = concat_device(batches)
+                        yield R.with_retry(
+                            lambda: sorted_batch(self.order, bound, whole,
+                                                 limit),
+                            self.conf, self.metrics)
+                    return
+                yield from self._sort_partition(thunk, bound, goal)
             return run
         return [make(t) for t in device_channel(self.child)]
+
+    def _sort_partition(self, thunk: DevicePartitionThunk, bound,
+                        goal: int) -> Iterator[DeviceBatch]:
+        from spark_rapids_tpu_torch.exec.exchange import range_key_columns
+        from spark_rapids_tpu_torch.memory import get_device_store
+        store = get_device_store(self.conf)
+        handles, keycols, actives = [], [], []
+        try:
+            for b in thunk():
+                if b.row_count() == 0:
+                    continue
+                keycols.append(range_key_columns(bound, b))
+                actives.append(b.active)
+                handles.append(self.register_spillable(store, b))
+            if not handles:
+                return
+            total = sum(h.rows for h in handles)
+            if len(handles) == 1 or total <= goal:
+                keycols.clear()
+                whole = concat_device([h.get() for h in handles])
+                for h in handles:
+                    h.close()
+                yield R.with_retry(
+                    lambda: sorted_batch(self.order, bound, whole, -1),
+                    self.conf, self.metrics)
+                return
+            yield from self._out_of_core(store, handles, keycols, actives,
+                                         total, goal, bound)
+        finally:
+            for h in handles:
+                h.close()
+
+    def _out_of_core(self, store, handles, keycols, actives, total: int,
+                     goal: int, bound) -> Iterator[DeviceBatch]:
+        """Rank-split external sort (GpuSortExec.scala:231): exact global
+        ranks over the resident keys put each row in a rank-contiguous
+        sub-range of at most ``goal`` rows; each sub-range is
+        concatenated, sorted and emitted in order."""
+        from spark_rapids_tpu_torch.exec.exchange import (global_range_pids,
+                                                          realign_spilled_pids,
+                                                          split_by_pid)
+        n_sub = (total + goal - 1) // goal
+        pids_per_batch = R.with_retry(
+            lambda: global_range_pids(self.order, keycols, actives, n_sub),
+            self.conf, self.metrics)
+        keycols.clear()
+        buckets: List[List] = [[] for _ in range(n_sub)]
+        try:
+            for h, pids, act in zip(handles, pids_per_batch, actives):
+                b, pids = realign_spilled_pids(h, pids, act)
+                parts = R.with_retry(
+                    lambda b=b, pids=pids: split_by_pid(b, pids, n_sub),
+                    self.conf, self.metrics)
+                h.close()
+                for pid, part in enumerate(parts):
+                    if part is not None:
+                        buckets[pid].append(
+                            self.register_spillable(store, part))
+            for pid in range(n_sub):
+                if not buckets[pid]:
+                    continue
+                parts = [h.get() for h in buckets[pid]]
+                whole = concat_device(parts)
+                for h in buckets[pid]:
+                    h.close()
+                yield R.with_retry(
+                    lambda w=whole: sorted_batch(self.order, bound, w, -1),
+                    self.conf, self.metrics)
+        finally:
+            for bucket in buckets:
+                for h in bucket:
+                    h.close()
 
     def simple_string(self):
         return f"TorchSort {self.order} global={self.is_global}"

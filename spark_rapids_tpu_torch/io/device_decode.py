@@ -25,7 +25,7 @@ one through pyarrow; any other error propagates.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -257,6 +257,9 @@ class EncodedBatch:
     # host-decoded value counts per Parquet data encoding for the
     # fallback columns (the scan's hostDecodedValues.* counters)
     fallback_encodings: Dict[str, int] = field(default_factory=dict)
+    # the unit's pyarrow host decode (a list of HostBatches), attached by
+    # the scan: the upload's OOM fallback for this batch only
+    host_fallback: Optional[Callable[[], list]] = None
 
 
 # ---------------------------------------------------------------------------

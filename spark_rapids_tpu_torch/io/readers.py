@@ -10,8 +10,12 @@ reads its units one by one on the task thread (PERFILE).
 When ``TorchRowToColumnarExec`` consumes the scan directly, a row group is
 staged as an ``EncodedBatch`` (still-encoded pages plus plan tables) for
 the ``decodeFused`` kernel; otherwise, and for units the device decode
-cannot take, pyarrow decodes on the host. The MULTITHREADED and COALESCING
-readers, the other formats, IO retry and the mesh scan are not ported yet.
+cannot take, pyarrow decodes on the host; that host decode is also the
+upload's fallback for one batch after an out-of-memory error. The file
+reads of both paths run under the IO retry protocol (``io_with_retry``:
+bounded backoff, the original error after
+``spark.rapids.sql.reader.maxRetries``). The MULTITHREADED and COALESCING
+readers, the other formats and the mesh scan are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import re
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
+from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.conf import (MAX_READER_BATCH_SIZE_ROWS,
                                          PARQUET_READER_TYPE,
@@ -303,19 +309,15 @@ def unit_can_match(u: ScanUnit, preds: List[tuple],
     return True
 
 
-class ScanMetrics:
+class ScanMetrics(M.MetricRegistry):
     """Named counters of one scan: ``deviceDecodedBatches``,
     ``deviceFallbackUnits``, ``deviceFallbackColumns``,
-    ``deviceDecodedValues.<ENC>`` and ``hostDecodedValues.<ENC>``."""
-
-    def __init__(self):
-        self._counts: Dict[str, int] = {}
+    ``deviceDecodedValues.<ENC>`` and ``hostDecodedValues.<ENC>``, and
+    the IO retry protocol's ``ioRetryCount`` and ``retryBlockTime``. A
+    registry, so ``plan_metrics`` sums them with the operators'."""
 
     def add(self, name: str, v: int = 1) -> None:
-        self._counts[name] = self._counts.get(name, 0) + v
-
-    def snapshot(self) -> Dict[str, int]:
-        return dict(self._counts)
+        self.create(name).add(v)
 
 
 class CpuFileScanExec(P.PhysicalPlan):
@@ -407,7 +409,10 @@ class CpuFileScanExec(P.PhysicalPlan):
         metrics = self.metrics
 
         def decode(u: ScanUnit):
-            tbl = _read_unit(self.fmt, u, data_schema)
+            # a transient IO error retries with bounded backoff
+            tbl = R.io_with_retry(
+                lambda: _read_unit(self.fmt, u, data_schema), self.conf,
+                metrics, path=u.path)
             if part_fields:
                 tbl = _append_partition_columns(tbl, part_fields,
                                                 u.part_values or {})
@@ -424,13 +429,18 @@ class CpuFileScanExec(P.PhysicalPlan):
             """ScanUnit -> EncodedBatch (host IO, decompression and
             header parsing only), or None when the unit host-decodes."""
             from spark_rapids_tpu_torch.io import device_decode as DD
-            enc = DD.plan_unit_encoded(u, data_schema)
+            # the planner's file reads ride the same IO retry protocol
+            enc = R.io_with_retry(
+                lambda: DD.plan_unit_encoded(u, data_schema), self.conf,
+                metrics, path=u.path)
             if enc is None or enc.num_rows > max_rows:
                 metrics.add("deviceFallbackUnits")
                 return None
             if part_fields:
                 enc = _extend_with_partition_cols(
                     enc, schema, part_fields, u.part_values or {})
+            # the upload's OOM fallback: this unit's host decode
+            enc.host_fallback = lambda u=u: list(emit(decode(u)))
             metrics.add("deviceDecodedBatches")
             metrics.add("deviceFallbackColumns", len(enc.fallbacks))
             for ename, nvals in enc.fallback_encodings.items():

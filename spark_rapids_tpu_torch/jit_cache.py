@@ -66,8 +66,8 @@ class JitCache:
         """Returns ``(value, was_miss)``. Single-flight: exactly one
         thread builds a missing key; concurrent requesters of the same
         key wait for it and then read the finished value. The build runs
-        outside the lock. If a build raises, its waiters re-race and one
-        of them builds the key anew."""
+        outside the lock. A build that raises caches nothing: its waiters
+        re-race and one of them builds the key anew."""
         while True:
             with self._lock:
                 val = self._data.get(key)
@@ -86,7 +86,7 @@ class JitCache:
             val = build()
             with self._lock:
                 evicted = self._put_locked(key, val)
-            _release(evicted)
+            release_values(evicted)
             return val, True
         finally:
             with self._lock:
@@ -97,11 +97,29 @@ class JitCache:
         with self._lock:
             return len(self._data)
 
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._data)
+
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._data
+
+    def pop_lru(self, n: int) -> list:
+        """Remove up to ``n`` entries, least recently used first, and
+        return their values; the caller releases them."""
+        with self._lock:
+            out = []
+            while self._data and len(out) < n:
+                out.append(self._data.popitem(last=False)[1])
+            self.evictions += len(out)
+            return out
+
     def clear(self) -> None:
         with self._lock:
             vals = list(self._data.values())
             self._data.clear()
-        _release(vals)
+        release_values(vals)
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -111,7 +129,7 @@ class JitCache:
                     "contention": self.contention}
 
 
-def _release(values) -> None:
+def release_values(values) -> None:
     for v in values:
         release = getattr(v, "release", None)
         if release is not None:

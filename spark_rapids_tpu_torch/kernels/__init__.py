@@ -59,7 +59,17 @@ _CAPTURE = threading.local()
 
 class KernelError(RuntimeError):
     """A kernel failed to build, to launch, or was handed a request it
-    cannot serve."""
+    cannot serve. ``code`` is the CUDA error a launch returned (None
+    where there was none): the retry protocol retries a launch only on
+    ``CUDA_ERROR_MEMORY_ALLOCATION``."""
+
+    def __init__(self, msg: str, code: Optional[int] = None):
+        super().__init__(msg)
+        self.code = code
+
+
+# cudaErrorMemoryAllocation, the CUDA runtime's out-of-memory code
+CUDA_ERROR_MEMORY_ALLOCATION = 2
 
 
 def reset_launches() -> None:
@@ -157,7 +167,7 @@ def library(name: str) -> ctypes.CDLL:
 
 def check(code: int, what: str) -> None:
     if code != 0:
-        raise KernelError(f"{what}: CUDA error {code}")
+        raise KernelError(f"{what}: CUDA error {code}", code=code)
 
 
 def stream_handle(device) -> int:

@@ -33,6 +33,23 @@ STAGE_COMPILE_TIME = "stageCompileTime"  # a new program's warm-up + capture
 FUSED_OPS = "fusedOps"                  # operators collapsed into a stage
 COMPILE_CACHE_HITS = "compileCacheHits"
 COMPILE_CACHE_MISSES = "compileCacheMisses"
+# memory store and retry protocol (retry.py, memory.py)
+SEMAPHORE_WAIT_TIME = "semaphoreWaitTime"
+PEAK_DEVICE_MEMORY = "peakDeviceMemory"   # this exec's live store bytes
+SPILL_BYTES = "spillBytes"                # this exec's batches spilled
+RETRY_COUNT = "retryCount"                # OOM retries that re-attempted
+SPLIT_RETRY_COUNT = "splitRetryCount"     # input batches split in half
+RETRY_BLOCK_TIME = "retryBlockTime"       # recovery + backoff wall
+SPILL_BYTES_ON_RETRY = "spillBytesOnRetry"  # bytes freed by recovery
+IO_RETRY_COUNT = "ioRetryCount"           # transient reader IO retries
+DEVICE_DECODE_OOM_FALLBACKS = "deviceDecodeOomFallbacks"  # encoded
+#   uploads that took the host decode for that batch after an OOM
+PARTITION_TIME = "partitionTime"
+# planned out-of-core (the budget oracle's decisions)
+PLANNED_PARTITIONS = "plannedPartitions"  # spill-backed partitions planned
+BUDGET_PRESSURE_PEAK = "budgetPressurePeak"  # worst estimate/share, %
+PLANNED_WORKING_SET = "plannedWorkingSetBytes"  # largest estimate seen
+PLANNED_OOC_ESCALATIONS = "plannedOutOfCoreEscalations"  # re-plans
 
 
 class Metric:
@@ -54,6 +71,11 @@ class Metric:
                 self._pending.append(v)
             else:
                 self._value += int(v)
+
+    def set_max(self, v: int) -> None:
+        """Raise the value to ``v`` if it is larger (a high-watermark)."""
+        with self._lock:
+            self._value = max(self._value, int(v))
 
     @property
     def value(self) -> int:

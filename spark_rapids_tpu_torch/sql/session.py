@@ -4,8 +4,12 @@ The counterpart of ``spark_rapids_tpu.sql.session.TpuSparkSession``,
 trimmed to what the ported slices run: ``createDataFrame``,
 ``read.parquet`` and temp views, ``sql``, and execution through the CPU
 planner followed by the overrides rewrite onto torch device operators.
-Telemetry, plan cache, lifecycle, retry, memory store and serving hooks
-are not ported yet.
+The operators run under the spill store and the OOM retry protocol
+(``memory.py``, ``retry.py``); once a collect ends, or fails, every store
+handle its plan registered is closed (``release_plan_handles``), so none
+outlives its query, and the stores close at interpreter exit, removing
+their disk files. Telemetry, plan cache, lifecycle and serving hooks are
+not ported yet.
 
 The device is an explicit ``torch.device`` threaded through every
 operator. It is the CUDA card unless the caller asks for the CPU
@@ -114,9 +118,13 @@ class TorchSparkSession:
         return physical.partitions()
 
     def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
+        from spark_rapids_tpu_torch.memory import release_plan_handles
         physical = self.plan_physical(plan)
         self.last_plan = physical
-        return physical.execute_collect()
+        try:
+            return physical.execute_collect()
+        finally:
+            release_plan_handles(physical)
 
     def explain_string(self, plan: L.LogicalPlan, physical=None) -> str:
         if physical is None:
