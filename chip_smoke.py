@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
 q3 (both forms) through ``TorchSparkSession`` from memory, a user
-repartition, then q1 and q3 from Parquet, and check the rows against
-exact references, then time the queries, the upload and each kernel.
+repartition, then q1 and q3 from Parquet, TPC-H q12 and q1's double
+form, and an expression battery, and check the rows against exact
+references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
 
@@ -88,18 +89,33 @@ absent or any phase fails. Output, one line per phase:
      torch.profiler (8 groupbyHash kernels per q1 in the device trace),
      and ``memory_reserved``; then 8 stage outputs of one partition held
      together and read back exact (``held_outputs_check``);
+  12. the memory phase (``memory_phase``): q1 and q3 under injected
+     faults, out of core, through the spill tiers and under a real OOM;
+  13. the expression and aggregate phases: the numeric capability
+     probes' answers on the card (``capabilities``); TPC-H q12 at SF1
+     (6,001,215 lineitem rows, 1,500,000 orders) from memory and from
+     Parquet (``q12_memory``, ``q12_parquet``), rows exact against a
+     numpy reference, the plan all ``Torch*``, each kernel's launches,
+     the join's route, the wall and the device's idle share; q1 at SF1
+     in its double form (``q1_double``), sums and averages within 1e-12
+     of a ``math.fsum`` reference; and every expression family over
+     1,000,000 seeded rows with nulls (``exprs_card``), each held
+     against the same port code on the CPU, the filter/project and
+     aggregate families as fused stages captured as CUDA graphs;
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
   ``*_profile.txt`` files, see ``profile_collect``);
   with ``--walls``, only the query walls (``walls_only``), to compare two
   checkouts in one call; with ``--fusion``, only the build and phase 11
-  (``fusion_only``);
+  (``fusion_only``); with ``--exprs``, only the build and phase 13
+  (``exprs_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
-  then a ``{"kernels": [...]}`` line and, last, the contract line
-  ``{"ok": true, "device": {...}}``.
+  then a ``total`` line with the script's seconds, a ``{"kernels":
+  [...]}`` line (each kernel also with its launches on q12's two legs)
+  and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -252,6 +268,398 @@ def check_q3_rows(got, want, what: str) -> None:
     for g, w in zip(sorted(got, key=repr), sorted(want, key=repr)):
         if g != w or g[3].as_tuple().exponent != -2:
             raise AssertionError(f"{what}: row {g} != {w}")
+
+
+# TPC-H q12 (spec 2.4.12, validation parameters MAIL, SHIP, 1994-01-01)
+# as both packages' parsers take it: the join written out, the year's end
+# as a literal
+Q12 = """
+SELECT l_shipmode,
+       sum(CASE WHEN o_orderpriority = '1-URGENT'
+                  OR o_orderpriority = '2-HIGH' THEN 1 ELSE 0 END)
+         AS high_line_count,
+       sum(CASE WHEN o_orderpriority <> '1-URGENT'
+                 AND o_orderpriority <> '2-HIGH' THEN 1 ELSE 0 END)
+         AS low_line_count
+FROM orders JOIN lineitem ON o_orderkey = l_orderkey
+WHERE l_shipmode IN ('MAIL', 'SHIP')
+  AND l_commitdate < l_receiptdate
+  AND l_shipdate < l_commitdate
+  AND l_receiptdate >= date '1994-01-01'
+  AND l_receiptdate < date '1995-01-01'
+GROUP BY l_shipmode
+ORDER BY l_shipmode
+"""
+Q12_SEED = 20260732
+Q12_ORDERS = 1_500_000
+SHIPMODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+
+
+def q12_tables(n_lineitem: int = SF1_ROWS, n_orders: int = Q12_ORDERS,
+               seed: int = SEED, q12_seed: int = Q12_SEED):
+    """lineitem with q1's seven columns (``lineitem_arrays``, byte for
+    byte) and q12's four from a second seed, and orders, with the TPC-H
+    4.2.3 domains: dbgen's sparse order keys (the first 8 of every 32),
+    o_orderpriority uniform over the 5 priorities, l_orderkey drawn among
+    the order keys, l_shipmode uniform over the 7 modes, l_commitdate =
+    o_orderdate + U[30,90] with o_orderdate = l_shipdate - U[1,121],
+    l_receiptdate = l_shipdate + U[1,30]. Returns ``{table: [(column,
+    kind, array)]}``, kind in long/str/date/dec."""
+    q1 = lineitem_arrays(n_lineitem, seed)
+    rng = np.random.default_rng(q12_seed)
+    okey = np.arange(n_orders, dtype=np.int64)
+    okey = (okey // 8) * 32 + okey % 8 + 1
+    prio = np.array(PRIORITIES, dtype=object)[
+        rng.integers(0, len(PRIORITIES), n_orders)]
+    l_okey = okey[rng.integers(0, n_orders, n_lineitem)]
+    mode = np.array(SHIPMODES, dtype=object)[
+        rng.integers(0, len(SHIPMODES), n_lineitem)]
+    ship = q1[6]
+    orderdate = ship - rng.integers(1, 122, n_lineitem)
+    commit = (orderdate + rng.integers(30, 91, n_lineitem)).astype(np.int32)
+    receipt = (ship + rng.integers(1, 31, n_lineitem)).astype(np.int32)
+    names = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+             "l_returnflag", "l_linestatus", "l_shipdate")
+    kinds = ("dec", "dec", "dec", "dec", "str", "str", "date")
+    lineitem = [(n, k, a) for n, k, a in zip(names, kinds, q1)] + [
+        ("l_orderkey", "long", l_okey), ("l_shipmode", "str", mode),
+        ("l_commitdate", "date", commit), ("l_receiptdate", "date", receipt)]
+    orders = [("o_orderkey", "long", okey), ("o_orderpriority", "str", prio)]
+    return {"lineitem": lineitem, "orders": orders}
+
+
+def q12_fields(cols):
+    """(name, port DataType) and arrays of one ``q12_tables`` table."""
+    from spark_rapids_tpu_torch.sql import types as T
+    kind = {"long": T.LongT, "str": T.StringT, "date": T.DateT,
+            "dec": T.DecimalType(15, 2)}
+    return [(n, kind[k]) for n, k, _a in cols], [a for _n, _k, a in cols]
+
+
+def q12_reference(tables):
+    """Exact q12 rows, independent of any engine: the join by a
+    searchsorted over the order keys, the filter as masks, counts per
+    l_shipmode. Rows are (l_shipmode, high_line_count, low_line_count)."""
+    li = {n: a for n, _k, a in tables["lineitem"]}
+    od = {n: a for n, _k, a in tables["orders"]}
+    order = np.argsort(od["o_orderkey"], kind="stable")
+    keys = od["o_orderkey"][order]
+    pos = np.minimum(np.searchsorted(keys, li["l_orderkey"]), len(keys) - 1)
+    hit = keys[pos] == li["l_orderkey"]
+    prio = od["o_orderpriority"][order][pos]
+    lo = (np.datetime64("1994-01-01") - np.datetime64("1970-01-01")).astype(
+        int)
+    hi = (np.datetime64("1995-01-01") - np.datetime64("1970-01-01")).astype(
+        int)
+    mode = li["l_shipmode"]
+    keep = hit & ((mode == "MAIL") | (mode == "SHIP")) \
+        & (li["l_commitdate"] < li["l_receiptdate"]) \
+        & (li["l_shipdate"] < li["l_commitdate"]) \
+        & (li["l_receiptdate"] >= lo) & (li["l_receiptdate"] < hi)
+    high = (prio == "1-URGENT") | (prio == "2-HIGH")
+    rows = []
+    for m in ("MAIL", "SHIP"):
+        sel = keep & (mode == m)
+        if sel.any():
+            rows.append((m, int((sel & high).sum()),
+                         int((sel & ~high).sum())))
+    return rows
+
+
+def lineitem_double_arrays(arrays):
+    """q1's lineitem in its double form (TPCHTables(useDoubleForDecimal
+    = true) in databricks/spark-sql-perf): the money and quantity
+    columns as doubles, the decimal form's unscaled integers / 100."""
+    return [a.astype(np.float64) / 100.0 for a in arrays[:4]] + \
+        list(arrays[4:])
+
+
+def lineitem_double_fields():
+    from spark_rapids_tpu_torch.sql import types as T
+    return [(n, T.DoubleT if i < 4 else dt)
+            for i, (n, dt) in enumerate(lineitem_fields())]
+
+
+def q1_double_reference(darrays):
+    """q1 over the double columns: per group, ``math.fsum`` of each
+    per-row value computed with numpy in the query's operation order
+    (the correctly rounded sum of those doubles), the averages as that
+    sum over the count. Rows are (rf, ls, 7 floats, count) sorted."""
+    import math
+    qty, price, disc, tax, rf, ls, ship = darrays
+    cutoff = (np.datetime64("1998-09-02")
+              - np.datetime64("1970-01-01")).astype(int)
+    keep = ship <= cutoff
+    disc_price = price * (1.0 - disc)
+    charge = disc_price * (1.0 + tax)
+    rows = []
+    for f in ("A", "N", "R"):
+        for s in ("F", "O"):
+            m = keep & (rf == f) & (ls == s)
+            cnt = int(m.sum())
+            if cnt == 0:
+                continue
+            sums = [math.fsum(a[m].tolist())
+                    for a in (qty, price, disc_price, charge, disc)]
+            rows.append((f, s, sums[0], sums[1], sums[2], sums[3],
+                         sums[0] / cnt, sums[1] / cnt, sums[4] / cnt, cnt))
+    return rows
+
+
+def check_q1_double_rows(got, want, rel_tol: float = 1e-12) -> float:
+    """Keys and counts exact, every sum and average within ``rel_tol``;
+    returns the largest relative error seen."""
+    import math
+    if len(got) != len(want):
+        raise AssertionError(f"q1 double: {len(got)} rows, want {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = tuple(g)
+        if g[:2] != w[:2] or g[9] != w[9]:
+            raise AssertionError(f"q1 double row {g} != {w}")
+        for v, e in zip(g[2:9], w[2:9]):
+            if not isinstance(v, float) or not math.isclose(
+                    v, e, rel_tol=rel_tol):
+                raise AssertionError(f"q1 double row {g}: {v!r} vs {e!r}")
+            worst = max(worst, abs(v - e) / abs(e))
+    return worst
+
+
+BATTERY_ROWS = 1_000_000
+BATTERY_SEED = 20260733
+
+
+def battery_batch(n: int = BATTERY_ROWS, seed: int = BATTERY_SEED):
+    """The expression battery's seeded table: ints, longs and doubles
+    (NaN, infinities, -0.0 sprinkled in), strings from a pool of ASCII
+    words and cast inputs, dates from 1900 to 2100, timestamps, a small
+    int, a boolean and a decimal(10,2); every column about 10% null.
+    Returns ``(fields, arrays, validities)`` for
+    ``interop.host_batch_from_numpy``."""
+    from spark_rapids_tpu_torch.sql import types as T
+    rng = np.random.default_rng(seed)
+    i = rng.integers(-1000, 1001, n).astype(np.int32)
+    i[rng.integers(0, n, 8)] = np.iinfo(np.int32).min
+    lg = rng.integers(-(1 << 62), 1 << 62, n)
+    lg[rng.integers(0, n, n // 4)] = rng.integers(-100, 100, n // 4)
+    d = rng.normal(0.0, 1000.0, n)
+    for v in (np.nan, np.inf, -np.inf, -0.0, 0.0):
+        d[rng.integers(0, n, 50)] = v
+    p = rng.uniform(-1.0, 1.0, n)
+    words = ["", " ", "a", "abc", "ab c", "  pad  ", "xyzzy", "Hello World",
+             "bab", "aabbcc", "caba", "MAIL", "SHIP", "b a b"]
+    letters = np.array(list("abcxyz AB"))
+    pool = np.array(words + ["".join(rng.choice(letters, k))
+                             for k in rng.integers(0, 13, 2000)],
+                    dtype=object)
+    s = pool[rng.integers(0, len(pool), n)]
+    s2 = pool[rng.integers(0, len(pool), n)]
+    casts = np.array(["12", "-7", "+5", " 42 ", "99999999999999999999",
+                      "12.5", "abc", "", "9223372036854775807", "0012",
+                      "true", "FALSE", "t", "no", "2021-03-05",
+                      "1999-12-31", "2020-02-29", "2019-02-29", "2021-3-5",
+                      " 2021-03-05 ", "0001-01-01"], dtype=object)
+    ns = casts[rng.integers(0, len(casts), n)]
+    lo, hi = -25567, 47482  # 1900-01-01, 2099-12-31
+    dt = rng.integers(lo, hi + 1, n).astype(np.int32)
+    dt2 = rng.integers(lo, hi + 1, n).astype(np.int32)
+    ts = dt.astype(np.int64) * 86_400_000_000 + rng.integers(
+        0, 86_400_000_000, n)
+    secs = rng.integers(-2_000_000_000, 4_000_000_000, n)
+    small = rng.integers(-3, 70, n).astype(np.int32)
+    b = rng.random(n) < 0.5
+    m = rng.integers(-10**9, 10**9, n)
+    fields = [("i", T.IntegerT), ("l", T.LongT), ("d", T.DoubleT),
+              ("p", T.DoubleT), ("s", T.StringT), ("s2", T.StringT),
+              ("ns", T.StringT), ("dt", T.DateT), ("dt2", T.DateT),
+              ("ts", T.TimestampT), ("secs", T.LongT), ("n", T.IntegerT),
+              ("b", T.BooleanT), ("m", T.DecimalType(10, 2))]
+    arrays = [i, lg, d, p, s, s2, ns, dt, dt2, ts, secs, small, b, m]
+    valid = [rng.random(n) >= 0.1 for _ in arrays]
+    return fields, arrays, valid
+
+
+def battery_frames(session):
+    """``{family: (DataFrame, approx)}`` over the view ``bt``: each
+    family's expressions as one projection behind a filter (so the chain
+    fuses into one stage program, a CUDA graph on the card), the
+    partition-id expressions as an unfused projection, and the
+    aggregates behind a filter (a fused partial-aggregate stage).
+    ``approx`` marks the families with transcendentals or float sums."""
+    from spark_rapids_tpu_torch.sql import expressions as E
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql import types as T
+    df = session.table("bt")
+
+    def c(name):
+        return F.col(name).expr
+
+    def X(cls, *args):
+        return F.Column(cls(*args))
+
+    def lit(v):
+        return E.Literal(v)
+
+    keep = (F.col("n") % 7) != 3
+    fam = {
+        "arith": ([F.col("d") / F.col("p"),
+                   X(E.IntegralDivide, c("l"), c("i")),
+                   F.col("l") % F.col("i"), F.col("d") % F.col("p"),
+                   X(E.Pmod, c("i"), c("n")), X(E.Pmod, c("d"), c("p")),
+                   -F.col("l"), F.abs(F.col("i")), F.abs(F.col("d")),
+                   F.col("m") / F.col("m"), -F.col("m"),
+                   F.col("m") * F.col("m") + F.col("m")], False),
+        "conditional": ([F.col("i").eqNullSafe(F.col("n")),
+                         F.col("i").isin(1, 2, 3, -5),
+                         F.col("s").isin("abc", "MAIL", ""),
+                         F.isnan(F.col("d")),
+                         X(E.If, c("b"), c("l"), E.UnaryMinus(c("l"))),
+                         F.Column(E.CaseWhen(
+                             [(E.GreaterThan(c("i"), lit(100)), c("s")),
+                              (E.LessThan(c("i"), lit(-100)), c("s2"))],
+                             lit("mid"))),
+                         F.coalesce(F.col("i"), F.col("n"), F.lit(0)),
+                         F.greatest(F.col("d"), F.col("p"), F.lit(0.5)),
+                         F.least(F.col("i"), F.col("n")),
+                         (F.col("b") | F.col("i").isNull())
+                         & ~(F.col("s") == F.col("s2"))], False),
+        "math": ([X(cls, c("d")) for cls in (
+                     E.Sqrt, E.Exp, E.Sin, E.Cos, E.Tan, E.Atan, E.Sinh,
+                     E.Cosh, E.Tanh, E.Signum, E.Log, E.Log10, E.Log2,
+                     E.Log1p, E.Floor, E.Ceil, E.Cbrt, E.Rint,
+                     E.ToDegrees, E.ToRadians)]
+                 + [X(E.Asin, c("p")), X(E.Acos, c("p")),
+                    X(E.Expm1, E.Divide(c("d"), lit(1000.0))),
+                    F.pow(F.col("p"), F.col("d") / 1000.0),
+                    F.round(F.col("d"), 2), F.round(F.col("d")),
+                    F.round(F.col("i"), -1), F.round(F.col("d"), -2),
+                    X(E.Atan2, c("d"), c("p")), X(E.Hypot, c("d"), c("p"))],
+                 True),
+        "bitwise": ([F.col("l").bitwiseAND(F.col("i")),
+                     F.col("l").bitwiseOR(F.col("i")),
+                     F.col("i").bitwiseXOR(F.col("n")),
+                     F.bitwise_not(F.col("i")),
+                     F.shiftleft(F.col("l"), F.col("n")),
+                     F.shiftright(F.col("i"), F.col("n")),
+                     F.shiftrightunsigned(F.col("l"), F.col("n")),
+                     F.shiftrightunsigned(F.col("i"), F.col("n"))], False),
+        "strings": ([F.length(F.col("s")), F.upper(F.col("s")),
+                     F.lower(F.col("s")), F.trim(F.col("s")),
+                     F.ltrim(F.col("s")), F.rtrim(F.col("s")),
+                     F.concat(F.col("s"), F.lit("_x"), F.col("s2")),
+                     F.substring(F.col("s"), 2, 3),
+                     F.col("s").startswith("a"), F.col("s").endswith("c"),
+                     F.col("s").contains("ab"), F.col("s").like("%ab%"),
+                     F.col("s").like("a%c"), F.col("s").like("abc"),
+                     F.instr(F.col("s"), "b"),
+                     F.locate("b", F.col("s"), 2)], False),
+        "strings_build": ([F.concat_ws("-", F.col("s"), F.col("s2")),
+                           F.repeat(F.col("s"), 2),
+                           F.lpad(F.col("s"), 8, "xy"),
+                           F.rpad(F.col("s"), 8, "xy"),
+                           F.translate(F.col("s"), "abc", "XY"),
+                           F.replace(F.col("s"), F.lit("a"), F.lit("zz")),
+                           F.initcap(F.col("s")), F.reverse(F.col("s")),
+                           F.ascii(F.col("s")), F.chr(F.col("n"))], False),
+        "dates": ([F.year(F.col("dt")), F.month(F.col("dt")),
+                   F.dayofmonth(F.col("dt")), F.hour(F.col("ts")),
+                   F.minute(F.col("ts")), F.second(F.col("ts")),
+                   F.date_add(F.col("dt"), F.col("n")),
+                   F.date_sub(F.col("dt"), F.col("n")),
+                   F.datediff(F.col("dt"), F.col("dt2")),
+                   F.quarter(F.col("dt")), F.dayofweek(F.col("dt")),
+                   F.weekday(F.col("dt")), F.dayofyear(F.col("dt")),
+                   F.weekofyear(F.col("dt")), F.last_day(F.col("dt")),
+                   F.add_months(F.col("dt"), F.col("n")),
+                   F.months_between(F.col("ts"), F.col("dt2")),
+                   F.trunc(F.col("dt"), "month"),
+                   F.trunc(F.col("dt"), "week"),
+                   F.date_format(F.col("ts"), "yyyy-MM-dd HH:mm:ss"),
+                   F.from_unixtime(F.col("secs")),
+                   F.unix_timestamp(F.col("ts")),
+                   F.to_date(F.date_format(F.col("dt"), "yyyy-MM-dd"),
+                             "yyyy-MM-dd"),
+                   F.to_timestamp(F.col("ns"), "yyyy-MM-dd")], True),
+        "hashes": ([F.hash(F.col("i"), F.col("l"), F.col("d"),
+                           F.col("s"), F.col("dt")),
+                    F.hash(F.col("b"), F.col("m")),
+                    F.xxhash64(F.col("i"), F.col("l"), F.col("d"),
+                               F.col("s"), F.col("dt"), F.col("m"))],
+                   False),
+        "casts": ([F.col("ns").cast(t) for t in (
+                       T.IntegerT, T.LongT, T.ShortT, T.BooleanT, T.DateT)]
+                  + [F.col(n).cast(T.StringT)
+                     for n in ("i", "l", "b", "dt")]
+                  + [F.col("d").cast(t)
+                     for t in (T.IntegerT, T.LongT, T.ByteT, T.FloatT)]
+                  + [F.col("l").cast(T.DoubleT), F.col("m").cast(T.DoubleT),
+                     F.col("i").cast(T.DecimalType(12, 2)),
+                     F.col("m").cast(T.IntegerT),
+                     F.col("dt").cast(T.TimestampT),
+                     F.col("ts").cast(T.DateT)], False),
+    }
+    out = {name: (df.filter(keep).select(
+        *[e.alias(f"c{j}") for j, e in enumerate(cols)]), approx)
+        for name, (cols, approx) in fam.items()}
+    out["ids"] = (df.select(
+        F.col("i"), F.monotonically_increasing_id().alias("id"),
+        F.spark_partition_id().alias("pid")), False)
+    out["aggregates"] = (df.filter(keep).groupBy(
+        (F.col("i") % 97).alias("k")).agg(
+        F.sum("d").alias("sd"), F.avg("d").alias("ad"),
+        F.stddev_samp("p").alias("sp"), F.var_pop("p").alias("vp"),
+        F.first("l").alias("fl"), F.last("s", True).alias("ls"),
+        F.first("s2", True).alias("fs"), F.min("d").alias("mn"),
+        F.max("d").alias("mx"), F.count("*").alias("c"))
+        .orderBy("k"), True)
+    return out
+
+
+def battery_session(device):
+    """A session over the battery table on ``device``: incompatibleOps
+    (the byte-level string operators) and variableFloatAgg on."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    s = TorchSparkSession({"spark.rapids.sql.incompatibleOps.enabled":
+                           "true",
+                           "spark.rapids.sql.variableFloatAgg.enabled":
+                           "true"}, device=device)
+    return s, host_batch_from_numpy
+
+
+def compare_host_batches(got, want, approx: bool, rel_tol: float = 1e-12):
+    """Column by column: validity equal, values equal where valid (NaN
+    equal to NaN, -0.0 distinct from 0.0), floats within ``rel_tol``
+    where ``approx``. Returns the largest relative float error; raises
+    on any mismatch."""
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{got.num_rows} rows, want {want.num_rows}")
+    worst = 0.0
+    for j, (g, w) in enumerate(zip(got.columns, want.columns)):
+        if not np.array_equal(g.validity, w.validity):
+            raise AssertionError(f"column {j}: validity differs")
+        v = w.validity
+        gd, wd = np.asarray(g.data)[v], np.asarray(w.data)[v]
+        if gd.dtype.kind == "f":
+            both_nan = np.isnan(gd) & np.isnan(wd)
+            same = (gd == wd) & (np.signbit(gd) == np.signbit(wd))
+            if approx:
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    diff = np.abs(gd - wd)
+                    scale = np.maximum(np.abs(wd), 1e-300)
+                    rel = np.where(both_nan | (gd == wd), 0.0,
+                                   diff / scale)
+                worst = max(worst, float(np.max(rel, initial=0.0)))
+                same = same | (rel <= rel_tol)
+            if not np.all(same | both_nan):
+                bad = np.nonzero(~(same | both_nan))[0][:3]
+                raise AssertionError(
+                    f"column {j}: {gd[bad]} vs {wd[bad]}")
+        elif not np.array_equal(gd, wd):
+            bad = np.nonzero(gd != wd)[0][:3]
+            raise AssertionError(f"column {j}: {gd[bad]} vs {wd[bad]}")
+    return worst
 
 
 T_START = time.perf_counter()
@@ -2665,6 +3073,206 @@ def oom_cases(card, session, run, require, ooc) -> dict:
     return cases
 
 
+def all_torch(names, what: str) -> None:
+    """Every node between the transitions is a Torch* operator (host
+    sources under their upload excepted)."""
+    bad = [n for n in names if not n.startswith("Torch")
+           and n not in ("CpuLocalScanExec", "CpuFileScanExec")]
+    if names[0] != "TorchColumnarToRowExec" or bad:
+        raise AssertionError(f"{what} plan is not all Torch*: {names}")
+
+
+def capability_phase(device) -> dict:
+    """The numeric capability probes' answers on the card (the tagger
+    refuses float arithmetic, division and transcendentals on a device
+    that is not exact)."""
+    from spark_rapids_tpu_torch import device_caps
+    caps = device_caps.capabilities(device)
+    phase("capabilities", device=str(device), **caps)
+    if not all(caps.values()):
+        raise AssertionError(f"capability probes not exact: {caps}")
+    return caps
+
+
+def q12_run(spark, card: str, what: str, want, profile_name: str) -> dict:
+    """One q12 leg: the first collect (launches per query counted), rows
+    exact, the plan all Torch*, the join's route, then the wall (one
+    warm run, median of three) and one profiled warm run."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    df = spark.sql(Q12)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = [tuple(r) for r in df.collect()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    if rows != want:
+        raise AssertionError(f"{what}: {rows} != {want}")
+    names = plan_names(spark.last_plan)
+    all_torch(names, what)
+    joins = {type(p).__name__: dict(p.route_counts)
+             for p in plan_nodes_of(spark.last_plan)
+             if hasattr(p, "route_counts")}
+    if launches["groupbyHash"] <= 0:
+        raise AssertionError(f"{what}: no groupbyHash launch: {launches}")
+    walls = timed_collects(df)
+    prof = profile_collect(df, profile_name, card)
+    return {"rows": rows, "reference": "exact", "plan": names,
+            "join_route": joins, "launches": launches,
+            "first_run_s": first_s, "wall": walls,
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_s": prof["device_busy_s"],
+            "profiled_wall_s": prof["profiled_wall_s"],
+            "top_device_us": prof["top_device_us"]}
+
+
+def q12_phases(device, card: str, n_lineitem: int = SF1_ROWS,
+               n_orders: int = Q12_ORDERS) -> dict:
+    """TPC-H q12 at SF1 (6,001,215 lineitem rows, 1,500,000 orders) from
+    memory and from Parquet; returns the launches of each leg."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    t0 = time.perf_counter()
+    tables = q12_tables(n_lineitem, n_orders)
+    want = q12_reference(tables)
+    gen_s = time.perf_counter() - t0
+    parts = {"lineitem": N_PARTITIONS, "orders": N_PARTITIONS}
+    spark = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS)})
+    for name, cols in tables.items():
+        spark.createDataFrame(host_batch_from_numpy(*q12_fields(cols)),
+                              num_partitions=parts[name]) \
+            .createOrReplaceTempView(name)
+    mem = q12_run(spark, card, "q12_memory", want, "q12_memory")
+    phase("q12_memory", card=card, rows_in={"lineitem": n_lineitem,
+                                            "orders": n_orders},
+          generate_s=gen_s, **mem)
+    dirs, write_s = {}, 0.0
+    for name, cols in tables.items():
+        dirs[name] = os.path.join(DATA_DIR, f"tpch_sf1_q12_{name}")
+        write_s += write_once(dirs[name], lambda d, c=cols, n=name:
+                              spark.createDataFrame(
+                                  host_batch_from_numpy(*q12_fields(c)),
+                                  num_partitions=parts[n])
+                              .write.mode("overwrite").parquet(d),
+                              data_key(seed=[SEED, Q12_SEED], table=name,
+                                       rows=len(cols[0][2]),
+                                       partitions=parts[name]))
+    pq = TorchSparkSession({"spark.sql.shuffle.partitions":
+                            str(N_PARTITIONS)})
+    for name, d in dirs.items():
+        pq.read.parquet(d).createOrReplaceTempView(name)
+    par = q12_run(pq, card, "q12_parquet", want, "q12_parquet")
+    scans = scan_counts(pq.last_plan)
+    if par["launches"]["decodeFused"] <= 0 or scans.get(
+            "deviceFallbackColumns", 0):
+        raise AssertionError(f"q12_parquet: decode {par['launches']} "
+                             f"{scans}")
+    phase("q12_parquet", card=card, files=sum(
+        len([f for f in os.listdir(d) if f.endswith(".parquet")])
+        for d in dirs.values()), write_s=write_s,
+        scan={k: v for k, v in scans.items()
+              if k.startswith("device")}, **par)
+    return {"memory": mem["launches"], "parquet": par["launches"]}
+
+
+def q1_double_phase(card: str, arrays) -> dict:
+    """TPC-H q1 at SF1 in its double form with variableFloatAgg: sums and
+    averages through the segmented scan, within 1e-12 of the fsum
+    reference; keys and counts exact; the wall and one profiled warm
+    run."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    darrays = lineitem_double_arrays(arrays)
+    want = q1_double_reference(darrays)
+    spark = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS),
+                               "spark.rapids.sql.variableFloatAgg.enabled":
+                               "true"})
+    spark.createDataFrame(host_batch_from_numpy(lineitem_double_fields(),
+                                                darrays),
+                          num_partitions=N_PARTITIONS) \
+        .createOrReplaceTempView("lineitem")
+    df = spark.sql(Q1)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = df.collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    worst = check_q1_double_rows(rows, want)
+    names = plan_names(spark.last_plan)
+    all_torch(names, "q1_double")
+    walls = timed_collects(df)
+    prof = profile_collect(df, "q1_double", card)
+    phase("q1_double", card=card, rows_in=len(arrays[0]),
+          rows_out=len(rows),
+          reference="math.fsum", rel_tol=1e-12, max_rel_err=worst,
+          plan=names, launches=launches, first_run_s=first_s, wall=walls,
+          rows_per_s=len(arrays[0]) / walls["median_s"],
+          device_idle_share=prof["device_idle_share"],
+          device_busy_s=prof["device_busy_s"],
+          top_device_us=prof["top_device_us"])
+    return launches
+
+
+def exprs_card_phase(device, card: str, n: int = BATTERY_ROWS) -> dict:
+    """Every expression family of the battery over 1,000,000 seeded rows
+    on the card, held against the same port code on the CPU; each
+    filter/project family runs as a fused stage captured as a CUDA graph
+    (a handler that synchronised with the host would fail its
+    capture)."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec import fused as FU
+    fields, arrays, valid = battery_batch(n)
+    sessions = {}
+    for dev in (device, "cpu"):
+        s, hb = battery_session(dev)
+        s.createDataFrame(hb(fields, arrays, valid),
+                          num_partitions=2).createOrReplaceTempView("bt")
+        sessions[str(dev)] = s
+    card_frames = battery_frames(sessions[str(device)])
+    cpu_frames = battery_frames(sessions["cpu"])
+    out = {}
+    m3 = 0
+    for name, (df, approx) in card_frames.items():
+        FU.reset_graph_counts()
+        KR.reset_launches()
+        t0 = time.perf_counter()
+        got = df._execute()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        graphs = dict(FU.GRAPH_COUNTS)
+        launches = dict(KR.LAUNCHES)
+        plan = sessions[str(device)].last_plan
+        names = plan_names(plan)
+        all_torch(names, f"exprs {name}")
+        fused = any(n == "TorchFusedStageExec" for n in names)
+        if name != "ids" and (not fused or graphs["captures"] <= 0):
+            raise AssertionError(f"exprs {name}: no captured stage "
+                                 f"({names}, {graphs})")
+        t0 = time.perf_counter()
+        want = cpu_frames[name][0]._execute()
+        cpu_s = time.perf_counter() - t0
+        err = compare_host_batches(got, want, approx)
+        m3 += launches["murmur3"]
+        out[name] = {"rows_out": got.num_rows,
+                     "columns": len(got.columns),
+                     "tolerance": "rel 1e-12" if approx else "exact",
+                     "max_rel_err": err, "card_s": card_s,
+                     "cpu_s": cpu_s, "graph_captures": graphs["captures"],
+                     "graph_replays": graphs["replays"],
+                     "launches": {k: v for k, v in launches.items() if v}}
+    if out["hashes"]["launches"].get("murmur3", 0) <= 0:
+        raise AssertionError("exprs hashes: hash() did not launch murmur3")
+    phase("exprs_card", card=card, rows_in=n, families=out)
+    return {"murmur3": m3}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2711,6 +3319,7 @@ def main() -> int:
           libraries=sorted(f for f in os.listdir(KR.BUILD_DIR)
                            if f.endswith(".so")),
           ptxas=ptxas_report())
+    capability_phase(device)
 
     # -- 3. kernel parity on the card ------------------------------------
     battery = DeviceBatch.from_host(murmur3_battery(1 << 20, 5), device)
@@ -2951,6 +3560,10 @@ def main() -> int:
     stage_fusion_phase(card, fields, arrays, dfu["q1_dir"], tables)
     mem = memory_phase(card, fields, arrays, dfu["q1_dir"], tables)
 
+    q12 = q12_phases(device, card)
+    q1_double_phase(card, arrays)
+    exprs_card_phase(device, card)
+
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
     phase("protocol_gate", collects_checked=GATE["collects"],
@@ -3025,6 +3638,10 @@ def main() -> int:
                                             "plain_ms", "bound_ms")}
                    for name, c in dfu["cases"].items()}},
     ]
+    for k in kernels:
+        name = k["name"]
+        k["launches_q12"] = {leg: q12[leg][name] for leg in q12}
+    phase("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3126,6 +3743,22 @@ def memory_only(card: str) -> None:
           collects_under_pressure=GATE["skipped"])
 
 
+def exprs_only(card: str) -> None:
+    """``--exprs``: the kernels' build and the phases of phase 13
+    (capabilities, q12 from memory and Parquet, q1 in its double form,
+    the expression battery)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    capability_phase(device)
+    q12 = q12_phases(device, card)
+    q1_double_phase(card, lineitem_arrays())
+    exprs_card_phase(device, card)
+    phase("total", seconds=time.perf_counter() - T_START, q12_launches=q12)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -3141,7 +3774,8 @@ def fusion_only(card: str) -> None:
 
 
 if __name__ == "__main__":
-    if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory")):
+    if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
+                                       "--exprs")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3153,6 +3787,8 @@ if __name__ == "__main__":
         print(card, flush=True)
         if "--fusion" in sys.argv[1:]:
             fusion_only(card)
+        elif "--exprs" in sys.argv[1:]:
+            exprs_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -47,6 +47,35 @@ def _entry(key: str, doc: str, default: Any,
     return e
 
 
+HAS_NANS = _entry(
+    "spark.rapids.sql.hasNans",
+    "Assume floating point data may contain NaN. False drops the is-NaN "
+    "word from float grouping and ordering keys (one fewer sort word "
+    "per float key); the session applies it per query.",
+    True, _to_bool)
+
+ENABLE_FLOAT_AGG = _entry(
+    "spark.rapids.sql.variableFloatAgg.enabled",
+    "Allow float sums, averages and stddev/variance on the device, "
+    "whose results can differ from the CPU's in the last bits because "
+    "the additions run in another order. False raises at plan rewrite "
+    "with the reason the JAX package tags such an aggregate with.",
+    False, _to_bool)
+
+INCOMPATIBLE_OPS = _entry(
+    "spark.rapids.sql.incompatibleOps.enabled",
+    "Allow expressions that are not exactly Spark's on every input: the "
+    "byte-level string operators (exact for ASCII) and float arithmetic "
+    "on a device whose float results are not correctly rounded (the "
+    "capability probes of device_caps.py).",
+    False, _to_bool)
+
+ANSI_ENABLED = _entry(
+    "spark.sql.ansi.enabled",
+    "ANSI SQL mode (Spark SQLConf); exposed as TorchConf.ansi_enabled. "
+    "A cast built with ansi=True raises ArithmeticError on overflow.",
+    False, _to_bool)
+
 SHUFFLE_PARTITIONS = _entry(
     "spark.sql.shuffle.partitions",
     "Partition count for hash and range exchanges (Spark SQLConf).",
@@ -313,6 +342,10 @@ class TorchConf:
     @property
     def batch_size_rows(self) -> int:
         return int(self.get(BATCH_SIZE_ROWS))
+
+    @property
+    def ansi_enabled(self) -> bool:
+        return bool(self.get(ANSI_ENABLED))
 
     @property
     def shuffle_partitions(self) -> int:

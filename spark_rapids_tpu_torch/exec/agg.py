@@ -4,13 +4,17 @@
 'partial' emits keys + buffer slots per input batch, 'final' merges the
 buffers of a partition after the exchange and evaluates the results.
 The partial update of an eligible aggregate (SUM/COUNT/MIN/MAX over
-fixed-width keys and values) runs through the groupbyHash kernel; a
+fixed-width keys and values, no float sums) runs through the groupbyHash
+kernel; a
 batch whose hash table overflowed re-runs on the sort-based partial
 aggregate (``ops/groupby``), counted in ``overflow_reruns``. Everything
 else — the final merge, and partial aggregates the kernel does not take
 — is the sort-based path in plain PyTorch, as it is plain XLA in the JAX
-package. A partition's partial results are merged into one batch when
-they fit (``_run_partial``), as in the JAX package.
+package: float sums and averages through the segmented scan of
+``ops/groupby``, first/last through its arg-min scan over row order,
+stddev/variance from (n, sum, sum of squares) buffers finished by
+``dev_evaluate``. A partition's partial results are merged into one
+batch when they fit (``_run_partial``), as in the JAX package.
 
 Under stage fusion a partial aggregate absorbs the filter/project chain
 below it (``absorb_prelude``): the prelude, the key and value
@@ -63,33 +67,74 @@ from spark_rapids_tpu_torch.sql import types as T
 
 _SUM_KINDS = {E.PRIM_COUNT: "count", E.PRIM_SUM: "sum",
               E.PRIM_SUM_NONNULL: "sum_nonnull"}
-_DEVICE_FUNCS = (E.Sum, E.Count, E.Min, E.Max, E.Average)
+_FIRST_LAST = {E.PRIM_FIRST: (True, True), E.PRIM_LAST: (False, True),
+               E.PRIM_FIRST_ANY: (True, False),
+               E.PRIM_LAST_ANY: (False, False)}
+_DEVICE_FUNCS = (E.Sum, E.Count, E.Min, E.Max, E.Average, E.First, E.Last,
+                 E.CentralMomentAgg)
 
 
-def unsupported_agg_reason(grouping, aggregates) -> Optional[str]:
-    """None when the aggregate runs on the device in this slice."""
+def _float_agg_allowed(conf) -> bool:
+    if conf is None:
+        return False
+    from spark_rapids_tpu_torch.conf import ENABLE_FLOAT_AGG
+    return bool(conf.get(ENABLE_FLOAT_AGG))
+
+
+def is_device_agg(grouping, aggregates, conf=None,
+                  device=None) -> Optional[str]:
+    """None when the aggregate runs on the device, else the reason (the
+    JAX package's ``is_device_agg``, reason for reason, then what this
+    port does not run yet)."""
+    from spark_rapids_tpu_torch import device_caps as DC
     for g in grouping:
-        r = X.unsupported_reason(g)
-        if r:
-            return f"grouping key: {r}"
+        dt = g.data_type
+        if isinstance(dt, (T.ArrayType, T.MapType)):
+            return "nested grouping keys are not supported on TPU"
     for e in aggregates:
         if isinstance(e, E.Alias) and isinstance(e.child,
                                                  E.AggregateExpression):
             func = e.child.func
             if e.child.is_distinct:
-                return "DISTINCT aggregates are not ported yet"
+                return "DISTINCT aggregates are not supported"
             if not isinstance(func, _DEVICE_FUNCS):
-                return (f"aggregate {type(func).__name__} is not ported "
-                        "yet")
+                return (f"aggregate {type(func).__name__} has no device "
+                        "implementation")
+            if isinstance(func, E.Average) \
+                    and func._child_decimal() is None \
+                    and not DC.float_div_exact(
+                        device if device is not None else "cpu") \
+                    and not _float_agg_allowed(conf):
+                return ("device Average division is not bit-identical to "
+                        "CPU on this backend (TPU f64 is emulated); set "
+                        "spark.rapids.sql.variableFloatAgg.enabled=true "
+                        "to allow")
             for s in func.buffer_slots():
-                if isinstance(s[1], (T.FloatType, T.DoubleType)) and \
-                        s[2] != E.PRIM_COUNT:
-                    return "floating-point aggregates are not ported yet"
-                if isinstance(s[3], E.Expression):
-                    r = X.unsupported_reason(s[3])
-                    if r:
-                        return r
-        elif not isinstance(e, E.AttributeReference) and not (
+                if not isinstance(s[3], E.Expression):
+                    continue
+                r = X.unsupported_reason(s[3], conf, device)
+                if r:
+                    return r
+                if X.contains_ansi_cast(s[3]):
+                    return "ANSI casts in aggregate inputs run on CPU"
+    return None
+
+
+def unsupported_agg_reason(grouping, aggregates, conf=None,
+                           device=None) -> Optional[str]:
+    """None when the aggregate runs on the device in this port."""
+    r = is_device_agg(grouping, aggregates, conf, device)
+    if r:
+        return r
+    for g in grouping:
+        r = X.unsupported_reason(g, conf, device)
+        if r:
+            return f"grouping key: {r}"
+    for e in aggregates:
+        if isinstance(e, E.Alias) and isinstance(e.child,
+                                                 E.AggregateExpression):
+            continue
+        if not isinstance(e, E.AttributeReference) and not (
                 isinstance(e, E.Alias)
                 and isinstance(e.child, E.AttributeReference)):
             return f"aggregate result expression {e!r} is not ported yet"
@@ -100,12 +145,26 @@ def dev_evaluate(func: E.AggregateFunction,
                  buffers: List[AnyDeviceColumn],
                  out_active: torch.Tensor) -> AnyDeviceColumn:
     """Device twin of AggregateFunction.evaluate over merged buffers."""
-    if isinstance(func, (E.Sum, E.Min, E.Max)):
+    if isinstance(func, (E.Sum, E.Min, E.Max, E.First, E.Last)):
         return buffers[0]
     if isinstance(func, E.Count):
         b = buffers[0]
         data = torch.where(b.validity & out_active, b.data, 0)
         return DeviceColumn(T.LongT, data, out_active)
+    if isinstance(func, E.CentralMomentAgg):
+        # M2 = sumsq - sum^2 / n, the host _finish's formula
+        n = torch.where(buffers[0].validity, buffers[0].data, 0)
+        s = buffers[1].data.to(torch.float64)
+        sq = buffers[2].data.to(torch.float64)
+        nf = n.to(torch.float64)
+        m2 = torch.clamp(sq - (s * s) / torch.where(n > 0, nf, 1.0),
+                         min=0.0)
+        out = m2 / (nf - 1.0 if func.is_sample else nf)
+        if func.is_stddev:  # a sample of one: 0/0, NaN as in Spark
+            out = torch.sqrt(out)
+        validity = (n > 0) & out_active
+        return DeviceColumn(T.DoubleT, torch.where(validity, out, 0.0),
+                            validity)
     if isinstance(func, E.Average):
         s, cnt = buffers[0], buffers[1]
         count = torch.where(cnt.validity, cnt.data, 0)
@@ -164,6 +223,9 @@ def _sort_path(key_cols, vals, prims, active: torch.Tensor, hashed: bool):
             entry_pos.append(i)
         elif p in (E.PRIM_MIN, E.PRIM_MAX):
             buffers[i] = G.seg_extreme(seg, v, p == E.PRIM_MIN)
+        elif p in _FIRST_LAST:
+            is_first, ignore_nulls = _FIRST_LAST[p]
+            buffers[i] = G.seg_first_last(seg, v, is_first, ignore_nulls)
         else:
             raise NotImplementedError(
                 f"aggregate primitive {p} is not ported yet")
@@ -325,7 +387,7 @@ class TorchHashAggregateExec(TorchExec):
                     tuple(X.expr_key(e, program=True) for e in slot_srcs),
                     shared, tuple((p, repr(dt)) for p, dt in prims),
                     X.stage_structural_key(steps) if steps else None,
-                    layout)
+                    layout, G.kernel_salt())
             out["merge" if merge else "update"] = (
                 steps, key_bound, slot_srcs, prims, flat_lits, layout, skey)
         return out

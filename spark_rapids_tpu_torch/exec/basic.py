@@ -1,12 +1,15 @@
 """Basic device operators: project, filter and limit (the counterparts
 of ``spark_rapids_tpu.exec.basic``'s TpuProjectExec, TpuFilterExec,
 TpuLocalLimitExec and TpuGlobalLimitExec). Filters and limits only flip
-the ``active`` mask; compaction happens at exchanges. Under stage fusion
-(``exec/fused.py``, on by default) a chain of filters and projects runs
-as one stage program and these operators' own ``device_partitions`` do
-not run; they are the unfused plan's
-(``spark.rapids.sql.stageFusion.enabled=false``) and a lone filter's or
-project's.
+the ``active`` mask; compaction happens at exchanges. Under stage
+fusion (``exec/fused.py``, on by default) a chain of filters and
+projects runs as one stage program and these operators' own
+``device_partitions`` do not run; they are the unfused plan's
+(``spark.rapids.sql.stageFusion.enabled=false``), a lone filter's or
+project's, and those of a filter or project holding an ANSI cast or a
+partition-context expression (``spark_partition_id()``,
+``monotonically_increasing_id()``), which threads its partition's id and
+running row count through its batches.
 """
 
 from __future__ import annotations
@@ -42,13 +45,21 @@ class TorchProjectExec(TorchExec):
     def device_partitions(self) -> List[DevicePartitionThunk]:
         bound = P.bind_list(self.project_list, self.child.output)
         schema = self.schema
+        needs_part = X._needs_part_ctx(bound)
+        device = self.device
 
-        def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+        def make(pid: int, thunk: DevicePartitionThunk
+                 ) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
+                ctx = _part_ctx(pid, device) if needs_part else None
                 for b in thunk():
-                    yield b.with_columns(schema, X.run_project(bound, b))
+                    cols = X.run_project(bound, b, part_ctx=ctx)
+                    if needs_part:
+                        ctx = _advance(ctx, b.active)
+                    yield b.with_columns(schema, cols)
             return run
-        return [make(t) for t in device_channel(self.child)]
+        return [make(i, t)
+                for i, t in enumerate(device_channel(self.child))]
 
     def simple_string(self):
         return f"TorchProject {self.project_list}"
@@ -71,16 +82,37 @@ class TorchFilterExec(TorchExec):
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         bound = E.bind_references(self.condition, self.child.output)
+        needs_part = X._needs_part_ctx([bound])
+        device = self.device
 
-        def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
+        def make(pid: int, thunk: DevicePartitionThunk
+                 ) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
+                ctx = _part_ctx(pid, device) if needs_part else None
                 for b in thunk():
-                    yield X.run_filter(bound, b)
+                    out = X.run_filter(bound, b, part_ctx=ctx)
+                    if needs_part:
+                        ctx = _advance(ctx, b.active)
+                    yield out
             return run
-        return [make(t) for t in device_channel(self.child)]
+        return [make(i, t)
+                for i, t in enumerate(device_channel(self.child))]
 
     def simple_string(self):
         return f"TorchFilter {self.condition!r}"
+
+
+def _part_ctx(pid: int, device: torch.device):
+    """(partition id, rows of the partition before this batch) as device
+    scalars, for spark_partition_id() and monotonically_increasing_id();
+    the row count stays on the device across batches."""
+    return (torch.full((), pid, dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _advance(ctx, active: torch.Tensor):
+    pid, start = ctx
+    return pid, start + active.sum()
 
 
 def _limit_mask(active: torch.Tensor, remaining: int) -> torch.Tensor:

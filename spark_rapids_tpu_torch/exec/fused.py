@@ -447,15 +447,16 @@ class TorchFusedStageExec(TorchExec):
 def _fusible_chain_op(op) -> bool:
     """Per-batch, shape-preserving ops that may join a chain.
     Partition-context expressions carry per-partition state a stage
-    program does not thread through. (The JAX package also keeps ANSI
-    casts out; the port's rewrite raises on them before this pass.)"""
+    program does not thread through, and an ANSI cast's errors are read
+    by the unfused operator after its batch, as in the JAX package."""
     if isinstance(op, TorchFilterExec):
         exprs = [op.condition]
     elif isinstance(op, TorchProjectExec):
         exprs = list(op.project_list)
     else:
         return False
-    return not X._needs_part_ctx(exprs)
+    return not X._needs_part_ctx(exprs) and not any(
+        X.contains_ansi_cast(e) for e in exprs)
 
 
 def _collect_chain(top) -> Tuple[List, Optional[TorchExec]]:

@@ -42,7 +42,8 @@ from spark_rapids_tpu_torch.sql import types as T
 
 
 def is_device_join(join_type: str, left_keys: List[E.Expression],
-                   right_keys: List[E.Expression]) -> Optional[str]:
+                   right_keys: List[E.Expression], conf=None,
+                   device=None) -> Optional[str]:
     """Tagging helper: None when the join runs on the device (the
     planner has already refused residual conditions)."""
     if join_type not in PAIR_JOINS + MASK_JOINS:
@@ -52,9 +53,11 @@ def is_device_join(join_type: str, left_keys: List[E.Expression],
             if isinstance(e.data_type, (T.ArrayType, T.MapType,
                                         T.StructType)):
                 return "nested join keys are not ported yet"
-            r = X.unsupported_reason(e)
+            r = X.unsupported_reason(e, conf, device)
             if r:
                 return r
+            if X.contains_ansi_cast(e):
+                return "ANSI casts in join keys run on CPU"
         if type(lk.data_type) is not type(rk.data_type):
             return (f"mismatched join key types {lk.data_type} vs "
                     f"{rk.data_type} are not ported yet")

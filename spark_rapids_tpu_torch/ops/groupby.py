@@ -9,14 +9,29 @@ re-run of a batch whose hash table overflowed.
    hash of them (``build_segments_hashed``, partial modes only: a hash
    collision fragments a group, which the final stage re-groups).
 3. Boundaries mark where any word changes; sums and counts are a cumsum
-   minus the value at the segment start, read at each segment's END row
+   minus the value at the segment start (``prefix_total``; counts ride
+   the same int64 lane matrix as the sums in ``seg_sums_batched``), read
+   at each segment's END row
    (``out_active`` marks exactly one row per group); min/max take the
    winning row of a second sort within segments.
+4. Float sums never take the cumsum difference (cancellation against
+   unrelated earlier segments): they run a segmented scan
+   (``seg_running_sum``), and first/last take the winner of a segmented
+   arg-min scan over the original row positions (``seg_scan_best``).
+   Both are log-step (Hillis-Steele) scans with the segment start as
+   the reset marker: the same additions in the same order on the CPU and
+   on the card, no atomics, so a float result is deterministic. It is
+   not XLA's ``associative_scan`` order, so float sums match the JAX
+   package's to a stated relative tolerance, not bit for bit.
+
+``spark.rapids.sql.hasNans`` false drops the is-NaN word of float keys
+(``set_has_nans``, applied by the session before each query and part of
+the aggregate programs' keys through ``kernel_salt``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -39,11 +54,30 @@ def rank_u64(col: DeviceColumn) -> torch.Tensor:
     return col.data.to(torch.int64) ^ _SIGN64
 
 
+# spark.rapids.sql.hasNans: False when the user asserts NaN-free float
+# data, so float key words drop their is-NaN word
+_HAS_NANS = True
+
+
+def set_has_nans(v: bool) -> None:
+    global _HAS_NANS
+    _HAS_NANS = bool(v)
+
+
+def kernel_salt() -> tuple:
+    """Session flags that change a program's structure: part of the
+    cached programs' keys."""
+    return (_HAS_NANS,)
+
+
 def rank_words(col: DeviceColumn) -> List[torch.Tensor]:
     """Order+equality words: floats become [is_nan, nan-zeroed value]
-    (NaN greatest, all NaNs equal, -0.0 normalized by ``+ 0.0``)."""
+    (NaN greatest, all NaNs equal, -0.0 normalized by ``+ 0.0``), or the
+    value alone under hasNans=false."""
     data = col.data
     if data.is_floating_point():
+        if not _HAS_NANS:
+            return [data + 0.0]
         nanf = torch.isnan(data)
         return [nanf, torch.where(nanf, torch.zeros_like(data), data) + 0.0]
     if data.dtype == torch.bool:
@@ -203,6 +237,7 @@ def seg_sums_batched(seg: Segments, entries) -> List[AnyDeviceColumn]:
     if not entries:
         return []
     lanes: List[torch.Tensor] = []
+    flanes: List[torch.Tensor] = []
     specs = []
     lane_of: dict = {}
     m32 = 0xFFFFFFFF
@@ -236,17 +271,19 @@ def seg_sums_batched(seg: Segments, entries) -> List[AnyDeviceColumn]:
                                   _lane(col, "dechi", hi)),
                           has_lane, out_type))
         elif T.is_floating(out_type):
-            raise NotImplementedError(
-                "floating-point sums are not ported yet to "
-                "spark_rapids_tpu_torch")
+            key = (id(col), "fval")
+            fl = lane_of.get(key)
+            if fl is None:
+                fl = len(flanes)
+                flanes.append(torch.where(valid, col.data.to(torch.float64),
+                                          0.0))
+                lane_of[key] = fl
+            specs.append(("float", fl, has_lane, out_type))
         else:
             specs.append(("int", _lane(col, "ival", torch.where(
                 valid, col.data.to(torch.int64), 0)), has_lane, out_type))
-    start = seg.start_of_row
-    pp = torch.cumsum(torch.stack(lanes, dim=1), dim=0)
-    base = torch.where((start > 0)[:, None],
-                       pp[torch.clamp(start - 1, min=0)], 0)
-    itot = pp - base
+    itot = prefix_total(seg, torch.stack(lanes, dim=1)) if lanes else None
+    ftot = prefix_total(seg, torch.stack(flanes, dim=1)) if flanes else None
     out: List[AnyDeviceColumn] = []
     out_active = seg.out_active
     for spec in specs:
@@ -270,11 +307,113 @@ def seg_sums_batched(seg: Segments, entries) -> List[AnyDeviceColumn]:
             out.append(DeviceDecimal128Column(
                 out_type, torch.where(validity, rhi, 0),
                 torch.where(validity, rlo, 0), validity))
+        elif kind == "float":
+            out.append(DeviceColumn(out_type, torch.where(
+                validity, ftot[:, lane], 0.0).to(torch_dtype(out_type)),
+                validity))
         else:
             out.append(DeviceColumn(out_type, torch.where(
                 validity, itot[:, lane], 0).to(torch_dtype(out_type)),
                 validity))
     return out
+
+
+def _shifted(x: torch.Tensor, d: int, fill) -> torch.Tensor:
+    """``x`` moved down ``d`` rows (row i holds x[i - d]); the first
+    ``d`` rows hold ``fill``."""
+    head = torch.full((d,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([head, x[:-d]], dim=0)
+
+
+def seg_running_sum(seg_marker: torch.Tensor, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """Segmented inclusive running sum that resets where ``seg_marker``
+    changes (``x`` is (rows,) or (rows, lanes)): a log-step scan, whose
+    additions are the same on every device."""
+    cap = x.shape[0]
+    marker = seg_marker if x.dim() == 1 else seg_marker[:, None]
+    d = 1
+    while d < cap:
+        same = _shifted(marker, d, -1) == marker
+        x = torch.where(same, _shifted(x, d, 0) + x, x)
+        d <<= 1
+    return x
+
+
+def prefix_total(seg: Segments, x: torch.Tensor) -> torch.Tensor:
+    """Per-row running total restarting at segment starts (``x`` is
+    (rows,) or (rows, lanes)); at END rows it is the segment total.
+    Integers take one cumsum minus the prefix before each segment's
+    start, which is exact; floats the segmented scan."""
+    start = seg.start_of_row
+    if x.is_floating_point():
+        return seg_running_sum(start, x)
+    if x.dim() == 1:
+        pp = torch.cumsum(x, 0)
+    else:
+        # each lane scanned as the innermost dimension: CUDA's scan along
+        # the outer dimension of a (rows, lanes) matrix took 1.27 s of
+        # q1-double's 1.34 s device time on an H100
+        pp = torch.cumsum(x.t().contiguous(), 1).t()
+    has = start > 0 if x.dim() == 1 else (start > 0)[:, None]
+    return pp - torch.where(has, pp[torch.clamp(start - 1, min=0)], 0)
+
+
+def seg_scan_best(seg_marker: torch.Tensor, words: Sequence[torch.Tensor],
+                  valid: torch.Tensor, is_min: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segmented running arg-min/max over multi-word ranks: for each
+    sorted row, the position of the best valid row from its segment's
+    start up to itself (lexicographic over ``words``, most significant
+    first; on a tie the later row wins, as in the JAX package). Returns ``(winner position,
+    has winner)``. A log-step scan, no scatter."""
+    cap = seg_marker.shape[0]
+    pos = torch.arange(cap, dtype=torch.int64, device=seg_marker.device)
+    words = [w.to(torch.int64) if w.dtype == torch.bool else w
+             for w in words]
+    d = 1
+    while d < cap:
+        a_id = _shifted(seg_marker, d, -1)
+        a_valid = _shifted(valid, d, False)
+        a_p = _shifted(pos, d, 0)
+        a_w = [_shifted(w, d, 0) for w in words]
+        a_live = a_valid & (a_id == seg_marker)
+        better = torch.zeros_like(a_live)
+        eq = torch.ones_like(a_live)
+        for wa, wb in zip(a_w, words):
+            c = (wa < wb) if is_min else (wa > wb)
+            better = better | (eq & c)
+            eq = eq & (wa == wb)
+        take_a = a_live & ((~valid) | better)
+        valid = a_live | valid
+        pos = torch.where(take_a, a_p, pos)
+        words = [torch.where(take_a, wa, wb) for wa, wb in zip(a_w, words)]
+        d <<= 1
+    return pos, valid
+
+
+def _winner_gather(seg: Segments, col_s: AnyDeviceColumn,
+                   win_pos: torch.Tensor, won: torch.Tensor
+                   ) -> AnyDeviceColumn:
+    """The winning sorted position's row of ``col_s``; rows without a
+    winner become null."""
+    safe = torch.clamp(win_pos, 0, seg.capacity - 1)
+    return take_columns([col_s], safe, valid_at=won)[0]
+
+
+def seg_first_last(seg: Segments, col_s: AnyDeviceColumn, is_first: bool,
+                   ignore_nulls: bool) -> AnyDeviceColumn:
+    """first/last by original row order (Spark First/Last). With
+    ``ignore_nulls`` False the first/last row itself is taken, null or
+    not."""
+    eligible = seg.active_sorted
+    if ignore_nulls:
+        eligible = eligible & col_s.validity
+    rank = seg.order.to(torch.int64) + 1
+    win, has = seg_scan_best(seg.start_of_row, [rank], eligible,
+                             is_min=is_first)
+    return _winner_gather(seg, col_s, win, has & seg.out_active)
 
 
 def _descending(words: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -24,13 +24,16 @@ from typing import Callable, Dict, List, Optional, Type
 
 import torch
 
-from spark_rapids_tpu_torch.conf import STAGE_FUSION_ENABLED, TorchConf
+from spark_rapids_tpu_torch.conf import (ENABLE_FLOAT_AGG, INCOMPATIBLE_OPS,
+                                         STAGE_FUSION_ENABLED, TorchConf)
 from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
                                               TorchExec,
                                               TorchRowToColumnarExec)
 from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
 from spark_rapids_tpu_torch.ops import exprs as X
+from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
+from spark_rapids_tpu_torch.sql import types as T
 
 # CPU sources that stay on the host; the rewrite uploads their output (a
 # file scan hands still-encoded Parquet pages to the upload, which
@@ -38,11 +41,54 @@ from spark_rapids_tpu_torch.sql import physical as P
 HOST_SOURCES = (P.CpuLocalScanExec, CpuFileScanExec)
 
 
-def _tag_exprs(exprs) -> Optional[str]:
-    for e in exprs:
-        r = X.unsupported_reason(e)
+# expressions the JAX package's rule table marks not 100% compatible
+# (``spark_rapids_tpu/overrides.py`` ``expr_rule(..., incompat=...)``):
+# they run only under spark.rapids.sql.incompatibleOps.enabled
+INCOMPAT = {
+    E.Substring: "byte-positioned substring is exact only for ASCII "
+                 "strings",
+    E.Upper: "case conversion is ASCII-only",
+    E.Lower: "case conversion is ASCII-only",
+    E.InitCap: "case conversion is ASCII-only",
+    E.StringInstr: "byte positions are exact only for ASCII strings",
+    E.StringLocate: "byte positions are exact only for ASCII strings",
+    E.StringLPad: "byte-counted padding is exact only for ASCII strings",
+    E.StringRPad: "byte-counted padding is exact only for ASCII strings",
+    E.StringReverse: "byte reversal is exact only for ASCII strings",
+}
+
+
+def incompat_reason(e, conf: TorchConf) -> Optional[str]:
+    """The rule table's incompat refusal for the first such expression in
+    the tree (the folded, column-free subtrees excepted)."""
+    if conf.get(INCOMPATIBLE_OPS) or X._is_literal_input(e):
+        return None
+    why = INCOMPAT.get(type(e))
+    if why is not None:
+        return (f"expression {type(e).__name__} is not 100% compatible: "
+                f"{why}. Set spark.rapids.sql.incompatibleOps.enabled=true "
+                "to allow")
+    for c in e.children:
+        r = incompat_reason(c, conf)
         if r:
             return r
+    return None
+
+
+def _tag_exprs(exprs, conf: TorchConf, device) -> Optional[str]:
+    for e in exprs:
+        r = X.unsupported_reason(e, conf, device) or \
+            incompat_reason(e, conf)
+        if r:
+            return r
+    return None
+
+
+def _no_ansi(exprs, what: str) -> Optional[str]:
+    """Operators without the ANSI error channel refuse ANSI casts, as the
+    JAX package's taggers do."""
+    if any(X.contains_ansi_cast(e) for e in exprs):
+        return f"ANSI casts in {what} run on CPU"
     return None
 
 
@@ -54,45 +100,71 @@ def _tag_output(node: P.PhysicalPlan) -> Optional[str]:
     return None
 
 
-def _tag_project(node) -> Optional[str]:
-    return _tag_exprs(node.project_list)
+def _tag_project(node, conf, device) -> Optional[str]:
+    return _tag_exprs(node.project_list, conf, device)
 
 
-def _tag_filter(node) -> Optional[str]:
-    return _tag_exprs([node.condition])
+def _tag_filter(node, conf, device) -> Optional[str]:
+    return _tag_exprs([node.condition], conf, device)
 
 
-def _tag_exchange(node) -> Optional[str]:
+def _tag_exchange(node, conf, device) -> Optional[str]:
     p = node.partitioning
     if isinstance(p, P.HashPartitioning):
-        from spark_rapids_tpu_torch.sql import types as T
         for e in p.exprs:
+            r = _tag_exprs([e], conf, device) or \
+                _no_ansi([e], "partition keys")
+            if r:
+                return r
             dt = e.data_type
             if isinstance(dt, T.DecimalType) and dt.precision > 18:
-                return "decimal128 hash partitioning is not ported yet"
-        return _tag_exprs(p.exprs)
+                return "decimal128 hash partitioning runs on CPU"
+        return None
     if isinstance(p, P.RangePartitioning):
-        return _tag_exprs([o.child for o in p.order])
+        keys = [o.child for o in p.order]
+        return _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
     if isinstance(p, P.SinglePartitioning):
         return None
     return f"{type(p).__name__} is not ported yet"
 
 
-def _tag_sort(node) -> Optional[str]:
-    return _tag_exprs([o.child for o in node.order])
+def _tag_sort(node, conf, device) -> Optional[str]:
+    keys = [o.child for o in node.order]
+    return _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
 
 
-def _tag_aggregate(node) -> Optional[str]:
+def _tag_aggregate(node, conf, device) -> Optional[str]:
+    """The JAX package's aggregate tagging: ``is_device_agg``, then the
+    float-aggregate gate under spark.rapids.sql.variableFloatAgg.enabled
+    (float sums, averages and stddev/variance depend on the order of
+    their additions)."""
     from spark_rapids_tpu_torch.exec.agg import unsupported_agg_reason
-    return unsupported_agg_reason(node.grouping, node.aggregates)
+    r = unsupported_agg_reason(node.grouping, node.aggregates, conf, device)
+    if r or conf.get(ENABLE_FLOAT_AGG):
+        return r
+    for e in node.aggregates:
+        if isinstance(e, E.Alias) and isinstance(e.child,
+                                                 E.AggregateExpression):
+            func = e.child.func
+            if isinstance(func, (E.Sum, E.Average)) and T.is_floating(
+                    func.children[0].data_type):
+                return ("device float sum/average may differ from CPU due "
+                        "to addition ordering "
+                        "(spark.rapids.sql.variableFloatAgg.enabled=false)")
+            if isinstance(func, E.CentralMomentAgg):
+                return ("device stddev/variance may differ from CPU due "
+                        "to addition ordering "
+                        "(spark.rapids.sql.variableFloatAgg.enabled=false)")
+    return None
 
 
-def _tag_join(node) -> Optional[str]:
+def _tag_join(node, conf, device) -> Optional[str]:
     from spark_rapids_tpu_torch.exec.join import is_device_join
-    return is_device_join(node.join_type, node.left_keys, node.right_keys)
+    return is_device_join(node.join_type, node.left_keys, node.right_keys,
+                          conf, device)
 
 
-def _tag_none(node) -> Optional[str]:
+def _tag_none(node, conf, device) -> Optional[str]:
     return None
 
 
@@ -223,17 +295,18 @@ class ExecMeta:
         self.rule = _EXEC_RULES.get(type(wrapped))
         self.children = [ExecMeta(c) for c in wrapped.children]
 
-    def tag(self) -> None:
+    def tag(self, conf: TorchConf, device) -> None:
         """Raise for the first node the port cannot run on the device."""
         for c in self.children:
-            c.tag()
+            c.tag(conf, device)
         if isinstance(self.wrapped, HOST_SOURCES):
             return
         name = type(self.wrapped).__name__
         if self.rule is None:
             raise NotImplementedError(
                 f"{name} is not ported yet to spark_rapids_tpu_torch")
-        reason = _tag_output(self.wrapped) or self.rule.tag(self.wrapped)
+        reason = _tag_output(self.wrapped) or self.rule.tag(
+            self.wrapped, conf, device)
         if reason:
             raise NotImplementedError(
                 f"{name} in spark_rapids_tpu_torch: {reason}")
@@ -255,7 +328,7 @@ def apply_overrides(physical: P.PhysicalPlan, conf: TorchConf,
                     device: torch.device) -> P.PhysicalPlan:
     """CPU physical plan -> device plan with explicit transitions."""
     meta = ExecMeta(physical)
-    meta.tag()
+    meta.tag(conf, device)
     plan = meta.convert(conf, device)
     if not isinstance(plan, TorchExec):  # a bare scan still round-trips
         plan = TorchRowToColumnarExec(plan, conf, device)

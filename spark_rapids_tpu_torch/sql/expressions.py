@@ -2904,7 +2904,8 @@ class Explode(UnaryExpression):
 
 class XxHash64(Expression):
     """Spark XxHash64(seed=42L) over columns left-to-right (reference:
-    GpuXxHash64, HashFunctions.scala); device twin in ops/hashing.py."""
+    GpuXxHash64, HashFunctions.scala); device twin in ops/hashing.py,
+    host twin in columnar/xxhash64.py."""
 
     def __init__(self, children: List[Expression], seed: int = 42):
         self.children = list(children)
@@ -2919,8 +2920,39 @@ class XxHash64(Expression):
         return False
 
     def eval(self, batch: HostBatch) -> HostColumn:
-        raise NotImplementedError(
-            "xxhash64 is not ported yet to spark_rapids_tpu_torch")
+        from spark_rapids_tpu_torch.columnar import xxhash64
+        n = batch.num_rows
+        h = np.full(n, self.seed, dtype=np.int64)
+        for child in self.children:
+            c = child.eval(batch)
+            h = _xx_hash_column(c, h, xxhash64)
+        return HostColumn.all_valid(h, T.LongT)
+
+
+def _xx_hash_column(c: HostColumn, seed: np.ndarray, xx) -> np.ndarray:
+    dt = c.dtype
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        out = seed.copy()
+        for i in range(len(c.data)):
+            if c.validity[i]:
+                raw = (c.data[i].encode("utf-8")
+                       if isinstance(c.data[i], str) else bytes(c.data[i]))
+                out[i] = xx.hash_bytes_one(raw, int(seed[i]))
+        return out
+    if isinstance(dt, (T.BooleanType, T.ByteType, T.ShortType,
+                       T.IntegerType, T.DateType)):
+        h = xx.hash_int(c.data.astype(np.int32), seed)
+    elif isinstance(dt, (T.LongType, T.TimestampType)):
+        h = xx.hash_long(c.data.astype(np.int64), seed)
+    elif isinstance(dt, T.FloatType):
+        h = xx.hash_float(c.data, seed)
+    elif isinstance(dt, T.DoubleType):
+        h = xx.hash_double(c.data, seed)
+    elif isinstance(dt, T.DecimalType) and dt.precision <= 18:
+        h = xx.hash_long(c.data.astype(np.int64), seed)
+    else:
+        raise TypeError(f"cannot xxhash {dt}")
+    return np.where(c.validity, h, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,7 @@ class TorchSparkSession:
         self.conf = RuntimeConfApi(self.conf_obj)
         self.catalog_views: Dict[str, L.LogicalPlan] = {}
         self.last_plan = None  # the executed physical plan, for tests
+        self._assert_kernel_flags()
 
     # -- data sources ------------------------------------------------------
     def createDataFrame(self, data, schema=None,
@@ -103,8 +104,18 @@ class TorchSparkSession:
     def plan_physical(self, plan: L.LogicalPlan):
         """CPU physical plan, then the rewrite onto device operators."""
         from spark_rapids_tpu_torch.overrides import apply_overrides
+        self._assert_kernel_flags()
         physical = Planner(self.conf_obj, session=self).plan(plan)
         return apply_overrides(physical, self.conf_obj, self.device)
+
+    def _assert_kernel_flags(self) -> None:
+        """Apply this session's process-wide kernel flags before planning
+        and running a query (another session may have set others since):
+        ``spark.rapids.sql.hasNans``, which the aggregate programs' keys
+        carry (``ops.groupby.kernel_salt``)."""
+        from spark_rapids_tpu_torch.conf import HAS_NANS
+        from spark_rapids_tpu_torch.ops import groupby as G
+        G.set_has_nans(bool(self.conf_obj.get(HAS_NANS)))
 
     def host_partitions(self, plan: L.LogicalPlan):
         """Partition thunks yielding the plan's output as HostBatches (the
@@ -112,6 +123,7 @@ class TorchSparkSession:
         to the device; anything else runs through the device plan."""
         from spark_rapids_tpu_torch.overrides import (HOST_SOURCES,
                                                       apply_overrides)
+        self._assert_kernel_flags()
         physical = Planner(self.conf_obj, session=self).plan(plan)
         if not isinstance(physical, HOST_SOURCES):
             physical = apply_overrides(physical, self.conf_obj, self.device)
@@ -121,6 +133,7 @@ class TorchSparkSession:
         from spark_rapids_tpu_torch.memory import release_plan_handles
         physical = self.plan_physical(plan)
         self.last_plan = physical
+        self._assert_kernel_flags()
         try:
             return physical.execute_collect()
         finally:

@@ -1,0 +1,212 @@
+"""Run the JAX package's own dual-session test cases through both
+packages: the JAX package's device path (``TpuSparkSession``, kernels
+interpreted on the CPU) and the port (``TorchSparkSession`` on the CPU).
+
+A JAX test function builds its query with the JAX package's ``F``,
+``E``, ``T`` and ``gen_batch`` and hands it to
+``assert_tpu_and_cpu_equal_collect``. ``run_case`` calls the function
+twice: once as it is, with that harness replaced by a recorder that runs
+the query on the JAX package's device path; once with the function (and
+the helpers of its module) rebuilt over the port's ``functions``,
+``expressions`` and ``types`` modules, with a ``gen_batch`` that hands
+the same seeded numpy columns to the port, and a recorder that runs the
+query on ``TorchSparkSession(device="cpu")``. The recorded results must
+agree: rows exact (NaN equal to NaN, -0.0 distinct from 0.0), or within
+``rel_tol=1e-12`` where the case is marked approximate (transcendentals
+and float aggregates); a query the JAX package keeps on the CPU
+(``assert_tpu_fallback_collect``) must raise ``NotImplementedError`` in
+the port, which has no fallback.
+"""
+
+from __future__ import annotations
+
+import types as pytypes
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from spark_rapids_tpu.sql.session import TpuSparkSession
+from spark_rapids_tpu.sql import types as JT
+
+from spark_rapids_tpu_torch.columnar.host import HostBatch as PHostBatch
+from spark_rapids_tpu_torch.columnar.host import HostColumn as PHostColumn
+from spark_rapids_tpu_torch.sql import expressions as PE
+from spark_rapids_tpu_torch.sql import functions as PF
+from spark_rapids_tpu_torch.sql import types as PT
+from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+from tests.harness import _rows, _sort_key
+from tests.support import values_equal
+
+torch.set_num_threads(2)
+
+
+def port_type(jt):
+    """The port's DataType equal to a JAX package DataType."""
+    if isinstance(jt, JT.DecimalType):
+        return PT.DecimalType(jt.precision, jt.scale)
+    return getattr(PT, type(jt).__name__)()
+
+
+def port_batch(jb) -> PHostBatch:
+    """A JAX package HostBatch's columns (the same numpy arrays) as a
+    port HostBatch."""
+    fields = [PT.StructField(f.name, port_type(f.data_type))
+              for f in jb.schema.fields]
+    cols = [PHostColumn(f.data_type, c.data, c.validity)
+            for f, c in zip(fields, jb.columns)]
+    return PHostBatch(PT.StructType(fields), cols, jb.num_rows)
+
+
+class Recorder:
+    """Stands in for the JAX harness's assertions and records what each
+    query gives on one package."""
+
+    def __init__(self, port: bool):
+        self.port = port
+        self.results: List[tuple] = []
+        self.messages: List[str] = []
+
+    def equal(self, df_fn: Callable, conf: Optional[Dict] = None,
+              ignore_order: bool = True, approx: bool = False,
+              require_device: bool = True, expect_execs=None) -> None:
+        rows, plan = self._run(df_fn, dict(conf or {}))
+        if ignore_order:
+            rows = sorted(rows, key=_sort_key)
+        self.results.append(("rows", rows, approx))
+        if self.port:
+            assert_all_torch(plan)
+
+    def fallback(self, df_fn: Callable, fallback_exec: str,
+                 conf: Optional[Dict] = None) -> None:
+        if not self.port:
+            self.results.append(("fallback",))
+            return
+        try:
+            self._run(df_fn, dict(conf or {}))
+        except NotImplementedError as e:
+            self.results.append(("fallback",))
+            self.messages.append(str(e))
+            return
+        raise AssertionError(
+            "the JAX package keeps this query on the CPU, but the port "
+            "ran it")
+
+    def _run(self, df_fn, conf):
+        if self.port:
+            s = TorchSparkSession(conf, device="cpu")
+            batch = df_fn(s)._execute()
+            return _rows(batch.to_pydict()), s.last_plan
+        s = TpuSparkSession(dict(conf, **{"spark.rapids.sql.enabled":
+                                          "true"}))
+        try:
+            return _rows(df_fn(s)._execute().to_pydict()), None
+        finally:
+            s.stop()
+
+
+def assert_all_torch(plan) -> None:
+    """Every node between the transitions is a Torch* operator."""
+    names = []
+
+    def walk(p):
+        names.append(type(p).__name__)
+        for c in p.children:
+            walk(c)
+    walk(plan)
+    assert names[0] == "TorchColumnarToRowExec", names
+    for n in names:
+        if n.startswith("Cpu"):
+            assert n in ("CpuLocalScanExec", "CpuFileScanExec"), names
+        else:
+            assert n.startswith("Torch"), names
+
+
+def _port_globals(module) -> dict:
+    """The module's namespace over the port's modules, its own functions
+    rebuilt to read it."""
+    from tests import datagen
+
+    def gen_batch(named_gens, n, seed=datagen.DEFAULT_SEED):
+        return port_batch(datagen.gen_batch(named_gens, n, seed))
+
+    g = dict(vars(module))
+    g.update(F=PF, E=PE, T=PT, Column=PF.Column, gen_batch=gen_batch)
+    for name, v in list(g.items()):
+        if isinstance(v, pytypes.FunctionType) and \
+                v.__module__ == module.__name__:
+            g[name] = _rebind(v, g)
+    return g
+
+
+def _rebind(fn: pytypes.FunctionType, g: dict) -> pytypes.FunctionType:
+    return pytypes.FunctionType(fn.__code__, g, fn.__name__,
+                                fn.__defaults__, fn.__closure__)
+
+
+def _port_arg(v):
+    if isinstance(v, JT.DataType):
+        return port_type(v)
+    if callable(v) and getattr(v, "__module__", "") == \
+            "spark_rapids_tpu.sql.functions":
+        return getattr(PF, v.__name__)
+    return v
+
+
+def _run_with(g: dict, rec: Recorder, test_name: str, args) -> None:
+    """Call the test with the recorder standing in for the harness, in
+    its globals and in ``tests.harness`` (some cases import it
+    locally)."""
+    from tests import harness
+    g.update(assert_tpu_and_cpu_equal_collect=rec.equal,
+             assert_tpu_fallback_collect=rec.fallback)
+    saved = (harness.assert_tpu_and_cpu_equal_collect,
+             harness.assert_tpu_fallback_collect)
+    harness.assert_tpu_and_cpu_equal_collect = rec.equal
+    harness.assert_tpu_fallback_collect = rec.fallback
+    try:
+        g[test_name](*args)
+    finally:
+        (harness.assert_tpu_and_cpu_equal_collect,
+         harness.assert_tpu_fallback_collect) = saved
+
+
+def run_case(module, test_name: str, *args) -> List[tuple]:
+    """Run one JAX test case through both packages and compare; returns
+    the port's recorded results (and, on its recorder, the messages of
+    the port's refusals)."""
+    jax_rec, port_rec = Recorder(port=False), Recorder(port=True)
+    jg = dict(vars(module))
+    for name, v in list(jg.items()):
+        if isinstance(v, pytypes.FunctionType) and \
+                v.__module__ == module.__name__:
+            jg[name] = _rebind(v, jg)
+    _run_with(jg, jax_rec, test_name, args)
+    _run_with(_port_globals(module), port_rec, test_name,
+              [_port_arg(a) for a in args])
+    compare(jax_rec.results, port_rec.results)
+    return port_rec
+
+
+def compare(want: List[tuple], got: List[tuple]) -> None:
+    assert [w[0] for w in want] == [g[0] for g in got], (want, got)
+    for w, g in zip(want, got):
+        if w[0] != "rows":
+            continue
+        wrows, grows, approx = w[1], g[1], w[2]
+        assert len(wrows) == len(grows), (len(wrows), len(grows))
+        for i, (wr, gr) in enumerate(zip(wrows, grows)):
+            for j, (a, b) in enumerate(zip(wr, gr)):
+                assert values_equal(a, b, approx), (
+                    f"row {i} col {j}: JAX={a!r} port={b!r}\n"
+                    f"JAX row: {wr}\nport row: {gr}")
+
+
+def rows_close(want, got, approx: bool = False) -> None:
+    """Ordered rows equal, floats within rel_tol=1e-12 where
+    ``approx``."""
+    assert len(want) == len(got), (len(want), len(got))
+    for wr, gr in zip(want, got):
+        assert len(wr) == len(gr)
+        for a, b in zip(wr, gr):
+            assert values_equal(a, b, approx), (wr, gr)
