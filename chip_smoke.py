@@ -3,8 +3,9 @@
 kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
 q3 (both forms) through ``TorchSparkSession`` from memory, a user
 repartition, then q1 and q3 from Parquet, TPC-H q12 and q1's double
-form, and an expression battery, and check the rows against exact
-references, then time the queries, the upload and each kernel.
+form, an expression battery, TPC-H q19 and q12 in its optimizer form
+and a skewed join, and check the rows against exact references, then
+time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
 
@@ -102,6 +103,26 @@ absent or any phase fails. Output, one line per phase:
      1,000,000 seeded rows with nulls (``exprs_card``), each held
      against the same port code on the CPU, the filter/project and
      aggregate families as fused stages captured as CUDA graphs;
+  14. residual join conditions and adaptive execution (``joins_phases``):
+     TPC-H q12 in its optimizer form (``Q12_PUSHED``: lineitem's
+     predicates in a subquery below the join, so a shuffled join demoted
+     to a broadcast at run time, orders' exchange dropped) and TPC-H q19
+     (``Q19``: its OR in the join condition, evaluated in the port's
+     join) at SF1 from memory and from Parquet (``q12_pushed_memory``,
+     ``q12_pushed_parquet``, ``q19_memory``, ``q19_parquet``), rows
+     exact against numpy references; and the skew leg (``aqe_skew``):
+     q3's store_sales with 60% of its rows on one item, joined inner and
+     left to item at 4 device partitions, a skew split and the
+     aggregate's exchange coalesced. Each leg prints the plan (all
+     ``Torch*``), its joins (type, route, residual, children), the
+     adaptive counters, the row counts the demotion read and how many of
+     them synchronised, each kernel's launches, the wall, the same query
+     with adaptive execution off (same rows, no adaptive counter; walls
+     in turns with the adaptive runs) and the idle share of one profiled
+     warm run; then murmur3 and groupbyHash at the legs' shapes
+     (``joins_kernel_shapes``: each hash exchange's first batch and the
+     partial aggregate's, q12 pushed and the skew leg), exact against
+     their plain versions, timed beside their bounds;
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -109,17 +130,20 @@ absent or any phase fails. Output, one line per phase:
   with ``--walls``, only the query walls (``walls_only``), to compare two
   checkouts in one call; with ``--fusion``, only the build and phase 11
   (``fusion_only``); with ``--exprs``, only the build and phase 13
-  (``exprs_only``);
+  (``exprs_only``); with ``--joins``, only the build and phase 14
+  (``joins_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
-  [...]}`` line (each kernel also with its launches on q12's two legs)
+  [...]}`` line (each kernel also with its launches on q12's two legs
+  and on phase 14's legs, and phase 14's shapes among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import decimal
 import importlib.util
 import json
@@ -332,8 +356,8 @@ def q12_tables(n_lineitem: int = SF1_ROWS, n_orders: int = Q12_ORDERS,
 def q12_fields(cols):
     """(name, port DataType) and arrays of one ``q12_tables`` table."""
     from spark_rapids_tpu_torch.sql import types as T
-    kind = {"long": T.LongT, "str": T.StringT, "date": T.DateT,
-            "dec": T.DecimalType(15, 2)}
+    kind = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+            "date": T.DateT, "dec": T.DecimalType(15, 2)}
     return [(n, kind[k]) for n, k, _a in cols], [a for _n, _k, a in cols]
 
 
@@ -365,6 +389,124 @@ def q12_reference(tables):
             rows.append((m, int((sel & high).sum()),
                          int((sel & ~high).sum())))
     return rows
+
+
+# q12 in the form Spark's optimizer gives it: the lineitem predicates
+# pushed into a subquery below the join, so the join's build side is the
+# filtered lineitem (about 0.5% of its rows) and adaptive execution
+# demotes the shuffled join to a broadcast at run time
+Q12_PUSHED = """
+SELECT l_shipmode,
+       sum(CASE WHEN o_orderpriority = '1-URGENT'
+                  OR o_orderpriority = '2-HIGH' THEN 1 ELSE 0 END)
+         AS high_line_count,
+       sum(CASE WHEN o_orderpriority <> '1-URGENT'
+                 AND o_orderpriority <> '2-HIGH' THEN 1 ELSE 0 END)
+         AS low_line_count
+FROM orders
+JOIN (SELECT l_orderkey, l_shipmode FROM lineitem
+      WHERE l_shipmode IN ('MAIL', 'SHIP')
+        AND l_commitdate < l_receiptdate
+        AND l_shipdate < l_commitdate
+        AND l_receiptdate >= date '1994-01-01'
+        AND l_receiptdate < date '1995-01-01') l
+  ON o_orderkey = l_orderkey
+GROUP BY l_shipmode
+ORDER BY l_shipmode
+"""
+
+# TPC-H q19 (spec 2.4.19, validation parameters Brand#12/23/34, quantities
+# 1/10/20) with the join written out and its OR in the join condition,
+# where Spark's optimizer puts cross-side predicates: an equi-join on the
+# part key with a residual condition. The spec's 'AIR REG' never matches
+# the domain's 'REG AIR', as in the spec.
+Q19 = """
+SELECT sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM lineitem JOIN part ON p_partkey = l_partkey AND (
+     (p_brand = 'Brand#12'
+      AND p_container IN ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+      AND l_quantity >= 1 AND l_quantity <= 1 + 10
+      AND p_size BETWEEN 1 AND 5
+      AND l_shipmode IN ('AIR', 'AIR REG')
+      AND l_shipinstruct = 'DELIVER IN PERSON')
+  OR (p_brand = 'Brand#23'
+      AND p_container IN ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+      AND l_quantity >= 10 AND l_quantity <= 10 + 10
+      AND p_size BETWEEN 1 AND 10
+      AND l_shipmode IN ('AIR', 'AIR REG')
+      AND l_shipinstruct = 'DELIVER IN PERSON')
+  OR (p_brand = 'Brand#34'
+      AND p_container IN ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+      AND l_quantity >= 20 AND l_quantity <= 20 + 10
+      AND p_size BETWEEN 1 AND 15
+      AND l_shipmode IN ('AIR', 'AIR REG')
+      AND l_shipinstruct = 'DELIVER IN PERSON'))
+"""
+Q19_SEED = 20260734
+Q19_PARTS = 200_000
+SHIPINSTRUCTS = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                 "TAKE BACK RETURN")
+CONTAINERS = tuple(f"{a} {b}" for a in ("SM", "LG", "MED", "JUMBO", "WRAP")
+                   for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK",
+                             "CAN", "DRUM"))
+# (brand, containers, lowest quantity, largest size) of q19's three
+# branches
+Q19_BRANCHES = (
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 15))
+
+
+def q19_tables(n_lineitem: int = SF1_ROWS, n_part: int = Q19_PARTS,
+               n_orders: int = Q12_ORDERS, seed: int = Q19_SEED):
+    """``q12_tables`` with q19's columns: lineitem gains l_partkey
+    (U[1, n_part]) and l_shipinstruct (the 4 values of TPC-H 4.2.3), and
+    part has n_part rows: p_partkey 1..n_part, p_brand 'Brand#MN' with
+    M, N in [1, 5], p_size in [1, 50], p_container one of the 40
+    combinations of 4.2.3's two syllables, all drawn from ``seed``.
+    Returns ``{table: [(column, kind, array)]}`` with lineitem, orders
+    and part."""
+    tables = q12_tables(n_lineitem, n_orders)
+    rng = np.random.default_rng(seed)
+    tables["lineitem"] = tables["lineitem"] + [
+        ("l_partkey", "long", rng.integers(1, n_part + 1, n_lineitem)),
+        ("l_shipinstruct", "str", np.array(SHIPINSTRUCTS, dtype=object)[
+            rng.integers(0, len(SHIPINSTRUCTS), n_lineitem)])]
+    brand = np.array([f"Brand#{m}{n}" for m in range(1, 6)
+                      for n in range(1, 6)], dtype=object)
+    tables["part"] = [
+        ("p_partkey", "long", np.arange(1, n_part + 1, dtype=np.int64)),
+        ("p_brand", "str", brand[rng.integers(0, len(brand), n_part)]),
+        ("p_size", "int", rng.integers(1, 51, n_part).astype(np.int32)),
+        ("p_container", "str", np.array(CONTAINERS, dtype=object)[
+            rng.integers(0, len(CONTAINERS), n_part)])]
+    return tables
+
+
+def q19_reference(tables):
+    """Exact q19 revenue, independent of any engine: the join by index
+    (p_partkey = row + 1), each branch as masks over the unscaled
+    integers, the revenue summed in Python ints at scale 4. Returns
+    ``[(Decimal or None,)]`` and the count of joined rows kept."""
+    li = {n: a for n, _k, a in tables["lineitem"]}
+    pt = {n: a for n, _k, a in tables["part"]}
+    idx = li["l_partkey"] - 1
+    brand, size = pt["p_brand"][idx], pt["p_size"][idx]
+    container = pt["p_container"][idx]
+    qty = li["l_quantity"]
+    common = np.isin(li["l_shipmode"], ("AIR", "AIR REG")) \
+        & (li["l_shipinstruct"] == "DELIVER IN PERSON")
+    keep = np.zeros(len(qty), dtype=bool)
+    for b, conts, lo, smax in Q19_BRANCHES:
+        keep |= common & (brand == b) & np.isin(container, conts) \
+            & (qty >= lo * 100) & (qty <= (lo + 10) * 100) \
+            & (size >= 1) & (size <= smax)
+    price = li["l_extendedprice"][keep]
+    disc = li["l_discount"][keep]
+    if not keep.any():
+        return [(None,)], 0
+    total = sum(int(p) * (100 - int(d)) for p, d in zip(price, disc))
+    return [(decimal.Decimal(total).scaleb(-4),)], int(keep.sum())
 
 
 def lineitem_double_arrays(arrays):
@@ -1005,20 +1147,33 @@ def lane_count(t, rows: int) -> int:
     return t.numel() // rows if rows else 0
 
 
-def groupby_case(ins, slots: int, reps: int = 20) -> dict:
+def groupby_case(ins, slots: int, reps: int = 20,
+                 overflow_ok: bool = False) -> dict:
     """groupbyHash against its plain version on ``ins`` (exact, no
     overflow in either), then its device time beside its byte bound: the
-    inputs read once and the ``slots``-row tables written once."""
+    inputs read once and the ``slots``-row tables written once.
+
+    With ``overflow_ok`` an overflow flag is a result, as in the exec,
+    which discards an overflowed table and re-runs its batch on the
+    sort-based partial aggregate: the flags are reported, and a table
+    the kernel completed is held exactly against the plain version's at
+    the least doubled table size at which the plain version completes
+    (a group's lanes do not depend on its slot)."""
     import torch
     from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     k_out = KG.groupby_table(*ins, slots)
     p_out = KG.groupby_table_plain(*ins, slots)
     torch.cuda.synchronize()
-    if int(k_out[4].item()) or int(p_out[4].item()):
-        raise AssertionError("groupbyHash overflowed: kernel "
-                             f"{int(k_out[4].item())}, plain "
-                             f"{int(p_out[4].item())}")
-    err = compare_tables(table_rows(*k_out[:4]), table_rows(*p_out[:4]))
+    k_ovf, p_ovf = int(k_out[4].item()), int(p_out[4].item())
+    if (k_ovf or p_ovf) and not overflow_ok:
+        raise AssertionError(f"groupbyHash overflowed: kernel {k_ovf}, "
+                             f"plain {p_ovf}")
+    ref_slots = slots
+    while int(p_out[4].item()):
+        ref_slots *= 2
+        p_out = KG.groupby_table_plain(*ins, ref_slots)
+    err = 0 if k_ovf else compare_tables(table_rows(*k_out[:4]),
+                                         table_rows(*p_out[:4]))
     if err:
         raise AssertionError(f"groupbyHash != plain: {err}")
     kw, _h, valid, add, mn, mx = ins
@@ -1034,6 +1189,8 @@ def groupby_case(ins, slots: int, reps: int = 20) -> dict:
             "key_words": int(kw.shape[1]), "slots": slots,
             "lanes_add_min_max": lanes,
             "groups": int((k_out[0] >= 0).sum()), "max_abs_err": err,
+            "overflow": {"kernel": k_ovf, "plain": p_ovf,
+                         "plain_complete_at_slots": ref_slots},
             "ms": cuda_ms(lambda: KG.groupby_table(*ins, slots), reps),
             "plain_ms": wall_ms(lambda: KG.groupby_table_plain(*ins, slots),
                                 3),
@@ -1225,8 +1382,9 @@ def murmur3_wide_batch(n: int, seed: int):
     return host_batch_from_numpy(fields, arrays, valid)
 
 
-def profile_collect(df, name: str, card: str) -> dict:
-    """One warm ``df.collect()`` under torch.profiler: wall, device-busy
+def profile_collect(df, name: str, card: str, warm: bool = True) -> dict:
+    """One warm ``df.collect()`` under torch.profiler (after a warm-up
+    collect unless the caller's runs warmed it): wall, device-busy
     time (sum of device-side event time), idle share, and the top device
     kernels and host ops; the full tables go to
     chiprun_out/<name>_profile.txt."""
@@ -1234,7 +1392,8 @@ def profile_collect(df, name: str, card: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    df.collect()
+    if warm:
+        df.collect()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3273,6 +3432,349 @@ def exprs_card_phase(device, card: str, n: int = BATTERY_ROWS) -> dict:
     return {"murmur3": m3}
 
 
+# -- 14. residual conditions and adaptive execution -------------------------
+
+AQE_COUNTERS = ("aqeBroadcastFlip", "aqeReplans", "aqeSkewSplits",
+                "aqeCoalescedPartitions", "retryCount", "splitRetryCount")
+ADAPTIVE_OFF = "spark.rapids.sql.adaptive.enabled"
+SKEW_SEED = 20260735
+SKEW_SHARE = 0.6
+# the skew leg: one hot item, a shuffled join at 4 device partitions,
+# grouped by brand so that the output stays small
+Q_SKEW = """
+SELECT i_brand_id, count(*) AS n, sum(ss_ext_sales_price) AS sales
+FROM store_sales {jt} JOIN item ON ss_item_sk = i_item_sk
+GROUP BY i_brand_id
+ORDER BY i_brand_id
+"""
+
+
+def skew_tables(seed: int = SKEW_SEED, share: float = SKEW_SHARE):
+    """q3's ``store_sales`` and ``item`` (``q3_tables``) with ``share`` of
+    the store_sales rows' ``ss_item_sk`` set to one item, both drawn
+    from ``seed``."""
+    tables = q3_tables()
+    rng = np.random.default_rng(seed)
+    ss = {n: (k, a) for n, k, a in tables["store_sales"]}
+    items = ss["ss_item_sk"][1].copy()
+    hot = int(rng.integers(1, 20_001))
+    items[rng.random(len(items)) < share] = hot
+    tables["store_sales"] = [(n, k, items if n == "ss_item_sk" else a)
+                             for n, (k, a) in ss.items()]
+    return tables, hot
+
+
+def skew_reference(tables):
+    """Exact rows of ``Q_SKEW`` (every ss_item_sk is an item, so the
+    inner and the left join agree): (i_brand_id, count, Decimal sum at
+    scale 2) per brand, in brand order."""
+    ss = {n: a for n, _k, a in tables["store_sales"]}
+    it = {n: a for n, _k, a in tables["item"]}
+    brand = it["i_brand_id"][ss["ss_item_sk"] - 1]
+    ids, inv = np.unique(brand, return_inverse=True)
+    counts = np.bincount(inv)
+    sums = np.zeros(len(ids), dtype=object)
+    np.add.at(sums, inv, ss["ss_ext_sales_price"].astype(object))
+    return [(int(b), int(c), decimal.Decimal(int(v)).scaleb(-2))
+            for b, c, v in zip(ids, counts, sums)]
+
+
+def join_nodes(plan) -> list:
+    """Each join of an executed plan: its kind, type, route counts,
+    whether it holds a residual condition, and its children's kinds."""
+    return [{"exec": type(p).__name__, "join_type": p.join_type,
+             "route": dict(p.route_counts),
+             "residual": p.condition is not None,
+             "left": type(p.left).__name__,
+             "right": type(p.right).__name__}
+            for p in plan_nodes_of(plan) if hasattr(p, "route_counts")]
+
+
+@contextlib.contextmanager
+def counted_demotion_reads():
+    """Count the row counts the join's broadcast demotion reads, and how
+    many of them were unknown (each such read synchronises): wraps
+    ``_aqe_try_broadcast`` and, inside it only, ``SpillableBatch.rows``,
+    for the ``with`` block only."""
+    from spark_rapids_tpu_torch.exec.join import TorchShuffledHashJoinExec
+    from spark_rapids_tpu_torch.memory import SpillableBatch
+    counts = {"reads": 0, "syncs": 0}
+    plain_try = TorchShuffledHashJoinExec._aqe_try_broadcast
+    plain_rows = SpillableBatch.rows
+
+    def rows(self):
+        counts["reads"] += 1
+        counts["syncs"] += self._state.rows is None
+        return plain_rows.fget(self)
+
+    def wrapped(self):
+        SpillableBatch.rows = property(rows)
+        try:
+            return plain_try(self)
+        finally:
+            SpillableBatch.rows = plain_rows
+    TorchShuffledHashJoinExec._aqe_try_broadcast = wrapped
+    try:
+        yield counts
+    finally:
+        TorchShuffledHashJoinExec._aqe_try_broadcast = plain_try
+
+
+def first_batch(thunks, what: str):
+    """The first batch of the first partition that yields one."""
+    for thunk in thunks:
+        for b in thunk():
+            return b
+    raise AssertionError(f"{what}: no batch")
+
+
+def join_kernel_shapes(spark, query: str, what: str) -> dict:
+    """murmur3 and groupbyHash at the shapes a phase-14 leg gives them,
+    each against its plain version (exact): from a fresh plan of
+    ``query``, the first batch each hash exchange hashes (at the
+    exchange's partition count) and the first batch the partial
+    aggregate updates with (after its absorbed prelude, at the slots the
+    aggregate sizes)."""
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    from spark_rapids_tpu_torch.sql import physical as P
+    plan = spark.plan_physical(spark.sql(query).plan)
+    cases = {"groupbyHash": {}, "murmur3": {}}
+    for ex in plan_nodes_of(plan):
+        p = getattr(ex, "partitioning", None)
+        if not isinstance(ex, TorchShuffleExchangeExec) or not isinstance(
+                p, P.HashPartitioning) or p.num_partitions == 1:
+            continue
+        keys = [getattr(e, "name", repr(e)) for e in p.exprs]
+        b = first_batch(ex.child.device_partitions(), what)
+        cols = key_columns(P.bind_list(p.exprs, ex.child.output), b)
+        cases["murmur3"][f"{what}_{'_'.join(keys)}"] = dict(
+            murmur3_case(cols, b.capacity, p.num_partitions), keys=keys)
+    agg = find_exec(plan, lambda n: isinstance(n, TorchHashAggregateExec)
+                    and n.mode == "partial" and bool(n.grouping))
+    if agg is not None:
+        b = first_batch(agg.child.device_partitions(), what)
+        key_cols, vals, prims, active = agg.update_inputs(b)
+        kw, h, add, mn, mx, _d = KG.table_inputs(
+            key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)],
+            active)
+        ins = (kw, h, active, add, mn, mx)
+        slots = KR.table_slots(spark.conf_obj, b.capacity)
+        case = groupby_case(ins, slots, overflow_ok=True)
+        cases["groupbyHash"][f"{what}_partial"] = case
+        if case["overflow"]["kernel"]:
+            # the path re-ran this batch sorted; the kernel is held
+            # exactly at the table size that holds the batch
+            fit = case["overflow"]["plain_complete_at_slots"]
+            if fit == slots:
+                fit *= 2
+            cases["groupbyHash"][f"{what}_partial_{fit}_slots"] = \
+                groupby_case(ins, fit)
+    return cases
+
+
+def joins_leg(spark, card: str, what: str, query: str, want, check,
+              reads: dict) -> dict:
+    """One leg of phase 14: the first collect (launches counted, the
+    demotion's row-count reads counted), rows exact, the plan all
+    Torch*, the joins and the adaptive counters, ``check(plan, counters,
+    launches)`` for the leg's own conditions; the same query with
+    adaptive execution off (the same rows, no adaptive counter); the
+    walls of both, three timed runs each in turns (on, off) after their
+    first runs; one profiled warm run."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    df = spark.sql(query)
+
+    def collect(adaptive: bool):
+        if not adaptive:
+            spark.conf.set(ADAPTIVE_OFF, "false")
+        try:
+            t0 = time.perf_counter()
+            out = [tuple(r) for r in df.collect()]
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            spark.conf.unset(ADAPTIVE_OFF)
+
+    KR.reset_launches()
+    reads.update(reads=0, syncs=0)
+    rows, first_s = collect(True)
+    launches = dict(KR.LAUNCHES)
+    demotion_reads = dict(reads)
+    if rows != want:
+        raise AssertionError(f"{what}: {rows[:5]} != {want[:5]}")
+    plan = spark.last_plan
+    names = plan_names(plan)
+    all_torch(names, what)
+    m = plan_metrics(plan)
+    counters = {k: m.get(k, 0) for k in AQE_COUNTERS}
+    joins = join_nodes(plan)
+    # batches whose groupbyHash table overflowed and re-ran sorted
+    reruns = sum(getattr(n, "overflow_reruns", 0)
+                 for p in plan_nodes_of(plan)
+                 for n in [p] + list(getattr(p, "fused_ops", [])))
+    check(plan, counters, launches)
+    off_rows, off_first_s = collect(False)
+    m_off = plan_metrics(spark.last_plan)
+    off_counters = {k: m_off.get(k, 0) for k in AQE_COUNTERS}
+    if off_rows != rows or any(off_counters[k] for k in AQE_COUNTERS[:4]):
+        raise AssertionError(f"{what} adaptive off: {off_counters}, rows "
+                             f"equal: {off_rows == rows}")
+    off_joins = join_nodes(spark.last_plan)
+    walls = {True: [], False: []}
+    for _ in range(3):
+        for adaptive in (True, False):
+            walls[adaptive].append(collect(adaptive)[1])
+    prof = profile_collect(df, what, card, warm=False)
+
+    def wall(runs):
+        return {"warm_runs": 1, "timed_runs": runs,
+                "median_s": statistics.median(runs)}
+    return {"rows_out": len(rows), "reference": "exact", "plan": names,
+            "joins": joins, "aqe": counters,
+            "demotion_row_reads": demotion_reads,
+            "exchange_total_bytes": m.get("exchangeTotalBytes", 0),
+            "launches": launches, "groupby_overflow_reruns": reruns,
+            "first_run_s": first_s,
+            "wall": wall(walls[True]), "turns": "on, off x 3",
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_s": prof["device_busy_s"],
+            "profiled_wall_s": prof["profiled_wall_s"],
+            "top_device_us": prof["top_device_us"],
+            "adaptive_off": {"rows": "equal", "aqe": off_counters,
+                             "joins": off_joins,
+                             "first_run_s": off_first_s,
+                             "wall": wall(walls[False])}}
+
+
+def joins_phases(device, card: str) -> tuple:
+    """Phase 14: TPC-H q12 in its optimizer form and q19 at SF1 from
+    memory and from Parquet, and the skew leg; returns each leg's kernel
+    launches and the murmur3 and groupbyHash cases at the legs' shapes
+    (``join_kernel_shapes``)."""
+    with counted_demotion_reads() as reads:
+        return joins_legs(device, card, reads)
+
+
+def joins_legs(device, card: str, reads: dict) -> tuple:
+    """``joins_phases``' legs, with the demotion's row reads counted in
+    ``reads``."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    t0 = time.perf_counter()
+    tables = q19_tables()
+    want12 = q12_reference(tables)
+    want19, kept19 = q19_reference(tables)
+    gen_s = time.perf_counter() - t0
+    sizes = {n: len(cols[0][2]) for n, cols in tables.items()}
+    conf = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+
+    def q12_check(plan, c, launches):
+        (join,) = join_nodes(plan)
+        # the planner's shuffled join, demoted at run time: orders'
+        # exchange is gone from the executed plan
+        if c["aqeBroadcastFlip"] != 1 or \
+                join["exec"] != "TorchShuffledHashJoinExec" or \
+                join["left"] == "TorchShuffleExchangeExec":
+            raise AssertionError(f"q12 pushed not demoted: {c} {join}")
+        if launches["groupbyHash"] <= 0:
+            raise AssertionError(f"q12 pushed: no groupbyHash: {launches}")
+
+    def q19_check(plan, c, launches):
+        (join,) = join_nodes(plan)
+        if not join["residual"] or join["join_type"] != "inner":
+            raise AssertionError(f"q19 join without its residual: {join}")
+
+    legs = {}
+    hbs = {n: host_batch_from_numpy(*q12_fields(cols))
+           for n, cols in tables.items()}
+    mem = TorchSparkSession(dict(conf))
+    for name, hb in hbs.items():
+        mem.createDataFrame(hb, num_partitions=N_PARTITIONS) \
+            .createOrReplaceTempView(name)
+    for leg, query, want, check in (
+            ("q12_pushed_memory", Q12_PUSHED, want12, q12_check),
+            ("q19_memory", Q19, want19, q19_check)):
+        out = joins_leg(mem, card, leg, query, want, check, reads)
+        phase(leg, card=card, rows_in=sizes, generate_s=gen_s, **out)
+        legs[leg] = out["launches"]
+    shapes = {"groupbyHash": {}, "murmur3": {}}
+
+    def add_shapes(cases):
+        for kernel, named in cases.items():
+            shapes[kernel].update(named)
+    add_shapes(join_kernel_shapes(mem, Q12_PUSHED, "q12_pushed"))
+    del mem, hbs
+    dirs, write_s = {}, 0.0
+    for name, cols in tables.items():
+        dirs[name] = os.path.join(DATA_DIR, f"tpch_sf1_q19_{name}")
+        write_s += write_once(
+            dirs[name], lambda d, c=cols: TorchSparkSession(dict(conf))
+            .createDataFrame(host_batch_from_numpy(*q12_fields(c)),
+                             num_partitions=N_PARTITIONS)
+            .write.mode("overwrite").parquet(d),
+            data_key(seed=[SEED, Q12_SEED, Q19_SEED], table=name,
+                     rows=len(cols[0][2]), partitions=N_PARTITIONS))
+    pq = TorchSparkSession(dict(conf))
+    for name, d in dirs.items():
+        pq.read.parquet(d).createOrReplaceTempView(name)
+    for leg, query, want, check in (
+            ("q12_pushed_parquet", Q12_PUSHED, want12, q12_check),
+            ("q19_parquet", Q19, want19, q19_check)):
+        out = joins_leg(pq, card, leg, query, want, check, reads)
+        scans = scan_counts(pq.last_plan)
+        if out["launches"]["decodeFused"] <= 0 or scans.get(
+                "deviceFallbackColumns", 0):
+            raise AssertionError(f"{leg}: decode {out['launches']} {scans}")
+        phase(leg, card=card, write_s=write_s, q19_rows_kept=kept19,
+              scan={k: v for k, v in scans.items()
+                    if k.startswith("device")}, **out)
+        legs[leg] = out["launches"]
+    del pq, tables
+
+    # the skew leg: q3's store_sales with one hot item
+    t0 = time.perf_counter()
+    stables, hot = skew_tables()
+    want_skew = skew_reference(stables)
+    sgen_s = time.perf_counter() - t0
+    from spark_rapids_tpu_torch.sql import types as T
+    kinds = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    skew = TorchSparkSession(dict(conf, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": "-1",
+        "spark.rapids.sql.shuffle.devicePartitions": "4"}))
+    for name in ("store_sales", "item"):
+        cols = stables[name]
+        skew.createDataFrame(host_batch_from_numpy(
+            [(c, kinds[k]) for c, k, _a in cols],
+            [a for _c, _k, a in cols]),
+            num_partitions=Q3_PARTITIONS[name]) \
+            .createOrReplaceTempView(name)
+
+    def skew_check(plan, c, launches):
+        if c["aqeSkewSplits"] < 1 or c["aqeCoalescedPartitions"] < 1 \
+                or c["retryCount"] or launches["murmur3"] <= 0:
+            raise AssertionError(f"skew leg: {c} {launches}")
+
+    for jt in ("inner", "left"):
+        leg = f"aqe_skew_{jt}"
+        out = joins_leg(skew, card, leg,
+                        Q_SKEW.format(jt="LEFT" if jt == "left" else ""),
+                        want_skew, skew_check, reads)
+        phase("aqe_skew", card=card, join_type=jt, hot_item=hot,
+              hot_share=SKEW_SHARE, device_partitions=4,
+              rows_in={"store_sales": Q3_SALES_ROWS, "item": 20_000},
+              generate_s=sgen_s, **out)
+        legs[leg] = out["launches"]
+    add_shapes(join_kernel_shapes(skew, Q_SKEW.format(jt=""), "skew"))
+    phase("joins_kernel_shapes", card=card, tolerance="exact", **shapes)
+    return legs, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3563,6 +4065,7 @@ def main() -> int:
     q12 = q12_phases(device, card)
     q1_double_phase(card, arrays)
     exprs_card_phase(device, card)
+    joins, jshapes = joins_phases(device, card)
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -3582,7 +4085,9 @@ def main() -> int:
          "launches": launches["groupbyHash"],
          "max_abs_err": max([gb_err, jp["groupby_q3"]["max_abs_err"]]
                             + [c["max_abs_err"]
-                               for c in mem["groupbyHash"].values()]),
+                               for c in mem["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in jshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -3591,14 +4096,17 @@ def main() -> int:
                    for name, c in (("q1_partial", gb_q1),
                                    ("q3_partial", jp["groupby_q3"]),
                                    ("many_groups", gb_many))
-                   + tuple(mem["groupbyHash"].items())}},
+                   + tuple(mem["groupbyHash"].items())
+                   + tuple(jshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
          "launches": rp["launches"],
          "max_abs_err": max([m3_err, rp["case"]["max_abs_err"]]
                             + [c["max_abs_err"]
-                               for c in mem["murmur3"].values()]),
+                               for c in mem["murmur3"].values()]
+                            + [c["max_abs_err"]
+                               for c in jshapes["murmur3"].values()]),
          "ms": rp["case"]["ms"], "plain_ms": rp["case"]["plain_ms"],
          "bound_ms": rp["case"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -3619,7 +4127,9 @@ def main() -> int:
                                         "ms": pid_ms,
                                         "cuda_launches": pid_k["launches"]},
                    **{name: case_fields(c)
-                      for name, c in mem["murmur3"].items()}}},
+                      for name, c in mem["murmur3"].items()},
+                   **{name: case_fields(c)
+                      for name, c in jshapes["murmur3"].items()}}},
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
@@ -3641,6 +4151,7 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         k["launches_q12"] = {leg: q12[leg][name] for leg in q12}
+        k["launches_joins"] = {leg: joins[leg][name] for leg in joins}
     phase("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3759,6 +4270,21 @@ def exprs_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, q12_launches=q12)
 
 
+def joins_only(card: str) -> None:
+    """``--joins``: the kernels' build and phase 14 (q12 in its optimizer
+    form and q19 from memory and from Parquet, the skew leg)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    gate_protocol()
+    legs, _shapes = joins_phases(device, card)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -3775,7 +4301,7 @@ def fusion_only(card: str) -> None:
 
 if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
-                                       "--exprs")):
+                                       "--exprs", "--joins")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3789,6 +4315,8 @@ if __name__ == "__main__":
             fusion_only(card)
         elif "--exprs" in sys.argv[1:]:
             exprs_only(card)
+        elif "--joins" in sys.argv[1:]:
+            joins_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -131,6 +131,56 @@ AUTO_BROADCAST_JOIN_THRESHOLD = _entry(
     "semantics).",
     10 << 20, parse_bytes)
 
+AQE_ENABLED = _entry(
+    "spark.sql.adaptive.enabled",
+    "Adaptive query execution: replan at exchange materialization from "
+    "the measured output sizes (a shuffled hash join whose build side "
+    "lands under the broadcast threshold becomes a broadcast-style join "
+    "at run time; small exchange partitions coalesce toward the "
+    "advisory size). Both this key and "
+    "spark.rapids.sql.adaptive.enabled must be on.",
+    True, _to_bool)
+
+AQE_ADVISORY_PARTITION_BYTES = _entry(
+    "spark.sql.adaptive.advisoryPartitionSizeInBytes",
+    "Target post-shuffle partition size for adaptive partition "
+    "coalescing (Spark's advisoryPartitionSizeInBytes).",
+    64 << 20, parse_bytes)
+
+ADAPTIVE_ENABLED = _entry(
+    "spark.rapids.sql.adaptive.enabled",
+    "Adaptive execution over measured exchange statistics: every "
+    "exchange records its exact per-partition bytes and rows, and "
+    "before the probe side runs a shuffled hash join may become a "
+    "broadcast (adaptive.autoBroadcastBytes), undersized partitions "
+    "coalesce toward adaptive.targetPartitionBytes, and stream "
+    "partitions above adaptive.skewFactor x the median split. Rows are "
+    "identical to the unadaptive plan's. Both this key and "
+    "spark.sql.adaptive.enabled must be on.",
+    True, _to_bool)
+
+ADAPTIVE_AUTO_BROADCAST_BYTES = _entry(
+    "spark.rapids.sql.adaptive.autoBroadcastBytes",
+    "Run-time broadcast demotion threshold: a shuffled hash join whose "
+    "measured build-side bytes (active-row refined) are at or under it "
+    "becomes a broadcast-style join and drops the stream side's "
+    "co-partitioning exchange. -1 inherits "
+    "spark.rapids.sql.autoBroadcastJoinThreshold.",
+    -1, parse_bytes)
+
+ADAPTIVE_TARGET_PARTITION_BYTES = _entry(
+    "spark.rapids.sql.adaptive.targetPartitionBytes",
+    "Size adaptive execution coalesces undersized exchange partitions "
+    "toward. 0 inherits spark.sql.adaptive.advisoryPartitionSizeInBytes.",
+    0, parse_bytes)
+
+ADAPTIVE_SKEW_FACTOR = _entry(
+    "spark.rapids.sql.adaptive.skewFactor",
+    "A stream-side join partition larger than this factor times the "
+    "median non-empty partition splits into sub-partitions, each joined "
+    "against the same build partition. 0 disables skew splitting.",
+    4.0, float)
+
 
 TASK_PARALLELISM = _entry(
     "spark.rapids.sql.taskParallelism",

@@ -14,7 +14,19 @@ an aborted materialization closes the handles it had registered. The
 hash split runs under ``with_retry``. A range exchange stages its inputs
 in the store while it ranks their keys; a spilled input comes back
 compacted, so its partition ids are remapped (``realign_spilled_pids``).
-The ICI/mesh, external and adaptive paths are not ported.
+A round-robin exchange (``repartition(n)`` without columns) deals each
+batch's active rows over the partitions from a start that advances by
+one a batch (``round_robin_pids``).
+
+Adaptive execution (``adaptive.py``): every materialization records the
+partitions' exact bytes and rows (``exchange_stats``, and the
+``exchangeTotalBytes``, ``exchangeMaxPartitionBytes`` and
+``exchangeMedianPartitionBytes`` metrics). An exchange whose consumer
+takes any partition count (an aggregate or a sort sets
+``allow_aqe_coalesce``) hands out adjacent partitions merged toward
+``adaptive.targetPartitionBytes``, capped by the budget oracle's share
+(``aqeCoalescedPartitions``). The ICI/mesh and external paths are not
+ported.
 """
 
 from __future__ import annotations
@@ -43,6 +55,14 @@ def hash_partition_ids(exprs: List[E.Expression], batch: DeviceBatch,
     ctx = X.Ctx(batch.columns, batch.capacity, batch.device)
     key_cols = [X.dev_eval(e, ctx) for e in exprs]
     return H.partition_ids(key_cols, batch.capacity, num_partitions)
+
+
+def round_robin_pids(active: torch.Tensor, start: int,
+                     n: int) -> torch.Tensor:
+    """Round-robin partition ids: the k-th active row of the batch goes
+    to partition ``(k + start) mod n``."""
+    rank = torch.cumsum(active.to(torch.int32), 0) - 1
+    return torch.remainder(rank + start, n).to(torch.int32)
 
 
 def range_key_columns(bound: List[E.Expression], batch: DeviceBatch):
@@ -162,6 +182,11 @@ class TorchShuffleExchangeExec(TorchExec):
         self.children = [child]
         self.partitioning = partitioning
         self._cache: Optional[List[List[DeviceBatch]]] = None
+        # set by the rewrite for consumers that take any partition count
+        # (aggregate, sort): enables adaptive partition coalescing
+        self.allow_aqe_coalesce = False
+        # the realized per-partition sizes, captured at materialization
+        self.exchange_stats = None
 
     @property
     def child(self) -> TorchExec:
@@ -208,6 +233,20 @@ class TorchShuffleExchangeExec(TorchExec):
                         for pid, part in enumerate(parts):
                             if part is not None:
                                 keep(pid, part)
+            elif isinstance(p, P.RoundRobinPartitioning):
+                start = 0
+                for thunk in device_channel(self.child):
+                    for b in thunk():
+                        pids = round_robin_pids(b.active, start, n)
+                        with self.metrics.timed(M.PARTITION_TIME):
+                            parts = R.with_retry(
+                                lambda b=b, pids=pids: split_by_pid(
+                                    b, pids, n),
+                                self.conf, self.metrics)
+                        for pid, part in enumerate(parts):
+                            if part is not None:
+                                keep(pid, part)
+                        start += 1
             elif isinstance(p, P.RangePartitioning):
                 self._materialize_range(p, n, store, keep)
             else:
@@ -220,6 +259,15 @@ class TorchShuffleExchangeExec(TorchExec):
                 for h in part:
                     h.close()
             raise
+        # the exchange statistics adaptive execution reads: exact
+        # realized partition sizes, also kept as this node's metrics
+        from spark_rapids_tpu_torch import adaptive as A
+        self.exchange_stats = stats = A.capture_stats(out)
+        self.metrics.create(M.EXCHANGE_TOTAL_BYTES).add(stats.total_bytes)
+        self.metrics.create(M.EXCHANGE_MAX_PARTITION_BYTES).add(
+            stats.max_bytes)
+        self.metrics.create(M.EXCHANGE_MEDIAN_PARTITION_BYTES).add(
+            stats.median_bytes)
         self._cache = out
         return out
 
@@ -259,12 +307,54 @@ class TorchShuffleExchangeExec(TorchExec):
                 h.close()
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
-        def make(pid: int) -> DevicePartitionThunk:
+        nparts = self.partitioning.num_partitions
+        groups = [[i] for i in range(nparts)]
+        if self._aqe_coalesce_eligible():
+            groups = self._aqe_partition_groups(nparts)
+
+        def make(pids: List[int]) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
-                for h in self._materialize()[pid]:
-                    yield h.get()
+                mat = self._materialize()
+                for pid in pids:
+                    for h in mat[pid]:
+                        yield h.get()
             return run
-        return [make(i) for i in range(self.partitioning.num_partitions)]
+        return [make(g) for g in groups]
+
+    def _aqe_coalesce_eligible(self) -> bool:
+        from spark_rapids_tpu_torch import adaptive as A
+        return (self.allow_aqe_coalesce
+                and A.adaptive_enabled(self.conf)
+                and not getattr(self.partitioning, "user_specified", False)
+                and self.partitioning.num_partitions > 1)
+
+    def _aqe_partition_groups(self, nparts: int) -> List[List[int]]:
+        """Adjacent materialized partitions merged toward
+        ``adaptive.targetPartitionBytes`` (adjacency keeps a range
+        partitioning's order). Only consumers that take any partition
+        count opt in; a join's co-partitioned inputs never do. The sizes
+        are the exchange statistics, so coalescing and skew detection
+        weigh a partition alike. Under a device budget the target is
+        capped at the budget oracle's operator share, so no consumer is
+        handed a concatenation it could not hold."""
+        from spark_rapids_tpu_torch import adaptive as A
+        from spark_rapids_tpu_torch.memory import get_budget_oracle
+        self._materialize()
+        stats = self.exchange_stats
+        target = A.target_partition_bytes(self.conf)
+        oracle = get_budget_oracle(self.conf)
+        if oracle.enabled:
+            share = oracle.operator_share()
+            if share < target:
+                target = share
+                self.metrics.create(M.BUDGET_PRESSURE_PEAK).set_max(
+                    int(A.target_partition_bytes(self.conf) * 100
+                        // max(1, share)))
+        groups = A.coalesce_groups(stats.partition_bytes, target)
+        if len(groups) < nparts:
+            self.metrics.create(M.AQE_COALESCED_PARTITIONS).add(
+                nparts - len(groups))
+        return groups
 
     def simple_string(self):
         return f"TorchExchange {self.partitioning!r}"

@@ -14,8 +14,26 @@ over the operator's share, the shuffled join runs out of core
 into spill-backed buckets (the murmur3 kernel on the card), and each
 bucket pair joins through the usual route (joinProbe or the sort path);
 a bucket still over the share re-partitions at a doubled modulus.
-Adaptive replanning, the cross-query build cache and residual (non-equi)
-conditions are not ported yet.
+
+A residual (non-equi) condition of an inner join is bound against the
+pair's columns and applied as a device filter on the joined pairs,
+inside the retried attempt (``_join_one``), on every route: the
+broadcast stream and its chunks, a shuffled co-partition and its chunks,
+and each out-of-core bucket pair. A join with a condition never takes
+the FK fast path, as in the JAX package. A conditional outer join is
+refused with the JAX package's reason (it keeps such joins on the CPU).
+
+Adaptive execution (``adaptive.py``), in the JAX package's order:
+a shuffled join first materializes its build-side exchange, and when the
+measured bytes are at or under ``adaptive.autoBroadcastBytes`` it runs
+as a broadcast-style join (``aqeBroadcastFlip``): the build side
+concatenated once, the stream side's co-partitioning exchange dropped
+and the surviving subtree cloned, re-fused and put in its place
+(``_replan_stream_side``), so ``last_plan`` shows what ran. Otherwise,
+a stream-side partition above ``adaptive.skewFactor`` x the median
+splits into sub-partitions, each joined against the same build
+partition (``aqeSkewSplits``). The cross-query build cache is not
+ported.
 """
 
 from __future__ import annotations
@@ -42,12 +60,22 @@ from spark_rapids_tpu_torch.sql import types as T
 
 
 def is_device_join(join_type: str, left_keys: List[E.Expression],
-                   right_keys: List[E.Expression], conf=None,
+                   right_keys: List[E.Expression],
+                   condition: Optional[E.Expression] = None, conf=None,
                    device=None) -> Optional[str]:
-    """Tagging helper: None when the join runs on the device (the
-    planner has already refused residual conditions)."""
+    """Tagging helper: None when the join runs on the device; else the
+    JAX package's reason (``spark_rapids_tpu.exec.join.is_device_join``)."""
     if join_type not in PAIR_JOINS + MASK_JOINS:
         return f"join type {join_type} is not ported yet"
+    if condition is not None and join_type not in ("inner", "cross"):
+        return (f"conditional {join_type} join runs on CPU (residual "
+                "conditions are device-filtered for inner joins only)")
+    if condition is not None:
+        r = X.unsupported_reason(condition, conf, device)
+        if r:
+            return r
+        if X.contains_ansi_cast(condition):
+            return "ANSI casts in join conditions run on CPU"
     for lk, rk in zip(left_keys, right_keys):
         for e in (lk, rk):
             if isinstance(e.data_type, (T.ArrayType, T.MapType,
@@ -77,15 +105,16 @@ class TorchShuffledHashJoinExec(TorchExec):
 
     def __init__(self, left_keys: List[E.Expression],
                  right_keys: List[E.Expression], join_type: str,
-                 left: TorchExec, right: TorchExec,
-                 output: List[E.AttributeReference], conf: TorchConf,
-                 device: torch.device,
+                 condition: Optional[E.Expression], left: TorchExec,
+                 right: TorchExec, output: List[E.AttributeReference],
+                 conf: TorchConf, device: torch.device,
                  null_safe: Optional[List[bool]] = None):
         super().__init__(conf, device)
         self.children = [left, right]
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.join_type = join_type
+        self.condition = condition
         self._output = output
         self.null_safe = list(null_safe or [False] * len(left_keys))
         self.route_counts: Dict[str, int] = {"joinProbe": 0,
@@ -129,11 +158,18 @@ class TorchShuffledHashJoinExec(TorchExec):
         lk, rk = self._bound_keys()
         out_schema = (self.left.schema if self.join_type in MASK_JOINS
                       else self._pair_schema())
-        out = R.with_retry(
-            lambda: device_join(lwhole, rwhole, lk, rk, self.join_type,
-                                out_schema, null_safe=self.null_safe,
-                                fk_hint=fk_hint, counts=self.route_counts),
-            self.conf, self.metrics)
+        cond = (None if self.condition is None else
+                E.bind_references(self.condition, self._pair_attrs()))
+
+        def attempt() -> DeviceBatch:
+            out = device_join(lwhole, rwhole, lk, rk, self.join_type,
+                              out_schema, null_safe=self.null_safe,
+                              fk_hint=fk_hint, counts=self.route_counts)
+            if cond is not None:
+                out = X.run_filter(cond, out)
+            return out
+
+        out = R.with_retry(attempt, self.conf, self.metrics)
         # the exec's declared output may prune/reorder pair columns
         if self.join_type not in MASK_JOINS:
             out = self._project_output(out)
@@ -177,7 +213,10 @@ class TorchShuffledHashJoinExec(TorchExec):
         fk_state: dict = {}
 
         def fk_hint() -> bool:
-            if self.join_type not in ("inner", "left", "leftouter"):
+            # no FK fast path under a residual condition, as in the JAX
+            # package (which sizes none when a condition is present)
+            if self.join_type not in ("inner", "left", "leftouter") \
+                    or self.condition is not None:
                 return False
             if "v" not in fk_state:
                 _lk, rk = self._bound_keys()
@@ -202,12 +241,153 @@ class TorchShuffledHashJoinExec(TorchExec):
         return [make(t) for t in device_channel(left_src)]
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
+        flipped = self._aqe_try_broadcast()
+        if flipped is not None:
+            return flipped
+        skewed = self._aqe_try_skew_split()
+        if skewed is not None:
+            return skewed
         lparts = device_channel(self.left)
         rparts = device_channel(self.right)
         assert len(lparts) == len(rparts), \
             "join children must be co-partitioned"
         return [self._partition_join_thunk(lt, rt, len(lparts))
                 for lt, rt in zip(lparts, rparts)]
+
+    # -- adaptive execution ------------------------------------------------
+    def _aqe_try_broadcast(self) -> Optional[List[DevicePartitionThunk]]:
+        """Materialize the build-side exchange; when its measured bytes
+        are at or under ``adaptive.autoBroadcastBytes``, run as a
+        broadcast-style join: the build side concatenated once and
+        shared by every stream partition, and the stream side's
+        co-partitioning exchange dropped. The capacity-based bytes
+        over-count filtered batches, so a total over the threshold is
+        refined by each handle's active-row fraction first (the one
+        row-count read adaptive execution makes; a spilled handle keeps
+        its full size)."""
+        from spark_rapids_tpu_torch import adaptive as A
+        from spark_rapids_tpu_torch.exec.exchange import \
+            TorchShuffleExchangeExec
+        if not A.adaptive_enabled(self.conf):
+            return None
+        threshold = A.auto_broadcast_bytes(self.conf)
+        if threshold < 0 or self.join_type not in self._LEFT_STREAM_TYPES:
+            return None
+        rexch = self.right
+        if not isinstance(rexch, TorchShuffleExchangeExec):
+            return None
+        handles = [h for part in rexch._materialize() for h in part]
+        total = sum(h.sizeof() for h in handles)
+        if total > threshold:
+            total = 0
+            for h in handles:
+                cap = h.capacity_hint
+                frac = (h.rows / cap) if cap else 1.0
+                total += int(h.sizeof() * frac)
+                if total > threshold:
+                    return None
+        self.metrics.create(M.AQE_BROADCAST_FLIP).add(1)
+        self.metrics.create(M.AQE_REPLANS).add(1)
+        # the exchange keeps its handles: release_plan_handles closes
+        # them with the plan (the exchange stays the join's right child)
+        rwhole = self._whole([h.get() for h in handles], self.right.schema,
+                             self.device)
+        left_src = self.left
+        if isinstance(left_src, TorchShuffleExchangeExec) and not getattr(
+                left_src.partitioning, "user_specified", False):
+            # the exchange existed only for this join's co-partitioning
+            left_src = self._replan_stream_side(left_src)
+        return self._broadcast_stream_thunks(left_src, rwhole)
+
+    def _replan_stream_side(self, exch) -> TorchExec:
+        """Drop the stream side's co-partitioning exchange. The surviving
+        subtree has not run yet and nothing else holds it (every collect
+        plans anew), so it re-enters the fusion pass as it is, since the
+        removed boundary can expose a filter/project chain. The join's
+        child is rewired, so the executed plan shows the subtree that
+        ran."""
+        from spark_rapids_tpu_torch.overrides import \
+            refuse_replanned_subtree
+        new_left = refuse_replanned_subtree(exch.child, self.conf)
+        self.children[0] = new_left
+        return new_left
+
+    def _aqe_try_skew_split(self) -> Optional[List[DevicePartitionThunk]]:
+        """When the stream-side exchange's measured partitions show one
+        above ``adaptive.skewFactor`` x the median, that partition's
+        retained batches split into sub-partitions, each joined against
+        the same build partition. Only for join types whose per-left-row
+        results are independent; the planner re-partitions before the
+        next keyed operator, so losing the key colocation is harmless."""
+        from spark_rapids_tpu_torch import adaptive as A
+        from spark_rapids_tpu_torch.exec.exchange import \
+            TorchShuffleExchangeExec
+        if not A.adaptive_enabled(self.conf) \
+                or self.join_type not in self._LEFT_STREAM_TYPES:
+            return None
+        factor = A.skew_factor(self.conf)
+        if factor <= 0:
+            return None
+        lexch, rexch = self.left, self.right
+        for e in (lexch, rexch):
+            if not isinstance(e, TorchShuffleExchangeExec):
+                return None
+        mat = lexch._materialize()
+        stats = lexch.exchange_stats
+        if stats is None:
+            return None
+        plan = A.skew_splits(stats, factor)
+        if not plan:
+            return None
+        self.metrics.create(M.AQE_SKEW_SPLITS).add(len(plan))
+        self.metrics.create(M.AQE_REPLANS).add(1)
+        rparts = device_channel(rexch)
+        assert len(mat) == len(rparts), \
+            "join children must be co-partitioned"
+        thunks: List[DevicePartitionThunk] = []
+        for pid, rt in enumerate(rparts):
+            pieces = (self._split_partition(mat[pid], plan[pid])
+                      if pid in plan else [mat[pid]])
+            for items in pieces:
+                thunks.append(self._partition_join_thunk(
+                    self._items_thunk(items), rt, len(rparts)))
+        return thunks
+
+    @staticmethod
+    def _items_thunk(items: List) -> DevicePartitionThunk:
+        """A stream-partition thunk over already materialized exchange
+        handles: promote, never close (the exchange owns them)."""
+        def run() -> Iterator[DeviceBatch]:
+            for item in items:
+                yield item.get()
+        return run
+
+    def _split_partition(self, items: List, k: int) -> List[List]:
+        """Up to ``k`` sub-partitions of one skewed partition's handles:
+        contiguous byte-balanced slices of the list; when the list is
+        shorter than ``k``, its largest batch first splits by round-robin
+        partition ids (``split_by_pid`` under ``with_retry``). The pieces
+        are the join's own spillables; the exchange's handles stay as
+        they are."""
+        from spark_rapids_tpu_torch import adaptive as A
+        if len(items) < k:
+            from spark_rapids_tpu_torch.exec.exchange import (
+                round_robin_pids, split_by_pid)
+            from spark_rapids_tpu_torch.memory import get_device_store
+            store = get_device_store(self.conf)
+            weights = [A._item_stats(it)[0] for it in items]
+            big = max(range(len(items)), key=lambda i: weights[i])
+            pieces = k - len(items) + 1
+            b = items[big].get()
+            pids = round_robin_pids(b.active, 0, pieces)
+            parts = R.with_retry(lambda: split_by_pid(b, pids, pieces),
+                                 self.conf, self.metrics)
+            subs = [self.register_spillable(store, p)
+                    for p in parts if p is not None]
+            items = items[:big] + subs + items[big + 1:]
+        weights = [A._item_stats(it)[0] for it in items]
+        return [[items[i] for i in g]
+                for g in A.slice_groups(weights, k)]
 
     def _partition_join_thunk(self, lt: DevicePartitionThunk,
                               rt: DevicePartitionThunk, co_parts: int
@@ -325,7 +505,8 @@ class TorchShuffledHashJoinExec(TorchExec):
 
     def simple_string(self):
         return (f"TorchShuffledHashJoin {self.join_type} "
-                f"l={self.left_keys} r={self.right_keys}")
+                f"l={self.left_keys} r={self.right_keys} "
+                f"cond={self.condition!r}")
 
 
 class TorchBroadcastHashJoinExec(TorchShuffledHashJoinExec):
@@ -342,4 +523,5 @@ class TorchBroadcastHashJoinExec(TorchShuffledHashJoinExec):
 
     def simple_string(self):
         return (f"TorchBroadcastHashJoin {self.join_type} "
-                f"l={self.left_keys} r={self.right_keys}")
+                f"l={self.left_keys} r={self.right_keys} "
+                f"cond={self.condition!r}")

@@ -130,6 +130,16 @@ class SpillableBatch:
         return st.rows
 
     @property
+    def capacity_hint(self) -> Optional[int]:
+        """The device capacity without promoting a spilled batch; None
+        when the data is off the device (callers treat that
+        conservatively)."""
+        st = self._state
+        if st.tier == TIER_DEVICE and st.batch is not None:
+            return st.batch.capacity
+        return None
+
+    @property
     def ever_spilled(self) -> bool:
         """True once the batch was demoted: its capacity and slot layout
         may differ from the registered batch's."""

@@ -50,6 +50,14 @@ PLANNED_PARTITIONS = "plannedPartitions"  # spill-backed partitions planned
 BUDGET_PRESSURE_PEAK = "budgetPressurePeak"  # worst estimate/share, %
 PLANNED_WORKING_SET = "plannedWorkingSetBytes"  # largest estimate seen
 PLANNED_OOC_ESCALATIONS = "plannedOutOfCoreEscalations"  # re-plans
+# adaptive execution (adaptive.py): run-time replans and exchange stats
+AQE_BROADCAST_FLIP = "aqeBroadcastFlip"    # shuffled joins demoted
+AQE_REPLANS = "aqeReplans"                 # replans of any kind
+AQE_SKEW_SPLITS = "aqeSkewSplits"          # skewed partitions split
+AQE_COALESCED_PARTITIONS = "aqeCoalescedPartitions"  # partitions merged
+EXCHANGE_TOTAL_BYTES = "exchangeTotalBytes"
+EXCHANGE_MAX_PARTITION_BYTES = "exchangeMaxPartitionBytes"
+EXCHANGE_MEDIAN_PARTITION_BYTES = "exchangeMedianPartitionBytes"
 
 
 class Metric:

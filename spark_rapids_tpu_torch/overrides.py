@@ -9,7 +9,11 @@ for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single;
 planner-inserted hash and range exchanges coalesce to
 ``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
-BroadcastExchange and the shuffled and broadcast hash joins. Last,
+BroadcastExchange and the shuffled and broadcast hash joins (an inner
+join's residual condition filters the joined pairs on the device). An
+aggregate's or a sort's exchange child may coalesce its partitions at
+run time (``allow_aqe_coalesce``, adaptive execution); a join's
+children never do. Last,
 under ``spark.rapids.sql.stageFusion.enabled`` (default true),
 ``fuse_stages`` collapses each filter/project chain, with the partial
 aggregate above it, into a ``TorchFusedStageExec``. Anything
@@ -123,7 +127,7 @@ def _tag_exchange(node, conf, device) -> Optional[str]:
     if isinstance(p, P.RangePartitioning):
         keys = [o.child for o in p.order]
         return _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
-    if isinstance(p, P.SinglePartitioning):
+    if isinstance(p, (P.SinglePartitioning, P.RoundRobinPartitioning)):
         return None
     return f"{type(p).__name__} is not ported yet"
 
@@ -161,7 +165,7 @@ def _tag_aggregate(node, conf, device) -> Optional[str]:
 def _tag_join(node, conf, device) -> Optional[str]:
     from spark_rapids_tpu_torch.exec.join import is_device_join
     return is_device_join(node.join_type, node.left_keys, node.right_keys,
-                          conf, device)
+                          node.condition, conf, device)
 
 
 def _tag_none(node, conf, device) -> Optional[str]:
@@ -222,16 +226,28 @@ def _conv_exchange(node, kids, conf, device):
     return TorchShuffleExchangeExec(p, kids[0], conf, device)
 
 
+def _allow_aqe_coalesce(kid):
+    """Aggregate and sort consumers take any partition count, so their
+    exchange child may coalesce small partitions at run time; a join's
+    inputs must stay co-partitioned and never opt in."""
+    from spark_rapids_tpu_torch.exec.exchange import \
+        TorchShuffleExchangeExec
+    if isinstance(kid, TorchShuffleExchangeExec):
+        kid.allow_aqe_coalesce = True
+    return kid
+
+
 def _conv_sort(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.sort import TorchSortExec
-    return TorchSortExec(node.order, node.is_global, kids[0], conf, device)
+    return TorchSortExec(node.order, node.is_global,
+                         _allow_aqe_coalesce(kids[0]), conf, device)
 
 
 def _conv_aggregate(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
     return TorchHashAggregateExec(node.grouping, node.aggregates,
-                                  node.mode, kids[0], node.slots, conf,
-                                  device)
+                                  node.mode, _allow_aqe_coalesce(kids[0]),
+                                  node.slots, conf, device)
 
 
 def _conv_local_limit(node, kids, conf, device):
@@ -259,8 +275,9 @@ def _conv_join(cls_name: str):
     def conv(node, kids, conf, device):
         from spark_rapids_tpu_torch.exec import join as J
         return getattr(J, cls_name)(
-            node.left_keys, node.right_keys, node.join_type, kids[0],
-            kids[1], node.output, conf, device, null_safe=node.null_safe)
+            node.left_keys, node.right_keys, node.join_type,
+            node.condition, kids[0], kids[1], node.output, conf, device,
+            null_safe=node.null_safe)
     return conv
 
 
@@ -338,4 +355,17 @@ def apply_overrides(physical: P.PhysicalPlan, conf: TorchConf,
     if conf.get(STAGE_FUSION_ENABLED):
         from spark_rapids_tpu_torch.exec.fused import fuse_stages
         plan = fuse_stages(plan, conf)
+    return plan
+
+
+def refuse_replanned_subtree(plan: P.PhysicalPlan,
+                             conf: TorchConf) -> P.PhysicalPlan:
+    """Adaptive execution's re-entry into the fusion pass: a run-time
+    replan that removes an exchange boundary (a join's broadcast
+    demotion) hands the surviving subtree back through
+    ``fuse_stages`` under the same conf gate, so it gets the
+    filter/project chains the boundary blocked. No-op with fusion off."""
+    if conf.get(STAGE_FUSION_ENABLED):
+        from spark_rapids_tpu_torch.exec.fused import fuse_stages
+        return fuse_stages(plan, conf)
     return plan

@@ -235,12 +235,11 @@ class Planner:
         left_keys, right_keys, null_safe, residual = split_equi_join(
             p.condition, p.left.output, p.right.output)
         if not left_keys:
+            # the JAX package runs these as a CPU nested-loop join: they
+            # wait for the per-operator CPU fallback
             raise NotImplementedError(
-                f"non-equi {p.join_type} join (nested-loop join) is not "
-                "ported yet to spark_rapids_tpu_torch")
-        if residual is not None:
-            raise NotImplementedError(
-                f"{p.join_type} join with a residual condition is not "
+                f"non-equi {p.join_type} join (nested-loop join) runs on "
+                "the CPU, and the per-operator CPU fallback is not "
                 "ported yet to spark_rapids_tpu_torch")
         threshold = int(self.conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
         est = estimate_plan_bytes(p.right)

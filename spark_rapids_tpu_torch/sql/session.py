@@ -8,7 +8,10 @@ The operators run under the spill store and the OOM retry protocol
 (``memory.py``, ``retry.py``); once a collect ends, or fails, every store
 handle its plan registered is closed (``release_plan_handles``), so none
 outlives its query, and the stores close at interpreter exit, removing
-their disk files. Telemetry, plan cache, lifecycle and serving hooks are
+their disk files. ``last_plan`` is the plan as it executed: an adaptive
+replan (a join demoted to a broadcast) rewires the join's stream side
+while the plan runs, so the release and ``plan_metrics`` walk the
+subtree that ran. Telemetry, plan cache, lifecycle and serving hooks are
 not ported yet.
 
 The device is an explicit ``torch.device`` threaded through every

@@ -304,11 +304,16 @@ def test_metric_reads_device_counts_back_when_read():
 
 
 def test_repartition_without_columns_is_not_ported():
+    """``repartition(n)`` without columns was not ported before; it now
+    deals the rows round-robin over its n partitions (user-specified, so
+    the count stays) and loses none."""
     port = TorchSparkSession({}, device="cpu")
     df = port.createDataFrame(host_batch_from_numpy(
         [("x", PT.LongT)], [np.arange(10)]), num_partitions=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        df.repartition(3).collect()
+    rows = sorted(r[0] for r in df.repartition(3).collect())
+    assert rows == list(range(10))
+    (_kinds, exchanges) = plan_shape(port.last_plan)
+    assert exchanges == [("RoundRobinPartitioning", 3)]
 
 
 # ---------------------------------------------------------------------------
