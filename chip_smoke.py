@@ -4,7 +4,9 @@ kernel against its plain PyTorch version, run TPC-H q1 at SF1 and TPC-DS
 q3 (both forms) through ``TorchSparkSession`` from memory, a user
 repartition, then q1 and q3 from Parquet, TPC-H q12 and q1's double
 form, an expression battery, TPC-H q19 and q12 in its optimizer form
-and a skewed join, and check the rows against exact references, then
+and a skewed join, TPC-DS q98, q51's store half and a q86-shaped rollup
+over windows, a union and a range, and check the rows against exact
+references, then
 time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
@@ -123,6 +125,27 @@ absent or any phase fails. Output, one line per phase:
      (``joins_kernel_shapes``: each hash exchange's first batch and the
      partial aggregate's, q12 pushed and the skew leg), exact against
      their plain versions, timed beside their bounds;
+  15. range, union, expand and window (``windows_phases``), over
+     bench's q3 tables with TPC-DS columns added (``windows_tables``:
+     2,000,000 store_sales rows, seed 20260736 for the new columns):
+     TPC-DS q98 in its pushed double form (``Q98_PUSHED``: a
+     whole-partition window sum over the aggregate, joinProbe on both
+     joins), q51's store half in its double form (``Q51_STORE``: a
+     running window per item, also key-batched at ``batchSizeRows``
+     131,072 over two device partitions, its rows equal to the default
+     run's), a q86-shaped rollup with a rank (``q86_frame``: expand,
+     groupbyHash with a decimal sum lane, a rank over a decimal order
+     key), the same over the union of two store_sales views, and
+     ``range(0, 6001215)`` under a group-by; q98, q51 and q86 also from
+     Parquet. Each leg's rows against a numpy reference (doubles within
+     1e-12 relative, everything else exact), the plan all ``Torch*``
+     with its window, expand, union or range node, each kernel's
+     launches, the window's ``dispatchCount`` and the CUDA kernels of
+     one window batch, the wall (one warm run, median of three) and the
+     idle share of one profiled warm run; then joinProbe at q98's two
+     joins and groupbyHash at the rollup's and the range's first partial
+     batch (``windows_kernel_shapes``), exact against their plain
+     versions, timed beside their bounds;
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -131,13 +154,15 @@ absent or any phase fails. Output, one line per phase:
   checkouts in one call; with ``--fusion``, only the build and phase 11
   (``fusion_only``); with ``--exprs``, only the build and phase 13
   (``exprs_only``); with ``--joins``, only the build and phase 14
-  (``joins_only``);
+  (``joins_only``); with ``--windows``, only the build and phase 15
+  (``windows_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's legs, and phase 14's shapes among its cases)
+  and on phase 14's and phase 15's legs, and those phases' shapes among
+  its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2571,20 +2596,41 @@ def held_outputs_check(spark, q1_dir: str) -> dict:
     if stage is None or stage.sink_agg is not None:
         raise AssertionError(f"held-outputs query: no filter/project "
                              f"stage in {plan_names(plan)}")
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
     (thunk,) = stage.device_partitions()
     held = list(thunk())
     torch.cuda.synchronize()
-    got = sorted(r for b in held for r in b.to_host().rows())
+    got = HostBatch.concat([b.to_host() for b in held])
     plain = TorchSparkSession({"spark.rapids.sql.stageFusion.enabled":
                                "false"})
     plain.read.parquet(q1_dir).createOrReplaceTempView("lineitem_pq")
-    want = sorted(tuple(r) for r in plain.sql(sql).collect())
-    if len(held) != 8 or got != want:
+    want = plain.sql(sql)._execute()
+    equal = got.num_rows == want.num_rows and all(
+        np.array_equal(g, w) for g, w in zip(sorted_row_arrays(got),
+                                             sorted_row_arrays(want)))
+    if len(held) != 8 or not equal:
         raise AssertionError(f"held stage outputs: {len(held)} batches, "
-                             f"{len(got)} rows vs {len(want)} unfused, "
-                             f"equal={got == want}")
-    return {"batches_held": len(held), "rows": len(got),
+                             f"{got.num_rows} rows vs {want.num_rows} "
+                             f"unfused, equal={equal}")
+    return {"batches_held": len(held), "rows": got.num_rows,
             "reference": "the unfused plan, exact"}
+
+
+def sorted_row_arrays(hb) -> list:
+    """A host batch's rows in sorted order as numpy arrays, one per
+    value word (a string column as text, a two-limb decimal as two
+    words) and one per validity: two batches hold the same rows exactly
+    when these arrays are equal."""
+    keys = []
+    for c in hb.columns:
+        d = np.asarray(c.data)
+        if d.dtype == object:
+            d = d.astype(str)
+        keys.extend([d[:, i] for i in range(d.shape[1])] if d.ndim == 2
+                    else [d])
+        keys.append(np.asarray(c.validity))
+    order = np.lexsort(keys[::-1])
+    return [k[order] for k in keys]
 
 
 def stage_fusion_phase(card, fields, arrays, q1_dir, tables) -> None:
@@ -3535,10 +3581,7 @@ def join_kernel_shapes(spark, query: str, what: str) -> dict:
     exchange's partition count) and the first batch the partial
     aggregate updates with (after its absorbed prelude, at the slots the
     aggregate sizes)."""
-    from spark_rapids_tpu_torch import kernels as KR
-    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
     from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
-    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     from spark_rapids_tpu_torch.sql import physical as P
     plan = spark.plan_physical(spark.sql(query).plan)
     cases = {"groupbyHash": {}, "murmur3": {}}
@@ -3552,6 +3595,20 @@ def join_kernel_shapes(spark, query: str, what: str) -> dict:
         cols = key_columns(P.bind_list(p.exprs, ex.child.output), b)
         cases["murmur3"][f"{what}_{'_'.join(keys)}"] = dict(
             murmur3_case(cols, b.capacity, p.num_partitions), keys=keys)
+    cases["groupbyHash"] = partial_groupby_cases(spark, plan, what)
+    return cases
+
+
+def partial_groupby_cases(spark, plan, what: str) -> dict:
+    """groupbyHash on the first batch a plan's keyed partial aggregate
+    updates with (after its absorbed prelude, at the slots the aggregate
+    sizes), exact against the plain version; a batch that overflows the
+    table (the path re-ran it sorted) is held again at a table size that
+    holds it."""
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    cases = {}
     agg = find_exec(plan, lambda n: isinstance(n, TorchHashAggregateExec)
                     and n.mode == "partial" and bool(n.grouping))
     if agg is not None:
@@ -3563,15 +3620,12 @@ def join_kernel_shapes(spark, query: str, what: str) -> dict:
         ins = (kw, h, active, add, mn, mx)
         slots = KR.table_slots(spark.conf_obj, b.capacity)
         case = groupby_case(ins, slots, overflow_ok=True)
-        cases["groupbyHash"][f"{what}_partial"] = case
+        cases[f"{what}_partial"] = case
         if case["overflow"]["kernel"]:
-            # the path re-ran this batch sorted; the kernel is held
-            # exactly at the table size that holds the batch
             fit = case["overflow"]["plain_complete_at_slots"]
             if fit == slots:
                 fit *= 2
-            cases["groupbyHash"][f"{what}_partial_{fit}_slots"] = \
-                groupby_case(ins, fit)
+            cases[f"{what}_partial_{fit}_slots"] = groupby_case(ins, fit)
     return cases
 
 
@@ -3772,6 +3826,611 @@ def joins_legs(device, card: str, reads: dict) -> tuple:
         legs[leg] = out["launches"]
     add_shapes(join_kernel_shapes(skew, Q_SKEW.format(jt=""), "skew"))
     phase("joins_kernel_shapes", card=card, tolerance="exact", **shapes)
+    return legs, shapes
+
+
+# -- phase 15: range, union, expand and window (TPC-DS q98, q51, q86) ------
+
+WINDOWS_SEED = 20260736
+TPCDS_CATEGORIES = ("Books", "Children", "Electronics", "Home", "Jewelry",
+                    "Men", "Music", "Shoes", "Sports", "Women")
+CLASSES_PER_CATEGORY = 16
+# d_date of d_date_sk 1, and the five store years the sales fall in
+WINDOWS_FIRST_DAY = 10_228  # 1998-01-02, days since 1970-01-01
+WINDOWS_DAYS = 1_826
+DESC_WORDS = ("able", "about", "across", "actual", "again", "almost",
+              "always", "areas", "become", "before", "better", "black",
+              "blue", "bright", "carefully", "central", "certain", "clear",
+              "common", "current", "different", "early", "easy", "english",
+              "final", "free", "full", "general", "good", "great", "green",
+              "happy", "high", "important", "large", "little", "local",
+              "major", "modern", "national", "new", "old", "open", "other",
+              "political", "possible", "public", "real", "red", "right",
+              "simple", "small", "social", "special", "strong", "true",
+              "white", "whole", "young")
+
+# TPC-DS q98 (class revenue ratios) in its double form: the aggregate in
+# a subquery, the window over it, and item's and date_dim's predicates
+# pushed into the joined subqueries, as q3's pushed form has them
+Q98_PUSHED = """
+SELECT i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       itemrevenue,
+       itemrevenue * 100 / sum(itemrevenue) OVER (PARTITION BY i_class)
+         AS revenueratio
+FROM (SELECT i_item_id, i_item_desc, i_category, i_class, i_current_price,
+             sum(ss_ext_sales_price) AS itemrevenue
+      FROM store_sales
+      JOIN (SELECT i_item_sk, i_item_id, i_item_desc, i_category, i_class,
+                   i_current_price
+            FROM item WHERE i_category IN ('Sports', 'Books', 'Home')) it
+        ON ss_item_sk = i_item_sk
+      JOIN (SELECT d_date_sk FROM date_dim
+            WHERE d_date BETWEEN date '1999-02-22' AND date '1999-03-24') dt
+        ON ss_sold_date_sk = d_date_sk
+      GROUP BY i_item_id, i_item_desc, i_category, i_class,
+               i_current_price) x
+ORDER BY i_category, i_class, i_item_id, i_item_desc, revenueratio
+"""
+
+# TPC-DS q51's store_v1 half (running store sales per item), double form
+Q51_STORE = """
+SELECT item_sk, d_date,
+       sum(sales) OVER (PARTITION BY item_sk ORDER BY d_date
+                        ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW)
+         AS cume_sales
+FROM (SELECT ss_item_sk AS item_sk, d_date, sum(ss_sales_price) AS sales
+      FROM store_sales JOIN date_dim ON ss_sold_date_sk = d_date_sk
+      WHERE d_month_seq BETWEEN 1200 AND 1211 AND ss_item_sk IS NOT NULL
+      GROUP BY ss_item_sk, d_date) x
+"""
+
+# q86's three-way join (over store_sales; q86 reads web_sales), which
+# the rollup and the rank take as a DataFrame (neither parser has ROLLUP
+# or grouping())
+Q86_JOIN = """
+SELECT i_category, i_class, ss_ext_sales_price
+FROM {store_sales}
+JOIN (SELECT d_date_sk FROM date_dim
+      WHERE d_month_seq BETWEEN 1200 AND 1211) dt
+  ON ss_sold_date_sk = d_date_sk
+JOIN item ON ss_item_sk = i_item_sk
+"""
+
+Q_RANGE = """
+SELECT k, count(*) AS cnt, sum(id) AS total
+FROM (SELECT id % 1000 AS k, id FROM r) t
+GROUP BY k ORDER BY k
+"""
+RANGE_ROWS = SF1_ROWS
+
+
+def q86_frame(spark, F, store_sales: str = "store_sales"):
+    """q86's rollup and rank: ``rollup(i_category, i_class)`` over the
+    three-way join with the decimal sum, ``rank()`` over the category by
+    the total descending, ordered by category, rank and class. ``F`` is
+    the session's package's ``functions`` module."""
+    j = spark.sql(Q86_JOIN.format(store_sales=store_sales))
+    r = j.rollup("i_category", "i_class").agg(
+        F.sum("ss_ext_sales_price").alias("total"))
+    w = F.Window.partitionBy("i_category").orderBy(F.col("total").desc())
+    return r.select("i_category", "i_class", "total",
+                    F.rank().over(w).alias("rank_within_parent")) \
+        .orderBy("i_category", "rank_within_parent", "i_class")
+
+
+def windows_tables(n_sales: int = Q3_SALES_ROWS, seed: int = Q3_SEED,
+                   extra_seed: int = WINDOWS_SEED):
+    """Phase 15's tables: ``q3_tables`` (bench.py's generator, its columns
+    byte for byte) with TPC-DS columns added from ``extra_seed``, in
+    TPC-DS's domains: item's ``i_item_id`` (16 characters, one per item),
+    ``i_item_desc`` (3-12 words), ``i_category`` (the 10 categories,
+    uniform), ``i_class`` (16 per category) and ``i_current_price``
+    (decimal(7,2), 0.09-99.99); date_dim's ``d_date`` (1998-01-02 +
+    ((d_date_sk - 1) mod 1,826) days, so the sales fall in TPC-DS's five
+    store years and a 30-day range keeps about 1.6% of them) and
+    ``d_month_seq`` ((year - 1900) * 12 + month - 1); store_sales'
+    ``ss_sales_price`` (decimal(7,2), U[0.00, 200.00]). Kinds as
+    ``q3_tables``' plus ``date`` (int32 days). No scale cut against
+    bench's q3 (2,000,000 store_sales rows, 20,000 items, 73,049 dates);
+    TPC-DS SF1 has 2,880,404 store_sales rows and 18,000 items, and
+    bench's sizes keep phase 15 beside phases 3-5. The double form
+    (``windows_fields(..., double=True)``) carries the three price
+    columns as doubles with the same values."""
+    tables = q3_tables(n_sales, seed)
+    rng = np.random.default_rng(extra_seed)
+    n_item = len(tables["item"][0][2])
+    sk = tables["item"][0][2]
+    letters = np.array(list("ABCDEFGHIJKLMNOP"))
+    digits = (sk[:, None] >> (4 * np.arange(7, -1, -1))) & 15
+    item_id = np.array(["AAAAAAAA" + "".join(row)
+                        for row in letters[digits]], dtype=object)
+    words = np.array(DESC_WORDS, dtype=object)
+    lens = rng.integers(3, 13, n_item)
+    picks = rng.integers(0, len(words), (n_item, 12))
+    desc = np.array([" ".join(words[picks[i, :lens[i]]]).capitalize()
+                     for i in range(n_item)], dtype=object)
+    cat_i = rng.integers(0, len(TPCDS_CATEGORIES), n_item)
+    cls_i = rng.integers(1, CLASSES_PER_CATEGORY + 1, n_item)
+    cats = np.array(TPCDS_CATEGORIES, dtype=object)[cat_i]
+    classes = np.array([f"{c.lower()}{k:02d}" for c, k in zip(cats, cls_i)],
+                       dtype=object)
+    tables["item"] += [
+        ("i_item_id", "str", item_id), ("i_item_desc", "str", desc),
+        ("i_category", "str", cats), ("i_class", "str", classes),
+        ("i_current_price", "dec72", rng.integers(9, 10_000, n_item))]
+    dsk = tables["date_dim"][0][2]
+    d_date = (WINDOWS_FIRST_DAY + (dsk - 1) % WINDOWS_DAYS).astype(np.int32)
+    ymd = d_date.astype("datetime64[D]")
+    year = ymd.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = ymd.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    tables["date_dim"] += [
+        ("d_date", "date", d_date),
+        ("d_month_seq", "int", ((year - 1900) * 12 + month - 1)
+         .astype(np.int32))]
+    n = len(tables["store_sales"][0][2])
+    tables["store_sales"] += [
+        ("ss_sales_price", "dec72", rng.integers(0, 20_001, n))]
+    return tables
+
+
+WINDOWS_PRICES = ("ss_ext_sales_price", "ss_sales_price", "i_current_price")
+
+
+def windows_fields(cols, double: bool = False):
+    """``(fields, arrays)`` of one table for ``host_batch_from_numpy``;
+    ``double`` gives the price columns as doubles of the same values (the
+    ``useDoubleForDecimal`` form, databricks/spark-sql-perf)."""
+    from spark_rapids_tpu_torch.sql import types as T
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2), "date": T.DateT,
+             "dbl": T.DoubleT}
+    fields, arrays = [], []
+    for name, kind, a in cols:
+        if double and name in WINDOWS_PRICES:
+            kind, a = "dbl", a / 100.0
+        fields.append((name, types[kind]))
+        arrays.append(a)
+    return fields, arrays
+
+
+def _cols(tables):
+    return {t: {name: a for name, _k, a in cols}
+            for t, cols in tables.items()}
+
+
+def _dim_rows(dim_keys, fact_keys):
+    """Row of the dimension table for each fact key (keys are 1..n)."""
+    return fact_keys - dim_keys[0]
+
+
+def q98_reference(tables):
+    """q98's rows from integer cents: ``(i_item_id, i_item_desc,
+    i_category, i_class, i_current_price, itemrevenue, revenueratio)``
+    in the query's order, the doubles the exact values rounded once."""
+    c = _cols(tables)
+    ss, it, dd = c["store_sales"], c["item"], c["date_dim"]
+    irow = _dim_rows(it["i_item_sk"], ss["ss_item_sk"])
+    drow = _dim_rows(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    lo = (np.datetime64("1999-02-22") - np.datetime64("1970-01-01")) \
+        .astype(np.int64)
+    hi = (np.datetime64("1999-03-24") - np.datetime64("1970-01-01")) \
+        .astype(np.int64)
+    keep = np.isin(it["i_category"][irow], ["Sports", "Books", "Home"]) \
+        & (dd["d_date"][drow] >= lo) & (dd["d_date"][drow] <= hi)
+    cents = np.zeros(len(it["i_item_sk"]), dtype=np.int64)
+    np.add.at(cents, irow[keep], ss["ss_ext_sales_price"][keep])
+    items = np.unique(irow[keep])
+    by_class: dict = {}
+    for i in items:
+        by_class[it["i_class"][i]] = by_class.get(it["i_class"][i], 0) \
+            + int(cents[i])
+    from fractions import Fraction
+    rows = []
+    for i in items:
+        rows.append((it["i_item_id"][i], it["i_item_desc"][i],
+                     it["i_category"][i], it["i_class"][i],
+                     int(it["i_current_price"][i]) / 100.0,
+                     int(cents[i]) / 100.0,
+                     float(Fraction(int(cents[i]) * 100,
+                                    by_class[it["i_class"][i]]))))
+    rows.sort(key=lambda r: (r[2], r[3], r[0], r[1], r[6]))
+    return rows
+
+
+def q51_reference(tables):
+    """q51's store half from integer cents: ``{(item_sk, d_date): cume
+    sales}`` (a date as days since 1970-01-01), the running sum of each
+    item's daily sums in date order, rounded once to a double."""
+    c = _cols(tables)
+    ss, dd = c["store_sales"], c["date_dim"]
+    drow = _dim_rows(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    seq = dd["d_month_seq"][drow]
+    keep = (seq >= 1200) & (seq <= 1211)
+    item = ss["ss_item_sk"][keep].astype(np.int64)
+    day = dd["d_date"][drow][keep].astype(np.int64)
+    cents = ss["ss_sales_price"][keep]
+    key = item * 100_000 + day
+    uk, inv = np.unique(key, return_inverse=True)
+    daily = np.zeros(len(uk), dtype=np.int64)
+    np.add.at(daily, inv, cents)
+    items = uk // 100_000
+    first = np.r_[True, items[1:] != items[:-1]]
+    run = np.cumsum(daily)
+    start = np.maximum.accumulate(np.where(first, np.arange(len(uk)), 0))
+    base = np.where(start > 0, run[np.maximum(start - 1, 0)], 0)
+    cume = run - base
+    return {(int(k // 100_000), int(k % 100_000)): int(v) / 100.0
+            for k, v in zip(uk, cume)}
+
+
+def q86_reference(tables):
+    """q86's rollup and rank over store_sales from integer cents:
+    ``(i_category, i_class, total Decimal, rank)`` in the query's order
+    (category, rank, class; nulls first)."""
+    c = _cols(tables)
+    ss, it, dd = c["store_sales"], c["item"], c["date_dim"]
+    drow = _dim_rows(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    irow = _dim_rows(it["i_item_sk"], ss["ss_item_sk"])
+    seq = dd["d_month_seq"][drow]
+    keep = (seq >= 1200) & (seq <= 1211)
+    cat = it["i_category"][irow][keep]
+    cls = it["i_class"][irow][keep]
+    cents = ss["ss_ext_sales_price"][keep]
+    sums: dict = {}
+    for ca, cl, v in zip(cat, cls, cents):
+        for key in ((ca, cl), (ca, None), (None, None)):
+            sums[key] = sums.get(key, 0) + int(v)
+    rows = []
+    for (ca, cl), v in sums.items():
+        part = [t for (a, _b), t in sums.items() if a == ca]
+        rank = 1 + sum(1 for t in part if t > v)
+        rows.append((ca, cl, decimal.Decimal(v).scaleb(-2), rank))
+
+    def key(r):
+        return (r[0] is not None, r[0] or "", r[3], r[1] is not None,
+                r[1] or "")
+    return sorted(rows, key=key)
+
+
+def range_reference(n: int = RANGE_ROWS):
+    """``(k, count, sum of id)`` for ``id % 1000`` over ``range(n)``."""
+    ids = np.arange(n, dtype=np.int64)
+    k = ids % 1000
+    cnt = np.bincount(k, minlength=1000)
+    tot = np.zeros(1000, dtype=np.int64)
+    np.add.at(tot, k, ids)
+    return [(int(i), int(cnt[i]), int(tot[i])) for i in range(1000)
+            if cnt[i]]
+
+
+def check_close_rows(got, want, what: str, float_cols, rel_tol=1e-12):
+    """Ordered rows equal: the columns in ``float_cols`` within
+    ``rel_tol`` relative, every other column exactly. Returns the largest
+    relative error seen."""
+    import math
+    got = [tuple(r) for r in got]
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if j in float_cols:
+                err = abs(a - b) / max(abs(b), 1e-300) if b else abs(a)
+                worst = max(worst, err)
+                if not math.isclose(a, b, rel_tol=rel_tol, abs_tol=0.0) \
+                        and a != b:
+                    raise AssertionError(f"{what}: {g} != {w}")
+            elif a != b:
+                raise AssertionError(f"{what}: {g} != {w}")
+    return worst
+
+
+def check_q51_rows(got, want: dict, what: str, rel_tol=1e-12) -> float:
+    """Every (item, date) once, its running sum within ``rel_tol``."""
+    import datetime
+    import math
+    epoch = datetime.date(1970, 1, 1)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+    worst = 0.0
+    seen = set()
+    for item, d, v in got:
+        key = (int(item), (d - epoch).days)
+        w = want.get(key)
+        if w is None or key in seen:
+            raise AssertionError(f"{what}: unexpected row {item, d, v}")
+        seen.add(key)
+        if not math.isclose(v, w, rel_tol=rel_tol, abs_tol=0.0) and v != w:
+            raise AssertionError(f"{what}: {item, d}: {v} != {w}")
+        if w:
+            worst = max(worst, abs(v - w) / abs(w))
+    return worst
+
+
+WINDOWS_CONF = {"spark.sql.shuffle.partitions": str(N_PARTITIONS),
+                "spark.rapids.sql.variableFloatAgg.enabled": "true"}
+# leg b's key-batched run: at one device partition the window takes the
+# aggregate's one output batch and windows it whole (in both packages,
+# whatever batchSizeRows is); at two, the window's input holds a batch
+# from each partition of the aggregate, over 131,072 rows in all, so it
+# is key-batched
+WINDOWS_BATCHED = {"spark.rapids.sql.batchSizeRows": "131072",
+                   "spark.rapids.sql.shuffle.devicePartitions": "2"}
+
+
+def window_execs(plan) -> list:
+    from spark_rapids_tpu_torch.exec.window import TorchWindowExec
+    return [p for p in plan_nodes_of(plan) if isinstance(p, TorchWindowExec)]
+
+
+def window_batch_kernels(spark, df, what: str) -> dict:
+    """The CUDA kernels of one window batch at the leg's shape: from a
+    fresh plan of ``df``, the window's first input partition
+    concatenated (as the exec concatenates it), then ``_run_batch`` under
+    torch.profiler (``device_kernels``)."""
+    from spark_rapids_tpu_torch.columnar.device import concat_device
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    plan = spark.plan_physical(df.plan)
+    try:
+        (w,) = window_execs(plan)
+        parts = [[b for b in t()] for t in w.child.device_partitions()]
+        whole = concat_device(next(p for p in parts if p))
+        planned = w._plan_items()
+        k = device_kernels(lambda: w._run_batch(whole, planned), calls=3)
+        return {"rows": whole.row_count(), "capacity": whole.capacity,
+                "cuda_kernels": k["launches"], "busy_us": k["busy_us"],
+                "span_us": k["span_us"],
+                "ms": cuda_ms(lambda: w._run_batch(whole, planned), 3),
+                "top_kernel_us": dict(sorted(
+                    k["kernel_us"].items(), key=lambda kv: -kv[1])[:5])}
+    finally:
+        release_plan_handles(plan)
+
+
+def windows_leg(spark, card: str, what: str, make_df, check,
+                node: str) -> dict:
+    """One leg of phase 15: the first collect (launches counted), its
+    rows through ``check(rows)`` (which raises unless they are right and
+    returns the largest relative error), the plan all Torch* with
+    ``node`` in it, the window's ``dispatchCount``, one warm run and the
+    median of three timed, and one profiled warm run."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    df = make_df()
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = [tuple(r) for r in df.collect()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    err = check(rows)
+    plan = spark.last_plan
+    names = plan_names(plan)
+    all_torch(names, what)
+    if node not in names:
+        raise AssertionError(f"{what}: no {node} in {names}")
+    windows = [w.metrics.snapshot().get("dispatchCount", 0)
+               for w in window_execs(plan)]
+    df.collect()  # warm
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_collect(df, what, card, warm=False)
+    return {"rows": rows, "out": {
+        "rows_out": len(rows), "max_rel_err": err, "plan": names,
+        "launches": launches, "window_dispatch_count": windows,
+        "first_run_s": first_s, "warm_runs": 1, "timed_runs": walls,
+        "median_s": statistics.median(walls),
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_s": prof["device_busy_s"],
+        "profiled_wall_s": prof["profiled_wall_s"],
+        "top_device_us": prof["top_device_us"]}}
+
+
+def q98_join_probe_cases(spark, df) -> dict:
+    """joinProbe at leg a's two joins (item's and date_dim's pushed
+    build sides against the first store_sales batch), exact against the
+    plain version, timed beside its byte bound."""
+    import torch
+    from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
+    from spark_rapids_tpu_torch.kernels import join_probe as KJ
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    from spark_rapids_tpu_torch.ops import join as J
+    plan = spark.plan_physical(df.plan)
+    cases = {}
+    try:
+        for j in plan_nodes_of(plan):
+            if not isinstance(j, TorchBroadcastHashJoinExec):
+                continue
+            lk, rk = j._bound_keys()
+            right = first_batch(j.right.device_partitions(), "q98 build")
+            left = first_batch(j.left.device_partitions(), "q98 stream")
+            which = ("date_dim" if "d_date_sk" in
+                     [a.name for a in j.right.output] else "item")
+            ins = J.probe_inputs(lk, rk, j.null_safe, left, right)
+            km, kf = KJ.build_probe(*ins)
+            pm, pf = KJ.build_probe_plain(*ins)
+            torch.cuda.synchronize()
+            err = max(int((km.long() - pm.long()).abs().max()),
+                      int((kf.long() - pf.long()).abs().max()))
+            if err != 0:
+                raise AssertionError(f"joinProbe != plain on q98 {which}")
+            nbytes = sum(t.numel() * t.element_size() for t in ins) \
+                + ins[2].shape[0] * 5
+            cases[f"q98_{which}"] = {
+                "rows": int(ins[2].shape[0]),
+                "build_cap": int(ins[0].shape[0]),
+                "build_valid": int(ins[1].sum()),
+                "stream_valid": int(ins[3].sum()),
+                "matched": int(km.sum()), "max_abs_err": err,
+                "ms": cuda_ms(lambda ins=ins: KJ.build_probe(*ins), 50),
+                "plain_ms": wall_ms(
+                    lambda ins=ins: KJ.build_probe_plain(*ins), 5),
+                "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "cuda_launches": device_kernels(
+                    lambda ins=ins: KJ.build_probe(*ins))["launches"]}
+    finally:
+        release_plan_handles(plan)
+    if set(cases) != {"q98_item", "q98_date_dim"}:
+        raise AssertionError(f"q98 join shapes: {sorted(cases)}")
+    return cases
+
+
+def windows_phases(device, card: str) -> tuple:
+    """Phase 15: TPC-DS q98 (pushed, double form), q51's store half
+    (double form; also key-batched), a q86-shaped rollup with a rank, the
+    same over a union of two store_sales views, and a range under a
+    group-by, at bench's q3 scale from memory and (q98, q51, q86) from
+    Parquet; each leg's rows against its numpy reference, then joinProbe
+    and groupbyHash at the legs' shapes (``windows_kernel_shapes``).
+    Returns each leg's kernel launches and the shapes' cases."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    t0 = time.perf_counter()
+    tables = windows_tables()
+    want98 = q98_reference(tables)
+    want51 = q51_reference(tables)
+    want86 = q86_reference(tables)
+    want_range = range_reference()
+    gen_s = time.perf_counter() - t0
+    sizes = {n: len(cols[0][2]) for n, cols in tables.items()}
+    legs, shapes = {}, {"groupbyHash": {}, "joinProbe": {}}
+    got51 = {}
+
+    def check98(rows):
+        return check_close_rows(rows, want98, "q98", {4, 5, 6})
+
+    def check51(rows):
+        return check_q51_rows(rows, want51, "q51")
+
+    def check86(rows):
+        if rows != want86:
+            raise AssertionError(f"q86: {rows[:3]} != {want86[:3]}")
+        return 0.0
+
+    def check_range(rows):
+        if rows != want_range:
+            raise AssertionError(f"range: {rows[:3]} != {want_range[:3]}")
+        return 0.0
+
+    def run(spark, leg, make_df, check, node, **extra):
+        out = windows_leg(spark, card, leg, make_df, check, node)
+        launches = out["out"]["launches"]
+        if leg.endswith("parquet") and launches["decodeFused"] <= 0:
+            raise AssertionError(f"{leg}: no decodeFused: {launches}")
+        if leg.startswith("q98") and launches["joinProbe"] <= 0:
+            raise AssertionError(f"{leg}: no joinProbe: {launches}")
+        if leg.startswith(("q86", "range")) and launches["groupbyHash"] <= 0:
+            raise AssertionError(f"{leg}: no groupbyHash: {launches}")
+        if node == "TorchWindowExec" and leg != "q51_store_batched":
+            extra["window_batch"] = window_batch_kernels(spark, make_df(),
+                                                         leg)
+        phase(leg, card=card, rows_in=sizes, generate_s=gen_s, **extra,
+              **out["out"])
+        legs[leg] = launches
+        return out
+
+    def views(spark, double: bool, dirs=None):
+        for name, cols in tables.items():
+            if dirs is None:
+                spark.createDataFrame(
+                    host_batch_from_numpy(*windows_fields(cols, double)),
+                    num_partitions=Q3_PARTITIONS[name]) \
+                    .createOrReplaceTempView(name)
+            else:
+                spark.read.parquet(dirs[name, double]) \
+                    .createOrReplaceTempView(name)
+        return spark
+
+    mem_d = views(TorchSparkSession(dict(WINDOWS_CONF)), True)
+    run(mem_d, "q98_pushed_memory", lambda: mem_d.sql(Q98_PUSHED), check98,
+        "TorchWindowExec", tolerance="1e-12 relative (doubles)")
+    shapes["joinProbe"].update(q98_join_probe_cases(mem_d,
+                                                    mem_d.sql(Q98_PUSHED)))
+    got51["default"] = run(mem_d, "q51_store_memory",
+                           lambda: mem_d.sql(Q51_STORE), check51,
+                           "TorchWindowExec",
+                           tolerance="1e-12 relative (running sums)")["rows"]
+    del mem_d
+    batched = views(TorchSparkSession(dict(WINDOWS_CONF,
+                                           **WINDOWS_BATCHED)), True)
+    out = run(batched, "q51_store_batched", lambda: batched.sql(Q51_STORE),
+              check51, "TorchWindowExec", conf=WINDOWS_BATCHED,
+              tolerance="1e-12 relative (running sums)")
+    got51["batched"] = out["rows"]
+    window_batches = sum(out["out"]["window_dispatch_count"])
+    if window_batches <= 1:
+        raise AssertionError(f"q51 batched: {window_batches} window batch")
+    del batched, out
+    a, b = sorted(got51["default"]), sorted(got51["batched"])
+    same_keys = [r[:2] for r in a] == [r[:2] for r in b]
+    bits = sum(x[2] == y[2] for x, y in zip(a, b))
+    close = all(abs(x[2] - y[2]) <= 1e-12 * abs(x[2]) for x, y in zip(a, b))
+    if not (same_keys and close):
+        raise AssertionError("q51 key-batched rows differ from the default")
+    phase("q51_store_batched_equal", card=card, rows=len(a),
+          window_batches=window_batches, keys_equal=same_keys,
+          values_within_1e_12=close, bit_identical_values=bits)
+
+    mem = views(TorchSparkSession(dict(WINDOWS_CONF)), False)
+    got86 = run(mem, "q86_rollup_memory", lambda: q86_frame(mem, F),
+                check86, "TorchExpandExec", tolerance="exact")["rows"]
+    shapes["groupbyHash"].update(partial_groupby_cases(
+        mem, mem.plan_physical(q86_frame(mem, F).plan), "q86_rollup"))
+    ss = tables["store_sales"]
+    fields, arrays = windows_fields(ss)
+    half = len(arrays[0]) // 2
+    hb = host_batch_from_numpy(fields, arrays)
+    mem.createDataFrame(hb.slice(0, half), num_partitions=4) \
+        .createOrReplaceTempView("ss_a")
+    mem.createDataFrame(hb.slice(half, hb.num_rows), num_partitions=4) \
+        .createOrReplaceTempView("ss_b")
+    mem.table("ss_a").union(mem.table("ss_b")) \
+        .createOrReplaceTempView("store_sales_u")
+    got_u = run(mem, "union_rollup",
+                lambda: q86_frame(mem, F, "store_sales_u"), check86,
+                "TorchUnionExec", tolerance="exact")["rows"]
+    if got_u != got86:
+        raise AssertionError("union rollup rows differ from q86's")
+    mem.range(0, RANGE_ROWS, 1, N_PARTITIONS).createOrReplaceTempView("r")
+    run(mem, "range_agg", lambda: mem.sql(Q_RANGE), check_range,
+        "TorchRangeExec", tolerance="exact", range_rows=RANGE_ROWS)
+    shapes["groupbyHash"].update(partial_groupby_cases(
+        mem, mem.plan_physical(mem.sql(Q_RANGE).plan), "range_agg"))
+    del mem, hb
+
+    dirs, write_s = {}, 0.0
+    for name, cols in tables.items():
+        for double in (False, True):
+            d = os.path.join(DATA_DIR, f"tpcds_windows_{name}_"
+                             f"{'double' if double else 'decimal'}")
+            dirs[name, double] = d
+            write_s += write_once(
+                d, lambda d, c=cols, dbl=double: TorchSparkSession(
+                    dict(WINDOWS_CONF)).createDataFrame(
+                    host_batch_from_numpy(*windows_fields(c, dbl)),
+                    num_partitions=Q3_PARTITIONS[name])
+                .write.mode("overwrite").parquet(d),
+                data_key(seed=[Q3_SEED, WINDOWS_SEED], table=name,
+                         rows=len(cols[0][2]), double=double,
+                         partitions=Q3_PARTITIONS[name]))
+    pq_d = views(TorchSparkSession(dict(WINDOWS_CONF)), True, dirs)
+    run(pq_d, "q98_pushed_parquet", lambda: pq_d.sql(Q98_PUSHED), check98,
+        "TorchWindowExec", write_s=write_s,
+        tolerance="1e-12 relative (doubles)")
+    run(pq_d, "q51_store_parquet", lambda: pq_d.sql(Q51_STORE), check51,
+        "TorchWindowExec", tolerance="1e-12 relative (running sums)")
+    del pq_d
+    pq = views(TorchSparkSession(dict(WINDOWS_CONF)), False, dirs)
+    run(pq, "q86_rollup_parquet", lambda: q86_frame(pq, F), check86,
+        "TorchExpandExec", tolerance="exact")
+    del pq
+    phase("windows_kernel_shapes", card=card, tolerance="exact", **shapes)
     return legs, shapes
 
 
@@ -4066,6 +4725,7 @@ def main() -> int:
     q1_double_phase(card, arrays)
     exprs_card_phase(device, card)
     joins, jshapes = joins_phases(device, card)
+    windows, wshapes = windows_phases(device, card)
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -4087,7 +4747,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in mem["groupbyHash"].values()]
                             + [c["max_abs_err"]
-                               for c in jshapes["groupbyHash"].values()]),
+                               for c in jshapes["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in wshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -4097,7 +4759,8 @@ def main() -> int:
                                    ("q3_partial", jp["groupby_q3"]),
                                    ("many_groups", gb_many))
                    + tuple(mem["groupbyHash"].items())
-                   + tuple(jshapes["groupbyHash"].items())}},
+                   + tuple(jshapes["groupbyHash"].items())
+                   + tuple(wshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -4133,10 +4796,16 @@ def main() -> int:
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
-         "launches": jp["launches"], "max_abs_err": jp["max_abs_err"],
+         "launches": jp["launches"],
+         "max_abs_err": max([jp["max_abs_err"]]
+                            + [c["max_abs_err"]
+                               for c in wshapes["joinProbe"].values()]),
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "cases": jp["cases"]},
+         "library_ms": None,
+         "cases": dict(jp["cases"], **{
+             name: {k: c[k] for k in ("rows", "ms", "plain_ms", "bound_ms")}
+             for name, c in wshapes["joinProbe"].items()})},
         {"name": "decodeFused", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
          "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",
@@ -4152,6 +4821,8 @@ def main() -> int:
         name = k["name"]
         k["launches_q12"] = {leg: q12[leg][name] for leg in q12}
         k["launches_joins"] = {leg: joins[leg][name] for leg in joins}
+        k["launches_windows"] = {leg: windows[leg][name]
+                                 for leg in windows}
     phase("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4285,6 +4956,21 @@ def joins_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def windows_only(card: str) -> None:
+    """``--windows``: the kernels' build and phase 15 (q98, q51's store
+    half, the q86-shaped rollup, the union and the range)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    gate_protocol()
+    legs, _shapes = windows_phases(device, card)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -4301,7 +4987,7 @@ def fusion_only(card: str) -> None:
 
 if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
-                                       "--exprs", "--joins")):
+                                       "--exprs", "--joins", "--windows")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4317,6 +5003,8 @@ if __name__ == "__main__":
             exprs_only(card)
         elif "--joins" in sys.argv[1:]:
             joins_only(card)
+        elif "--windows" in sys.argv[1:]:
+            windows_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -69,6 +69,28 @@ class HostColumn:
             return [decimal.Decimal(int(u)).scaleb(-dec_scale)
                     if ok else None
                     for u, ok in zip(ints, self.validity)]
+        if self.data.dtype != object and not (
+                is_array or is_struct or is_bool or is_date or is_ts
+                or dec_scale is not None):
+            # plain numbers: one bulk conversion to Python scalars
+            return [v if ok else None for v, ok in
+                    zip(self.data.tolist(), self.validity.tolist())]
+        if is_date and self.data.dtype != object:
+            # one date object per distinct day (days outside datetime's
+            # year range stay raw ints, as below)
+            memo: dict = {}
+
+            def day(v):
+                d = memo.get(v)
+                if d is None:
+                    try:
+                        d = epoch + datetime.timedelta(days=v)
+                    except OverflowError:
+                        d = v
+                    memo[v] = d
+                return d
+            return [day(v) if ok else None for v, ok in
+                    zip(self.data.tolist(), self.validity.tolist())]
         for i in range(len(self.data)):
             if not self.validity[i]:
                 out.append(None)
@@ -316,8 +338,9 @@ class HostBatch:
 
     def rows(self) -> Iterator[Tuple]:
         cols = [c.to_pylist() for c in self.columns]
-        for i in range(self.num_rows):
-            yield tuple(col[i] for col in cols)
+        if not cols:
+            return iter([()] * self.num_rows)
+        return zip(*(col[:self.num_rows] for col in cols))
 
     def take(self, indices: np.ndarray) -> "HostBatch":
         return HostBatch(self.schema, [c.take(indices) for c in self.columns],

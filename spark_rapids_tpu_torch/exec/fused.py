@@ -40,7 +40,11 @@ Metrics: per-operator counts still report under each constituent exec
 ``numOutputBatches``), plus ``fusedOps``, ``dispatchCount``,
 ``stageCompileTime`` (a new program's warm-up and capture wall) and the
 cache's ``compileCacheHits``/``compileCacheMisses``. JAX's buffer
-donation has no counterpart here.
+donation has no counterpart here: where the JAX package donates the
+buffers of a fresh source's batches (the upload, the range), a graph
+copies each batch into its static inputs, and an eager program frees
+them when the batch is dropped. A range source fuses as the upload
+does, so a range query fuses the stages the JAX package fuses.
 
 Memory: each batch of a chain runs under ``with_split_retry`` (as the
 JAX package's ``run_one`` does): an out-of-memory error in the warm-up,

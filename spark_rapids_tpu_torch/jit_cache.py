@@ -9,6 +9,10 @@ the cache without limit, so eviction drops the oldest-used entry and
 releases it (a value with a ``release`` method has it called: a graph
 frees its pool). A re-planned stage simply builds again.
 
+The port's operators other than fused stages run eagerly and keep no
+program here: the JAX package's per-operator caches (``window``,
+``sort``, ``agg`` and the rest) have no counterpart.
+
 Hit and miss counters are kept per cache and surfaced two ways: execs
 that own a cache mirror the counts into their metric registries
 (``compileCacheHits`` / ``compileCacheMisses``), and ``cache_stats()``

@@ -23,6 +23,7 @@ COPY_TO_DEVICE_TIME = "copyToDeviceTime"
 COPY_FROM_DEVICE_TIME = "copyFromDeviceTime"
 PACK_TIME = "packBatchTime"  # host-side staging half of an upload
 CONCAT_TIME = "concatTime"
+OP_TIME = "opTime"  # an operator's host wall, no synchronise (window, expand)
 SCAN_PREFETCH_TIME = "scanPrefetchTime"
 UPLOAD_AHEAD_BATCHES = "uploadAheadBatches"
 # uploads copied from a pinned staging slot on the ring's own copy stream

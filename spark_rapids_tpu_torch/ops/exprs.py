@@ -1826,7 +1826,9 @@ def _h_timefield(e, ctx: Ctx) -> DeviceColumn:
 def _h_date_arith(e, ctx: Ctx) -> DeviceColumn:
     lc, rc = _binary_cols(e, ctx)
     a, b = lc.data.to(torch.int64), rc.data.to(torch.int64)
-    data = a + b if isinstance(e, E.DateAdd) else a - b
+    # DateSub subclasses DateAdd, so it is tested first
+    data = a + b if isinstance(e, E.DateAdd) and not isinstance(
+        e, E.DateSub) else a - b
     dt = T.IntegerT if isinstance(e, E.DateDiff) else T.DateT
     return _normalized(dt, data.to(torch.int32), _valid_and([lc, rc]))
 

@@ -13,7 +13,8 @@ re-run of a batch whose hash table overflowed.
    the same int64 lane matrix as the sums in ``seg_sums_batched``), read
    at each segment's END row
    (``out_active`` marks exactly one row per group); min/max take the
-   winning row of a second sort within segments.
+   winning row of a segmented arg-min/max scan (``seg_scan_best``), the
+   later of two tied rows, as in the JAX package.
 4. Float sums never take the cumsum difference (cancellation against
    unrelated earlier segments): they run a segmented scan
    (``seg_running_sum``), and first/last take the winner of a segmented
@@ -37,7 +38,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceColumn, DeviceDecimal128Column,
-    DeviceStringColumn, sort_with_payload, take_columns, torch_dtype)
+    DeviceStringColumn, sort_key_i64, sort_with_payload, take_columns,
+    torch_dtype)
 from spark_rapids_tpu_torch.ops import int128 as I
 from spark_rapids_tpu_torch.sql import types as T
 
@@ -366,8 +368,9 @@ def seg_scan_best(seg_marker: torch.Tensor, words: Sequence[torch.Tensor],
     """Segmented running arg-min/max over multi-word ranks: for each
     sorted row, the position of the best valid row from its segment's
     start up to itself (lexicographic over ``words``, most significant
-    first; on a tie the later row wins, as in the JAX package). Returns ``(winner position,
-    has winner)``. A log-step scan, no scatter."""
+    first, each in signed order: ``sort_key_i64`` of a uint64-pattern
+    word; on a tie the later row wins, as in the JAX package). Returns
+    ``(winner position, has winner)``. A log-step scan, no scatter."""
     cap = seg_marker.shape[0]
     pos = torch.arange(cap, dtype=torch.int64, device=seg_marker.device)
     words = [w.to(torch.int64) if w.dtype == torch.bool else w
@@ -430,14 +433,11 @@ def _descending(words: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def seg_extreme(seg: Segments, col_s: AnyDeviceColumn, is_min: bool
                 ) -> AnyDeviceColumn:
-    """min/max by the winning row, so values round-trip untouched: a
-    second stable sort by (segment, nulls last, value words) puts each
-    segment's winner at its segment's start position."""
+    """min/max by the winning row, so values round-trip untouched: the
+    winner of ``seg_scan_best`` at each segment's end row. Rows of equal
+    rank (-0.0 and 0.0, NaNs of different payloads) tie, and the later
+    row wins, as in the JAX package."""
     valid_s = col_s.validity & seg.active_sorted
-    words = value_words(col_s)
-    if not is_min:
-        words = _descending(words)
-    _k, perm, _p = sort_with_payload([seg.seg_ids, ~valid_s] + words, [])
-    win = perm[seg.start_of_row]
-    won = valid_s[win] & seg.out_active
-    return take_columns([col_s], win, valid_at=won)[0]
+    words = [sort_key_i64(w) for w in value_words(col_s)]
+    win, has = seg_scan_best(seg.start_of_row, words, valid_s, is_min)
+    return _winner_gather(seg, col_s, win, has & seg.out_active)

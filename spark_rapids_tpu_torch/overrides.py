@@ -5,15 +5,16 @@ Each CPU physical node is wrapped in an ``ExecMeta``, tagged by its rule
 (types and expressions the port can run), and converted bottom-up; a
 ``TorchRowToColumnarExec`` goes under the first device operator above a
 CPU source and a ``TorchColumnarToRowExec`` on top. The port has rules
-for Project, Filter, HashAggregate, ShuffleExchange (hash, range, single;
+for Range, Union, Expand, Window, Project, Filter, HashAggregate,
+ShuffleExchange (hash, range, single;
 planner-inserted hash and range exchanges coalesce to
 ``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
 BroadcastExchange and the shuffled and broadcast hash joins (an inner
 join's residual condition filters the joined pairs on the device). An
 aggregate's or a sort's exchange child may coalesce its partitions at
-run time (``allow_aqe_coalesce``, adaptive execution); a join's
-children never do. Last,
+run time (``allow_aqe_coalesce``, adaptive execution), and so may a
+window's; a join's children never do. Last,
 under ``spark.rapids.sql.stageFusion.enabled`` (default true),
 ``fuse_stages`` collapses each filter/project chain, with the partial
 aggregate above it, into a ``TorchFusedStageExec``. Anything
@@ -38,6 +39,7 @@ from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
 from spark_rapids_tpu_torch.sql import types as T
+from spark_rapids_tpu_torch.sql.window_exec import CpuWindowExec
 
 # CPU sources that stay on the host; the rewrite uploads their output (a
 # file scan hands still-encoded Parquet pages to the upload, which
@@ -162,6 +164,20 @@ def _tag_aggregate(node, conf, device) -> Optional[str]:
     return None
 
 
+def _tag_expand(node, conf, device) -> Optional[str]:
+    for proj in node.projections:
+        r = _tag_exprs(proj, conf, device)
+        if r:
+            return r
+    return None
+
+
+def _tag_window(node, conf, device) -> Optional[str]:
+    from spark_rapids_tpu_torch.exec.window import is_device_window
+    return is_device_window(node.window_exprs, node.partition_spec,
+                            node.order_spec, conf, device)
+
+
 def _tag_join(node, conf, device) -> Optional[str]:
     from spark_rapids_tpu_torch.exec.join import is_device_join
     return is_device_join(node.join_type, node.left_keys, node.right_keys,
@@ -227,7 +243,7 @@ def _conv_exchange(node, kids, conf, device):
 
 
 def _allow_aqe_coalesce(kid):
-    """Aggregate and sort consumers take any partition count, so their
+    """Aggregate, sort and window consumers take any partition count, so their
     exchange child may coalesce small partitions at run time; a join's
     inputs must stay co-partitioned and never opt in."""
     from spark_rapids_tpu_torch.exec.exchange import \
@@ -248,6 +264,30 @@ def _conv_aggregate(node, kids, conf, device):
     return TorchHashAggregateExec(node.grouping, node.aggregates,
                                   node.mode, _allow_aqe_coalesce(kids[0]),
                                   node.slots, conf, device)
+
+
+def _conv_range(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchRangeExec
+    return TorchRangeExec(node.output, node.start, node.end, node.step,
+                          node.num_partitions, conf, device)
+
+
+def _conv_union(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchUnionExec
+    return TorchUnionExec(kids, node.output, conf, device)
+
+
+def _conv_expand(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.basic import TorchExpandExec
+    return TorchExpandExec(node.projections, node.output, kids[0], conf,
+                           device)
+
+
+def _conv_window(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.window import TorchWindowExec
+    return TorchWindowExec(node.window_exprs, node.partition_spec,
+                           node.order_spec, _allow_aqe_coalesce(kids[0]),
+                           conf, device)
 
 
 def _conv_local_limit(node, kids, conf, device):
@@ -301,6 +341,10 @@ _EXEC_RULES: Dict[Type, ExecRule] = {
         _tag_join, _conv_join("TorchShuffledHashJoinExec")),
     P.CpuBroadcastHashJoinExec: ExecRule(
         _tag_join, _conv_join("TorchBroadcastHashJoinExec")),
+    P.CpuRangeExec: ExecRule(_tag_none, _conv_range),
+    P.CpuUnionExec: ExecRule(_tag_none, _conv_union),
+    P.CpuExpandExec: ExecRule(_tag_expand, _conv_expand),
+    CpuWindowExec: ExecRule(_tag_window, _conv_window),
 }
 
 

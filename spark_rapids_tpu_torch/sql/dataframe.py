@@ -21,6 +21,13 @@ class Row(tuple):
         r._names = list(names)
         return r
 
+    @classmethod
+    def of(cls, names) -> type:
+        """A Row type whose rows all carry ``names``: each of its rows
+        costs one tuple (a collect builds one such type)."""
+        return type("Row", (cls,), {"_names": list(names),
+                                    "__new__": tuple.__new__})
+
     def __getattr__(self, name):
         try:
             return self[self._names.index(name)]
@@ -330,8 +337,8 @@ class DataFrame:
 
     def collect(self) -> List[Row]:
         batch = self._execute()
-        names = [f.name for f in batch.schema.fields]
-        return [Row(r, names) for r in batch.rows()]
+        return list(map(Row.of([f.name for f in batch.schema.fields]),
+                        batch.rows()))
 
     def count(self) -> int:
         return int(self._execute().num_rows)

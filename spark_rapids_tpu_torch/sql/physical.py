@@ -141,9 +141,65 @@ class CpuLocalScanExec(PhysicalPlan):
         return f"LocalScan [{n} rows x {len(self._output)} cols]"
 
 
+class CpuRangeExec(PhysicalPlan):
+    """``spark.range``: ``start + i * step`` for ``i`` in
+    ``[0, count)``, split into ``num_partitions`` contiguous runs. A
+    plan node only: the overrides convert it to ``TorchRangeExec``,
+    which generates the values on the device."""
+
+    def __init__(self, output: List[E.AttributeReference], start: int,
+                 end: int, step: int, num_partitions: int):
+        self.children = []
+        self._output = output
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = max(1, num_partitions)
+
+    @property
+    def output(self):
+        return self._output
+
+    def simple_string(self):
+        return f"Range ({self.start}, {self.end}, step={self.step})"
+
+
 # ---------------------------------------------------------------------------
 # Plan-only CPU operators (converted by the overrides)
 # ---------------------------------------------------------------------------
+
+class CpuUnionExec(PhysicalPlan):
+    """UNION ALL: every child's partitions, in child order, under this
+    node's output attributes."""
+
+    def __init__(self, children: List[PhysicalPlan],
+                 output: List[E.AttributeReference]):
+        self.children = list(children)
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def simple_string(self):
+        return "Union"
+
+
+class CpuExpandExec(_UnaryPlan):
+    """Grouping-sets expansion (rollup, cube): each input row once per
+    projection, the projections sharing this node's output."""
+
+    def __init__(self, projections: List[List[E.Expression]],
+                 output: List[E.AttributeReference], child: PhysicalPlan):
+        self.children = [child]
+        self.projections = projections
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def simple_string(self):
+        return f"Expand [{len(self.projections)} sets]"
+
 
 class CpuProjectExec(_UnaryPlan):
     def __init__(self, project_list: List[E.Expression], child: PhysicalPlan):

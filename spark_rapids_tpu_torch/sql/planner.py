@@ -12,6 +12,9 @@ Planning decisions mirrored from Spark:
   most ``autoBroadcastJoinThreshold``.
 - Global sort inserts a range-partitioning exchange; a limit plans as
   local limit -> single-partition exchange -> global limit.
+- A window gets a hash exchange on its partition spec (a
+  single-partition exchange when the spec is empty); range, union and
+  expand plan one to one.
 
 Only the logical nodes of the ported slice are planned; every other node
 raises ``NotImplementedError`` naming it.
@@ -96,6 +99,10 @@ class Planner:
         return CpuFileScanExec(p.output, p.fmt, p.paths, p.options,
                                self.conf)
 
+    def _plan_range(self, p: L.Range) -> P.PhysicalPlan:
+        return P.CpuRangeExec(p.output, p.start, p.end, p.step,
+                              p.num_partitions)
+
     # -- simple unary ------------------------------------------------------
     def _plan_project(self, p: L.Project) -> P.PhysicalPlan:
         return P.CpuProjectExec(p.project_list, self.plan(p.child))
@@ -108,6 +115,9 @@ class Planner:
             if preds:
                 child.set_pushdown(preds)
         return P.CpuFilterExec(p.condition, child)
+
+    def _plan_union(self, p: L.Union) -> P.PhysicalPlan:
+        return P.CpuUnionExec([self.plan(c) for c in p.children], p.output)
 
     def _plan_limit(self, p: L.Limit) -> P.PhysicalPlan:
         child = self.plan(p.child)
@@ -131,6 +141,21 @@ class Planner:
             part = P.RoundRobinPartitioning(p.num_partitions)
         part.user_specified = True
         return P.CpuShuffleExchangeExec(part, child)
+
+    def _plan_expand(self, p: L.Expand) -> P.PhysicalPlan:
+        return P.CpuExpandExec(p.projections, p.output, self.plan(p.child))
+
+    def _plan_window(self, p: L.Window) -> P.PhysicalPlan:
+        from spark_rapids_tpu_torch.sql.window_exec import CpuWindowExec
+        child = self.plan(p.child)
+        if p.partition_spec:
+            child = P.CpuShuffleExchangeExec(
+                P.HashPartitioning(p.partition_spec,
+                                   self.shuffle_partitions), child)
+        else:
+            child = P.CpuShuffleExchangeExec(P.SinglePartitioning(), child)
+        return CpuWindowExec(p.window_exprs, p.partition_spec, p.order_spec,
+                             child)
 
     # -- aggregate ---------------------------------------------------------
     def _plan_aggregate(self, p: L.Aggregate) -> P.PhysicalPlan:

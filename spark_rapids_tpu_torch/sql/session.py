@@ -1,8 +1,10 @@
 """TorchSparkSession: the SparkSession-shaped entry point of the port.
 
 The counterpart of ``spark_rapids_tpu.sql.session.TpuSparkSession``,
-trimmed to what the ported slices run: ``createDataFrame``,
-``read.parquet`` and temp views, ``sql``, and execution through the CPU
+trimmed to what the ported slices run: ``createDataFrame``, ``range``,
+``read.parquet`` and temp views, ``sql``, the ``builder``, ``active()``
+and ``stop()``, plan capture (``start_capture``,
+``get_captured_plans``), and execution through the CPU
 planner followed by the overrides rewrite onto torch device operators.
 The operators run under the spill store and the OOM retry protocol
 (``memory.py``, ``retry.py``); once a collect ends, or fails, every store
@@ -22,7 +24,8 @@ than silently running on the host.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Union
+import threading
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -66,6 +69,9 @@ class RuntimeConfApi:
 
 
 class TorchSparkSession:
+    _active: Optional["TorchSparkSession"] = None
+    _lock = threading.Lock()
+
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device: Union[None, str, torch.device] = None):
         self.conf_obj = TorchConf(conf)
@@ -73,7 +79,69 @@ class TorchSparkSession:
         self.conf = RuntimeConfApi(self.conf_obj)
         self.catalog_views: Dict[str, L.LogicalPlan] = {}
         self.last_plan = None  # the executed physical plan, for tests
+        self._plan_capture: List = []  # ExecutionPlanCaptureCallback twin
+        self._capture_enabled = False
         self._assert_kernel_flags()
+        # the previously active session is remembered, not clobbered:
+        # stop() restores it
+        self._stopped = False
+        with TorchSparkSession._lock:
+            self._prev_active = TorchSparkSession._active
+            TorchSparkSession._active = self
+
+    class Builder:
+        """``TorchSparkSession.builder.config(k, v).getOrCreate()``; the
+        app name and master are accepted and ignored, as in the JAX
+        package. ``getOrCreate`` resolves the device as the constructor
+        does (the card, raising without one); its ``device`` argument
+        gives the CPU to the tests."""
+
+        def __init__(self):
+            self._conf: Dict[str, Any] = {}
+
+        def config(self, key: str, value: Any) -> "TorchSparkSession.Builder":
+            self._conf[key] = value
+            return self
+
+        def appName(self, name: str) -> "TorchSparkSession.Builder":
+            return self
+
+        def master(self, m: str) -> "TorchSparkSession.Builder":
+            return self
+
+        def getOrCreate(self, device: Union[None, str, torch.device] = None
+                        ) -> "TorchSparkSession":
+            return TorchSparkSession(self._conf, device=device)
+
+    builder = None  # set below
+
+    @staticmethod
+    def active() -> "TorchSparkSession":
+        """The most recently created live session; a new one (on the
+        card) when there is none."""
+        if TorchSparkSession._active is None:
+            TorchSparkSession._active = TorchSparkSession()
+        return TorchSparkSession._active
+
+    def stop(self) -> None:
+        """Retire this session: ``active()`` returns the session that was
+        active before it (skipping any already stopped)."""
+        with TorchSparkSession._lock:
+            if TorchSparkSession._active is self:
+                prev = self._prev_active
+                while prev is not None and prev._stopped:
+                    prev = prev._prev_active
+                TorchSparkSession._active = prev
+            self._stopped = True
+
+    # -- plan capture (ExecutionPlanCaptureCallback) -------------------------
+    def start_capture(self) -> None:
+        self._plan_capture.clear()
+        self._capture_enabled = True
+
+    def get_captured_plans(self) -> List:
+        self._capture_enabled = False
+        return list(self._plan_capture)
 
     # -- data sources ------------------------------------------------------
     def createDataFrame(self, data, schema=None,
@@ -89,6 +157,14 @@ class TorchSparkSession:
                        if batch.slice(i * per, (i + 1) * per).num_rows > 0]
         rel = L.LocalRelation(batch.schema, batches, len(batches))
         return DataFrame(rel, self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              numPartitions: int = 2) -> DataFrame:
+        """``spark.range``: one long column ``id``, generated on the
+        device."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(L.Range(start, end, step, numPartitions), self)
 
     @property
     def read(self):
@@ -109,7 +185,10 @@ class TorchSparkSession:
         from spark_rapids_tpu_torch.overrides import apply_overrides
         self._assert_kernel_flags()
         physical = Planner(self.conf_obj, session=self).plan(plan)
-        return apply_overrides(physical, self.conf_obj, self.device)
+        physical = apply_overrides(physical, self.conf_obj, self.device)
+        if self._capture_enabled:
+            self._plan_capture.append(physical)
+        return physical
 
     def _assert_kernel_flags(self) -> None:
         """Apply this session's process-wide kernel flags before planning
@@ -146,6 +225,14 @@ class TorchSparkSession:
         if physical is None:
             physical = self.plan_physical(plan)
         return f"== Logical ==\n{plan!r}\n== Physical ==\n{physical!r}"
+
+
+class _BuilderFactory:
+    def __get__(self, obj, objtype=None):
+        return TorchSparkSession.Builder()
+
+
+TorchSparkSession.builder = _BuilderFactory()
 
 
 def _infer_batch(data, schema) -> HostBatch:

@@ -251,6 +251,10 @@ def test_shuffled_and_chunked_joins_identical_to_jax_package(jt, conf):
                     if type(p).__name__ == "TorchShuffledHashJoinExec")
         parts = join.device_partitions()
         assert sum(len(list(t())) for t in parts) > 2 * len(parts)
+        # the rerun materialized the exchanges again: release their
+        # store handles, as a collect does, so none outlives the test
+        from spark_rapids_tpu_torch.memory import release_plan_handles
+        release_plan_handles(plan)
 
 
 @pytest.mark.parametrize("null_safe", [False, True])

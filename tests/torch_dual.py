@@ -132,6 +132,8 @@ def _port_globals(module) -> dict:
 
     g = dict(vars(module))
     g.update(F=PF, E=PE, T=PT, Column=PF.Column, gen_batch=gen_batch)
+    if "Window" in g:
+        g["Window"] = PF.Window
     for name, v in list(g.items()):
         if isinstance(v, pytypes.FunctionType) and \
                 v.__module__ == module.__name__:
@@ -144,9 +146,12 @@ def _rebind(fn: pytypes.FunctionType, g: dict) -> pytypes.FunctionType:
                                 fn.__defaults__, fn.__closure__)
 
 
-def _port_arg(v):
+def _port_arg(v, g: Optional[dict] = None):
     if isinstance(v, JT.DataType):
         return port_type(v)
+    if g is not None and isinstance(v, pytypes.FunctionType) and \
+            v.__module__ == g.get("__name__"):
+        return _rebind(v, g)  # a case's lambda, over the port's modules
     if callable(v) and getattr(v, "__module__", "") == \
             "spark_rapids_tpu.sql.functions":
         return getattr(PF, v.__name__)
@@ -182,8 +187,8 @@ def run_case(module, test_name: str, *args) -> List[tuple]:
                 v.__module__ == module.__name__:
             jg[name] = _rebind(v, jg)
     _run_with(jg, jax_rec, test_name, args)
-    _run_with(_port_globals(module), port_rec, test_name,
-              [_port_arg(a) for a in args])
+    pg = _port_globals(module)
+    _run_with(pg, port_rec, test_name, [_port_arg(a, pg) for a in args])
     compare(jax_rec.results, port_rec.results)
     return port_rec
 
@@ -210,3 +215,56 @@ def rows_close(want, got, approx: bool = False) -> None:
         assert len(wr) == len(gr)
         for a, b in zip(wr, gr):
             assert values_equal(a, b, approx), (wr, gr)
+
+
+def run_expr_case(module, test_name: str, *args) -> None:
+    """Run one of the JAX package's expression-level cases (a test that
+    hands each expression and a host batch to the module's
+    ``_assert_expr_matches``) through both packages' sessions: each
+    expression is selected over the batch on the JAX package's device
+    path and on the port (``device="cpu"``), and the rows must agree
+    exactly, or within rel_tol=1e-12 for the module's ``APPROX_EXPRS``."""
+    from spark_rapids_tpu.sql import functions as JF
+    results = {False: [], True: []}
+
+    def recorder(port: bool):
+        def mk_batch(data, schema):
+            return data, schema
+
+        def matches(expr, hb):
+            data, schema = hb
+            approx = isinstance(expr, tuple(
+                getattr(module, "APPROX_EXPRS", ()) or ()))
+            if port:
+                s = TorchSparkSession({}, device="cpu")
+                col = PF.Column(expr)
+            else:
+                s = TpuSparkSession({"spark.rapids.sql.enabled": "true"})
+                col = JF.Column(expr)
+            try:
+                rows = _rows(s.createDataFrame(data, schema).select(
+                    col.alias("r"))._execute().to_pydict())
+            finally:
+                if not port:
+                    s.stop()
+            results[port].append((repr(expr), rows, approx))
+        return mk_batch, matches
+
+    jg = dict(vars(module))
+    for name, v in list(jg.items()):
+        if isinstance(v, pytypes.FunctionType) and \
+                v.__module__ == module.__name__:
+            jg[name] = _rebind(v, jg)
+    pg = _port_globals(module)
+    for port, g in ((False, jg), (True, pg)):
+        mk, matches = recorder(port)
+        g.update(_mk_batch=mk, _assert_expr_matches=matches)
+        g[test_name](*[_port_arg(a, pg) if port else a for a in args])
+    want, got = results[False], results[True]
+    assert len(want) == len(got) and want, (len(want), len(got))
+    for (we, wrows, approx), (_ge, grows, _a) in zip(want, got):
+        assert len(wrows) == len(grows), we
+        for wr, gr in zip(wrows, grows):
+            for a, b in zip(wr, gr):
+                assert values_equal(a, b, approx), (
+                    f"{we}: JAX={a!r} port={b!r}")
