@@ -5,8 +5,9 @@ q3 (both forms) through ``TorchSparkSession`` from memory, a user
 repartition, then q1 and q3 from Parquet, TPC-H q12 and q1's double
 form, an expression battery, TPC-H q19 and q12 in its optimizer form
 and a skewed join, TPC-DS q98, q51's store half and a q86-shaped rollup
-over windows, a union and a range, and check the rows against exact
-references, then
+over windows, a union and a range, the Yahoo Streaming Benchmark's
+windowed count and Stack Overflow tag queries over nested columns, and
+check the rows against exact references, then
 time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
@@ -146,6 +147,24 @@ absent or any phase fails. Output, one line per phase:
      joins and groupbyHash at the rollup's and the range's first partial
      batch (``windows_kernel_shapes``), exact against their plain
      versions, timed beside their bounds;
+  16. nested device columns (``nested_phases``): the Yahoo Streaming
+     Benchmark's windowed campaign count (``ysb_tables``: 6,000,000
+     events over 600 s, 1,000 ads of 100 campaigns, seed 20260737;
+     ``YSB_SQL``: a ``window(event_time, '10 seconds')`` struct group
+     key on the sort path after the broadcast ad join, joinProbe) from
+     memory, from Parquet and at ``shuffle.devicePartitions`` 8 (the
+     exchange hashes the struct key through murmur3), and three Stack
+     Overflow tag queries (``tags_tables``: 2,000,000 questions, 1-5
+     of 65,000 Zipf-popular tags each, seed 20260738; ``TAGS_SQL``:
+     explode, array_contains, element_at, size, groupbyHash on the tag
+     with its overflow re-runs) from memory and from Parquet (the array
+     column host-decoded, counted in ``deviceFallbackColumns``). Each
+     leg exact against its numpy reference, the plan all ``Torch*``,
+     each kernel's launches, the wall (one warm run, median of three),
+     the idle share of one profiled warm run; then joinProbe at the ad
+     join, murmur3 on the struct key and groupbyHash on a tags batch
+     (``nested_kernel_shapes``), exact against their plain versions,
+     timed beside their bounds;
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -155,13 +174,14 @@ absent or any phase fails. Output, one line per phase:
   (``fusion_only``); with ``--exprs``, only the build and phase 13
   (``exprs_only``); with ``--joins``, only the build and phase 14
   (``joins_only``); with ``--windows``, only the build and phase 15
-  (``windows_only``);
+  (``windows_only``); with ``--nested``, only the build and phase 16
+  (``nested_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's and phase 15's legs, and those phases' shapes among
+  and on phase 14's, 15's and 16's legs, and those phases' shapes among
   its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -171,6 +191,7 @@ from __future__ import annotations
 import contextlib
 import decimal
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -1173,7 +1194,7 @@ def lane_count(t, rows: int) -> int:
 
 
 def groupby_case(ins, slots: int, reps: int = 20,
-                 overflow_ok: bool = False) -> dict:
+                 overflow_ok: bool = False, ref_slots: int = 0) -> dict:
     """groupbyHash against its plain version on ``ins`` (exact, no
     overflow in either), then its device time beside its byte bound: the
     inputs read once and the ``slots``-row tables written once.
@@ -1183,7 +1204,8 @@ def groupby_case(ins, slots: int, reps: int = 20,
     sort-based partial aggregate: the flags are reported, and a table
     the kernel completed is held exactly against the plain version's at
     the least doubled table size at which the plain version completes
-    (a group's lanes do not depend on its slot)."""
+    (a group's lanes do not depend on its slot), doubling from
+    ``ref_slots`` where given."""
     import torch
     from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     k_out = KG.groupby_table(*ins, slots)
@@ -1193,7 +1215,9 @@ def groupby_case(ins, slots: int, reps: int = 20,
     if (k_ovf or p_ovf) and not overflow_ok:
         raise AssertionError(f"groupbyHash overflowed: kernel {k_ovf}, "
                              f"plain {p_ovf}")
-    ref_slots = slots
+    if p_ovf and ref_slots > slots:
+        p_out = KG.groupby_table_plain(*ins, ref_slots)
+    ref_slots = max(slots, ref_slots) if p_ovf else slots
     while int(p_out[4].item()):
         ref_slots *= 2
         p_out = KG.groupby_table_plain(*ins, ref_slots)
@@ -3605,6 +3629,7 @@ def partial_groupby_cases(spark, plan, what: str) -> dict:
     sizes), exact against the plain version; a batch that overflows the
     table (the path re-ran it sorted) is held again at a table size that
     holds it."""
+    import torch
     from spark_rapids_tpu_torch import kernels as KR
     from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
     from spark_rapids_tpu_torch.kernels import groupby_hash as KG
@@ -3619,7 +3644,12 @@ def partial_groupby_cases(spark, plan, what: str) -> dict:
             active)
         ins = (kw, h, active, add, mn, mx)
         slots = KR.table_slots(spark.conf_obj, b.capacity)
-        case = groupby_case(ins, slots, overflow_ok=True)
+        # the plain reference's table: twice the batch's distinct keys
+        groups = int(torch.unique(kw[active], dim=0).shape[0])
+        ref = 64
+        while ref < 2 * groups:
+            ref <<= 1
+        case = groupby_case(ins, slots, overflow_ok=True, ref_slots=ref)
         cases[f"{what}_partial"] = case
         if case["overflow"]["kernel"]:
             fit = case["overflow"]["plain_complete_at_slots"]
@@ -4230,51 +4260,58 @@ def windows_leg(spark, card: str, what: str, make_df, check,
         "top_device_us": prof["top_device_us"]}}
 
 
-def q98_join_probe_cases(spark, df) -> dict:
-    """joinProbe at leg a's two joins (item's and date_dim's pushed
-    build sides against the first store_sales batch), exact against the
-    plain version, timed beside its byte bound."""
+def join_probe_case(j, what: str) -> dict:
+    """joinProbe at one broadcast join's shape: its build side against
+    its first stream batch, exact against the plain version, timed beside
+    its byte bound."""
     import torch
-    from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
     from spark_rapids_tpu_torch.kernels import join_probe as KJ
-    from spark_rapids_tpu_torch.memory import release_plan_handles
     from spark_rapids_tpu_torch.ops import join as J
+    lk, rk = j._bound_keys()
+    right = first_batch(j.right.device_partitions(), f"{what} build")
+    left = first_batch(j.left.device_partitions(), f"{what} stream")
+    ins = J.probe_inputs(lk, rk, j.null_safe, left, right)
+    km, kf = KJ.build_probe(*ins)
+    pm, pf = KJ.build_probe_plain(*ins)
+    torch.cuda.synchronize()
+    err = max(int((km.long() - pm.long()).abs().max()),
+              int((kf.long() - pf.long()).abs().max()))
+    if err != 0:
+        raise AssertionError(f"joinProbe != plain on {what}")
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + ins[2].shape[0] * 5
+    return {"rows": int(ins[2].shape[0]), "build_cap": int(ins[0].shape[0]),
+            "build_valid": int(ins[1].sum()),
+            "key_words": int(ins[0].shape[1]),
+            "stream_valid": int(ins[3].sum()), "matched": int(km.sum()),
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: KJ.build_probe(*ins), 50),
+            "plain_ms": wall_ms(lambda: KJ.build_probe_plain(*ins), 5),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "cuda_launches": device_kernels(
+                lambda: KJ.build_probe(*ins))["launches"]}
+
+
+def broadcast_joins(spark, df, what: str) -> dict:
+    """``join_probe_case`` at every broadcast join of a fresh plan of
+    ``df``, keyed by ``what(join)``."""
+    from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
+    from spark_rapids_tpu_torch.memory import release_plan_handles
     plan = spark.plan_physical(df.plan)
-    cases = {}
     try:
-        for j in plan_nodes_of(plan):
-            if not isinstance(j, TorchBroadcastHashJoinExec):
-                continue
-            lk, rk = j._bound_keys()
-            right = first_batch(j.right.device_partitions(), "q98 build")
-            left = first_batch(j.left.device_partitions(), "q98 stream")
-            which = ("date_dim" if "d_date_sk" in
-                     [a.name for a in j.right.output] else "item")
-            ins = J.probe_inputs(lk, rk, j.null_safe, left, right)
-            km, kf = KJ.build_probe(*ins)
-            pm, pf = KJ.build_probe_plain(*ins)
-            torch.cuda.synchronize()
-            err = max(int((km.long() - pm.long()).abs().max()),
-                      int((kf.long() - pf.long()).abs().max()))
-            if err != 0:
-                raise AssertionError(f"joinProbe != plain on q98 {which}")
-            nbytes = sum(t.numel() * t.element_size() for t in ins) \
-                + ins[2].shape[0] * 5
-            cases[f"q98_{which}"] = {
-                "rows": int(ins[2].shape[0]),
-                "build_cap": int(ins[0].shape[0]),
-                "build_valid": int(ins[1].sum()),
-                "stream_valid": int(ins[3].sum()),
-                "matched": int(km.sum()), "max_abs_err": err,
-                "ms": cuda_ms(lambda ins=ins: KJ.build_probe(*ins), 50),
-                "plain_ms": wall_ms(
-                    lambda ins=ins: KJ.build_probe_plain(*ins), 5),
-                "bytes": nbytes,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "cuda_launches": device_kernels(
-                    lambda ins=ins: KJ.build_probe(*ins))["launches"]}
+        return {what(j): join_probe_case(j, what(j))
+                for j in plan_nodes_of(plan)
+                if isinstance(j, TorchBroadcastHashJoinExec)}
     finally:
         release_plan_handles(plan)
+
+
+def q98_join_probe_cases(spark, df) -> dict:
+    """joinProbe at leg a's two joins (item's and date_dim's pushed
+    build sides against the first store_sales batch)."""
+    cases = broadcast_joins(
+        spark, df, lambda j: "q98_date_dim" if "d_date_sk" in
+        [a.name for a in j.right.output] else "q98_item")
     if set(cases) != {"q98_item", "q98_date_dim"}:
         raise AssertionError(f"q98 join shapes: {sorted(cases)}")
     return cases
@@ -4431,6 +4468,481 @@ def windows_phases(device, card: str) -> tuple:
         "TorchExpandExec", tolerance="exact")
     del pq
     phase("windows_kernel_shapes", card=card, tolerance="exact", **shapes)
+    return legs, shapes
+
+
+# -- phase 16: nested device columns ------------------------------------
+#
+# (a) The Yahoo Streaming Benchmark's windowed campaign count
+# (yahoo/streaming-benchmarks, data/src/setup/core.clj): 100 campaigns of
+# 10 ads, events {user_id, page_id, ad_id, ad_type, event_type,
+# event_time, ip_address} with UUID ids, the query in the form
+# Databricks ran it on Structured Streaming (views joined to the static
+# ad -> campaign table, counted per campaign and 10-second window). The
+# stream is bounded to 600 s of event time at 10,000 events/s.
+# (b) Stack Overflow tag analytics over posts(id, score, tags
+# array<string>) shaped like the data dump's question rows: 1-5 distinct
+# tags a question, 65,000 tag names with Zipf(1.0) popularity.
+
+YSB_SEED = 20260737
+YSB_EVENTS = 6_000_000
+YSB_CAMPAIGNS = 100
+YSB_ADS_PER_CAMPAIGN = 10
+YSB_SPAN_S = 600
+YSB_WINDOW_US = 10_000_000
+YSB_T0_US = 1_714_521_600_000_000  # 2024-05-01 00:00:00 UTC
+YSB_AD_TYPES = ("banner", "modal", "sponsored-search", "mail", "mobile")
+YSB_EVENT_TYPES = ("view", "click", "purchase")
+# the GROUP BY of a window expression repeated in the select list fails
+# in both packages' planners (ROADMAP C); the same query with the window
+# named in a subquery runs in both
+YSB_SQL = """
+SELECT campaign_id, w.start AS window_start, w.end AS window_end, views
+FROM (SELECT campaign_id, w, count(*) AS views
+      FROM (SELECT a.campaign_id, window(e.event_time, '10 seconds') AS w
+            FROM events e JOIN ads a ON e.ad_id = a.ad_id
+            WHERE e.event_type = 'view') v
+      GROUP BY campaign_id, w) g
+"""
+YSB_SHUFFLED = {"spark.rapids.sql.shuffle.devicePartitions": "8"}
+
+TAGS_SEED = 20260738
+TAGS_POSTS = 2_000_000
+TAGS_NAMES = 65_000
+TAGS_TOP = ("javascript", "python", "java", "c#", "php", "android", "html",
+            "jquery", "c++", "css")
+TAGS_PER_POST_P = (0.12, 0.24, 0.30, 0.20, 0.14)  # 1..5 tags, mean 3.0
+TAGS_SQL = {
+    "top": """
+SELECT tag, count(*) AS n FROM (SELECT explode(tags) AS tag FROM posts) t
+GROUP BY tag ORDER BY n DESC, tag LIMIT 10""",
+    "related": """
+SELECT tag, count(*) AS n FROM (SELECT explode(tags) AS tag FROM posts
+  WHERE array_contains(tags, 'python')) t
+WHERE tag <> 'python' GROUP BY tag ORDER BY n DESC, tag LIMIT 10""",
+    # element_at and size in a subquery: grouping by the expression
+    # itself fails in both packages' planners (ROADMAP C)
+    "primary": """
+SELECT primary_tag, count(*) AS questions, sum(n_tags) AS tag_uses
+FROM (SELECT element_at(tags, 1) AS primary_tag, size(tags) AS n_tags
+      FROM posts) p
+GROUP BY primary_tag ORDER BY questions DESC, primary_tag LIMIT 20""",
+}
+# each tag query without its ORDER BY and LIMIT: every group's row
+TAGS_ALL_SQL = {q: sql.split("ORDER BY")[0] for q, sql in TAGS_SQL.items()}
+
+
+def _uuids(rng, n: int) -> np.ndarray:
+    """``n`` random version-4 UUID strings (an object array of str)."""
+    raw = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    raw[:, 6] = (raw[:, 6] & 0x0F) | 0x40
+    raw[:, 8] = (raw[:, 8] & 0x3F) | 0x80
+    hexd = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+    nib = np.stack([raw >> 4, raw & 0x0F], axis=2).reshape(n, 32)
+    chars = hexd[nib]
+    out = np.full((n, 36), ord("-"), dtype=np.uint8)
+    for a, b, o in ((0, 8, 0), (8, 12, 9), (12, 16, 14), (16, 20, 19),
+                    (20, 32, 24)):
+        out[:, o:o + b - a] = chars[:, a:b]
+    return np.array([r.tobytes().decode("ascii") for r in out],
+                    dtype=object)
+
+
+def pooled_strings(pool: np.ndarray, idx: np.ndarray):
+    """A string column drawn from ``pool`` by ``idx``: the object array
+    (references into the pool) and its compact UTF-8 bytes and lengths
+    (``HostColumn.varbytes``), built with numpy."""
+    enc = [v.encode("utf-8") for v in pool]
+    plen = np.array([len(b) for b in enc], dtype=np.int32)
+    width = max(1, int(plen.max(initial=1)))
+    mat = np.zeros((len(pool), width), dtype=np.uint8)
+    for i, b in enumerate(enc):
+        mat[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+    lengths = plen[idx]
+    bts = mat[idx][np.arange(width) < lengths[:, None]]
+    return pool[idx], (bts, lengths)
+
+
+def ysb_tables(n_events: int = YSB_EVENTS, seed: int = YSB_SEED) -> dict:
+    """The YSB events and ads, as index arrays into their string pools:
+    {"pools": {...}, "events": {...}, "ads": {...}}."""
+    rng = np.random.default_rng(seed)
+    n_ads = YSB_CAMPAIGNS * YSB_ADS_PER_CAMPAIGN
+    pools = {"campaign": _uuids(rng, YSB_CAMPAIGNS),
+             "ad": _uuids(rng, n_ads), "user": _uuids(rng, 100),
+             "page": _uuids(rng, 100),
+             "ad_type": np.array(YSB_AD_TYPES, dtype=object),
+             "event_type": np.array(YSB_EVENT_TYPES, dtype=object),
+             "ip": np.array(["1.2.3.4"], dtype=object)}
+    ads = {"ad": np.arange(n_ads),
+           "campaign": np.repeat(np.arange(YSB_CAMPAIGNS),
+                                 YSB_ADS_PER_CAMPAIGN)}
+    events = {
+        "user": rng.integers(0, 100, n_events),
+        "page": rng.integers(0, 100, n_events),
+        "ad": rng.integers(0, n_ads, n_events),
+        "ad_type": rng.integers(0, len(YSB_AD_TYPES), n_events),
+        "event_type": rng.integers(0, len(YSB_EVENT_TYPES), n_events),
+        "event_time": YSB_T0_US + rng.integers(
+            0, YSB_SPAN_S * 1_000_000, n_events, dtype=np.int64),
+        "ip": np.zeros(n_events, dtype=np.int64)}
+    return {"pools": pools, "events": events, "ads": ads}
+
+
+def ysb_batches(tables) -> dict:
+    """The port's HostBatches of the YSB tables (strings with their
+    compact bytes, as Arrow would hand them over)."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    from spark_rapids_tpu_torch.sql import types as T
+    pools = tables["pools"]
+
+    def strings(pool, idx):
+        data, vb = pooled_strings(pools[pool], idx)
+        return HostColumn(T.StringT, data, np.ones(len(idx), bool), vb)
+
+    def batch(cols):
+        schema = T.StructType([T.StructField(n, c.dtype) for n, c in cols])
+        return HostBatch(schema, [c for _n, c in cols], len(cols[0][1]))
+    ev = tables["events"]
+    ts = HostColumn(T.TimestampT, ev["event_time"],
+                    np.ones(len(ev["event_time"]), bool))
+    events = batch([("user_id", strings("user", ev["user"])),
+                    ("page_id", strings("page", ev["page"])),
+                    ("ad_id", strings("ad", ev["ad"])),
+                    ("ad_type", strings("ad_type", ev["ad_type"])),
+                    ("event_type", strings("event_type",
+                                           ev["event_type"])),
+                    ("event_time", ts),
+                    ("ip_address", strings("ip", ev["ip"]))])
+    ads = batch([("ad_id", strings("ad", tables["ads"]["ad"])),
+                 ("campaign_id", strings("campaign",
+                                         tables["ads"]["campaign"]))])
+    return {"events": events, "ads": ads}
+
+
+def ysb_reference(tables) -> list:
+    """(campaign_id, window_start, window_end, views) of every campaign
+    and window, sorted, from the index arrays with numpy."""
+    import datetime
+    ev = tables["events"]
+    views = ev["event_type"] == YSB_EVENT_TYPES.index("view")
+    camp = tables["ads"]["campaign"][ev["ad"][views]]
+    ts = ev["event_time"][views]
+    start = ts - np.mod(ts, YSB_WINDOW_US)
+    key = camp.astype(np.int64) * (1 << 40) + (start // YSB_WINDOW_US)
+    uk, counts = np.unique(key, return_counts=True)
+    epoch = datetime.datetime(1970, 1, 1)
+    names = tables["pools"]["campaign"]
+    out = []
+    for k, c in zip(uk.tolist(), counts.tolist()):
+        w0 = (k & ((1 << 40) - 1)) * YSB_WINDOW_US
+        out.append((names[k >> 40],
+                    epoch + datetime.timedelta(microseconds=w0),
+                    epoch + datetime.timedelta(
+                        microseconds=w0 + YSB_WINDOW_US), c))
+    return sorted(out)
+
+
+def _tag_names(rng, n: int = TAGS_NAMES) -> np.ndarray:
+    """``n`` distinct tag names in popularity rank order: the ten
+    busiest of Stack Overflow first, then a random lowercase stem and a
+    base-26 suffix unique to the rank (1-35 characters)."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    stems = rng.integers(0, 26, (n, 24))
+    stem_len = rng.integers(0, 20, n)
+    names = list(TAGS_TOP)
+    for i in range(len(TAGS_TOP), n):
+        k, suf = i, ""
+        while True:
+            suf = letters[k % 26] + suf
+            k //= 26
+            if k == 0:
+                break
+        stem = "".join(letters[c] for c in stems[i, :stem_len[i]])
+        names.append(f"{stem}-{suf}" if stem else suf)
+    return np.array(names, dtype=object)
+
+
+def tags_tables(n_posts: int = TAGS_POSTS, seed: int = TAGS_SEED) -> dict:
+    """posts as arrays: ``id``, ``score``, each question's tag ranks
+    (``lengths`` a row, ``ranks`` flat, in draw order: the first is the
+    primary tag) and the ``names`` pool. Each question draws 8 Zipf(1.0)
+    ranks and keeps its first 1-5 distinct ones."""
+    rng = np.random.default_rng(seed)
+    names = _tag_names(rng)
+    w = 1.0 / np.arange(1, len(names) + 1)
+    cdf = np.cumsum(w) / w.sum()
+    want = rng.choice(5, n_posts, p=TAGS_PER_POST_P) + 1
+    draws = 8
+    cand = np.minimum(np.searchsorted(cdf, rng.random((n_posts, draws))),
+                      len(names) - 1)
+    order = np.argsort(cand, axis=1, kind="stable")
+    srt = np.take_along_axis(cand, order, axis=1)
+    first_sorted = np.concatenate(
+        [np.ones((n_posts, 1), bool), srt[:, 1:] != srt[:, :-1]], axis=1)
+    first = np.zeros_like(first_sorted)
+    np.put_along_axis(first, order, first_sorted, axis=1)
+    take = first & (np.cumsum(first, axis=1) <= want[:, None])
+    return {"id": np.arange(1, n_posts + 1, dtype=np.int64),
+            "score": rng.integers(-5, 200, n_posts).astype(np.int32),
+            "lengths": take.sum(axis=1).astype(np.int32),
+            "ranks": cand[take], "names": names}
+
+
+def tags_batch(tables):
+    """The port's HostBatch of posts: the tags column in its compact
+    form (lengths and the element column with its bytes; the rows'
+    tuples are made when first read)."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    from spark_rapids_tpu_torch.interop import array_column
+    from spark_rapids_tpu_torch.sql import types as T
+    n = len(tables["id"])
+    ones = np.ones(n, bool)
+    edata, vb = pooled_strings(tables["names"], tables["ranks"])
+    tags = array_column(T.StringT, tables["lengths"], edata, varbytes=vb)
+    schema = T.StructType([T.StructField("id", T.LongT),
+                           T.StructField("score", T.IntegerT),
+                           T.StructField("tags", tags.dtype)])
+    return HostBatch(schema, [
+        HostColumn(T.LongT, tables["id"], ones),
+        HostColumn(T.IntegerT, tables["score"], ones), tags], n)
+
+
+def tags_reference(tables) -> dict:
+    """Each tag query's rows, from the rank arrays with numpy: under
+    ``q`` the rows of ``TAGS_SQL[q]``, under ``q + "_all"`` every
+    group's row (``TAGS_ALL_SQL[q]``), sorted."""
+    names = tables["names"]
+    lengths = tables["lengths"]
+    ranks = tables["ranks"]
+    row = np.repeat(np.arange(len(lengths)), lengths)
+    n_names = len(names)
+
+    def groups(counts, exclude=None):
+        return sorted((names[r], int(counts[r]))
+                      for r in np.flatnonzero(counts) if r != exclude)
+
+    def top(rows, k):
+        return sorted(rows, key=lambda r: (-r[1], r[0]))[:k]
+    py = TAGS_TOP.index("python")
+    with_py = np.zeros(len(lengths), bool)
+    with_py[row[ranks == py]] = True
+    firsts = ranks[np.cumsum(lengths) - lengths]
+    q = np.bincount(firsts, minlength=n_names)
+    uses = np.bincount(firsts, weights=lengths, minlength=n_names)
+    out = {"top_all": groups(np.bincount(ranks, minlength=n_names)),
+           "related_all": groups(np.bincount(ranks[with_py[row]],
+                                             minlength=n_names), py),
+           "primary_all": sorted((names[r], int(q[r]), int(uses[r]))
+                                 for r in np.flatnonzero(q))}
+    out["top"] = top(out["top_all"], 10)
+    out["related"] = top(out["related_all"], 10)
+    out["primary"] = top(out["primary_all"], 20)
+    return out
+
+
+NESTED_CONF = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+
+
+def partial_aggs(plan) -> list:
+    """Every partial aggregate of a plan, fused-stage sinks included."""
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    out = []
+    for p in plan_nodes_of(plan):
+        for n in [p] + list(getattr(p, "fused_ops", [])):
+            if isinstance(n, TorchHashAggregateExec) and \
+                    n.mode == "partial" and n not in out:
+                out.append(n)
+    return out
+
+
+def ysb_murmur3_case(spark, df) -> dict:
+    """murmur3 on the shuffled YSB leg's struct key: the first batch the
+    group-by's exchange hashes, ``(campaign_id, window)`` with the
+    window's fields as key columns (``ops.hashing.struct_key_fields``),
+    against the plain struct fold of ``hash_device_column``."""
+    import torch
+    from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.sql import physical as P
+    from spark_rapids_tpu_torch.sql import types as T
+    plan = spark.plan_physical(df.plan)
+    try:
+        (ex,) = [p for p in plan_nodes_of(plan)
+                 if isinstance(p, TorchShuffleExchangeExec)
+                 and isinstance(p.partitioning, P.HashPartitioning)
+                 and any(isinstance(e.data_type, T.StructType)
+                         for e in p.partitioning.exprs)]
+        part = ex.partitioning
+        b = first_batch(ex.child.device_partitions(), "ysb exchange")
+        cols = key_columns(P.bind_list(part.exprs, ex.child.output), b)
+        flat = H.struct_key_fields(cols)
+        case = murmur3_case(flat, b.capacity, part.num_partitions)
+        # the struct fold of the plain version, on the struct itself
+        want = torch.remainder(H.murmur3_columns(cols, b.capacity,
+                                                 42).long(),
+                               part.num_partitions).to(torch.int32)
+        got = H.partition_ids(cols, b.capacity, part.num_partitions)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"struct partition ids != fold: {err}")
+        case["struct_fold_max_abs_err"] = err
+        case["keys"] = [getattr(e, "name", repr(e)) for e in part.exprs]
+        return case
+    finally:
+        release_plan_handles(plan)
+
+
+def nested_phases(device, card: str) -> tuple:
+    """Phase 16: the YSB windowed campaign count and the Stack Overflow
+    tag queries over nested columns (see the module docstring), each leg
+    against its numpy reference; then joinProbe at the ad join, murmur3
+    on the struct key and groupbyHash on a tags batch. Returns each
+    leg's kernel launches and the shapes' cases."""
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    t0 = time.perf_counter()
+    ysb = ysb_tables()
+    yb = ysb_batches(ysb)
+    want_ysb = ysb_reference(ysb)
+    tags = tags_tables()
+    tb = tags_batch(tags)
+    want_tags = tags_reference(tags)
+    gen_s = time.perf_counter() - t0
+    legs, shapes = {}, {"groupbyHash": {}, "joinProbe": {}, "murmur3": {}}
+
+    def check_ysb(rows):
+        if sorted(rows) != want_ysb:
+            raise AssertionError(f"ysb: {len(rows)} rows, "
+                                 f"{sorted(rows)[:2]} != {want_ysb[:2]}")
+        return 0.0
+
+    def check_tags(q):
+        def check(rows):
+            if rows != want_tags[q]:
+                raise AssertionError(f"tags {q}: {rows[:3]} != "
+                                     f"{want_tags[q][:3]}")
+            return 0.0
+        return check
+
+    def all_groups(spark, q, leg):
+        """Every group of tag query ``q`` (one untimed collect of
+        ``TAGS_ALL_SQL[q]``), exact against the reference: the generated
+        names and the long tail that the LIMIT rows never reach."""
+        rows = sorted(tuple(r) for r in spark.sql(TAGS_ALL_SQL[q])
+                      .collect())
+        want = want_tags[q + "_all"]
+        if rows != want:
+            bad = next((g, w) for g, w in itertools.zip_longest(rows, want)
+                       if g != w)
+            raise AssertionError(f"{leg} all groups: {len(rows)} rows "
+                                 f"!= {len(want)}, first {bad}")
+        phase(f"{leg}_all_groups", card=card, tolerance="exact",
+              groups=len(rows), count_sum=sum(r[1] for r in rows))
+
+    def run(spark, leg, make_df, check, node, **extra):
+        out = windows_leg(spark, card, leg, make_df, check, node)
+        launches = out["out"]["launches"]
+        plan = spark.last_plan
+        m = plan_metrics(plan)
+        reruns = [a.overflow_reruns for a in partial_aggs(plan)]
+        if leg.endswith("parquet") and launches["decodeFused"] <= 0:
+            raise AssertionError(f"{leg}: no decodeFused: {launches}")
+        if leg.startswith("ysb") and launches["joinProbe"] <= 0:
+            raise AssertionError(f"{leg}: no joinProbe: {launches}")
+        if leg.startswith("ysb_shuffled") and launches["murmur3"] <= 0:
+            raise AssertionError(f"{leg}: no murmur3: {launches}")
+        if leg.startswith("tags") and launches["groupbyHash"] <= 0:
+            raise AssertionError(f"{leg}: no groupbyHash: {launches}")
+        upload = {k: v for k, v in r2c_metrics(plan).items()
+                  if k.endswith("Time") or k in ("numInputRows",
+                                                 "pinnedStreamCopies")}
+        scan = {k: v for k, v in m.items() if k.startswith("device")}
+        phase(leg, card=card, generate_s=gen_s,
+              groupby_overflow_reruns=reruns, upload=upload, scan=scan,
+              **extra, **{k: v for k, v in out["out"].items()
+                          if k != "window_dispatch_count"})
+        legs[leg] = launches
+        return out
+
+    def ysb_views(spark, dirs=None):
+        for name, b in yb.items():
+            parts = N_PARTITIONS if name == "events" else 1
+            if dirs is None:
+                spark.createDataFrame(b, num_partitions=parts) \
+                    .createOrReplaceTempView(name)
+            else:
+                spark.read.parquet(dirs[name]).createOrReplaceTempView(name)
+        return spark
+
+    def tags_views(spark, path=None):
+        if path is None:
+            spark.createDataFrame(tb, num_partitions=N_PARTITIONS) \
+                .createOrReplaceTempView("posts")
+        else:
+            spark.read.parquet(path).createOrReplaceTempView("posts")
+        return spark
+
+    mem = ysb_views(TorchSparkSession(dict(NESTED_CONF)))
+    run(mem, "ysb_memory", lambda: mem.sql(YSB_SQL), check_ysb,
+        "TorchBroadcastHashJoinExec", tolerance="exact",
+        rows_in={"events": YSB_EVENTS, "ads": len(ysb["ads"]["ad"])})
+    # the ad join: a 1,000-row build of 36-character UUID keys
+    shapes["joinProbe"].update(broadcast_joins(
+        mem, mem.sql(YSB_SQL), lambda j: "ysb_ad_join"))
+    del mem
+    shuf = ysb_views(TorchSparkSession(dict(NESTED_CONF, **YSB_SHUFFLED)))
+    run(shuf, "ysb_shuffled_memory", lambda: shuf.sql(YSB_SQL), check_ysb,
+        "TorchShuffleExchangeExec", tolerance="exact", conf=YSB_SHUFFLED)
+    shapes["murmur3"]["ysb_struct_key"] = ysb_murmur3_case(
+        shuf, shuf.sql(YSB_SQL))
+    del shuf
+    mem_t = tags_views(TorchSparkSession(dict(NESTED_CONF)))
+    for q in TAGS_SQL:
+        run(mem_t, f"tags_{q}_memory", lambda q=q: mem_t.sql(TAGS_SQL[q]),
+            check_tags(q), "TorchGenerateExec" if q != "primary"
+            else "TorchFusedStageExec", tolerance="exact",
+            rows_in=TAGS_POSTS, exploded=int(tags["lengths"].sum()))
+        all_groups(mem_t, q, f"tags_{q}_memory")
+    shapes["groupbyHash"].update(partial_groupby_cases(
+        mem_t, mem_t.plan_physical(mem_t.sql(TAGS_SQL["top"]).plan),
+        "tags_top"))
+    del mem_t
+
+    write_s = 0.0
+    dirs = {}
+    for name, b in yb.items():
+        parts = N_PARTITIONS if name == "events" else 1
+        dirs[name] = os.path.join(DATA_DIR, f"ysb_{name}")
+        write_s += write_once(
+            dirs[name], lambda d, b=b, parts=parts: TorchSparkSession(
+                dict(NESTED_CONF)).createDataFrame(b, num_partitions=parts)
+            .write.mode("overwrite").parquet(d),
+            data_key(seed=YSB_SEED, table=name, rows=b.num_rows,
+                     partitions=parts))
+    posts_dir = os.path.join(DATA_DIR, "so_posts")
+    write_s += write_once(
+        posts_dir, lambda d: TorchSparkSession(dict(NESTED_CONF))
+        .createDataFrame(tb, num_partitions=N_PARTITIONS)
+        .write.mode("overwrite").parquet(d),
+        data_key(seed=TAGS_SEED, table="posts", rows=tb.num_rows,
+                 partitions=N_PARTITIONS))
+    pq = ysb_views(TorchSparkSession(dict(NESTED_CONF)), dirs)
+    run(pq, "ysb_parquet", lambda: pq.sql(YSB_SQL), check_ysb,
+        "TorchBroadcastHashJoinExec", tolerance="exact", write_s=write_s)
+    del pq
+    pq_t = tags_views(TorchSparkSession(dict(NESTED_CONF)), posts_dir)
+    for q in TAGS_SQL:
+        out = run(pq_t, f"tags_{q}_parquet",
+                  lambda q=q: pq_t.sql(TAGS_SQL[q]), check_tags(q),
+                  "TorchGenerateExec" if q != "primary"
+                  else "TorchFusedStageExec", tolerance="exact")
+        del out
+        all_groups(pq_t, q, f"tags_{q}_parquet")
+    del pq_t
+    phase("nested_kernel_shapes", card=card, tolerance="exact", **shapes)
     return legs, shapes
 
 
@@ -4726,6 +5238,7 @@ def main() -> int:
     exprs_card_phase(device, card)
     joins, jshapes = joins_phases(device, card)
     windows, wshapes = windows_phases(device, card)
+    nested, nshapes = nested_phases(device, card)
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -4749,7 +5262,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in jshapes["groupbyHash"].values()]
                             + [c["max_abs_err"]
-                               for c in wshapes["groupbyHash"].values()]),
+                               for c in wshapes["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in nshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -4760,7 +5275,8 @@ def main() -> int:
                                    ("many_groups", gb_many))
                    + tuple(mem["groupbyHash"].items())
                    + tuple(jshapes["groupbyHash"].items())
-                   + tuple(wshapes["groupbyHash"].items())}},
+                   + tuple(wshapes["groupbyHash"].items())
+                   + tuple(nshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -4769,7 +5285,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in mem["murmur3"].values()]
                             + [c["max_abs_err"]
-                               for c in jshapes["murmur3"].values()]),
+                               for c in jshapes["murmur3"].values()]
+                            + [c["max_abs_err"]
+                               for c in nshapes["murmur3"].values()]),
          "ms": rp["case"]["ms"], "plain_ms": rp["case"]["plain_ms"],
          "bound_ms": rp["case"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -4792,20 +5310,25 @@ def main() -> int:
                    **{name: case_fields(c)
                       for name, c in mem["murmur3"].items()},
                    **{name: case_fields(c)
-                      for name, c in jshapes["murmur3"].items()}}},
+                      for name, c in jshapes["murmur3"].items()},
+                   **{name: case_fields(c)
+                      for name, c in nshapes["murmur3"].items()}}},
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
          "launches": jp["launches"],
          "max_abs_err": max([jp["max_abs_err"]]
                             + [c["max_abs_err"]
-                               for c in wshapes["joinProbe"].values()]),
+                               for c in wshapes["joinProbe"].values()]
+                            + [c["max_abs_err"]
+                               for c in nshapes["joinProbe"].values()]),
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "cases": dict(jp["cases"], **{
              name: {k: c[k] for k in ("rows", "ms", "plain_ms", "bound_ms")}
-             for name, c in wshapes["joinProbe"].items()})},
+             for name, c in list(wshapes["joinProbe"].items())
+             + list(nshapes["joinProbe"].items())})},
         {"name": "decodeFused", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
          "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",
@@ -4823,6 +5346,7 @@ def main() -> int:
         k["launches_joins"] = {leg: joins[leg][name] for leg in joins}
         k["launches_windows"] = {leg: windows[leg][name]
                                  for leg in windows}
+        k["launches_nested"] = {leg: nested[leg][name] for leg in nested}
     phase("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4971,6 +5495,21 @@ def windows_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def nested_only(card: str) -> None:
+    """``--nested``: the kernels' build and phase 16 (the YSB windowed
+    campaign count and the Stack Overflow tag queries)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    gate_protocol()
+    legs, _shapes = nested_phases(device, card)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -4987,7 +5526,8 @@ def fusion_only(card: str) -> None:
 
 if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
-                                       "--exprs", "--joins", "--windows")):
+                                       "--exprs", "--joins", "--windows",
+                                       "--nested")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5005,6 +5545,8 @@ if __name__ == "__main__":
             joins_only(card)
         elif "--windows" in sys.argv[1:]:
             windows_only(card)
+        elif "--nested" in sys.argv[1:]:
+            nested_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -9,6 +9,11 @@
 - A batch has a ``capacity`` bucketed like the JAX package's, and an
   ``active`` row mask: filters flip mask bits, compaction is explicit.
   Padding rows carry validity False and normalized zeros in every column.
+- An array column is per-row ``starts``/``lengths`` into an element pool
+  (a flat device column of its own capacity bucket); a struct column is
+  a column of field columns at the batch's capacity. Row gathers move an
+  array's starts and lengths, never its pool (``row_arrays``); a
+  concatenation appends the pools and re-bases the starts.
 
 The batch model is kept as it is in the JAX package so the operators port
 one to one; the static shapes it was built for cost nothing extra here.
@@ -125,16 +130,65 @@ class DeviceStringColumn:
         return (self.chars, self.lengths, self.validity)
 
 
+@dataclass
+class DeviceArrayColumn:
+    """Array column: per-row ``(start, length)`` views into a shared
+    element pool ``child`` (a device column of its own capacity, whose
+    validity marks null elements); ``validity`` marks null arrays. After
+    a row gather the starts may point anywhere in the pool: no
+    contiguity is assumed. A null array has start and length 0."""
+
+    dtype: T.ArrayType
+    starts: torch.Tensor   # int32[capacity]
+    lengths: torch.Tensor  # int32[capacity]
+    child: "AnyDeviceColumn"
+    validity: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.starts.shape[0]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        return (self.starts, self.lengths) + tuple(self.child.arrays()) \
+            + (self.validity,)
+
+
+@dataclass
+class DeviceStructColumn:
+    """Struct column as a column of columns: each field a device column
+    at the batch's capacity; ``validity`` marks null structs, whose
+    field slots are null and zeroed too."""
+
+    dtype: T.StructType
+    fields: List["AnyDeviceColumn"]
+    validity: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.validity.shape[0]
+
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        out: List[torch.Tensor] = []
+        for f in self.fields:
+            out.extend(f.arrays())
+        return tuple(out) + (self.validity,)
+
+
 AnyDeviceColumn = Union[DeviceColumn, DeviceStringColumn,
-                        DeviceDecimal128Column]
+                        DeviceDecimal128Column, DeviceArrayColumn,
+                        DeviceStructColumn]
 
 
 def column_arity(dtype: T.DataType) -> int:
     """Number of flat tensors a device column of `dtype` carries."""
-    if isinstance(dtype, (T.ArrayType, T.StructType, T.MapType)):
+    if isinstance(dtype, T.MapType):
         raise NotImplementedError(
-            f"nested device columns ({dtype.simple_string}) are not ported "
-            "yet to spark_rapids_tpu_torch")
+            f"map device columns ({dtype.simple_string}) are not "
+            "supported on TPU")
+    if isinstance(dtype, T.ArrayType):
+        return 3 + column_arity(dtype.element_type)
+    if isinstance(dtype, T.StructType):
+        return 1 + sum(column_arity(f.data_type) for f in dtype.fields)
     if is_string_like(dtype) or T.is_limb_decimal(dtype):
         return 3
     return 2
@@ -142,12 +196,69 @@ def column_arity(dtype: T.DataType) -> int:
 
 def make_column(dtype: T.DataType, arrs: Sequence[torch.Tensor]
                 ) -> AnyDeviceColumn:
+    if isinstance(dtype, T.ArrayType):
+        child = make_column(dtype.element_type, arrs[2:-1])
+        return DeviceArrayColumn(dtype, arrs[0], arrs[1], child, arrs[-1])
+    if isinstance(dtype, T.StructType):
+        fields, off = [], 0
+        for f in dtype.fields:
+            k = column_arity(f.data_type)
+            fields.append(make_column(f.data_type, arrs[off:off + k]))
+            off += k
+        return DeviceStructColumn(dtype, fields, arrs[off])
     column_arity(dtype)
     if is_string_like(dtype):
         return DeviceStringColumn(dtype, *arrs)
     if T.is_limb_decimal(dtype):
         return DeviceDecimal128Column(dtype, *arrs)
     return DeviceColumn(dtype, *arrs)
+
+
+def row_arrays(c: AnyDeviceColumn) -> List[torch.Tensor]:
+    """The column's tensors indexed by row: everything but an array's
+    element pool (its starts, lengths and validity stand for it)."""
+    if isinstance(c, DeviceArrayColumn):
+        return [c.starts, c.lengths, c.validity]
+    if isinstance(c, DeviceStructColumn):
+        out: List[torch.Tensor] = []
+        for f in c.fields:
+            out.extend(row_arrays(f))
+        return out + [c.validity]
+    return list(c.arrays())
+
+
+def _with_rows(c: AnyDeviceColumn, arrs: Sequence[torch.Tensor],
+               i: int) -> Tuple[AnyDeviceColumn, int]:
+    if isinstance(c, DeviceArrayColumn):
+        return DeviceArrayColumn(c.dtype, arrs[i], arrs[i + 1], c.child,
+                                 arrs[i + 2]), i + 3
+    if isinstance(c, DeviceStructColumn):
+        fields = []
+        for f in c.fields:
+            nf, i = _with_rows(f, arrs, i)
+            fields.append(nf)
+        return DeviceStructColumn(c.dtype, fields, arrs[i]), i + 1
+    k = len(c.arrays())
+    return make_column(c.dtype, arrs[i:i + k]), i + k
+
+
+def with_row_arrays(columns: Sequence[AnyDeviceColumn],
+                    arrs: Sequence[torch.Tensor]) -> List[AnyDeviceColumn]:
+    """Inverse of ``row_arrays`` over ``columns``: the same columns over
+    new row tensors (gathered, sliced or compacted), each array keeping
+    its element pool."""
+    out, i = [], 0
+    for c in columns:
+        nc, i = _with_rows(c, arrs, i)
+        out.append(nc)
+    return out
+
+
+def flatten_rows(columns: Sequence[AnyDeviceColumn]) -> List[torch.Tensor]:
+    flat: List[torch.Tensor] = []
+    for c in columns:
+        flat.extend(row_arrays(c))
+    return flat
 
 
 def flatten_columns(columns: Sequence[AnyDeviceColumn]
@@ -264,13 +375,15 @@ def start_to_host(batch: DeviceBatch, stream=None):
     ``stream``, after the current stream's work, ending in an event.
     Returns a token for ``finish_to_host``. On the CPU the arrays are
     already host memory."""
-    flat, spec = flatten_columns(batch.columns)
     if batch.device.type != "cuda":
+        flat, spec = flatten_columns(batch.columns)
         return (batch.schema, spec, [batch.active] + flat, None, None)
-    active, outs = compact_arrays(batch.active, flat)
-    arrays = [active] + outs
+    active, outs = compact_arrays(batch.active, flatten_rows(batch.columns))
     if batch._num_rows is not None:
-        arrays = [a[:batch._num_rows] for a in arrays]
+        active = active[:batch._num_rows]
+        outs = [a[:batch._num_rows] for a in outs]
+    flat, spec = flatten_columns(with_row_arrays(batch.columns, outs))
+    arrays = [active] + flat
     stream.wait_stream(torch.cuda.current_stream(batch.device))
     hosts = []
     with torch.cuda.stream(stream):
@@ -299,6 +412,13 @@ def finish_to_host(token) -> HostBatch:
 
 def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:
     validity = c.validity.cpu().numpy()[idx]
+    if isinstance(c, DeviceStructColumn):
+        from spark_rapids_tpu_torch.columnar.host import struct_storage_rows
+        fields = [_col_to_host(f, idx) for f in c.fields]
+        return HostColumn(c.dtype, struct_storage_rows(fields, validity),
+                          validity)
+    if isinstance(c, DeviceArrayColumn):
+        return _array_to_host(c, idx, validity)
     if isinstance(c, DeviceStringColumn):
         chars = c.chars.cpu().numpy()
         lengths = c.lengths.cpu().numpy()
@@ -320,9 +440,30 @@ def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:
                       validity).normalized()
 
 
+def _array_to_host(c: DeviceArrayColumn, idx: np.ndarray,
+                   validity: np.ndarray) -> HostColumn:
+    """An array column's rows ``idx`` as a host column in its compact
+    form (``HostColumn.elements``: the rows' lengths and their elements
+    in order, gathered from the pool)."""
+    pool = _col_to_host(c.child, np.arange(c.child.capacity))
+    starts = c.starts.cpu().numpy()[idx].astype(np.int64)
+    lengths = np.where(validity, c.lengths.cpu().numpy()[idx], 0) \
+        .astype(np.int64)
+    before = np.cumsum(lengths) - lengths
+    take = np.repeat(starts - before, lengths) + np.arange(lengths.sum())
+    return HostColumn(c.dtype, None, validity,
+                      elements=(lengths.astype(np.int32), pool.take(take)))
+
+
 def mask_col(c: AnyDeviceColumn, keep: torch.Tensor) -> AnyDeviceColumn:
     """Null out rows outside `keep` (normalized zeros underneath)."""
     v = c.validity & keep
+    if isinstance(c, DeviceStructColumn):
+        return DeviceStructColumn(c.dtype,
+                                  [mask_col(f, v) for f in c.fields], v)
+    if isinstance(c, DeviceArrayColumn):
+        return DeviceArrayColumn(c.dtype, torch.where(v, c.starts, 0),
+                                 torch.where(v, c.lengths, 0), c.child, v)
     if isinstance(c, DeviceStringColumn):
         return DeviceStringColumn(
             c.dtype, c.chars * v[:, None].to(c.chars.dtype),
@@ -374,8 +515,7 @@ def take_columns(columns: Sequence[AnyDeviceColumn], idx: torch.Tensor,
     null (callers clamp their indices into range first: unlike jnp.take,
     torch raises on out-of-range indices)."""
     from spark_rapids_tpu_torch.ops.lanes import fused_take
-    flat, spec = flatten_columns(columns)
-    out = rebuild_columns(spec, fused_take(flat, idx))
+    out = with_row_arrays(columns, fused_take(flatten_rows(columns), idx))
     if valid_at is not None:
         out = [mask_col(c, valid_at) for c in out]
     return out
@@ -405,16 +545,62 @@ def slice_compacted_to_bucket(batch: DeviceBatch) -> DeviceBatch:
     cap = bucket_capacity(max(1, n))
     if cap >= batch.capacity:
         return batch
-    flat, spec = flatten_columns(batch.columns)
-    return DeviceBatch(batch.schema,
-                       rebuild_columns(spec, [a[:cap] for a in flat]),
+    rows = [a[:cap] for a in flatten_rows(batch.columns)]
+    return DeviceBatch(batch.schema, with_row_arrays(batch.columns, rows),
                        batch.active[:cap], n)
+
+
+def _concat_flat(parts: Sequence[torch.Tensor], cap: int) -> torch.Tensor:
+    """Row tensors one after another, byte matrices padded to the widest,
+    then zero rows up to ``cap``."""
+    parts = list(parts)
+    if parts[0].dim() == 2:
+        w = max(p.shape[1] for p in parts)
+        parts = [torch.nn.functional.pad(p, (0, w - p.shape[1]))
+                 if p.shape[1] < w else p for p in parts]
+    rows = sum(p.shape[0] for p in parts)
+    if cap > rows:
+        parts.append(parts[0].new_zeros((cap - rows,)
+                                        + tuple(parts[0].shape[1:])))
+    return torch.cat(parts)
+
+
+def concat_columns(parts: Sequence[AnyDeviceColumn], cap: int
+                   ) -> AnyDeviceColumn:
+    """One column from several (all their rows, in order) at capacity
+    ``cap``. Arrays append their element pools whole, at the bucket of
+    the pools' total, and each part's starts shift by the pool
+    capacities before it."""
+    first = parts[0]
+    if isinstance(first, DeviceArrayColumn):
+        pool_caps = [p.child.capacity for p in parts]
+        child = concat_columns([p.child for p in parts],
+                               bucket_capacity(max(1, sum(pool_caps))))
+        starts, off = [], 0
+        for p, pc in zip(parts, pool_caps):
+            starts.append(torch.where(p.validity, p.starts + off, 0)
+                          .to(torch.int32))
+            off += pc
+        return DeviceArrayColumn(
+            first.dtype, _concat_flat(starts, cap),
+            _concat_flat([p.lengths for p in parts], cap), child,
+            _concat_flat([p.validity for p in parts], cap))
+    if isinstance(first, DeviceStructColumn):
+        fields = [concat_columns([p.fields[k] for p in parts], cap)
+                  for k in range(len(first.fields))]
+        return DeviceStructColumn(
+            first.dtype, fields,
+            _concat_flat([p.validity for p in parts], cap))
+    arrs = [_concat_flat([p.arrays()[k] for p in parts], cap)
+            for k in range(len(first.arrays()))]
+    return make_column(first.dtype, arrs)
 
 
 def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
     """Device Table.concatenate: compact all actives into one batch at
     the bucket of the total row count. String char matrices of differing
-    widths pad to the widest."""
+    widths pad to the widest; array pools are appended and their starts
+    re-based (``concat_columns``)."""
     assert batches
     if len(batches) == 1:
         return batches[0]
@@ -423,25 +609,9 @@ def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
     total = sum(counts)
     cap = bucket_capacity(max(1, total))
     dev = batches[0].device
-    flats = []
-    spec = None
-    for b in batches:
-        flat, spec = flatten_columns(b.columns)
-        idx = torch.nonzero(b.active).flatten()
-        flats.append([a[idx] for a in flat])
-    outs = []
-    for ai in range(len(flats[0])):
-        parts = [f[ai] for f in flats]
-        if parts[0].dim() == 2:
-            w = max(p.shape[1] for p in parts)
-            parts = [torch.nn.functional.pad(p, (0, w - p.shape[1]))
-                     if p.shape[1] < w else p for p in parts]
-        whole = torch.cat(parts)
-        pad = cap - whole.shape[0]
-        if pad:
-            whole = torch.cat([whole, torch.zeros(
-                (pad,) + tuple(whole.shape[1:]), dtype=whole.dtype,
-                device=dev)])
-        outs.append(whole)
+    compacted = [take_columns(b.columns, torch.nonzero(b.active).flatten())
+                 for b in batches]
+    cols = [concat_columns([cb[i] for cb in compacted], cap)
+            for i in range(len(schema.fields))]
     active = torch.arange(cap, device=dev) < total
-    return DeviceBatch(schema, rebuild_columns(spec, outs), active, total)
+    return DeviceBatch(schema, cols, active, total)

@@ -19,16 +19,23 @@ import numpy as np
 from spark_rapids_tpu_torch.sql import types as T
 
 
-@dataclass
+@dataclass(init=False)
 class HostColumn:
     """One column: `data` (numpy array) + `validity` (bool array).
 
     Invalid slots hold an arbitrary-but-deterministic value (0 / "" / None)
     so vectorized ops never see garbage.
+
+    An array column holds its rows in one form or both: ``data``, an
+    object array of storage tuples, and ``elements``, the compact form.
+    One built from the compact form alone (an Arrow list column, a numpy
+    generator, a download) stores ``_data`` as None, and reading ``data``
+    then makes the tuples, one row at a time, and keeps them; the upload
+    stages from the compact form and never reads them.
     """
 
     dtype: T.DataType
-    data: np.ndarray
+    _data: Optional[np.ndarray]
     validity: np.ndarray  # bool, True = valid
     # Optional compact representation for string/binary columns decoded
     # from Arrow: (utf8_bytes uint8[total], lengths int32[n]) where row
@@ -38,13 +45,35 @@ class HostColumn:
     # GpuParquetScanBase.scala:82) instead of re-encoding the object
     # array; pure optimization — every consumer falls back to ``data``.
     varbytes: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    # Optional compact representation of an array column:
+    # (lengths int32[n], element column) where row i's elements are the
+    # next lengths[i] entries of the element column and a null row has
+    # length 0. ``array_elements`` derives and keeps it from ``data``
+    # when the column was built without it.
+    elements: Optional[Tuple[np.ndarray, "HostColumn"]] = None
 
-    def __post_init__(self):
-        assert len(self.data) == len(self.validity), (
-            f"{len(self.data)} != {len(self.validity)}")
+    def __init__(self, dtype: T.DataType, data: Optional[np.ndarray],
+                 validity: np.ndarray,
+                 varbytes: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                 elements: Optional[Tuple[np.ndarray, "HostColumn"]] = None):
+        self.dtype = dtype
+        self._data = data
+        self.validity = validity
+        self.varbytes = varbytes
+        self.elements = elements
+        assert len(self) == len(self.validity), (
+            f"{len(self)} != {len(self.validity)}")
+
+    @property
+    def data(self) -> np.ndarray:
+        if self._data is None:
+            self._data = _tuples_from_elements(self.elements, self.validity)
+        return self._data
 
     def __len__(self) -> int:
-        return len(self.data)
+        if self._data is None:
+            return len(self.elements[0])
+        return len(self._data)
 
     @property
     def null_count(self) -> int:
@@ -132,8 +161,23 @@ class HostColumn:
                           self.validity[indices])
 
     def slice(self, start: int, end: int) -> "HostColumn":
-        return HostColumn(self.dtype, self.data[start:end],
-                          self.validity[start:end])
+        """Rows [start, end), the compact forms (``varbytes``,
+        ``elements``) sliced with them (an array column built from its
+        compact form stays so)."""
+        varbytes = elements = None
+        if self.varbytes is not None:
+            bts, raw = self.varbytes
+            lo = int(raw[:start].sum())
+            hi = lo + int(raw[start:end].sum())
+            varbytes = (bts[lo:hi], raw[start:end])
+        if self.elements is not None:
+            lengths, child = self.elements
+            lo = int(lengths[:start].sum())
+            hi = lo + int(lengths[start:end].sum())
+            elements = (lengths[start:end], child.slice(lo, hi))
+        data = None if self._data is None else self._data[start:end]
+        return HostColumn(self.dtype, data, self.validity[start:end],
+                          varbytes, elements)
 
     @staticmethod
     def from_pylist(values: Sequence[Any], dtype: T.DataType) -> "HostColumn":
@@ -201,6 +245,51 @@ class HostColumn:
         else:
             out.data[inv] = _zero_for(self.dtype)
         return out
+
+
+def _tuples_from_elements(elements, validity: np.ndarray) -> np.ndarray:
+    """The storage-form tuples of an array column from its compact
+    form."""
+    lengths, child = elements
+    values = _storage_values(child)
+    out = np.empty(len(lengths), dtype=object)
+    off = 0
+    for i, (ln, ok) in enumerate(zip(lengths.tolist(),
+                                     validity.tolist())):
+        out[i] = tuple(values[off:off + ln]) if ok else ()
+        off += ln
+    return out
+
+
+def _storage_values(c: "HostColumn") -> List[Any]:
+    """A flat column's storage values as Python objects, None where
+    null (unscaled ints for limb decimals)."""
+    if T.is_limb_decimal(c.dtype):
+        from spark_rapids_tpu_torch.ops import int128 as I
+        ints = I.to_pyints(np.ascontiguousarray(c.data[:, 0]),
+                           np.ascontiguousarray(c.data[:, 1]))
+        vals = [int(v) for v in ints]
+    else:
+        vals = c.data.tolist()
+    return [v if ok else None for v, ok in zip(vals, c.validity.tolist())]
+
+
+def array_elements(c: "HostColumn") -> Tuple[np.ndarray, "HostColumn"]:
+    """An array column's compact form ``(lengths, element column)`` (see
+    ``HostColumn.elements``), derived from its tuples once and kept on
+    the column."""
+    if c.elements is None:
+        from spark_rapids_tpu_torch.columnar.transfer import \
+            _col_from_storage_values
+        import itertools
+        rows = c.data[np.flatnonzero(c.validity)]
+        lengths = np.zeros(len(c.data), dtype=np.int32)
+        lengths[c.validity] = np.fromiter(map(len, rows), dtype=np.int32,
+                                          count=len(rows))
+        elems = list(itertools.chain.from_iterable(rows))
+        c.elements = (lengths, _col_from_storage_values(
+            elems, c.dtype.element_type))
+    return c.elements
 
 
 def struct_field_values(c: "HostColumn", fi: int) -> List[Any]:
@@ -372,6 +461,16 @@ class HostBatch:
         schema = batches[0].schema
         cols = []
         for i, f in enumerate(schema.fields):
+            parts = [b.columns[i] for b in batches]
+            if all(c._data is None for c in parts):  # compact arrays
+                cols.append(HostColumn(
+                    f.data_type, None,
+                    np.concatenate([c.validity for c in parts]),
+                    elements=(np.concatenate([c.elements[0]
+                                              for c in parts]),
+                              _concat_children([c.elements[1]
+                                                for c in parts]))))
+                continue
             data = np.concatenate([b.columns[i].data for b in batches])
             val = np.concatenate([b.columns[i].validity for b in batches])
             vbs = [b.columns[i].varbytes for b in batches]
@@ -381,3 +480,10 @@ class HostBatch:
                       np.concatenate([v[1] for v in vbs]))
             cols.append(HostColumn(f.data_type, data, val, vb))
         return HostBatch(schema, cols, sum(b.num_rows for b in batches))
+
+
+def _concat_children(cols: Sequence[HostColumn]) -> HostColumn:
+    """Element columns one after another."""
+    schema = T.StructType([T.StructField("e", cols[0].dtype)])
+    return HostBatch.concat([HostBatch(schema, [c], len(c))
+                             for c in cols]).columns[0]

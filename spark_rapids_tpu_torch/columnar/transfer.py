@@ -15,8 +15,9 @@ byte for byte the JAX package's staging:
   char matrix of ``varbytes`` columns and pads to capacity on the device
   (PyTorch ops: the JAX package's XLA decode program, not a Pallas
   kernel);
-- ``direct``, a smaller batch (``_stage_direct``): every device array at
-  full capacity;
+- ``direct``, a smaller batch or one with nested columns
+  (``_stage_direct``): every device array at full capacity, an array
+  column's element pool at the bucket of its element count;
 - ``encoded``, a Parquet row group (``prepare_encoded_upload``): the
   still-encoded page words and plan tables, decoded on the device by the
   ``decodeFused`` kernel.
@@ -162,6 +163,26 @@ def _ascii_codepoints(data: np.ndarray, validity: np.ndarray, n: int
     chars[:, :w] = u32[:, :w].astype(np.uint8)
     lengths = np.where(validity, lengths, 0)
     chars[~validity] = 0
+    return chars, lengths
+
+
+def _chars_from_varbytes(varbytes, validity: np.ndarray
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """A column's compact UTF-8 bytes and raw lengths (``varbytes``) ->
+    the padded char matrix and lengths that ``_encode_strings`` makes of
+    the same strings: the width from the valid rows' longest, null rows
+    zeroed. One masked scatter, no per-string work."""
+    from spark_rapids_tpu_torch.columnar.device import bucket_char_cap
+    bts, raw = varbytes
+    raw = raw.astype(np.int64)
+    lengths = np.where(validity, raw, 0).astype(np.int32)
+    char_cap = bucket_char_cap(int(lengths.max(initial=1)))
+    if (raw[~validity] > 0).any():  # a null slot that owns bytes
+        bts = bts[:int(raw.sum())][np.repeat(validity, raw)]
+    chars = np.zeros((len(raw), char_cap), np.uint8)
+    # row-major order of the mask is the order of the bytes
+    chars[np.arange(char_cap) < lengths[:, None]] = \
+        bts[:int(lengths.sum())]
     return chars, lengths
 
 
@@ -466,7 +487,11 @@ def prepare_upload(batch, cap: int):
     if isinstance(batch, EncodedBatch):
         return prepare_encoded_upload(batch, cap)
     n = batch.num_rows
-    if n < PACKED_MIN_ROWS:
+    # nested columns stage directly, as in the JAX package: the packed
+    # codec has no layout for them
+    if n < PACKED_MIN_ROWS or any(
+            isinstance(f.data_type, (T.ArrayType, T.StructType))
+            for f in batch.schema.fields):
         return _stage_direct(batch, cap)
     pk, extras, layout = _pack(batch)
     return ("packed", batch.schema, n, cap, [_wire_words(pk)] + extras,
@@ -649,17 +674,46 @@ def _col_from_storage_values(vals, dt: T.DataType):
 
 
 def _stage_column(c, dt: T.DataType, cap: int) -> List[np.ndarray]:
-    """Full-width staging arrays of one flat host column, in its device
-    column's ``arrays()`` order (the JAX package's ``_stage_column`` for
-    the column types the port carries)."""
+    """Full-width staging arrays of one host column, in its device
+    column's ``arrays()`` order: the JAX package's ``_stage_column``
+    byte for byte. An array column stages from its compact form
+    (``host.array_elements``: lengths and the element column, in numpy)
+    where the JAX package loops over rows: starts are the running sum
+    of the lengths (0 at a null row), and the element pool stages at the
+    bucket of the element count."""
     from spark_rapids_tpu_torch.columnar import device as D
-    D.column_arity(dt)  # raises for nested types
+    from spark_rapids_tpu_torch.columnar import host as H
+    D.column_arity(dt)  # raises for map columns
     n = len(c)
     validity = np.zeros(cap, dtype=bool)
     validity[:n] = c.validity
+    if isinstance(dt, T.ArrayType):
+        lens, child = H.array_elements(c)
+        lens = lens.astype(np.int64)
+        total = int(lens.sum())
+        starts = np.zeros(cap, dtype=np.int32)
+        starts[:n] = np.where(c.validity, np.cumsum(lens) - lens, 0)
+        lengths = np.zeros(cap, dtype=np.int32)
+        lengths[:n] = lens
+        return [starts, lengths] + _stage_column(
+            child, dt.element_type, D.bucket_capacity(max(1, total))) + \
+            [validity]
+    if isinstance(dt, T.StructType):
+        parts: List[np.ndarray] = []
+        for fi, f in enumerate(dt.fields):
+            # field values are storage-form already (struct tuples hold
+            # storage ints)
+            parts.extend(_stage_column(
+                _col_from_storage_values(
+                    H.struct_field_values(c, fi)[:n], f.data_type),
+                f.data_type, cap))
+        return parts + [validity]
     if D.is_string_like(dt):
-        ch, ln = _encode_strings(c.data, c.validity, n,
-                                 isinstance(dt, T.BinaryType))
+        if c.varbytes is not None and n and len(c.varbytes[1]) == n:
+            ch, ln = _chars_from_varbytes(c.varbytes, c.validity)
+        else:
+            ch, ln = _encode_strings(c.data, c.validity, n,
+                                     isinstance(dt, T.BinaryType))
         char_cap = ch.shape[1] if n else 8
         chars = np.zeros((cap, char_cap), dtype=np.uint8)
         chars[:n] = ch

@@ -9,7 +9,8 @@ kernel; a
 batch whose hash table overflowed re-runs on the sort-based partial
 aggregate (``ops/groupby``), counted in ``overflow_reruns``. Everything
 else — the final merge, and partial aggregates the kernel does not take
-— is the sort-based path in plain PyTorch, as it is plain XLA in the JAX
+(a struct key, such as a time window, groups field-wise on it) — is the
+sort-based path in plain PyTorch, as it is plain XLA in the JAX
 package: float sums and averages through the segmented scan of
 ``ops/groupby``, first/last through its arg-min scan over row order,
 stddev/variance from (n, sum, sum of squares) buffers finished by
@@ -89,6 +90,13 @@ def is_device_agg(grouping, aggregates, conf=None,
     from spark_rapids_tpu_torch import device_caps as DC
     for g in grouping:
         dt = g.data_type
+        if isinstance(dt, T.StructType):
+            # flat-field structs group on the device (a time window):
+            # field-wise words, on the sort-based path
+            r = X.type_reason(dt, X.STRUCT)
+            if r:
+                return f"grouping key: {r}"
+            continue
         if isinstance(dt, (T.ArrayType, T.MapType)):
             return "nested grouping keys are not supported on TPU"
     for e in aggregates:

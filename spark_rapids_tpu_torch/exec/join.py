@@ -80,7 +80,7 @@ def is_device_join(join_type: str, left_keys: List[E.Expression],
         for e in (lk, rk):
             if isinstance(e.data_type, (T.ArrayType, T.MapType,
                                         T.StructType)):
-                return "nested join keys are not ported yet"
+                return "nested join keys are not supported on TPU"
             r = X.unsupported_reason(e, conf, device)
             if r:
                 return r

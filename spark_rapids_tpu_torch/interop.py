@@ -41,3 +41,31 @@ def host_batch_from_numpy(fields: Sequence[Tuple[str, T.DataType]],
         cols.append(HostColumn(dt, data, np.asarray(valid, dtype=bool))
                     .normalized())
     return HostBatch(schema, cols, n)
+
+
+def array_column(element_type: T.DataType, lengths: np.ndarray,
+                 values: np.ndarray,
+                 validity: Optional[np.ndarray] = None,
+                 value_validity: Optional[np.ndarray] = None,
+                 varbytes: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                 ) -> HostColumn:
+    """An ``array<element_type>`` host column from numpy: row i holds the
+    next ``lengths[i]`` entries of ``values`` (storage form, as
+    ``host_batch_from_numpy`` takes a flat column); a null row
+    (``validity`` False) must have length 0. ``varbytes`` are a string
+    element column's UTF-8 bytes and lengths, where the caller has them.
+    The rows' tuples are made only if something reads them."""
+    lengths = np.asarray(lengths, dtype=np.int32)
+    n = len(lengths)
+    validity = np.ones(n, bool) if validity is None else \
+        np.asarray(validity, dtype=bool)
+    if (lengths[~validity] != 0).any():
+        raise ValueError("a null array row must have length 0")
+    if int(lengths.sum()) != len(values):
+        raise ValueError(f"lengths sum to {int(lengths.sum())}, "
+                         f"not {len(values)} values")
+    ev = np.ones(len(values), bool) if value_validity is None else \
+        np.asarray(value_validity, dtype=bool)
+    child = HostColumn(element_type, np.asarray(values), ev, varbytes)
+    return HostColumn(T.ArrayType(element_type), None, validity,
+                      elements=(lengths, child))

@@ -181,18 +181,16 @@ def arrow_column_to_host(arr: pa.ChunkedArray | pa.Array,
             la = la.cast(pa.list_(la.type.value_type))
         offsets = np.asarray(la.offsets, dtype=np.int64)
         child = arrow_column_to_host(la.values, dt.element_type)
-        child_py = [None if not child.validity[i]
-                    else (child.data[i].item()
-                          if isinstance(child.data[i], np.generic)
-                          else child.data[i])
-                    for i in range(len(child.data))]
-        data = np.empty(n, dtype=object)
-        for i in range(n):
-            if validity[i]:
-                data[i] = tuple(child_py[offsets[i]:offsets[i + 1]])
-            else:
-                data[i] = ()
-        return HostColumn(dt, data, validity)
+        # the compact form: the valid rows' elements in order (a null
+        # row's slot, if Arrow gave it any elements, is skipped); the
+        # rows' tuples are made from it when first read
+        lengths = np.where(validity, np.diff(offsets), 0)
+        keep = np.repeat(validity, np.diff(offsets))
+        pool = (child.slice(int(offsets[0]), int(offsets[-1]))
+                if keep.all() else
+                child.take(np.flatnonzero(keep) + offsets[0]))
+        return HostColumn(dt, None, validity,
+                          elements=(lengths.astype(np.int32), pool))
     if np_dt == np.dtype(object):
         # to_numpy is ~70x faster than a to_pylist loop at SF1 scale
         data = arr.to_numpy(zero_copy_only=False)
@@ -234,29 +232,14 @@ def host_column_to_arrow(c: HostColumn) -> pa.Array:
                 for v, ok in zip(c.data.tolist(), c.validity.tolist())]
         return pa.array(vals, type=at)
     if isinstance(dt, T.ArrayType):
-        # elements are storage-form; build the child through the scalar
-        # path and assemble a ListArray from offsets
-        et = dt.element_type
-        offsets = np.zeros(len(c.data) + 1, dtype=np.int32)
-        elems: list = []
-        for i, (v, ok) in enumerate(zip(c.data.tolist(),
-                                        c.validity.tolist())):
-            if ok:
-                elems.extend(v)
-            offsets[i + 1] = len(elems)
-        ev = np.array([x is not None for x in elems], dtype=bool)
-        np_et = T.numpy_dtype(et)
-        if np_et == np.dtype(object):
-            ed = np.empty(len(elems), dtype=object)
-            for i, x in enumerate(elems):
-                ed[i] = x if x is not None else ""
-        else:
-            ed = np.array([0 if x is None else x for x in elems],
-                          dtype=np_et)
-        child = host_column_to_arrow(HostColumn(et, ed, ev))
-        mask = None if c.validity.all() else ~c.validity
+        # the compact form's element column through the scalar path,
+        # assembled into a ListArray from the offsets of its lengths
+        from spark_rapids_tpu_torch.columnar.host import array_elements
+        lengths, elems = array_elements(c)
+        offsets = np.zeros(len(lengths) + 1, dtype=np.int32)
+        np.cumsum(lengths, out=offsets[1:])
         return pa.ListArray.from_arrays(
-            pa.array(offsets, type=pa.int32()), child,
+            pa.array(offsets, type=pa.int32()), host_column_to_arrow(elems),
             mask=pa.array(mask) if mask is not None else None)
     if isinstance(dt, T.DecimalType):
         # limbs/int64 -> raw 16-byte decimal128 buffer, no per-row loop

@@ -6,9 +6,12 @@ here as plain PyTorch ops on the session's device: arithmetic (decimals
 under DecimalPrecision), comparisons, three-valued logic, conditionals,
 math, strings over the padded byte matrix, dates and times, bitwise ops,
 hashes, partition ids and the cast matrix (``ops/cast.py`` holds the
-string legs). The array, struct and collection handlers and
-``TimeWindow`` need nested device columns and are not ported yet. A
-subtree that references no column (``cast('1998-09-02' as date)``) is
+string legs), and over nested columns ``size``, ``element_at``,
+``getItem``, ``array_contains``, ``array(...)``, ``struct(...)``,
+``getField`` and the tumbling ``window(ts, ...)`` (a struct of start
+and end). An array column is a leaf only where one of the collection
+handlers reads it (``_ARRAY_ARG_OK``); a struct leaf needs flat fields.
+A subtree that references no column (``cast('1998-09-02' as date)``) is
 folded once on the host by the CPU expression evaluator and broadcast.
 
 Tagging (``unsupported_reason``) is the twin of the JAX package's
@@ -57,21 +60,14 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.device import (
-    AnyDeviceColumn, DeviceBatch, DeviceColumn, DeviceDecimal128Column,
-    DeviceStringColumn, bucket_char_cap, mask_col, torch_dtype)
+    AnyDeviceColumn, DeviceArrayColumn, DeviceBatch, DeviceColumn,
+    DeviceDecimal128Column, DeviceStringColumn, DeviceStructColumn,
+    bucket_char_cap, mask_col, take_columns, torch_dtype)
 from spark_rapids_tpu_torch.ops import cast as CK
 from spark_rapids_tpu_torch.ops import decimal_ops as D
 from spark_rapids_tpu_torch.ops import int128 as I
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import types as T
-
-# The JAX package's handlers this port leaves for a later slice: they
-# build or read nested device columns (arrays, structs), which the port's
-# columnar layer does not represent yet.
-NOT_PORTED = (E.Size, E.ElementAt, E.GetArrayItem, E.ArrayContains,
-              E.TimeWindow, E.CreateNamedStruct, E.GetStructField,
-              E.CreateArray)
-
 
 def expr_key(e: E.Expression, program: bool = False) -> Tuple:
     """Structural identity of an expression (ignores expr_ids and alias
@@ -104,6 +100,10 @@ def expr_key(e: E.Expression, program: bool = False) -> Tuple:
         parts.append(("has_else", e.has_else))
     elif isinstance(e, E.SortOrder):
         parts.append(("dir", e.ascending, e.nulls_first))
+    elif isinstance(e, E.TimeWindow):
+        parts.append(("window", e.window_us, e.start_us))
+    elif isinstance(e, E.GetStructField):
+        parts.append(("field", e.ordinal))
     parts.append(tuple(expr_key(c, program) for c in e.children))
     return tuple(parts)
 
@@ -287,17 +287,83 @@ def _type_support(dt: T.DataType) -> Optional[str]:
     if isinstance(dt, T.MapType):
         return "map is not supported"
     if isinstance(dt, T.StructType):
-        return "struct columns are not ported yet"
+        return "struct is not supported"
     return f"unknown type {dt!r} is not supported"
 
 
 def leaf_support(e: E.Expression) -> Optional[str]:
-    """Type check of an attribute or bound-reference leaf."""
-    r = _type_support(e.data_type)
+    """Type check of an attribute or bound-reference leaf: a struct
+    passes as a column of columns when every field is a flat device
+    type."""
+    dt = e.data_type
+    name = getattr(e, "name", repr(e))
+    if isinstance(dt, T.StructType):
+        for f in dt.fields:
+            r = _type_support(f.data_type)
+            if r:
+                return f"attribute {name}: struct field {f.name}: {r}"
+        return None
+    r = _type_support(dt)
     if r:
-        name = getattr(e, "name", repr(e))
         return f"attribute {name}: {r}"
     return None
+
+
+# expressions whose listed child ordinals may be ARRAY-typed attribute
+# references (the handler reads the element pool itself); arrays are
+# otherwise refused as expression leaves
+_ARRAY_ARG_OK: Dict[type, Tuple[int, ...]] = {
+    E.Size: (0,), E.ElementAt: (0,), E.GetArrayItem: (0,),
+    E.ArrayContains: (0,)}
+# expressions that read a nested child (the JAX rule table's
+# ``common_tpu_nested`` input signatures)
+_NESTED_INPUT_OK = (E.Size, E.ElementAt, E.GetArrayItem, E.ArrayContains,
+                    E.GetStructField, E.Alias)
+# expressions that produce a nested column
+_NESTED_OUTPUT_OK = (E.CreateArray, E.CreateNamedStruct, E.TimeWindow,
+                     E.Alias)
+
+
+def _array_leaf_ok(e: E.Expression) -> Optional[str]:
+    dt = e.data_type
+    if isinstance(dt.element_type, (T.ArrayType, T.MapType, T.StructType)):
+        return "nested-of-nested arrays run on CPU"
+    r = _type_support(dt.element_type)
+    if r:
+        return f"array element: {r}"
+    return None
+
+
+# The types a plan node carries (the JAX rule table's signatures):
+# ``FLAT`` (common_tpu) for most operators, ``STRUCT`` (common_tpu_struct:
+# row-aligned struct columns split, gather and sort as their fields) for
+# the exchange, the aggregate and the sort, ``NESTED``
+# (common_tpu_nested: arrays too) for project, filter and generate, the
+# operators that never move rows apart from their element pools; and
+# the nested producers' outputs.
+FLAT, STRUCT, NESTED = "flat", "struct", "nested"
+
+
+def type_reason(dt: T.DataType, sig: str) -> Optional[str]:
+    """The JAX ``TypeSig.support`` reason for ``dt`` under ``sig``."""
+    if isinstance(dt, T.ArrayType):
+        if sig != NESTED:
+            return "array is not supported"
+        r = type_reason(dt.element_type, sig)
+        return f"array element: {r}" if r else None
+    if isinstance(dt, T.StructType):
+        if sig == FLAT:
+            return "struct is not supported"
+        for f in dt.fields:
+            if isinstance(f.data_type, (T.ArrayType, T.MapType,
+                                        T.StructType)):
+                return (f"struct field {f.name}: nested types in structs "
+                        "are not supported")
+            r = type_reason(f.data_type, sig)
+            if r:
+                return f"struct field {f.name}: {r}"
+        return None
+    return _type_support(dt)
 
 
 _EXTRA_CHECKS: Dict[type, Callable] = {}
@@ -322,9 +388,6 @@ def unsupported_reason(e: E.Expression, conf=None,
             return None  # a null leaf takes its parent's type (_eval_as)
         return _dtype_reason(e.data_type)
     if type(e) not in _HANDLERS:
-        if isinstance(e, NOT_PORTED):
-            return (f"expression {type(e).__name__} is not ported yet "
-                    "(nested device columns)")
         return f"expression {type(e).__name__} is not supported on TPU"
     r = _limb_decimal_gate(e)
     if r:
@@ -338,16 +401,31 @@ def unsupported_reason(e: E.Expression, conf=None,
         r = extra(e)
         if r:
             return r
-    for c in e.children:
-        r = unsupported_reason(c, conf, device)
+    for i, c in enumerate(e.children):
+        if i in _ARRAY_ARG_OK.get(type(e), ()) and \
+                isinstance(c, (E.AttributeReference, E.BoundReference)) \
+                and isinstance(c.data_type, T.ArrayType):
+            r = _array_leaf_ok(c)
+        else:
+            r = unsupported_reason(c, conf, device)
         if r:
             return r
-    return _dtype_reason(e.data_type)
+        cdt = getattr(c, "data_type", None)
+        if isinstance(cdt, (T.ArrayType, T.MapType, T.StructType)) and \
+                not isinstance(e, _NESTED_INPUT_OK):
+            return (f"expression {type(e).__name__}: input "
+                    f"{type(c).__name__}: {_type_support(cdt)}")
+    dt = e.data_type
+    if isinstance(dt, (T.ArrayType, T.StructType)) and \
+            isinstance(e, _NESTED_OUTPUT_OK):
+        r = type_reason(dt, NESTED)
+        return f"expression {type(e).__name__}: output: {r}" if r else None
+    return _dtype_reason(dt)
 
 
 def _dtype_reason(dt: T.DataType) -> Optional[str]:
     if isinstance(dt, (T.ArrayType, T.MapType, T.StructType, T.NullType)):
-        return f"type {dt.simple_string} is not ported yet"
+        return f"output: {_type_support(dt)}"
     return None
 
 
@@ -2107,8 +2185,9 @@ def _h_murmur3(e: E.Murmur3Hash, ctx: Ctx) -> DeviceColumn:
     """Spark hash(...): the murmur3 kernel on the card (its plain version
     on the CPU)."""
     from spark_rapids_tpu_torch.kernels import murmur3 as KM
+    from spark_rapids_tpu_torch.ops.hashing import struct_key_fields
     cols = [dev_eval(c, ctx) for c in e.children]
-    h = KM.murmur3_columns(cols, ctx.capacity, e.seed)
+    h = KM.murmur3_columns(struct_key_fields(cols), ctx.capacity, e.seed)
     return DeviceColumn(T.IntegerT, h, ctx.ones())
 
 
@@ -2328,6 +2407,150 @@ def _raise_if_errors(ctx: Ctx, active: torch.Tensor) -> None:
     flags = torch.stack([(f & active).any() for f, _m in ctx.errors])
     if bool(flags.any()):
         raise ArithmeticError("Cast overflow in ANSI mode")
+
+
+# ---------------------------------------------------------------------------
+# Collections and structs over nested device columns (the JAX package's
+# collectionOperations / complexType twins)
+# ---------------------------------------------------------------------------
+
+@handles(E.Size)
+def _h_size(e: E.Size, ctx: Ctx) -> DeviceColumn:
+    c = dev_eval(e.children[0], ctx)
+    data = torch.where(c.validity, c.lengths,
+                       E.Size.LEGACY_NULL).to(torch.int32)
+    return DeviceColumn(T.IntegerT, data, ctx.ones())
+
+
+@handles(E.ElementAt, E.GetArrayItem)
+def _h_element_at(e, ctx: Ctx) -> AnyDeviceColumn:
+    """The element at a 1-based index (negative from the end) or a
+    0-based ordinal, gathered from the pool; out of range is null."""
+    ac = dev_eval(e.children[0], ctx)
+    ic = dev_eval(e.children[1], ctx)
+    idx = ic.data.to(torch.int32)
+    n = ac.lengths
+    if type(e) is E.GetArrayItem:
+        in_range = (idx >= 0) & (idx < n)
+        off = idx
+    else:
+        in_range = (idx != 0) & (torch.abs(idx) <= n)
+        off = torch.where(idx > 0, idx - 1, n + idx)
+    pool_cap = ac.child.capacity
+    src = torch.clamp(ac.starts + torch.clamp(off, min=0), 0,
+                      pool_cap - 1).to(torch.int64)
+    valid = ac.validity & ic.validity & in_range
+    return take_columns([ac.child], src, valid_at=valid)[0]
+
+
+@extra_check(E.ArrayContains)
+def _c_array_contains(e: E.ArrayContains):
+    if not isinstance(e.children[1], E.Literal):
+        return ("array_contains with a non-literal search value runs "
+                "on CPU")
+    return None
+
+
+@handles(E.ArrayContains)
+def _h_array_contains(e: E.ArrayContains, ctx: Ctx) -> DeviceColumn:
+    """Literal search value: equality over the whole pool, then each
+    row's hits and null elements counted by prefix sums over its slice
+    (no scatter). True on a hit; null when no hit and a null element."""
+    ac = dev_eval(e.children[0], ctx)
+    lit = e.children[1]
+    pool = ac.child
+    if lit.value is None:
+        z = ctx.zeros()
+        return DeviceColumn(T.BooleanT, z, z)
+    if isinstance(pool, DeviceStringColumn):
+        b = str(lit.value).encode("utf-8")
+        eq = pool.lengths == len(b)
+        if len(b) > pool.char_cap:
+            eq = eq & False
+        for k, byte in enumerate(b[:pool.char_cap]):
+            eq = eq & (pool.chars[:, k] == byte)
+    else:
+        target = dev_eval(lit, ctx).data[0]
+        eq = pool.data == target.to(pool.data.dtype)
+    hit = eq & pool.validity
+    zero = torch.zeros(1, dtype=torch.int64, device=ctx.device)
+    pref_hit = torch.cat([zero, torch.cumsum(hit.to(torch.int64), 0)])
+    pref_null = torch.cat([zero, torch.cumsum((~pool.validity)
+                                              .to(torch.int64), 0)])
+    lo = torch.clamp(ac.starts.to(torch.int64), 0, pool.capacity)
+    hi = torch.clamp((ac.starts + ac.lengths).to(torch.int64), 0,
+                     pool.capacity)
+    found = (pref_hit[hi] - pref_hit[lo]) > 0
+    nulls = pref_null[hi] - pref_null[lo]
+    validity = ac.validity & (found | (nulls == 0))
+    return _normalized(T.BooleanT, found, validity)
+
+
+@derived_consts(E.TimeWindow)
+def _d_time_window(e: E.TimeWindow) -> List[float]:
+    # the window and its start are program inputs (exact in float64
+    # below 2**53 microseconds)
+    return [float(e.window_us), float(e.start_us)]
+
+
+@handles(E.TimeWindow)
+def _h_time_window(e: E.TimeWindow, ctx: Ctx) -> AnyDeviceColumn:
+    """Tumbling window assignment on int64 microseconds ->
+    struct<start, end>: start = ts - floorMod(ts - startTime, window),
+    ``torch.remainder`` following the divisor's sign as Math.floorMod."""
+    c = dev_eval(e.children[0], ctx)
+    ts = c.data.to(torch.int64)
+    got = ctx.derived(e)
+    if got is not None:
+        w, st = got[0].to(torch.int64), got[1].to(torch.int64)
+    else:
+        w = _scalar(e.window_us, torch.int64, ctx.device)
+        st = _scalar(e.start_us, torch.int64, ctx.device)
+    start = ts - torch.remainder(ts - st, w)
+    v = c.validity
+    fields = [DeviceColumn(T.TimestampT, torch.where(v, start, 0), v),
+              DeviceColumn(T.TimestampT, torch.where(v, start + w, 0), v)]
+    return DeviceStructColumn(e.data_type, fields, v)
+
+
+@handles(E.CreateNamedStruct)
+def _h_create_named_struct(e: E.CreateNamedStruct,
+                           ctx: Ctx) -> AnyDeviceColumn:
+    """struct(...): the evaluated children are the fields; the struct
+    itself is never null."""
+    cols = [dev_eval(c, ctx) for c in e.children]
+    return DeviceStructColumn(e.data_type, cols, ctx.ones())
+
+
+@handles(E.GetStructField)
+def _h_get_struct_field(e: E.GetStructField, ctx: Ctx) -> AnyDeviceColumn:
+    """struct.field: the field column masked by the struct's validity."""
+    sc = dev_eval(e.children[0], ctx)
+    return mask_col(sc.fields[e.ordinal], sc.validity)
+
+
+@handles(E.CreateArray)
+def _h_create_array(e: E.CreateArray, ctx: Ctx) -> AnyDeviceColumn:
+    """array(c1, ..., ck): a pool of k elements a row, row-major; never
+    null, null inputs are null elements."""
+    cols = [_eval_as(c, e.data_type.element_type, ctx)
+            for c in e.children]
+    k = len(cols)
+    cap = ctx.capacity
+    et = e.data_type.element_type
+    ev = torch.stack([c.validity for c in cols], dim=1).reshape(-1)
+    if isinstance(cols[0], DeviceStringColumn):
+        cc = max(c.char_cap for c in cols)
+        chars = torch.stack([_pad_chars(c, cc) for c in cols],
+                            dim=1).reshape(cap * k, cc)
+        lens = torch.stack([c.lengths for c in cols], dim=1).reshape(-1)
+        pool: AnyDeviceColumn = DeviceStringColumn(et, chars, lens, ev)
+    else:
+        data = torch.stack([c.data for c in cols], dim=1).reshape(-1)
+        pool = mask_col(DeviceColumn(et, data, ev), ev)
+    starts = torch.arange(cap, dtype=torch.int32, device=ctx.device) * k
+    lengths = torch.full((cap,), k, dtype=torch.int32, device=ctx.device)
+    return DeviceArrayColumn(e.data_type, starts, lengths, pool, ctx.ones())
 
 
 def run_project(exprs: Sequence[E.Expression], batch: DeviceBatch,

@@ -38,7 +38,7 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceColumn, DeviceDecimal128Column,
-    DeviceStringColumn, sort_key_i64, sort_with_payload, take_columns,
+    DeviceStringColumn, DeviceStructColumn, sort_key_i64, sort_with_payload, take_columns,
     torch_dtype)
 from spark_rapids_tpu_torch.ops import int128 as I
 from spark_rapids_tpu_torch.sql import types as T
@@ -111,11 +111,19 @@ def pack_string_words(c: DeviceStringColumn) -> List[torch.Tensor]:
 
 
 def value_words(col: AnyDeviceColumn) -> List[torch.Tensor]:
-    """Comparison words for any column type."""
+    """Comparison words for any column type. A struct's are its fields'
+    words, each field's prefixed by its validity: they order structs
+    field-major, which is also exact equality."""
     if isinstance(col, DeviceStringColumn):
         return pack_string_words(col) + [col.lengths.to(torch.int64)]
     if isinstance(col, DeviceDecimal128Column):
         return limb_words(col)
+    if isinstance(col, DeviceStructColumn):
+        words: List[torch.Tensor] = []
+        for f in col.fields:
+            words.append(f.validity)
+            words.extend(value_words(f))
+        return words
     return rank_words(col)
 
 
@@ -126,6 +134,8 @@ def grouping_subkeys(col: AnyDeviceColumn) -> List[torch.Tensor]:
         return [col.validity, col.lengths] + pack_string_words(col)
     if isinstance(col, DeviceDecimal128Column):
         return [col.validity] + limb_words(col)
+    if isinstance(col, DeviceStructColumn):
+        return [col.validity] + value_words(col)
     return [col.validity] + rank_words(col)
 
 

@@ -8,7 +8,9 @@ int64 tensor in [0, 2^32): products wrap in int64 and are masked back to
 32 bits (the low 32 bits of a wrapped product are exact), and right
 shifts of non-negative values are logical. Strings hash their UTF-8
 bytes from the padded byte matrix: whole little-endian 4-byte words
-first, then the tail bytes one at a time, sign-extended from int8.
+first, then the tail bytes one at a time, sign-extended from int8. A
+struct folds its fields with the running hash as seed; the murmur3
+kernel takes a struct key as its fields (``struct_key_fields``).
 
 XXH64 works on uint64 words held in int64 tensors: additions and
 products wrap exactly as uint64 arithmetic does, and right shifts are
@@ -17,7 +19,7 @@ logical (``int128._srl``), since torch's ``>>`` is arithmetic.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -128,9 +130,32 @@ def hash_device_column(col, seed: torch.Tensor) -> torch.Tensor:
         h = hash_double(col.data, seed)
     elif isinstance(dt, T.DecimalType) and dt.precision <= 18:
         h = hash_long(col.data, seed)
+    elif isinstance(dt, T.StructType):
+        # fold the fields left to right with the running hash as seed;
+        # a null struct keeps the incoming seed
+        h = seed
+        for f in col.fields:
+            h = hash_device_column(f, h)
     else:
         raise TypeError(f"cannot hash {dt} on device")
     return torch.where(col.validity, h, seed)
+
+
+def struct_key_fields(cols: Sequence) -> List:
+    """Key columns with each struct replaced by its fields, each field's
+    validity ANDed with the struct's: the same murmur3 fold (a null
+    struct leaves every field null, so the seed passes through), as flat
+    columns the murmur3 kernel reads."""
+    from spark_rapids_tpu_torch.columnar.device import (DeviceStructColumn,
+                                                        mask_col)
+    out: List = []
+    for c in cols:
+        if isinstance(c, DeviceStructColumn):
+            out.extend(struct_key_fields(
+                [mask_col(f, c.validity) for f in c.fields]))
+        else:
+            out.append(c)
+    return out
 
 
 def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42
@@ -150,7 +175,8 @@ def partition_ids(key_cols: Sequence, capacity: int, n_parts: int
     """pmod(murmur3(keys, 42), n) per row — Spark HashPartitioning
     placement; on the card one murmur3 launch hashes and takes the pmod."""
     from spark_rapids_tpu_torch.kernels import murmur3 as KM
-    return KM.murmur3_columns(key_cols, capacity, 42, n_parts=n_parts)
+    return KM.murmur3_columns(struct_key_fields(key_cols), capacity, 42,
+                              n_parts=n_parts)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ Each CPU physical node is wrapped in an ``ExecMeta``, tagged by its rule
 (types and expressions the port can run), and converted bottom-up; a
 ``TorchRowToColumnarExec`` goes under the first device operator above a
 CPU source and a ``TorchColumnarToRowExec`` on top. The port has rules
-for Range, Union, Expand, Window, Project, Filter, HashAggregate,
-ShuffleExchange (hash, range, single;
+for Range, Union, Expand, Window, Project, Filter, Generate (explode),
+HashAggregate, ShuffleExchange (hash, range, single;
 planner-inserted hash and range exchanges coalesce to
 ``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
@@ -17,7 +17,9 @@ run time (``allow_aqe_coalesce``, adaptive execution), and so may a
 window's; a join's children never do. Last,
 under ``spark.rapids.sql.stageFusion.enabled`` (default true),
 ``fuse_stages`` collapses each filter/project chain, with the partial
-aggregate above it, into a ``TorchFusedStageExec``. Anything
+aggregate above it, into a ``TorchFusedStageExec``. Each rule carries the JAX rule
+table's type signature (``ops.exprs.FLAT``, ``STRUCT``, ``NESTED``) for
+what it outputs and what its children give it. Anything
 else — another node kind, or an expression or type a
 rule cannot take — raises ``NotImplementedError`` naming what is not
 ported yet: a per-operator CPU fallback is a later slice.
@@ -98,11 +100,26 @@ def _no_ansi(exprs, what: str) -> Optional[str]:
     return None
 
 
-def _tag_output(node: P.PhysicalPlan) -> Optional[str]:
+def _tag_types(node: P.PhysicalPlan, sig: str) -> Optional[str]:
+    """The rule's output and input type checks."""
     for a in node.output:
-        r = X._dtype_reason(a.data_type)
+        r = X.type_reason(a.data_type, sig)
         if r:
             return f"column {a.name}: {r}"
+    for c in node.children:
+        for a in c.output:
+            r = X.type_reason(a.data_type, sig)
+            if r:
+                return f"input: column {a.name}: {r}"
+    return None
+
+
+def _no_nested(exprs, what: str) -> Optional[str]:
+    """Sort keys are word-encoded scalars: a nested key stays on the CPU
+    (the JAX package's ``is_device_sort``)."""
+    for e in exprs:
+        if isinstance(e.data_type, (T.ArrayType, T.MapType, T.StructType)):
+            return f"nested {what} are not supported on TPU"
     return None
 
 
@@ -118,17 +135,29 @@ def _tag_exchange(node, conf, device) -> Optional[str]:
     p = node.partitioning
     if isinstance(p, P.HashPartitioning):
         for e in p.exprs:
+            dt = e.data_type
+            if isinstance(dt, (T.ArrayType, T.MapType)):
+                return "nested hash partition keys run on CPU"
+            if isinstance(dt, T.StructType):
+                r = X.type_reason(dt, X.STRUCT)
+                if r:
+                    return f"hash partition key: {r}"
+                if any(T.is_limb_decimal(f.data_type) for f in dt.fields):
+                    # the variable-length big-decimal byte hash has no
+                    # device twin (the same gate as a decimal128 key)
+                    return ("decimal128 struct fields in hash partition "
+                            "keys run on CPU")
             r = _tag_exprs([e], conf, device) or \
                 _no_ansi([e], "partition keys")
             if r:
                 return r
-            dt = e.data_type
             if isinstance(dt, T.DecimalType) and dt.precision > 18:
                 return "decimal128 hash partitioning runs on CPU"
         return None
     if isinstance(p, P.RangePartitioning):
         keys = [o.child for o in p.order]
-        return _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
+        return _no_nested(keys, "sort keys") or \
+            _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
     if isinstance(p, (P.SinglePartitioning, P.RoundRobinPartitioning)):
         return None
     return f"{type(p).__name__} is not ported yet"
@@ -136,7 +165,13 @@ def _tag_exchange(node, conf, device) -> Optional[str]:
 
 def _tag_sort(node, conf, device) -> Optional[str]:
     keys = [o.child for o in node.order]
-    return _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
+    return _no_nested(keys, "sort keys") or \
+        _tag_exprs(keys, conf, device) or _no_ansi(keys, "sort keys")
+
+
+def _tag_generate(node, conf, device) -> Optional[str]:
+    from spark_rapids_tpu_torch.exec.generate import is_device_generate
+    return is_device_generate(node.generator, conf, device)
 
 
 def _tag_aggregate(node, conf, device) -> Optional[str]:
@@ -266,6 +301,12 @@ def _conv_aggregate(node, kids, conf, device):
                                   node.slots, conf, device)
 
 
+def _conv_generate(node, kids, conf, device):
+    from spark_rapids_tpu_torch.exec.generate import TorchGenerateExec
+    return TorchGenerateExec(node.generator, node.gen_output, kids[0], conf,
+                             device)
+
+
 def _conv_range(node, kids, conf, device):
     from spark_rapids_tpu_torch.exec.basic import TorchRangeExec
     return TorchRangeExec(node.output, node.start, node.end, node.step,
@@ -322,17 +363,21 @@ def _conv_join(cls_name: str):
 
 
 class ExecRule:
-    def __init__(self, tag: Callable, convert: Callable):
+    def __init__(self, tag: Callable, convert: Callable, sig: str = X.FLAT):
         self.tag = tag
         self.convert = convert
+        self.sig = sig
 
 
 _EXEC_RULES: Dict[Type, ExecRule] = {
-    P.CpuProjectExec: ExecRule(_tag_project, _conv_project),
-    P.CpuFilterExec: ExecRule(_tag_filter, _conv_filter),
-    P.CpuShuffleExchangeExec: ExecRule(_tag_exchange, _conv_exchange),
-    P.CpuSortExec: ExecRule(_tag_sort, _conv_sort),
-    P.CpuHashAggregateExec: ExecRule(_tag_aggregate, _conv_aggregate),
+    P.CpuProjectExec: ExecRule(_tag_project, _conv_project, X.NESTED),
+    P.CpuFilterExec: ExecRule(_tag_filter, _conv_filter, X.NESTED),
+    P.CpuGenerateExec: ExecRule(_tag_generate, _conv_generate, X.NESTED),
+    P.CpuShuffleExchangeExec: ExecRule(_tag_exchange, _conv_exchange,
+                                       X.STRUCT),
+    P.CpuSortExec: ExecRule(_tag_sort, _conv_sort, X.STRUCT),
+    P.CpuHashAggregateExec: ExecRule(_tag_aggregate, _conv_aggregate,
+                                     X.STRUCT),
     P.CpuLocalLimitExec: ExecRule(_tag_none, _conv_local_limit),
     P.CpuGlobalLimitExec: ExecRule(_tag_none, _conv_global_limit),
     P.CpuBroadcastExchangeExec: ExecRule(_tag_none,
@@ -366,7 +411,7 @@ class ExecMeta:
         if self.rule is None:
             raise NotImplementedError(
                 f"{name} is not ported yet to spark_rapids_tpu_torch")
-        reason = _tag_output(self.wrapped) or self.rule.tag(
+        reason = _tag_types(self.wrapped, self.rule.sig) or self.rule.tag(
             self.wrapped, conf, device)
         if reason:
             raise NotImplementedError(

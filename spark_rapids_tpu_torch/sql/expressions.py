@@ -2609,9 +2609,17 @@ def _hash_column(c: HostColumn, seed: np.ndarray) -> np.ndarray:
         # Spark hashes a struct by folding murmur3 over its fields with
         # the running hash as each field's seed; null fields keep the
         # seed (HashExpression.computeHash on struct)
-        raise NotImplementedError(
-            "hashing struct columns is not ported yet to "
-            "spark_rapids_tpu_torch")
+        out = seed.copy()
+        from spark_rapids_tpu_torch.columnar.host import struct_field_values
+        from spark_rapids_tpu_torch.columnar.transfer import \
+            _col_from_storage_values
+        for fi, f in enumerate(dt.fields):
+            fc = _col_from_storage_values(
+                struct_field_values(c, fi), f.data_type)
+            # only valid STRUCT rows advance their hash
+            nh = _hash_column(fc, out)
+            out = np.where(c.validity, nh, out)
+        return out
     else:
         raise TypeError(f"cannot hash {dt}")
     return np.where(c.validity, h, seed)
@@ -2713,9 +2721,13 @@ class GetStructField(UnaryExpression):
         return self.children[0].data_type.fields[self.ordinal].data_type
 
     def eval(self, batch: HostBatch) -> HostColumn:
-        raise NotImplementedError(
-            "struct field extraction is not ported yet to "
-            "spark_rapids_tpu_torch")
+        from spark_rapids_tpu_torch.columnar.host import struct_field_values
+        from spark_rapids_tpu_torch.columnar.transfer import \
+            _col_from_storage_values
+        c = self.children[0].eval(batch)
+        return _col_from_storage_values(
+            struct_field_values(c, self.ordinal),
+            self.data_type).normalized()
 
 
 class TimeWindow(UnaryExpression):

@@ -214,6 +214,30 @@ class CpuProjectExec(_UnaryPlan):
         return f"Project {self.project_list}"
 
 
+class CpuGenerateExec(PhysicalPlan):
+    """Explode/posexplode (+outer): child rows repeated per array
+    element, with the position and element columns (a plan node the
+    overrides convert to ``TorchGenerateExec``)."""
+
+    def __init__(self, generator: E.Expression,
+                 gen_output: List[E.AttributeReference],
+                 child: PhysicalPlan):
+        self.children = [child]
+        self.generator = generator
+        self.gen_output = gen_output
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def output(self):
+        return list(self.child.output) + list(self.gen_output)
+
+    def simple_string(self):
+        return f"Generate {self.generator!r}"
+
+
 class CpuFilterExec(_UnaryPlan):
     def __init__(self, condition: E.Expression, child: PhysicalPlan):
         self.children = [child]

@@ -145,6 +145,10 @@ class Planner:
     def _plan_expand(self, p: L.Expand) -> P.PhysicalPlan:
         return P.CpuExpandExec(p.projections, p.output, self.plan(p.child))
 
+    def _plan_generate(self, p: L.Generate) -> P.PhysicalPlan:
+        return P.CpuGenerateExec(p.generator, p.gen_output,
+                                 self.plan(p.child))
+
     def _plan_window(self, p: L.Window) -> P.PhysicalPlan:
         from spark_rapids_tpu_torch.sql.window_exec import CpuWindowExec
         child = self.plan(p.child)

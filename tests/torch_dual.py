@@ -14,8 +14,9 @@ query on ``TorchSparkSession(device="cpu")``. The recorded results must
 agree: rows exact (NaN equal to NaN, -0.0 distinct from 0.0), or within
 ``rel_tol=1e-12`` where the case is marked approximate (transcendentals
 and float aggregates); a query the JAX package keeps on the CPU
-(``assert_tpu_fallback_collect``) must raise ``NotImplementedError`` in
-the port, which has no fallback.
+(``assert_tpu_fallback_collect``, or a ``require_device=False`` case
+whose JAX plan holds a ``Cpu*`` operator) must raise
+``NotImplementedError`` in the port, which has no fallback.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ def port_type(jt):
     """The port's DataType equal to a JAX package DataType."""
     if isinstance(jt, JT.DecimalType):
         return PT.DecimalType(jt.precision, jt.scale)
+    if isinstance(jt, JT.ArrayType):
+        return PT.ArrayType(port_type(jt.element_type))
+    if isinstance(jt, JT.StructType):
+        return PT.StructType([PT.StructField(f.name, port_type(f.data_type))
+                              for f in jt.fields])
     return getattr(PT, type(jt).__name__)()
 
 
@@ -70,7 +76,26 @@ class Recorder:
     def equal(self, df_fn: Callable, conf: Optional[Dict] = None,
               ignore_order: bool = True, approx: bool = False,
               require_device: bool = True, expect_execs=None) -> None:
-        rows, plan = self._run(df_fn, dict(conf or {}))
+        """A case that lets the JAX package keep part of the query on
+        its CPU (``require_device=False``) records a fallback where it
+        did (a ``Cpu*`` operator in its plan) and then requires the port
+        to raise ``NotImplementedError``; where it did not, rows."""
+        if not require_device:
+            if self.port:
+                try:
+                    rows, plan = self._run(df_fn, dict(conf or {}))
+                except NotImplementedError as e:
+                    self.results.append(("fallback",))
+                    self.messages.append(str(e))
+                    return
+            else:
+                rows, plan = self._run(df_fn, dict(conf or {}),
+                                       capture=True)
+                if cpu_operators(plan):
+                    self.results.append(("fallback",))
+                    return
+        else:
+            rows, plan = self._run(df_fn, dict(conf or {}))
         if ignore_order:
             rows = sorted(rows, key=_sort_key)
         self.results.append(("rows", rows, approx))
@@ -92,7 +117,7 @@ class Recorder:
             "the JAX package keeps this query on the CPU, but the port "
             "ran it")
 
-    def _run(self, df_fn, conf):
+    def _run(self, df_fn, conf, capture: bool = False):
         if self.port:
             s = TorchSparkSession(conf, device="cpu")
             batch = df_fn(s)._execute()
@@ -100,9 +125,28 @@ class Recorder:
         s = TpuSparkSession(dict(conf, **{"spark.rapids.sql.enabled":
                                           "true"}))
         try:
-            return _rows(df_fn(s)._execute().to_pydict()), None
+            if capture:
+                s.start_capture()
+            rows = _rows(df_fn(s)._execute().to_pydict())
+            return rows, (s.get_captured_plans()[-1] if capture else None)
         finally:
             s.stop()
+
+
+def cpu_operators(plan) -> List[str]:
+    """The CPU operators of a JAX package plan (its host sources
+    aside): where the JAX package kept part of a query on its CPU."""
+    out = []
+
+    def walk(p):
+        n = type(p).__name__
+        if n.startswith("Cpu") and n not in (
+                "CpuLocalScanExec", "CpuFileScanExec", "CpuCachedScanExec"):
+            out.append(n)
+        for c in p.children:
+            walk(c)
+    walk(plan)
+    return out
 
 
 def assert_all_torch(plan) -> None:
