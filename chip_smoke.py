@@ -6,9 +6,10 @@ repartition, then q1 and q3 from Parquet, TPC-H q12 and q1's double
 form, an expression battery, TPC-H q19 and q12 in its optimizer form
 and a skewed join, TPC-DS q98, q51's store half and a q86-shaped rollup
 over windows, a union and a range, the Yahoo Streaming Benchmark's
-windowed count and Stack Overflow tag queries over nested columns, and
-check the rows against exact references, then
-time the queries, the upload and each kernel.
+windowed count and Stack Overflow tag queries over nested columns,
+ClickBench Q10 and Q9 (mixed DISTINCT over a cached child), q1 over a
+cached Parquet read and pandas UDFs, and check the rows against exact
+references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,8 @@ at the repo root. Exits non-zero, printing no result, when CUDA is
 absent or any phase fails. Output, one line per phase:
 
   1. the card (nvidia-smi name, power limit), torch and CUDA versions,
-     whether ``pyarrow`` imports;
+     whether ``pyarrow``, ``pandas``, ``cloudpickle`` and ``scipy``
+     import;
   2. the nvcc build seconds, the probe launch, and each kernel's
      ``-Xptxas -v`` lines (registers, spills, static shared memory) as
      ptxas printed them, keyed by mangled name;
@@ -165,6 +167,25 @@ absent or any phase fails. Output, one line per phase:
      join, murmur3 on the struct key and groupbyHash on a tags batch
      (``nested_kernel_shapes``), exact against their plain versions,
      timed beside their bounds;
+  17. the cache, mixed DISTINCT and Python UDFs (``cache_udf_phases``):
+     ClickBench Q10 (``hits_tables``: 10,000,000 rows, seed 20260739,
+     the generator's parameters in ``HITS_*``; two aggregates over the
+     planner's cached child joined on ``RegionID <=> _mdk0``) from
+     memory and from Parquet, every group also without ORDER BY and
+     LIMIT, with Q9 timed in turns beside it; TPC-H q1 over
+     ``read.parquet(q1_dir).cache()`` (the first collect materialises:
+     8 decodeFused; the reads: 0 decodeFused, 8 groupbyHash), timed in
+     turns with q1 from Parquet uncached; the pandas UDFs ``plus_one``
+     and ``cdf`` and a ``mapInPandas`` filter over Databricks' pandas
+     UDF table (``pudf_tables``: 10,000,000 rows, 1,000 ids, seed
+     20260740), each followed by a group-by, where pandas imports; a
+     compiled ``F.udf`` inside a fused stage. Each leg against its numpy
+     reference (doubles within 1e-12 relative, the rest exact), the
+     plan all ``Torch*``, launches, the wall, the idle share; every
+     collect leaves no store handle and no permit held, and no worker
+     process outlives its session; then groupbyHash at Q10's distinct
+     partial and q1's cached partial batch
+     (``cache_udf_kernel_shapes``);
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -175,14 +196,15 @@ absent or any phase fails. Output, one line per phase:
   (``exprs_only``); with ``--joins``, only the build and phase 14
   (``joins_only``); with ``--windows``, only the build and phase 15
   (``windows_only``); with ``--nested``, only the build and phase 16
-  (``nested_only``);
+  (``nested_only``); with ``--cache-udf``, only the build and phase 17
+  (``cache_udf_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's and 16's legs, and those phases' shapes among
-  its cases)
+  and on phase 14's, 15's, 16's and 17's legs, and those phases' shapes
+  among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1194,7 +1216,8 @@ def lane_count(t, rows: int) -> int:
 
 
 def groupby_case(ins, slots: int, reps: int = 20,
-                 overflow_ok: bool = False, ref_slots: int = 0) -> dict:
+                 overflow_ok: bool = False, ref_slots: int = 0,
+                 plain_reps: int = 3) -> dict:
     """groupbyHash against its plain version on ``ins`` (exact, no
     overflow in either), then its device time beside its byte bound: the
     inputs read once and the ``slots``-row tables written once.
@@ -1205,12 +1228,17 @@ def groupby_case(ins, slots: int, reps: int = 20,
     the kernel completed is held exactly against the plain version's at
     the least doubled table size at which the plain version completes
     (a group's lanes do not depend on its slot), doubling from
-    ``ref_slots`` where given."""
+    ``ref_slots`` where given. ``plain_reps`` 0 reports the plain
+    version's time from its one checked call (a batch it takes seconds
+    on)."""
     import torch
     from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     k_out = KG.groupby_table(*ins, slots)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p_out = KG.groupby_table_plain(*ins, slots)
     torch.cuda.synchronize()
+    checked_plain_ms = (time.perf_counter() - t0) * 1e3
     k_ovf, p_ovf = int(k_out[4].item()), int(p_out[4].item())
     if (k_ovf or p_ovf) and not overflow_ok:
         raise AssertionError(f"groupbyHash overflowed: kernel {k_ovf}, "
@@ -1242,7 +1270,8 @@ def groupby_case(ins, slots: int, reps: int = 20,
                          "plain_complete_at_slots": ref_slots},
             "ms": cuda_ms(lambda: KG.groupby_table(*ins, slots), reps),
             "plain_ms": wall_ms(lambda: KG.groupby_table_plain(*ins, slots),
-                                3),
+                                plain_reps) if plain_reps
+            else checked_plain_ms,
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bytes_all_rows": all_rows,
             "bound_all_rows_ms": all_rows / HBM_BYTES_PER_S * 1e3,
@@ -2793,7 +2822,7 @@ PRESSURE_KEYS = ("spark.rapids.sql.test.injectOOM",
                  "spark.rapids.sql.memory.deviceBudgetBytes",
                  "spark.rapids.memory.tpu.poolSize",
                  "spark.rapids.memory.host.spillStorageSize")
-GATE = {"collects": 0, "skipped": 0, "off": False}
+GATE = {"collects": 0, "skipped": 0, "off": False, "strict": False}
 MEMORY_COUNTERS = PROTOCOL_COUNTERS + (
     "ioRetryCount", "spillBytesOnRetry", "retryBlockTime",
     "plannedPartitions", "plannedOutOfCoreEscalations",
@@ -2823,7 +2852,9 @@ def gate_protocol() -> None:
     """From here on, every collect of a session that arms no injector and
     sets no budget, pool or host spill size must leave ``retryCount``,
     ``splitRetryCount`` and ``deviceDecodeOomFallbacks`` at 0: the
-    protocol never runs silently on a normal run. It wraps
+    protocol never runs silently on a normal run. While ``GATE["strict"]``
+    is set (phase 17), each such collect must also leave no store handle
+    and no device permit held (``held_after_collect``). It wraps
     ``TorchSparkSession.execute_plan``, the entry every collect takes."""
     from spark_rapids_tpu_torch.sql.session import TorchSparkSession
     plain = TorchSparkSession.execute_plan
@@ -2839,9 +2870,25 @@ def gate_protocol() -> None:
         if bad:
             raise AssertionError(
                 f"retry protocol ran on a run without pressure: {bad}")
+        if GATE["strict"]:
+            held = held_after_collect(self.conf_obj)
+            if any(held.values()):
+                raise AssertionError(f"a collect left {held} held")
+            GATE["strict_collects"] = GATE.get("strict_collects", 0) + 1
         GATE["collects"] += 1
         return out
     TorchSparkSession.execute_plan = checked
+
+
+def held_after_collect(conf) -> dict:
+    """Store handles and device permits still held once a collect has
+    returned (both must be 0)."""
+    from spark_rapids_tpu_torch import memory
+    from spark_rapids_tpu_torch.resource import get_semaphore
+    store = memory._STORE
+    return {"store_handles": 0 if store is None
+            else store.stats()["liveHandles"],
+            "permits": get_semaphore(conf).in_use}
 
 
 def stage_buckets() -> list:
@@ -3306,7 +3353,8 @@ def all_torch(names, what: str) -> None:
     """Every node between the transitions is a Torch* operator (host
     sources under their upload excepted)."""
     bad = [n for n in names if not n.startswith("Torch")
-           and n not in ("CpuLocalScanExec", "CpuFileScanExec")]
+           and n not in ("CpuLocalScanExec", "CpuFileScanExec",
+                         "CpuCachedScanExec")]
     if names[0] != "TorchColumnarToRowExec" or bad:
         raise AssertionError(f"{what} plan is not all Torch*: {names}")
 
@@ -3623,19 +3671,22 @@ def join_kernel_shapes(spark, query: str, what: str) -> dict:
     return cases
 
 
-def partial_groupby_cases(spark, plan, what: str) -> dict:
+def partial_groupby_cases(spark, plan, what: str, pick=None,
+                          plain_reps: int = 3) -> dict:
     """groupbyHash on the first batch a plan's keyed partial aggregate
-    updates with (after its absorbed prelude, at the slots the aggregate
-    sizes), exact against the plain version; a batch that overflows the
-    table (the path re-ran it sorted) is held again at a table size that
-    holds it."""
+    (the first that ``pick`` accepts, where given) updates with (after
+    its absorbed prelude, at the slots the aggregate sizes), exact
+    against the plain version; a batch that overflows the table (the
+    path re-ran it sorted) is held again at a table size that holds
+    it."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
     from spark_rapids_tpu_torch.kernels import groupby_hash as KG
     cases = {}
     agg = find_exec(plan, lambda n: isinstance(n, TorchHashAggregateExec)
-                    and n.mode == "partial" and bool(n.grouping))
+                    and n.mode == "partial" and bool(n.grouping)
+                    and (pick is None or pick(n)))
     if agg is not None:
         b = first_batch(agg.child.device_partitions(), what)
         key_cols, vals, prims, active = agg.update_inputs(b)
@@ -3649,13 +3700,15 @@ def partial_groupby_cases(spark, plan, what: str) -> dict:
         ref = 64
         while ref < 2 * groups:
             ref <<= 1
-        case = groupby_case(ins, slots, overflow_ok=True, ref_slots=ref)
+        case = groupby_case(ins, slots, overflow_ok=True, ref_slots=ref,
+                            plain_reps=plain_reps)
         cases[f"{what}_partial"] = case
         if case["overflow"]["kernel"]:
             fit = case["overflow"]["plain_complete_at_slots"]
             if fit == slots:
                 fit *= 2
-            cases[f"{what}_partial_{fit}_slots"] = groupby_case(ins, fit)
+            cases[f"{what}_partial_{fit}_slots"] = groupby_case(
+                ins, fit, plain_reps=plain_reps)
     return cases
 
 
@@ -4946,6 +4999,548 @@ def nested_phases(device, card: str) -> tuple:
     return legs, shapes
 
 
+# -- phase 17: the cache, mixed DISTINCT and Python UDFs -------------------
+
+# (a) ClickBench (ClickHouse/ClickBench): Q9 and Q10 of queries.sql over
+# the four columns of ``hits`` they read, with create.sql's types.
+# ``reduced``: 10,000,000 rows of the published 99,997,497. RegionID is
+# Zipf-skewed over a few thousand region codes; a user appears about 3.3
+# times, mostly in one home region, so the distinct aggregate groups
+# millions of (RegionID, UserID) pairs; AdvEngineID is 0 on all but
+# about 0.6% of rows; ResolutionWidth is a common screen width.
+HITS_ROWS = 10_000_000
+HITS_SEED = 20260739
+HITS_REGIONS = 4_000
+HITS_ZIPF = 1.1
+HITS_USERS_PER_ROW = 0.3
+HITS_HOME_SHARE = 0.9
+HITS_ADV_SHARE = 0.006
+HITS_WIDTHS = np.array([1920, 1366, 1536, 1440, 1280, 1600, 1680, 2560,
+                        1024, 360, 375, 390, 414, 412, 768, 0], np.int16)
+HITS_WIDTH_W = np.array([22, 14, 9, 6, 6, 4, 3, 3, 3, 8, 4, 5, 5, 4, 2,
+                         2], np.float64)
+
+Q10 = ("SELECT RegionID, SUM(AdvEngineID), COUNT(*) AS c, "
+       "AVG(ResolutionWidth), COUNT(DISTINCT UserID) FROM hits "
+       "GROUP BY RegionID ORDER BY c DESC LIMIT 10")
+# every group of Q10, without its ORDER BY and LIMIT
+Q10_ALL = ("SELECT RegionID, SUM(AdvEngineID), COUNT(*) AS c, "
+           "AVG(ResolutionWidth), COUNT(DISTINCT UserID) FROM hits "
+           "GROUP BY RegionID")
+Q9 = ("SELECT RegionID, COUNT(DISTINCT UserID) AS u FROM hits "
+      "GROUP BY RegionID ORDER BY u DESC LIMIT 10")
+
+# (b) the workload of Databricks' "Introducing Pandas UDF for PySpark":
+# ``id`` = row // 10,000 (1,000 groups), ``v`` uniform doubles
+PUDF_ROWS = 10_000_000
+PUDF_SEED = 20260740
+PUDF_GROUP_ROWS = 10_000
+PHASE17_CONF = {"spark.sql.shuffle.partitions": str(N_PARTITIONS),
+                "spark.rapids.sql.variableFloatAgg.enabled": "true"}
+
+
+def hits_tables(n: int = HITS_ROWS, seed: int = HITS_SEED) -> dict:
+    """hits' four columns as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, HITS_REGIONS + 1) ** HITS_ZIPF
+    cdf = np.cumsum(w) / w.sum()
+
+    def zipf_region(k):
+        return np.minimum(np.searchsorted(cdf, rng.random(k)),
+                          HITS_REGIONS - 1)
+    codes = rng.permutation(np.arange(1, 10 * HITS_REGIONS + 1))[
+        :HITS_REGIONS].astype(np.int32)
+    n_users = max(1, int(n * HITS_USERS_PER_ROW))
+    users = rng.integers(-(1 << 62), 1 << 62, n_users, dtype=np.int64)
+    home = zipf_region(n_users)
+    u = rng.integers(0, n_users, n)
+    region = home[u]
+    roam = rng.random(n) >= HITS_HOME_SHARE
+    region[roam] = zipf_region(int(roam.sum()))
+    adv = np.where(rng.random(n) < HITS_ADV_SHARE,
+                   rng.integers(1, 31, n), 0).astype(np.int16)
+    width = HITS_WIDTHS[rng.choice(len(HITS_WIDTHS), n,
+                                   p=HITS_WIDTH_W / HITS_WIDTH_W.sum())]
+    return {"RegionID": codes[region], "AdvEngineID": adv,
+            "ResolutionWidth": width, "UserID": users[u]}
+
+
+def hits_batch(tables):
+    """The port's HostBatch of hits (create.sql's types)."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    return host_batch_from_numpy(
+        [("RegionID", T.IntegerT), ("AdvEngineID", T.ShortT),
+         ("ResolutionWidth", T.ShortT), ("UserID", T.LongT)],
+        [tables["RegionID"], tables["AdvEngineID"],
+         tables["ResolutionWidth"], tables["UserID"]])
+
+
+def hits_reference(tables) -> dict:
+    """Every region's Q10 row and Q9 row, with numpy: ``{"q10":
+    {region: row}, "q9": {region: row}}``."""
+    regions, inv = np.unique(tables["RegionID"], return_inverse=True)
+    c = np.bincount(inv)
+    adv = np.bincount(inv, weights=tables["AdvEngineID"])
+    wsum = np.bincount(inv, weights=tables["ResolutionWidth"])
+    user = tables["UserID"]
+    order = np.lexsort((user, inv))
+    si, su = inv[order], user[order]
+    first = np.ones(len(si), bool)
+    first[1:] = (si[1:] != si[:-1]) | (su[1:] != su[:-1])
+    u = np.bincount(si[first], minlength=len(regions))
+    q10, q9 = {}, {}
+    for i, r in enumerate(regions.tolist()):
+        q10[r] = (r, int(adv[i]), int(c[i]), float(wsum[i] / c[i]),
+                  int(u[i]))
+        q9[r] = (r, int(u[i]))
+    return {"q10": q10, "q9": q9}
+
+
+def _close(a, b, rel_tol: float) -> float:
+    """The relative error of ``a`` against ``b``; raises past
+    ``rel_tol`` (0 for anything but floats: exact)."""
+    if isinstance(b, float):
+        err = abs(a - b) / max(abs(b), 1e-300)
+        if err > rel_tol:
+            raise AssertionError(f"{a!r} != {b!r} (rel {err})")
+        return err
+    if a != b:
+        raise AssertionError(f"{a!r} != {b!r}")
+    return 0.0
+
+
+def check_ranked(rows, want: dict, col: int, what: str,
+                 rel_tol: float = 1e-12) -> float:
+    """The rows of an ``ORDER BY <col> DESC LIMIT 10`` query: their
+    ``col`` values are the reference's ten largest in order (ties make
+    the choice among equal rows free), and each row equals the
+    reference's row for its key. Returns the largest relative error."""
+    top = sorted((r[col] for r in want.values()), reverse=True)[:10]
+    if [r[col] for r in rows] != top:
+        raise AssertionError(f"{what}: ranked values "
+                             f"{[r[col] for r in rows]} != {top}")
+    err = 0.0
+    for r in rows:
+        ref = want.get(r[0])
+        if ref is None or len(r) != len(ref):
+            raise AssertionError(f"{what}: row {r} has no reference row")
+        for a, b in zip(r, ref):
+            err = max(err, _close(a, b, rel_tol))
+    return err
+
+
+def check_all_groups(rows, want: dict, what: str,
+                     rel_tol: float = 1e-12) -> float:
+    """Every group's row against the reference's, keyed by the first
+    column."""
+    if len(rows) != len(want):
+        raise AssertionError(f"{what}: {len(rows)} groups != {len(want)}")
+    err = 0.0
+    for r in rows:
+        ref = want.get(r[0])
+        if ref is None:
+            raise AssertionError(f"{what}: unexpected group {r}")
+        for a, b in zip(r, ref):
+            err = max(err, _close(a, b, rel_tol))
+    return err
+
+
+def pudf_tables(n: int = PUDF_ROWS, seed: int = PUDF_SEED) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"id": (np.arange(n) // PUDF_GROUP_ROWS).astype(np.int32),
+            "v": rng.random(n)}
+
+
+def pudf_batch(tables):
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    return host_batch_from_numpy([("id", T.IntegerT), ("v", T.DoubleT)],
+                                 [tables["id"], tables["v"]])
+
+
+def pudf_plus_one(v):
+    return v + 1
+
+
+def pudf_cdf(v):
+    import pandas as pd
+    from scipy import stats
+    return pd.Series(stats.norm.cdf(v), index=v.index)
+
+
+def pudf_keep_high(frames):
+    for pdf in frames:
+        yield pdf[pdf.v > 0.5]
+
+
+def udf_compiled_fn(v):
+    return v * 2.0 + 1.0 if v > 0.5 else -v
+
+
+def pudf_frames(spark, F, df) -> dict:
+    """The phase's Python legs over ``df`` (``id``, ``v``): each maps
+    ``v`` and then groups by ``id`` with a sum and a count."""
+    plus_one = F.pandas_udf(pudf_plus_one, "double")
+    cdf = F.pandas_udf(pudf_cdf, "double")
+    compiled = F.udf(udf_compiled_fn, "double")
+
+    def agg(d, col):
+        return d.groupBy("id").agg(F.sum(col).alias("s"),
+                                   F.count(col).alias("n"))
+    return {
+        "pandas_udf_plus_one": lambda: agg(
+            df.select("id", plus_one("v").alias("x")), "x"),
+        "pandas_udf_cdf": lambda: agg(
+            df.select("id", cdf("v").alias("x")), "x"),
+        "map_in_pandas": lambda: agg(
+            df.mapInPandas(pudf_keep_high, "id int, v double"), "v"),
+        "udf_compiled": lambda: agg(
+            df.select("id", compiled("v").alias("x")), "x"),
+    }
+
+
+def pudf_reference(tables) -> dict:
+    """Each Python leg's rows ``(id, sum, count)`` by id, the sums with
+    ``math.fsum`` of the values numpy (and scipy) compute."""
+    import math
+    ids, v = tables["id"], tables["v"]
+    bounds = np.flatnonzero(np.diff(ids)) + 1
+
+    def rows(x, keep=None):
+        out = {}
+        for g, xs, ks in zip(np.split(ids, bounds), np.split(x, bounds),
+                             np.split(keep if keep is not None
+                                      else np.ones(len(x), bool), bounds)):
+            if ks.any():
+                out[int(g[0])] = (int(g[0]), math.fsum(xs[ks].tolist()),
+                                  int(ks.sum()))
+        return out
+    out = {"pandas_udf_plus_one": rows(v + 1),
+           "map_in_pandas": rows(v, v > 0.5),
+           "udf_compiled": rows(np.where(v > 0.5, v * 2.0 + 1.0, -v))}
+    try:
+        from scipy import stats
+        out["pandas_udf_cdf"] = rows(stats.norm.cdf(v))
+    except ImportError:
+        pass
+    return out
+
+
+def in_turns(dfs: dict, rounds: int = 3) -> dict:
+    """Each query's wall in turns (A B, B A, A B, ...), the queries
+    already warm: the timed runs and their median."""
+    import torch
+    names = list(dfs)
+    walls = {n: [] for n in names}
+    for i in range(rounds):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            dfs[n].collect()
+            torch.cuda.synchronize()
+            walls[n].append(time.perf_counter() - t0)
+    return {n: {"timed_runs": w, "median_s": statistics.median(w)}
+            for n, w in walls.items()}
+
+
+def cache_info(plan) -> dict:
+    """The cached relations an executed plan read: payload bytes, the
+    seconds each materialisation took and how many ran."""
+    from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
+    rels = {}
+    for p in plan_nodes_of(plan):
+        if isinstance(p, CpuCachedScanExec):
+            rels[id(p.rel)] = p.rel
+    return {"cached_relations": len(rels),
+            "cached_bytes": sum(r.cached_bytes for r in rels.values()),
+            "materialize_s": sum(r.materialize_seconds
+                                 for r in rels.values()),
+            "materializations": sum(r.materializations
+                                    for r in rels.values())}
+
+
+def join_routes(plan) -> dict:
+    return {type(p).__name__: dict(p.route_counts)
+            for p in plan_nodes_of(plan) if hasattr(p, "route_counts")}
+
+
+def python_exec_metrics(plan) -> dict:
+    """The Python exec's counters of an executed plan: rows to and from
+    the worker, the worker's round trips (``pythonEvalTime``) and the
+    copies off and onto the card, in seconds."""
+    from spark_rapids_tpu_torch.exec.python_exec import (
+        PYTHON_EVAL_TIME, TorchArrowEvalPythonExec, TorchMapInPandasExec)
+    (p,) = [n for n in plan_nodes_of(plan) if isinstance(
+        n, (TorchArrowEvalPythonExec, TorchMapInPandasExec))]
+    m = p.metrics.snapshot()
+    return {"exec": type(p).__name__,
+            "rows_to_worker": p.child.metrics.snapshot()["numOutputRows"],
+            "rows_from_worker": m["numOutputRows"],
+            "worker_s": m.get(PYTHON_EVAL_TIME, 0) / 1e9,
+            "copyFromDeviceTime_s": m.get("copyFromDeviceTime", 0) / 1e9,
+            "copyToDeviceTime_s": m.get("copyToDeviceTime", 0) / 1e9}
+
+
+def worker_processes() -> list:
+    """The Python worker processes of the pool, idle ones included."""
+    from spark_rapids_tpu_torch.python import pool as PP
+    p = PP._POOL
+    return [] if p is None else [w.proc for w in list(p._idle.queue)]
+
+
+def importable(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+def q10_join_probe_case(spark) -> dict:
+    """joinProbe at Q10's join on a fresh plan: the plain aggregate's
+    rows (the build side adaptive execution broadcasts) against the
+    distinct aggregate's first batch."""
+    from spark_rapids_tpu_torch.exec.join import TorchShuffledHashJoinExec
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    plan = spark.plan_physical(spark.sql(Q10).plan)
+    try:
+        (j,) = [p for p in plan_nodes_of(plan)
+                if isinstance(p, TorchShuffledHashJoinExec)]
+        return {"q10_join": join_probe_case(j, "q10_join")}
+    finally:
+        release_plan_handles(plan)
+
+
+def cache_udf_phases(device, card: str, arrays, q1_dir: str) -> tuple:
+    """Phase 17: ClickBench Q10 (mixed DISTINCT over the planner's
+    cached child) and Q9 from memory and from Parquet, TPC-H q1 over a
+    cached Parquet read, the pandas UDF and mapInPandas legs, and a
+    compiled ``F.udf``; each leg against its numpy reference, then
+    groupbyHash at Q10's distinct partial and q1's cached partial batch.
+    Every collect here must leave no store handle and no device permit
+    held. Returns each leg's kernel launches and the shapes' cases."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    GATE["strict"] = True
+    legs, shapes = {}, {"groupbyHash": {}, "joinProbe": {}}
+    t0 = time.perf_counter()
+    hits = hits_tables()
+    hb = hits_batch(hits)
+    want = hits_reference(hits)
+    gen_s = time.perf_counter() - t0
+    del hits
+
+    def hits_session(path=None):
+        s = TorchSparkSession(dict(PHASE17_CONF))
+        if path is None:
+            s.createDataFrame(hb, num_partitions=N_PARTITIONS) \
+                .createOrReplaceTempView("hits")
+        else:
+            s.read.parquet(path).createOrReplaceTempView("hits")
+        return s
+
+    def clickbench(spark, source, **extra):
+        leg = f"clickbench_q10_{source}"
+        out = windows_leg(spark, card, leg, lambda: spark.sql(Q10),
+                          lambda rows: check_ranked(rows, want["q10"], 2,
+                                                    leg),
+                          "TorchShuffledHashJoinExec")["out"]
+        launches = out["launches"]
+        plan = spark.last_plan
+        if launches["groupbyHash"] <= 0 or (
+                source == "parquet" and launches["decodeFused"] <= 0):
+            raise AssertionError(f"{leg}: kernels {launches}")
+        m = plan_metrics(plan)
+        info = dict(cache_info(plan), join_route=join_routes(plan),
+                    aqe={k: m.get(k, 0) for k in (
+                        "aqeBroadcastFlip", "aqeReplans",
+                        "exchangeTotalBytes")},
+                    groupby_overflow_reruns=[
+                        a.overflow_reruns for a in partial_aggs(plan)])
+        if info["materializations"] != 1:
+            raise AssertionError(f"{leg}: cache {info}")
+        rows = [tuple(r) for r in spark.sql(Q10_ALL).collect()]
+        err = check_all_groups(rows, want["q10"], f"{leg} all groups")
+        phase(f"{leg}_all_groups", card=card,
+              tolerance="avg within 1e-12 relative, the rest exact",
+              groups=len(rows), max_rel_err=err,
+              count_sum=sum(r[2] for r in rows))
+        KR.reset_launches()
+        q9_rows = [tuple(r) for r in spark.sql(Q9).collect()]
+        q9_launches = dict(KR.LAUNCHES)
+        check_ranked(q9_rows, want["q9"], 1, f"clickbench_q9_{source}")
+        all_torch(plan_names(spark.last_plan), "q9")
+        turns = in_turns({"q10": spark.sql(Q10), "q9": spark.sql(Q9)})
+        phase(leg, card=card, rows_in=HITS_ROWS, generate_s=gen_s,
+              tolerance="avg within 1e-12 relative, the rest exact",
+              **extra, **info, **{k: v for k, v in out.items()
+                                   if k != "window_dispatch_count"},
+              q9={"rows": q9_rows, "launches": q9_launches},
+              turns=turns)
+        legs[leg] = launches
+        legs[f"clickbench_q9_{source}"] = q9_launches
+        if launches["joinProbe"] and not shapes["joinProbe"]:
+            shapes["joinProbe"].update(q10_join_probe_case(spark))
+
+    mem = hits_session()
+    clickbench(mem, "memory")
+    # the plain version takes seconds on an overflowing batch: its time
+    # is that of the checked call
+    shapes["groupbyHash"].update(partial_groupby_cases(
+        mem, mem.plan_physical(mem.sql(Q10).plan), "q10_distinct",
+        pick=lambda a: len(a.grouping) == 2, plain_reps=0))
+    del mem
+    hits_dir = os.path.join(DATA_DIR, "clickbench_hits")
+    write_s = write_once(
+        hits_dir, lambda d: TorchSparkSession(dict(PHASE17_CONF))
+        .createDataFrame(hb, num_partitions=N_PARTITIONS)
+        .write.mode("overwrite").parquet(d),
+        data_key(seed=HITS_SEED, table="hits", rows=hb.num_rows,
+                 partitions=N_PARTITIONS))
+    del hb
+    clickbench(hits_session(hits_dir), "parquet", write_s=write_s)
+
+    # TPC-H q1 over a cached Parquet read, beside q1 from Parquet
+    want_q1 = q1_reference(arrays)
+    cs = TorchSparkSession({"spark.sql.shuffle.partitions":
+                            str(N_PARTITIONS)})
+    cached = cs.read.parquet(q1_dir).cache()
+    cached.createOrReplaceTempView("lineitem")
+    df = cs.sql(Q1)
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = df.collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = dict(KR.LAUNCHES)
+    check_q1_rows(rows, want_q1)
+    KR.reset_launches()
+    check_q1_rows(df.collect(), want_q1)
+    read = dict(KR.LAUNCHES)
+    names = plan_names(cs.last_plan)
+    all_torch(names, "cached_q1")
+    us = TorchSparkSession({"spark.sql.shuffle.partitions":
+                            str(N_PARTITIONS)})
+    us.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+    udf_q1 = us.sql(Q1)
+    KR.reset_launches()
+    check_q1_rows(udf_q1.collect(), want_q1)
+    uncached = dict(KR.LAUNCHES)
+    # the materialisation decodes every row group once; the reads decode
+    # none (each cached batch uploads whole and aggregates through the
+    # kernel)
+    if first["decodeFused"] != uncached["decodeFused"] or \
+            first["decodeFused"] <= 0 or read["decodeFused"] != 0 or \
+            read["groupbyHash"] <= 0:
+        raise AssertionError(f"cached_q1 kernels: first {first}, "
+                             f"read {read}, uncached {uncached}")
+    turns = in_turns({"cached": df, "uncached": udf_q1})
+    prof = profile_collect(df, "cached_q1", card, warm=False)
+    rel = cached.plan
+    upload = {k: v for k, v in r2c_metrics(cs.last_plan).items()
+              if k.endswith("Time") or k == "numInputRows"}
+    phase("cached_q1", card=card, rows_in=SF1_ROWS, reference="exact",
+          plan=names, first_run_s=first_s, launches_materialize=first,
+          launches=read, launches_uncached=uncached,
+          materialize_s=rel.materialize_seconds,
+          cached_bytes=rel.cached_bytes,
+          materializations=rel.materializations, turns=turns,
+          median_s=turns["cached"]["median_s"], upload=upload,
+          device_idle_share=prof["device_idle_share"],
+          device_busy_s=prof["device_busy_s"],
+          profiled_wall_s=prof["profiled_wall_s"],
+          top_device_us=prof["top_device_us"])
+    if rel.materializations != 1:
+        raise AssertionError("cached_q1 materialised more than once")
+    legs["cached_q1_materialize"] = first
+    legs["cached_q1"] = read
+    shapes["groupbyHash"].update(partial_groupby_cases(
+        cs, cs.plan_physical(df.plan), "cached_q1"))
+    del cs, us, cached, df, udf_q1
+
+    # the Python legs over Databricks' pandas UDF table
+    t0 = time.perf_counter()
+    pt = pudf_tables()
+    pb = pudf_batch(pt)
+    pwant = pudf_reference(pt)
+    pgen_s = time.perf_counter() - t0
+    del pt
+    have = {m: importable(m) for m in ("pandas", "cloudpickle", "scipy")}
+    sp = TorchSparkSession(dict(PHASE17_CONF))
+    frames = pudf_frames(sp, F, sp.createDataFrame(
+        pb, num_partitions=N_PARTITIONS))
+    for leg, node in (("pandas_udf_plus_one", "TorchArrowEvalPythonExec"),
+                      ("pandas_udf_cdf", "TorchArrowEvalPythonExec"),
+                      ("map_in_pandas", "TorchMapInPandasExec")):
+        need = ("pandas", "cloudpickle") + (
+            ("scipy",) if leg == "pandas_udf_cdf" else ())
+        if not all(have[m] for m in need):
+            phase(leg, card=card, skipped=f"needs {need}: {have}")
+            continue
+        out = windows_leg(sp, card, leg, frames[leg],
+                          lambda rows, leg=leg: check_all_groups(
+                              rows, pwant[leg], leg), node)["out"]
+        phase(leg, card=card, rows_in=PUDF_ROWS, generate_s=pgen_s,
+              tolerance="sums within 1e-12 relative, the rest exact",
+              python=python_exec_metrics(sp.last_plan),
+              **{k: v for k, v in out.items()
+                 if k not in ("window_dispatch_count", "rows_out")},
+              groups=out["rows_out"])
+        legs[leg] = out["launches"]
+    workers = worker_processes()
+    sp.stop()
+    alive = [w.pid for w in workers if w.wait(timeout=10) is None]
+    if alive:
+        raise AssertionError(f"python workers outlived stop(): {alive}")
+    phase("python_workers", card=card, started=len(workers),
+          alive_after_stop=len(alive), importable=have)
+
+    from spark_rapids_tpu_torch.exec import fused as FU
+    cconf = dict(PHASE17_CONF, **{"spark.rapids.sql.udfCompiler.enabled":
+                                  "true"})
+    cs = TorchSparkSession(cconf)
+    make = pudf_frames(cs, F, cs.createDataFrame(
+        pb, num_partitions=N_PARTITIONS))["udf_compiled"]
+    out = windows_leg(cs, card, "udf_compiled", make,
+                      lambda rows: check_all_groups(
+                          rows, pwant["udf_compiled"], "udf_compiled"),
+                      "TorchFusedStageExec")["out"]
+    stages = [p for p in plan_nodes_of(cs.last_plan)
+              if isinstance(p, FU.TorchFusedStageExec)
+              and any(type(o).__name__ == "TorchProjectExec"
+                      and "CaseWhen" in repr(o.project_list)
+                      for o in p.fused_ops)]
+    if len(stages) != 1:
+        raise AssertionError(f"udf_compiled: no fused compiled project: "
+                             f"{out['plan']}")
+    FU.reset_graph_counts()
+    df = make()
+    df.collect()
+    replays = dict(FU.GRAPH_COUNTS)
+    sm = stage_metrics(cs.last_plan)
+    # a stage program runs as one CUDA graph replay a batch (the CPU
+    # runs it eagerly)
+    if device.type == "cuda" and replays["replays"] != sm["dispatchCount"]:
+        raise AssertionError(f"udf_compiled: graph replays {replays} != "
+                             f"stage dispatches {sm}")
+    phase("udf_compiled", card=card, rows_in=PUDF_ROWS,
+          tolerance="sums within 1e-12 relative, the rest exact",
+          stage=[type(o).__name__ for o in stages[0].fused_ops],
+          graph_counts=replays, stage_dispatches=sm["dispatchCount"],
+          **{k: v for k, v in out.items()
+             if k not in ("window_dispatch_count", "rows_out")},
+          groups=out["rows_out"])
+    legs["udf_compiled"] = out["launches"]
+    del cs, pb
+    GATE["strict"] = False
+    phase("cache_udf_kernel_shapes", card=card, tolerance="exact",
+          **shapes)
+    return legs, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4979,6 +5574,9 @@ def main() -> int:
     phase("card", nvidia_smi=card, torch=torch.__version__,
           cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
           pyarrow_importable=pyarrow_ok,
+          pandas_importable=importable("pandas"),
+          cloudpickle_importable=importable("cloudpickle"),
+          scipy_importable=importable("scipy"),
           pyarrow_spec=importlib.util.find_spec("pyarrow") is not None)
 
     gate_protocol()
@@ -5239,11 +5837,14 @@ def main() -> int:
     joins, jshapes = joins_phases(device, card)
     windows, wshapes = windows_phases(device, card)
     nested, nshapes = nested_phases(device, card)
+    cache_udf, cshapes = cache_udf_phases(device, card, arrays,
+                                          dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
     phase("protocol_gate", collects_checked=GATE["collects"],
           collects_under_pressure=GATE["skipped"],
+          strict_collects=GATE.get("strict_collects", 0),
           counters=list(PROTOCOL_COUNTERS))
     if GATE["collects"] == 0:
         raise AssertionError("no collect was checked by the protocol gate")
@@ -5264,7 +5865,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in wshapes["groupbyHash"].values()]
                             + [c["max_abs_err"]
-                               for c in nshapes["groupbyHash"].values()]),
+                               for c in nshapes["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in cshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -5276,7 +5879,8 @@ def main() -> int:
                    + tuple(mem["groupbyHash"].items())
                    + tuple(jshapes["groupbyHash"].items())
                    + tuple(wshapes["groupbyHash"].items())
-                   + tuple(nshapes["groupbyHash"].items())}},
+                   + tuple(nshapes["groupbyHash"].items())
+                   + tuple(cshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -5321,14 +5925,17 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in wshapes["joinProbe"].values()]
                             + [c["max_abs_err"]
-                               for c in nshapes["joinProbe"].values()]),
+                               for c in nshapes["joinProbe"].values()]
+                            + [c["max_abs_err"]
+                               for c in cshapes["joinProbe"].values()]),
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "cases": dict(jp["cases"], **{
              name: {k: c[k] for k in ("rows", "ms", "plain_ms", "bound_ms")}
              for name, c in list(wshapes["joinProbe"].items())
-             + list(nshapes["joinProbe"].items())})},
+             + list(nshapes["joinProbe"].items())
+             + list(cshapes["joinProbe"].items())})},
         {"name": "decodeFused", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
          "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",
@@ -5347,6 +5954,10 @@ def main() -> int:
         k["launches_windows"] = {leg: windows[leg][name]
                                  for leg in windows}
         k["launches_nested"] = {leg: nested[leg][name] for leg in nested}
+        k["launches_cache_udf"] = {leg: cache_udf[leg][name]
+                                   for leg in cache_udf}
+    if any(leak.poll() is None for leak in worker_processes()):
+        raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5510,6 +6121,28 @@ def nested_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def cache_udf_only(card: str) -> None:
+    """``--cache-udf``: the kernels' build and phase 17 (ClickBench Q10
+    and Q9, q1 over a cached Parquet read, the Python legs)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pandas_importable=importable("pandas"),
+          cloudpickle_importable=importable("cloudpickle"),
+          scipy_importable=importable("scipy"))
+    gate_protocol()
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs, _shapes = cache_udf_phases(device, card, arrays, q1_dir)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"],
+          strict_collects=GATE.get("strict_collects", 0))
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -5527,7 +6160,7 @@ def fusion_only(card: str) -> None:
 if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
                                        "--exprs", "--joins", "--windows",
-                                       "--nested")):
+                                       "--nested", "--cache-udf")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5547,6 +6180,8 @@ if __name__ == "__main__":
             windows_only(card)
         elif "--nested" in sys.argv[1:]:
             nested_only(card)
+        elif "--cache-udf" in sys.argv[1:]:
+            cache_udf_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

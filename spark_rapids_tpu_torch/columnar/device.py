@@ -420,17 +420,17 @@ def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:
     if isinstance(c, DeviceArrayColumn):
         return _array_to_host(c, idx, validity)
     if isinstance(c, DeviceStringColumn):
-        chars = c.chars.cpu().numpy()
-        lengths = c.lengths.cpu().numpy()
-        data = np.empty(len(idx), dtype=object)
+        chars = c.chars.cpu().numpy()[idx]
+        lengths = c.lengths.cpu().numpy()[idx]
         is_binary = isinstance(c.dtype, T.BinaryType)
-        for out_i, i in enumerate(idx):
-            raw = chars[i, :lengths[i]].tobytes()
-            if is_binary:
-                data[out_i] = raw if validity[out_i] else b""
-            else:
-                data[out_i] = (raw.decode("utf-8", errors="replace")
-                               if validity[out_i] else "")
+        data = None if is_binary else _strings_by_arrow(chars, lengths)
+        if data is None:
+            data = np.empty(len(idx), dtype=object)
+            for i in range(len(idx)):
+                raw = chars[i, :lengths[i]].tobytes()
+                data[i] = raw if is_binary else raw.decode(
+                    "utf-8", errors="replace")
+        data[~validity] = b"" if is_binary else ""
         return HostColumn(c.dtype, data, validity)
     if isinstance(c, DeviceDecimal128Column):
         data = np.stack([c.hi.cpu().numpy()[idx], c.lo.cpu().numpy()[idx]],
@@ -438,6 +438,31 @@ def _col_to_host(c: AnyDeviceColumn, idx: np.ndarray) -> HostColumn:
         return HostColumn(c.dtype, data, validity).normalized()
     return HostColumn(c.dtype, c.data.cpu().numpy()[idx],
                       validity).normalized()
+
+
+def _strings_by_arrow(chars: np.ndarray, lengths: np.ndarray):
+    """The rows of a char matrix as an object array of str, converted by
+    pyarrow from the rows' bytes and offsets instead of a Python loop
+    over rows; None where pyarrow is absent or the bytes are not valid
+    UTF-8 (the caller's row loop then replaces what does not decode)."""
+    try:
+        import pyarrow as pa
+    except ImportError:
+        return None
+    n = len(lengths)
+    if n == 0:
+        return np.empty(0, dtype=object)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    keep = np.arange(chars.shape[1])[None, :] < lengths[:, None]
+    arr = pa.LargeStringArray.from_buffers(
+        n, pa.py_buffer(offsets), pa.py_buffer(
+            np.ascontiguousarray(chars[keep])))
+    try:
+        arr.validate(full=True)
+    except pa.ArrowInvalid:
+        return None
+    return arr.to_numpy(zero_copy_only=False)
 
 
 def _array_to_host(c: DeviceArrayColumn, idx: np.ndarray,

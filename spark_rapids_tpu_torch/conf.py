@@ -368,6 +368,21 @@ INJECT_IO_ERROR = _entry(
     "", str)
 
 
+UDF_COMPILER_ENABLED = _entry(
+    "spark.rapids.sql.udfCompiler.enabled",
+    "Compile Python lambda UDFs (F.udf) into expressions that run on the "
+    "device (udf_compiler.py); a lambda outside the compiler's subset "
+    "stays a Python UDF.",
+    False, _to_bool)
+
+CONCURRENT_PYTHON_WORKERS = _entry(
+    "spark.rapids.python.concurrentPythonWorkers",
+    "Most Python worker processes that evaluate pandas UDFs and "
+    "mapInPandas at once; the pool is the throttle (a task borrowing a "
+    "worker waits for a free one).",
+    2, int)
+
+
 class TorchConf:
     """Bound view over a conf dict."""
 

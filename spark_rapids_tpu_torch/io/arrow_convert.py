@@ -228,9 +228,8 @@ def host_column_to_arrow(c: HostColumn) -> pa.Array:
     at = sql_type_to_arrow(dt)
     mask = None if c.validity.all() else ~c.validity
     if isinstance(dt, (T.StringType, T.BinaryType)):
-        vals = [v if ok else None
-                for v, ok in zip(c.data.tolist(), c.validity.tolist())]
-        return pa.array(vals, type=at)
+        # pyarrow reads the object array itself; the mask nulls the rows
+        return pa.array(c.data, type=at, mask=mask)
     if isinstance(dt, T.ArrayType):
         # the compact form's element column through the scalar path,
         # assembled into a ListArray from the offsets of its lengths

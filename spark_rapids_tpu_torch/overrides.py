@@ -10,8 +10,11 @@ HashAggregate, ShuffleExchange (hash, range, single;
 planner-inserted hash and range exchanges coalesce to
 ``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card),
 Sort, LocalLimit (over a Sort it becomes TopN), GlobalLimit,
-BroadcastExchange and the shuffled and broadcast hash joins (an inner
-join's residual condition filters the joined pairs on the device). An
+BroadcastExchange, the shuffled and broadcast hash joins (an inner
+join's residual condition filters the joined pairs on the device),
+ArrowEvalPython and MapInPandas (pandas UDFs in the Python worker
+pool); a cached scan is a host source, as the in-memory and file scans
+are. An
 aggregate's or a sort's exchange child may coalesce its partitions at
 run time (``allow_aqe_coalesce``, adaptive execution), and so may a
 window's; a join's children never do. Last,
@@ -22,7 +25,9 @@ table's type signature (``ops.exprs.FLAT``, ``STRUCT``, ``NESTED``) for
 what it outputs and what its children give it. Anything
 else — another node kind, or an expression or type a
 rule cannot take — raises ``NotImplementedError`` naming what is not
-ported yet: a per-operator CPU fallback is a later slice.
+ported yet; where the JAX package places the operator on its CPU, the
+message says so (``CPU_FALLBACK``): a per-operator CPU fallback is a
+later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ from spark_rapids_tpu_torch.conf import (ENABLE_FLOAT_AGG, INCOMPATIBLE_OPS,
 from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
                                               TorchExec,
                                               TorchRowToColumnarExec)
+from spark_rapids_tpu_torch.exec.python_exec import (
+    CpuArrowEvalPythonExec, CpuMapInPandasExec, TorchArrowEvalPythonExec,
+    TorchMapInPandasExec)
+from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
 from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.sql import expressions as E
@@ -46,7 +55,12 @@ from spark_rapids_tpu_torch.sql.window_exec import CpuWindowExec
 # CPU sources that stay on the host; the rewrite uploads their output (a
 # file scan hands still-encoded Parquet pages to the upload, which
 # decodes them on the device)
-HOST_SOURCES = (P.CpuLocalScanExec, CpuFileScanExec)
+HOST_SOURCES = (P.CpuLocalScanExec, CpuFileScanExec, CpuCachedScanExec)
+
+# the end of every tagging refusal: the JAX package places such an
+# operator on its CPU
+CPU_FALLBACK = ("; the JAX package runs it on the CPU, and the "
+                "per-operator CPU fallback is not ported yet")
 
 
 # expressions the JAX package's rule table marks not 100% compatible
@@ -390,6 +404,13 @@ _EXEC_RULES: Dict[Type, ExecRule] = {
     P.CpuUnionExec: ExecRule(_tag_none, _conv_union),
     P.CpuExpandExec: ExecRule(_tag_expand, _conv_expand),
     CpuWindowExec: ExecRule(_tag_window, _conv_window),
+    # the surrounding plan stays on the device around the Python worker
+    CpuArrowEvalPythonExec: ExecRule(
+        _tag_none, lambda node, kids, conf, device:
+        TorchArrowEvalPythonExec(node, kids[0], conf, device)),
+    CpuMapInPandasExec: ExecRule(
+        _tag_none, lambda node, kids, conf, device:
+        TorchMapInPandasExec(node, kids[0], conf, device)),
 }
 
 
@@ -415,7 +436,8 @@ class ExecMeta:
             self.wrapped, conf, device)
         if reason:
             raise NotImplementedError(
-                f"{name} in spark_rapids_tpu_torch: {reason}")
+                f"{name} in spark_rapids_tpu_torch: {reason}"
+                + CPU_FALLBACK)
 
     def convert(self, conf: TorchConf,
                 device: torch.device) -> P.PhysicalPlan:

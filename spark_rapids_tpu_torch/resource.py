@@ -8,7 +8,9 @@ bounds how many task threads touch the card at once: the row-to-columnar
 upload acquires it before its first device write, the columnar-to-row
 transition releases it when its partition is drained or fails. The port
 runs one task thread, so the semaphore is uncontended; it is kept for
-its contract, that a query that fails returns every permit.
+its contract, that a query that fails returns every permit. A plan run
+inside a running query (a cached relation's materialisation) keeps the
+thread's permit across its own transitions (``hold_across``).
 """
 
 from __future__ import annotations
@@ -82,12 +84,35 @@ class TorchSemaphore:
         self._held.count = 1
 
     def release_if_necessary(self) -> None:
-        """Release the calling thread's permit, if it holds one."""
+        """Release the calling thread's permit, if it holds one and no
+        ``hold_across`` keeps it."""
+        if getattr(self._held, "pinned", 0) > 0:
+            return
         if getattr(self._held, "count", 0) > 0:
             self._held.count = 0
             with self._cv:
                 self._in_use -= 1
                 self._cv.notify()
+
+    @contextlib.contextmanager
+    def hold_across(self) -> Iterator[None]:
+        """Keep the calling thread's permit, if it holds one, across a
+        nested plan's run: that plan's columnar-to-row transition would
+        otherwise release the permit of the query the thread is running.
+        A thread without a permit gets the nested plan's own acquire and
+        release."""
+        if getattr(self._held, "count", 0) == 0:
+            yield
+            return
+        self._held.pinned = getattr(self._held, "pinned", 0) + 1
+        try:
+            yield
+        finally:
+            self._held.pinned -= 1
+
+    def held_by_caller(self) -> bool:
+        """Whether the calling thread holds a permit."""
+        return getattr(self._held, "count", 0) > 0
 
     def resize(self, permits: int) -> None:
         """Change the permit count in place; holders keep their permits

@@ -374,8 +374,8 @@ class DataFrame:
         return DataFrameWriter(self)
 
     def cache(self) -> "DataFrame":
-        raise NotImplementedError(
-            "DataFrame.cache is not ported yet to spark_rapids_tpu_torch")
+        from spark_rapids_tpu_torch.io.cache import cache_plan
+        return DataFrame(cache_plan(self), self.session)
 
     def __getitem__(self, name: str) -> Column:
         return Column(self._resolve(name))

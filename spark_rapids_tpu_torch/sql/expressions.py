@@ -4021,8 +4021,10 @@ class PandasUDF(Expression):
     SQL_SCALAR_PANDAS_UDF evalType; GpuPythonUDF.scala role). The
     planner EXTRACTS these out of projections into an
     ArrowEvalPythonExec (Spark's ExtractPythonUDFs rule) — eval() here
-    is the in-process fallback used when one appears in an expression
-    position the extractor doesn't cover (filters, sort keys)."""
+    is the in-process evaluation for an expression position the
+    extractor doesn't cover (filters, sort keys), which the JAX package
+    places on its CPU: in the port such a UDF raises at the rewrite
+    until the per-operator CPU fallback is ported."""
 
     def __init__(self, fn, name: str, dtype: T.DataType,
                  children: List[Expression]):
@@ -4036,8 +4038,22 @@ class PandasUDF(Expression):
         return self._dtype
 
     def eval(self, batch: HostBatch) -> HostColumn:
-        raise NotImplementedError(
-            "pandas UDFs are not ported yet to spark_rapids_tpu_torch")
+        import pandas as pd
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.io.arrow_convert import (
+            arrow_column_to_host, host_column_to_arrow, sql_type_to_arrow)
+        args = [host_column_to_arrow(c.eval(batch)).to_pandas()
+                for c in self.children]
+        out = self.fn(*args)
+        if not isinstance(out, pd.Series):
+            out = pd.Series([out] * batch.num_rows)
+        arr = pa.Array.from_pandas(out, type=sql_type_to_arrow(self._dtype))
+        if len(arr) != batch.num_rows:
+            raise ValueError(
+                f"pandas_udf {self.name} returned {len(arr)} rows for a "
+                f"{batch.num_rows}-row batch")
+        return arrow_column_to_host(arr, self._dtype)
 
     def __repr__(self) -> str:
         return f"{self.name}({self.children})"

@@ -15,6 +15,12 @@ Planning decisions mirrored from Spark:
 - A window gets a hash exchange on its partition spec (a
   single-partition exchange when the spec is empty); range, union and
   expand plan one to one.
+- A cached relation plans as ``CpuCachedScanExec``; mixed DISTINCT and
+  plain aggregates become two aggregates over one cached child, joined
+  on null-safe key equality.
+- Pandas UDFs are pulled out of a projection into an
+  ``CpuArrowEvalPythonExec`` below it (Spark's ExtractPythonUDFs);
+  ``mapInPandas`` plans as ``CpuMapInPandasExec``.
 
 Only the logical nodes of the ported slice are planned; every other node
 raises ``NotImplementedError`` naming it.
@@ -99,13 +105,80 @@ class Planner:
         return CpuFileScanExec(p.output, p.fmt, p.paths, p.options,
                                self.conf)
 
+    def _plan_cachedrelation(self, p) -> P.PhysicalPlan:
+        from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
+        return CpuCachedScanExec(p)
+
     def _plan_range(self, p: L.Range) -> P.PhysicalPlan:
         return P.CpuRangeExec(p.output, p.start, p.end, p.step,
                               p.num_partitions)
 
+    def _plan_mapinpandas(self, p) -> P.PhysicalPlan:
+        from spark_rapids_tpu_torch.exec.python_exec import \
+            CpuMapInPandasExec
+        # the logical node's output attrs pass through (downstream
+        # operators already resolved against those expr_ids)
+        return CpuMapInPandasExec(p.fn, p._schema, self.plan(p.child),
+                                  self.conf, output=p.output)
+
+    def _extract_pandas_udfs(self, project_list, child):
+        """ExtractPythonUDFs: pull every PandasUDF subtree into an
+        ArrowEvalPython node below the projection and substitute
+        attribute references. UDF arguments that are not plain attributes
+        are pre-projected. Pure: the logical expressions are never
+        mutated (a DataFrame plans once per execution; explain and
+        collect must both see the UDFs)."""
+        extra: List[E.Alias] = []
+        udfs: dict = {}  # semantic key -> Alias(PandasUDF copy)
+
+        def sub(e):
+            if not isinstance(e, E.PandasUDF):
+                return None
+            # the whole argument subtree must be free of already
+            # extracted UDF outputs (the bottom-up transform replaced
+            # inner UDFs with their _pudfN attributes): one eval node
+            # cannot feed itself
+            udf_ids = {al.expr_id for al in udfs.values()}
+            for a in e.children:
+                if a.collect(lambda x: isinstance(
+                        x, E.AttributeReference)
+                        and x.expr_id in udf_ids):
+                    raise NotImplementedError(
+                        "nested pandas UDF calls are not supported")
+            # dedup on the original argument subtrees, so identical calls
+            # with expression arguments also evaluate once
+            key = (id(e.fn), repr(e.children), repr(e.data_type))
+            al = udfs.get(key)
+            if al is None:
+                new_args = []
+                for a in e.children:
+                    if isinstance(a, E.AttributeReference):
+                        new_args.append(a)
+                    else:
+                        arg_al = E.Alias(a, f"_pudf_arg{len(extra)}")
+                        extra.append(arg_al)
+                        new_args.append(arg_al.to_attribute())
+                al = E.Alias(
+                    E.PandasUDF(e.fn, e.name, e.data_type, new_args),
+                    f"_pudf{len(udfs)}")
+                udfs[key] = al
+            return al.to_attribute()
+
+        new_list = [e.transform(sub) for e in project_list]
+        if not udfs:
+            return project_list, child
+        from spark_rapids_tpu_torch.exec.python_exec import \
+            CpuArrowEvalPythonExec
+        if extra:
+            child = P.CpuProjectExec(list(child.output) + extra, child)
+        return new_list, CpuArrowEvalPythonExec(
+            list(udfs.values()), child, self.conf)
+
     # -- simple unary ------------------------------------------------------
     def _plan_project(self, p: L.Project) -> P.PhysicalPlan:
-        return P.CpuProjectExec(p.project_list, self.plan(p.child))
+        child = self.plan(p.child)
+        plist, child = self._extract_pandas_udfs(p.project_list, child)
+        return P.CpuProjectExec(plist, child)
 
     def _plan_filter(self, p: L.Filter) -> P.PhysicalPlan:
         child = self.plan(p.child)
@@ -200,10 +273,10 @@ class Planner:
         return P.CpuHashAggregateExec(grouping_attrs, aggregates, "final",
                                       exchange, slots)
 
-    def _rewrite_distinct(self, p: L.Aggregate) -> Optional[L.Aggregate]:
+    def _rewrite_distinct(self, p: L.Aggregate) -> Optional[L.LogicalPlan]:
         """DISTINCT aggregates -> dedup-then-aggregate (Spark's
-        RewriteDistinctAggregates single-distinct-group shape). Mixed
-        distinct + plain aggregates need a join, which is not ported."""
+        RewriteDistinctAggregates single-distinct-group shape); mixed
+        distinct and plain aggregates -> ``_rewrite_mixed_distinct``."""
         aliases = [e for e in p.aggregates
                    if isinstance(e, E.Alias)
                    and isinstance(e.child, E.AggregateExpression)]
@@ -211,9 +284,7 @@ class Planner:
         if not distinct:
             return None
         if len(distinct) != len(aliases):
-            raise NotImplementedError(
-                "mixed DISTINCT and plain aggregates are not ported yet "
-                "to spark_rapids_tpu_torch")
+            return self._rewrite_mixed_distinct(p, aliases, distinct)
         child_sets = {tuple(sorted(repr(c) for c in a.child.func.children))
                       for a in distinct}
         if len(child_sets) > 1:
@@ -256,6 +327,58 @@ class Planner:
             else:
                 outer_aggs.append(e)
         return L.Aggregate(outer_grouping, outer_aggs, inner)
+
+    def _rewrite_mixed_distinct(self, p: L.Aggregate, aliases,
+                                distinct) -> L.LogicalPlan:
+        """Mixed DISTINCT and plain aggregates (``count(DISTINCT a),
+        sum(b)``): a distinct-only aggregate and a plain aggregate over
+        the same child, joined on null-safe key equality. Both sides hold
+        one row a group (the null-key group too, hence ``<=>``), so the
+        join is 1:1; the role Spark's RewriteDistinctAggregates Expand
+        plays. The shared child is wrapped in a CachedRelation, so the
+        two aggregates read it once. Without grouping keys the two
+        one-row sides need a cross join, which the JAX package runs as a
+        CPU nested-loop join: it raises in ``_plan_join``."""
+        distinct_ids = {id(a) for a in distinct}
+        plain = [a for a in aliases if id(a) not in distinct_ids]
+        grouping_attr = {id(g): (g if isinstance(g, E.AttributeReference)
+                                 else g.to_attribute())
+                         for g in p.grouping}
+        g_attrs = [grouping_attr[id(g)] for g in p.grouping]
+        g_ids = {a.expr_id for a in g_attrs}
+        child = p.child
+        if self.session is not None:
+            from spark_rapids_tpu_torch.io.cache import CachedRelation
+            child = CachedRelation(child, self.session)
+        # left: grouping + distinct aggs (recursion hits the pure-distinct
+        # rewrite); right: grouping re-aliased to fresh ids + plain aggs
+        left = L.Aggregate(
+            list(p.grouping),
+            list(g_attrs) + [a for a in p.aggregates
+                             if id(a) in distinct_ids],
+            child)
+        rk_aliases = [E.Alias(a, f"_mdk{i}")
+                      for i, a in enumerate(g_attrs)]
+        right = L.Aggregate(list(p.grouping), rk_aliases + plain, child)
+        cond = None
+        for la, ra in zip(g_attrs, rk_aliases):
+            eq = E.EqualNullSafe(la, ra.to_attribute())
+            cond = eq if cond is None else E.And(cond, eq)
+        if cond is None:
+            joined = L.Join(left, right, "cross", None)
+        else:
+            joined = L.Join(left, right, "inner", cond)
+        # the final projection restores the requested output order
+        plain_ids = {id(x) for x in plain}
+        out: List[E.Expression] = []
+        for e in p.aggregates:
+            if isinstance(e, E.Alias) and (
+                    e.expr_id in g_ids or id(e) in plain_ids or isinstance(
+                        e.child, E.AggregateExpression)):
+                out.append(e.to_attribute())
+            else:
+                out.append(e)
+        return L.Project(out, joined)
 
     # -- join --------------------------------------------------------------
     def _plan_join(self, p: L.Join) -> P.PhysicalPlan:

@@ -13,8 +13,13 @@ outlives its query, and the stores close at interpreter exit, removing
 their disk files. ``last_plan`` is the plan as it executed: an adaptive
 replan (a join demoted to a broadcast) rewires the join's stream side
 while the plan runs, so the release and ``plan_metrics`` walk the
-subtree that ran. Telemetry, plan cache, lifecycle and serving hooks are
-not ported yet.
+subtree that ran. A cached relation materialises inside the query that
+first reads it (``run_nested``). Under
+``spark.rapids.sql.udfCompiler.enabled`` the planner first rewrites
+compilable ``F.udf`` lambdas into expressions (``udf_compiler.py``).
+``stop()`` shuts the pandas-UDF worker pool down, as interpreter exit
+does. Telemetry, plan cache, lifecycle and serving hooks are not ported
+yet.
 
 The device is an explicit ``torch.device`` threaded through every
 operator. It is the CUDA card unless the caller asks for the CPU
@@ -125,7 +130,8 @@ class TorchSparkSession:
 
     def stop(self) -> None:
         """Retire this session: ``active()`` returns the session that was
-        active before it (skipping any already stopped)."""
+        active before it (skipping any already stopped), and the Python
+        worker processes end (a later pandas UDF starts new ones)."""
         with TorchSparkSession._lock:
             if TorchSparkSession._active is self:
                 prev = self._prev_active
@@ -133,6 +139,8 @@ class TorchSparkSession:
                     prev = prev._prev_active
                 TorchSparkSession._active = prev
             self._stopped = True
+        from spark_rapids_tpu_torch.python.pool import shutdown_worker_pool
+        shutdown_worker_pool()
 
     # -- plan capture (ExecutionPlanCaptureCallback) -------------------------
     def start_capture(self) -> None:
@@ -180,12 +188,18 @@ class TorchSparkSession:
         return parse_sql(query, self)
 
     # -- execution ---------------------------------------------------------
+    def _plan_cpu(self, plan: L.LogicalPlan):
+        """The CPU physical plan, after the UDF compiler's rewrite."""
+        from spark_rapids_tpu_torch import udf_compiler
+        self._assert_kernel_flags()
+        plan = udf_compiler.rewrite_plan(plan, self.conf_obj)
+        return Planner(self.conf_obj, session=self).plan(plan)
+
     def plan_physical(self, plan: L.LogicalPlan):
         """CPU physical plan, then the rewrite onto device operators."""
         from spark_rapids_tpu_torch.overrides import apply_overrides
-        self._assert_kernel_flags()
-        physical = Planner(self.conf_obj, session=self).plan(plan)
-        physical = apply_overrides(physical, self.conf_obj, self.device)
+        physical = apply_overrides(self._plan_cpu(plan), self.conf_obj,
+                                   self.device)
         if self._capture_enabled:
             self._plan_capture.append(physical)
         return physical
@@ -205,11 +219,37 @@ class TorchSparkSession:
         to the device; anything else runs through the device plan."""
         from spark_rapids_tpu_torch.overrides import (HOST_SOURCES,
                                                       apply_overrides)
-        self._assert_kernel_flags()
-        physical = Planner(self.conf_obj, session=self).plan(plan)
+        physical = self._plan_cpu(plan)
         if not isinstance(physical, HOST_SOURCES):
             physical = apply_overrides(physical, self.conf_obj, self.device)
         return physical.partitions()
+
+    def run_nested(self, plan: L.LogicalPlan, encode) -> List[List[Any]]:
+        """Run ``plan`` inside a running query (a cached relation's
+        materialisation) and return each partition's batches through
+        ``encode``. Data already in host memory (an in-memory table, a
+        cached relation) is read without a trip to the device; anything
+        else, a Parquet scan included (its row groups decode on the
+        device), runs its device plan. The plan is captured as a plan of
+        its own, ``last_plan`` stays the running query's, the calling
+        thread keeps its device permit across the run, and the plan's
+        store handles are released once it ends or fails."""
+        from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
+        from spark_rapids_tpu_torch.memory import release_plan_handles
+        from spark_rapids_tpu_torch.overrides import apply_overrides
+        from spark_rapids_tpu_torch.resource import get_semaphore
+        from spark_rapids_tpu_torch.sql import physical as P
+        physical = self._plan_cpu(plan)
+        if not isinstance(physical, (P.CpuLocalScanExec, CpuCachedScanExec)):
+            physical = apply_overrides(physical, self.conf_obj, self.device)
+        if self._capture_enabled:
+            self._plan_capture.append(physical)
+        try:
+            with get_semaphore(self.conf_obj).hold_across():
+                return [[encode(b) for b in thunk()]
+                        for thunk in physical.partitions()]
+        finally:
+            release_plan_handles(physical)
 
     def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
         from spark_rapids_tpu_torch.memory import release_plan_handles

@@ -58,6 +58,22 @@ def test_no_jax_or_jax_package_import(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+def test_python_worker_imports_no_torch():
+    """The pandas-UDF worker process runs ``python/worker.py`` (through
+    the package's import-free ``__init__`` files): it loads no torch,
+    whatever the engine has loaded."""
+    files = [ROOT / "spark_rapids_tpu_torch" / "python" / "worker.py",
+             ROOT / "spark_rapids_tpu_torch" / "python" / "__init__.py",
+             ROOT / "spark_rapids_tpu_torch" / "__init__.py"]
+    for path in files:
+        mods = list(_imports(path))
+        assert not [m for m in mods if m.split(".")[0] == "torch"
+                    or _forbidden(m)], f"{path.name} imports {mods}"
+        tree = ast.parse(path.read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(
+            n, ast.ImportFrom) and n.level > 0], path
+
+
 def test_forbidden_matches_module_names_exactly():
     assert _forbidden("spark_rapids_tpu.sql.types")
     assert _forbidden("spark_rapids_tpu")

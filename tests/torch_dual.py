@@ -21,6 +21,7 @@ whose JAX plan holds a ``Cpu*`` operator) must raise
 
 from __future__ import annotations
 
+import contextlib
 import types as pytypes
 from typing import Callable, Dict, List, Optional
 
@@ -89,9 +90,9 @@ class Recorder:
                     self.messages.append(str(e))
                     return
             else:
-                rows, plan = self._run(df_fn, dict(conf or {}),
-                                       capture=True)
-                if cpu_operators(plan):
+                rows, plans = self._run(df_fn, dict(conf or {}),
+                                        capture=True)
+                if any(cpu_operators(p) for p in plans):
                     self.results.append(("fallback",))
                     return
         else:
@@ -125,12 +126,45 @@ class Recorder:
         s = TpuSparkSession(dict(conf, **{"spark.rapids.sql.enabled":
                                           "true"}))
         try:
-            if capture:
+            if not capture:
+                return _rows(df_fn(s)._execute().to_pydict()), None
+            with _materializations() as nested:
                 s.start_capture()
-            rows = _rows(df_fn(s)._execute().to_pydict())
-            return rows, (s.get_captured_plans()[-1] if capture else None)
+                rows = _rows(df_fn(s)._execute().to_pydict())
+                plans = s.get_captured_plans()
+            return rows, query_plans(plans, nested)
         finally:
             s.stop()
+
+
+@contextlib.contextmanager
+def _materializations():
+    """Record the ids of the plans the JAX package captures while a
+    cached relation materialises inside a query."""
+    from spark_rapids_tpu.io import cache as JC
+    plain = JC.CachedRelation.materialize
+    nested: set = set()
+
+    def recording(rel):
+        before = list(rel.session._plan_capture)
+        try:
+            return plain(rel)
+        finally:
+            nested.update(id(p) for p in rel.session._plan_capture
+                          if all(p is not b for b in before))
+    JC.CachedRelation.materialize = recording
+    try:
+        yield nested
+    finally:
+        JC.CachedRelation.materialize = plain
+
+
+def query_plans(plans, nested) -> list:
+    """The plans that ran a JAX query: the query's own (the last captured
+    outside a materialisation; scalar subqueries are captured before it)
+    and every materialisation's."""
+    outer = [p for p in plans if id(p) not in nested]
+    return outer[-1:] + [p for p in plans if id(p) in nested]
 
 
 def cpu_operators(plan) -> List[str]:
@@ -161,7 +195,8 @@ def assert_all_torch(plan) -> None:
     assert names[0] == "TorchColumnarToRowExec", names
     for n in names:
         if n.startswith("Cpu"):
-            assert n in ("CpuLocalScanExec", "CpuFileScanExec"), names
+            assert n in ("CpuLocalScanExec", "CpuFileScanExec",
+                         "CpuCachedScanExec"), names
         else:
             assert n.startswith("Torch"), names
 
