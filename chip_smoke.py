@@ -8,7 +8,9 @@ and a skewed join, TPC-DS q98, q51's store half and a q86-shaped rollup
 over windows, a union and a range, the Yahoo Streaming Benchmark's
 windowed count and Stack Overflow tag queries over nested columns,
 ClickBench Q10 and Q9 (mixed DISTINCT over a cached child), q1 over a
-cached Parquet read and pandas UDFs, and check the rows against exact
+cached Parquet read and pandas UDFs, TPC-H q13 and TPC-DS q28 with
+their joins on the host and q1 with its aggregate on the host (the
+per-operator CPU fallback), and check the rows against exact
 references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
@@ -186,6 +188,24 @@ absent or any phase fails. Output, one line per phase:
      process outlives its session; then groupbyHash at Q10's distinct
      partial and q1's cached partial batch
      (``cache_udf_kernel_shapes``);
+  18. the per-operator CPU fallback (``fallback_phases``): TPC-H q13 at
+     SF1 (``q13_tables``: 150,000 customers, 1,500,000 orders, seed
+     20260741; ``Q13``: the conditional left outer join on the host
+     between downloads of two device exchanges, both aggregates on the
+     card) and TPC-DS q28 (``q28_tables``: 2,000,000 ``store_sales``
+     rows, seed 20260742; ``Q28``: six global mixed DISTINCT blocks over
+     six cached children, 11 nested-loop joins on the host) from memory
+     and from Parquet, and q1 from phase 7's files with
+     ``spark.rapids.sql.exec.HashAggregateExec=false``
+     (``q1_cpu_aggregate``: 8 decodeFused, 0 groupbyHash). Each leg
+     exact against its numpy reference, with its plan and host
+     operators, the explain lines under ``spark.rapids.sql.explain=ALL``,
+     each kernel's launches, the seconds in the host operators and in
+     each upload and download around them (``host_seconds``), the wall
+     (one warm run, median of three) and the idle share; every collect
+     leaves no store handle and no permit held. Then groupbyHash at q13's
+     and q28's partial batches (``fallback_kernel_shapes``) and the cost
+     model's two constants on this card (``cbo_constants``);
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -197,14 +217,15 @@ absent or any phase fails. Output, one line per phase:
   (``joins_only``); with ``--windows``, only the build and phase 15
   (``windows_only``); with ``--nested``, only the build and phase 16
   (``nested_only``); with ``--cache-udf``, only the build and phase 17
-  (``cache_udf_only``);
+  (``cache_udf_only``); with ``--fallback``, only the build and phase 18
+  (``fallback_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's and 17's legs, and those phases' shapes
-  among its cases)
+  and on phase 14's, 15's, 16's, 17's and 18's legs, and those phases'
+  shapes among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -875,11 +896,21 @@ def compare_host_batches(got, want, approx: bool, rel_tol: float = 1e-12):
 T_START = time.perf_counter()
 
 
+PHASE_LOG = {"path": os.path.join("chiprun_out", "phases.jsonl"),
+             "mode": "w"}  # the run's first line starts the file anew
+
+
 def phase(name: str, **fields) -> None:
-    """One phase's JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": name, **fields,
-                      "elapsed_s": round(time.perf_counter() - T_START, 1)}),
-          flush=True)
+    """One phase's JSON line, with the seconds since the script started;
+    also written to ``chiprun_out/phases.jsonl``, where no output tail
+    cuts it (the file holds this run's lines only)."""
+    line = json.dumps({"phase": name, **fields,
+                       "elapsed_s": round(time.perf_counter() - T_START, 1)})
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(PHASE_LOG["path"]), exist_ok=True)
+    with open(PHASE_LOG["path"], PHASE_LOG["mode"]) as f:
+        f.write(line + "\n")
+    PHASE_LOG["mode"] = "a"
 
 
 def lineitem_arrays(n: int = SF1_ROWS, seed: int = SEED):
@@ -1460,12 +1491,15 @@ def murmur3_wide_batch(n: int, seed: int):
     return host_batch_from_numpy(fields, arrays, valid)
 
 
-def profile_collect(df, name: str, card: str, warm: bool = True) -> dict:
+def profile_collect(df, name: str, card: str, warm: bool = True,
+                    host_ops: bool = True) -> dict:
     """One warm ``df.collect()`` under torch.profiler (after a warm-up
     collect unless the caller's runs warmed it): wall, device-busy
     time (sum of device-side event time), idle share, and the top device
     kernels and host ops; the full tables go to
-    chiprun_out/<name>_profile.txt."""
+    chiprun_out/<name>_profile.txt. Without ``host_ops`` only the
+    device's activity is traced (the same busy time and idle share, no
+    host-op table, a fraction of the events to read back)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1473,8 +1507,10 @@ def profile_collect(df, name: str, card: str, warm: bool = True) -> dict:
     if warm:
         df.collect()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -5541,6 +5577,613 @@ def cache_udf_phases(device, card: str, arrays, q1_dir: str) -> tuple:
     return legs, shapes
 
 
+# -- phase 18: the per-operator CPU fallback ----------------------------------
+#
+# (a) TPC-H q13 at SF1, in TPC-H's text but for the derived column list:
+# ``count(o_orderkey) AS c_count`` is named inside the subquery, since
+# neither package parses ``AS c_orders (c_custkey, c_count)``. Its join
+# condition keeps a NOT LIKE beside the key, so the left outer join is a
+# conditional outer join, which both packages run on the host.
+Q13 = """
+SELECT c_count, count(*) AS custdist
+FROM (
+    SELECT c_custkey, count(o_orderkey) AS c_count
+    FROM customer LEFT OUTER JOIN orders
+        ON c_custkey = o_custkey
+        AND o_comment NOT LIKE '%special%requests%'
+    GROUP BY c_custkey
+) c_orders
+GROUP BY c_count
+ORDER BY custdist DESC, c_count DESC
+"""
+Q13_SEED = 20260741
+Q13_CUSTOMERS = 150_000
+Q13_ORDERS = 1_500_000
+# TPC-H 4.2.2.10's text grammar words ("special" left out: it appears only
+# where a comment is drawn to match the pattern)
+Q13_WORDS = (
+    "furiously", "sly", "careful", "blithe", "quick", "fluffy", "slow",
+    "quiet", "ruthless", "thin", "close", "dogged", "daring", "brave",
+    "stealthy", "permanent", "enticing", "idle", "busy", "regular",
+    "final", "ironic", "even", "bold", "silent", "foxes", "ideas",
+    "theodolites", "pinto", "beans", "instructions", "dependencies",
+    "excuses", "platelets", "asymptotes", "courts", "dolphins",
+    "multipliers", "sauternes", "warthogs", "frets", "dinos",
+    "attainments", "somas", "Tiresias", "patterns", "forges", "braids",
+    "hockey", "players", "frays", "warhorses", "dugouts", "notornis",
+    "epitaphs", "pearls", "tithes", "waters", "orbits", "gifts",
+    "sheaves", "depths", "sentiments", "decoys", "realms", "pains",
+    "grouches", "escapades", "packages", "requests", "accounts",
+    "deposits", "sleep", "wake", "are", "cajole", "haggle", "nag", "use",
+    "boost", "affix", "detect", "integrate", "maintain", "nod", "was",
+    "lose", "sublate", "solve", "thrash", "promise", "engage", "hinder",
+    "print", "x-ray", "breach", "eat", "grow", "impress", "mold", "poach",
+    "serve", "run", "dazzle", "snooze", "doze", "unwind", "kindle",
+    "play", "hang", "believe", "doubt", "about", "above", "according",
+    "to", "across", "after", "against", "along", "among", "around",
+    "at", "atop", "before", "behind", "beneath", "beside", "besides",
+    "between", "beyond", "by", "despite", "during", "except", "for",
+    "from", "in", "place", "of", "inside", "instead", "into", "near",
+    "on", "outside", "over", "past", "since", "through", "throughout",
+    "toward", "under", "until", "up", "upon", "whithout", "with",
+    "within", "quickly", "carefully", "blithely", "slyly", "fluffily",
+    "silently", "furiously", "finally", "ironically", "evenly",
+    "boldly", "express", "pending", "unusual")
+Q13_MATCH_SHARE = 0.01  # comments with "special ... requests"
+Q13_POOL = 1 << 16  # distinct comments each kind is drawn from
+
+
+def _q13_comment(rng, special: bool) -> str:
+    """One comment of 19-78 characters of grammar words; a special one
+    holds ``special`` and, after it, ``requests``."""
+    target = int(rng.integers(19, 79))
+    words = ["special"] if special else []
+    while len(" ".join(words)) < target:
+        words.append(str(Q13_WORDS[int(rng.integers(0, len(Q13_WORDS)))]))
+    if special:
+        words.insert(int(rng.integers(1, len(words) + 1)), "requests")
+        while len(" ".join(words)) > 78 and len(words) > 2:
+            words.pop(-1 if words[-1] != "requests" else -2)
+    text = " ".join(words)
+    return text if len(text) >= 19 else (text + " " + "x" * 19)[:19]
+
+
+def q13_tables(n_customers: int = Q13_CUSTOMERS,
+               n_orders: int = Q13_ORDERS, seed: int = Q13_SEED) -> dict:
+    """customer and orders with the TPC-H 4.2.3 domains: c_custkey
+    1..n; dbgen's sparse order keys (the first 8 of every 32);
+    o_custkey uniform over the customers whose key is not divisible by 3
+    (so a third of them have no order); o_comment from two pools of
+    ``Q13_POOL`` comments, the matching one drawn for about 1% of the
+    orders. Returns the key arrays and the comment pools and indices."""
+    rng = np.random.default_rng(seed)
+    custkey = np.arange(1, n_customers + 1, dtype=np.int64)
+    okey = np.arange(n_orders, dtype=np.int64)
+    okey = (okey // 8) * 32 + okey % 8 + 1
+    eligible = custkey[custkey % 3 != 0]
+    o_cust = eligible[rng.integers(0, len(eligible), n_orders)]
+    plain = np.array([_q13_comment(rng, False) for _ in range(Q13_POOL)],
+                     dtype=object)
+    special = np.array([_q13_comment(rng, True)
+                        for _ in range(Q13_POOL // 64)], dtype=object)
+    pool = np.concatenate([plain, special])
+    is_special = rng.random(n_orders) < Q13_MATCH_SHARE
+    idx = np.where(is_special,
+                   len(plain) + rng.integers(0, len(special), n_orders),
+                   rng.integers(0, len(plain), n_orders))
+    return {"c_custkey": custkey, "o_orderkey": okey, "o_custkey": o_cust,
+            "pool": pool, "comment_idx": idx}
+
+
+def q13_batches(tables) -> dict:
+    """The port's HostBatches of customer and orders (the comments with
+    their compact bytes)."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    from spark_rapids_tpu_torch.sql import types as T
+    n = len(tables["o_orderkey"])
+    data, vb = pooled_strings(tables["pool"], tables["comment_idx"])
+    ones = np.ones(n, bool)
+    orders = HostBatch(
+        T.StructType([T.StructField("o_orderkey", T.LongT),
+                      T.StructField("o_custkey", T.LongT),
+                      T.StructField("o_comment", T.StringT)]),
+        [HostColumn(T.LongT, tables["o_orderkey"], ones),
+         HostColumn(T.LongT, tables["o_custkey"], ones.copy()),
+         HostColumn(T.StringT, data, ones.copy(), vb)], n)
+    cust = tables["c_custkey"]
+    customer = HostBatch(T.StructType([T.StructField("c_custkey", T.LongT)]),
+                         [HostColumn(T.LongT, cust, np.ones(len(cust), bool))],
+                         len(cust))
+    return {"customer": customer, "orders": orders}
+
+
+def q13_reference(tables) -> list:
+    """q13's rows ``(c_count, custdist)`` in its order, with numpy."""
+    import re
+    pat = re.compile(r"special.*requests")
+    matches = np.array([bool(pat.search(c)) for c in tables["pool"]])
+    keep = ~matches[tables["comment_idx"]]
+    n_c = len(tables["c_custkey"])
+    c_count = np.bincount(tables["o_custkey"][keep] - 1, minlength=n_c)
+    dist = np.bincount(c_count)
+    rows = [(int(c), int(d)) for c, d in enumerate(dist) if d]
+    return sorted(rows, key=lambda r: (-r[1], -r[0]))
+
+
+# (b) TPC-DS q28 with its qualification substitutions, each block's FROM
+# list joined with CROSS JOIN (neither package parses the comma list).
+# Each block is a global mixed DISTINCT, planned as a cross join of two
+# one-row aggregates over one cached child: 11 nested-loop joins on the
+# host, every aggregate on the device.
+Q28_SEED = 20260742
+Q28_ROWS = 2_000_000  # TPC-DS SF1 has 2,880,404 store_sales rows
+# (quantity low, high, list price, coupon amount, wholesale cost)
+Q28_BUCKETS = ((0, 5, 8, 459, 57), (6, 10, 90, 2323, 31),
+               (11, 15, 142, 12214, 79), (16, 20, 135, 6071, 38),
+               (21, 25, 122, 836, 17), (26, 30, 154, 7326, 7))
+Q28_COUPON_SHARE = 0.2
+
+
+def _q28_block(i: int, qlo: int, qhi: int, lp: int, ca: int,
+               wc: int) -> str:
+    return (f"(SELECT avg(ss_list_price) B{i}_LP, "
+            f"count(ss_list_price) B{i}_CNT, "
+            f"count(DISTINCT ss_list_price) B{i}_CNTD "
+            f"FROM store_sales "
+            f"WHERE ss_quantity BETWEEN {qlo} AND {qhi} "
+            f"AND (ss_list_price BETWEEN {lp} AND {lp}+10 "
+            f"OR ss_coupon_amt BETWEEN {ca} AND {ca}+1000 "
+            f"OR ss_wholesale_cost BETWEEN {wc} AND {wc}+20)) B{i}")
+
+
+Q28 = ("SELECT * FROM "
+       + " CROSS JOIN ".join(_q28_block(i + 1, *b)
+                             for i, b in enumerate(Q28_BUCKETS))
+       + " LIMIT 100")
+
+
+def q28_tables(n: int = Q28_ROWS, seed: int = Q28_SEED) -> dict:
+    """store_sales' four q28 columns with dsdgen's pricing domains, money
+    in cents: ss_quantity U[1,100]; ss_wholesale_cost U[1.00,100.00];
+    ss_list_price = wholesale x (1 + markup), markup U[0,2.00];
+    ss_coupon_amt on 20% of the rows, a share U[0,1.00] of the extended
+    sales price (list x (1 - discount U[0,1.00]) x quantity), else 0."""
+    rng = np.random.default_rng(seed)
+    qty = rng.integers(1, 101, n).astype(np.int32)
+    wc = rng.integers(100, 10001, n).astype(np.int64)
+    markup = rng.integers(0, 201, n)
+    lp = (wc * (100 + markup) + 50) // 100
+    disc = rng.integers(0, 101, n)
+    sp = (lp * (100 - disc) + 50) // 100
+    ext = sp * qty
+    share = rng.integers(0, 101, n)
+    coupon = np.where(rng.random(n) < Q28_COUPON_SHARE,
+                      (ext * share + 50) // 100, 0).astype(np.int64)
+    return {"ss_quantity": qty, "ss_list_price": lp,
+            "ss_coupon_amt": coupon, "ss_wholesale_cost": wc}
+
+
+def q28_fields():
+    from spark_rapids_tpu_torch.sql import types as T
+    money = T.DecimalType(7, 2)
+    return [("ss_quantity", T.IntegerT), ("ss_list_price", money),
+            ("ss_coupon_amt", money), ("ss_wholesale_cost", money)]
+
+
+def q28_batch(tables):
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    return host_batch_from_numpy(q28_fields(), [
+        tables[name] for name, _t in q28_fields()])
+
+
+def q28_reference(tables) -> tuple:
+    """q28's one row: per block the average list price at its result
+    scale 6 (HALF_UP of the unscaled sum x 10^4 over the count), the
+    count and the distinct count, with numpy and Python ints."""
+    qty, lp = tables["ss_quantity"], tables["ss_list_price"]
+    ca, wc = tables["ss_coupon_amt"], tables["ss_wholesale_cost"]
+    row = []
+    for qlo, qhi, p, c, w in Q28_BUCKETS:
+        m = (qty >= qlo) & (qty <= qhi) & (
+            ((lp >= p * 100) & (lp <= (p + 10) * 100))
+            | ((ca >= c * 100) & (ca <= (c + 1000) * 100))
+            | ((wc >= w * 100) & (wc <= (w + 20) * 100)))
+        cnt = int(m.sum())
+        total = int(lp[m].sum())
+        avg = None
+        if cnt:
+            avg = decimal.Decimal(_half_up_div(total * 10 ** 4, cnt)) \
+                .scaleb(-6)
+        row += [avg, cnt, int(len(np.unique(lp[m])))]
+    return tuple(row)
+
+
+def check_q28_rows(got, want: tuple, what: str) -> None:
+    if len(got) != 1 or tuple(got[0]) != want:
+        raise AssertionError(f"{what}: {got} != [{want}]")
+    for v, w in zip(got[0][0::3], want[0::3]):
+        if w is not None and v.as_tuple().exponent != -6:
+            raise AssertionError(f"{what}: average {v!r} not at scale 6")
+
+
+FALLBACK_CONF = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+HOST_SOURCE_NAMES = ("CpuLocalScanExec", "CpuFileScanExec",
+                     "CpuCachedScanExec")
+
+
+def host_operators(plan) -> list:
+    """The operators of an executed plan left on the host (its host
+    sources aside), in plan order."""
+    return [type(p).__name__ for p in plan_nodes_of(plan)
+            if type(p).__name__.startswith("Cpu")
+            and type(p).__name__ not in HOST_SOURCE_NAMES]
+
+
+def explain_lines(spark, df) -> list:
+    """The lines one rewrite of ``df`` prints under
+    ``spark.rapids.sql.explain=ALL``."""
+    import contextlib
+    import io
+
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    spark.conf.set("spark.rapids.sql.explain", "ALL")
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            plan = spark.plan_physical(df.plan)
+        release_plan_handles(plan)
+    finally:
+        spark.conf.unset("spark.rapids.sql.explain")
+    return out.getvalue().splitlines()
+
+
+class _Runs:
+    """What ``profile_collect`` calls: a plan's own run for ``collect``."""
+
+    def __init__(self, run):
+        self.collect = run
+
+
+def host_seconds(spark, df, what: str, card: str) -> tuple:
+    """One run of ``df``'s plan with each host operator's partitions and
+    each download under it timed, under torch.profiler: the host
+    operators' own seconds (their time less their timed children's), and
+    each transition pair's, the download's ``copyFromDeviceTime`` and the
+    upload's ``packBatchTime`` and ``copyToDeviceTime`` above a host
+    operator; then the run's device busy time and idle share, as
+    ``profile_collect`` reads them."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
+                                                  TorchRowToColumnarExec)
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    plan = spark.plan_physical(df.plan)
+    spent = {}
+
+    def timed(node):
+        plain = node.partitions
+
+        def partitions():
+            # a node may drain a child here (a nested-loop join's build)
+            t0 = time.perf_counter()
+            thunks = plain()
+            spent[id(node)] = spent.get(id(node), 0.0) + (
+                time.perf_counter() - t0)
+
+            def wrap(thunk):
+                def run():
+                    it = iter(thunk())
+                    while True:
+                        t0 = time.perf_counter()
+                        b = next(it, None)
+                        spent[id(node)] = spent.get(id(node), 0.0) + (
+                            time.perf_counter() - t0)
+                        if b is None:
+                            return
+                        yield b
+                return run
+            return [wrap(t) for t in thunks]
+        node.partitions = partitions
+
+    nodes = plan_nodes_of(plan)
+    host = [p for p in nodes if type(p).__name__.startswith("Cpu")]
+    downloads = [p for p in nodes if isinstance(p, TorchColumnarToRowExec)
+                 and p is not plan]
+    for p in host + downloads:
+        timed(p)
+    try:
+        prof = profile_collect(_Runs(plan.execute_collect), what, card,
+                               warm=False, host_ops=False)
+    finally:
+        release_plan_handles(plan)
+    wall = prof["profiled_wall_s"]
+    ops = {}
+    for p in host:
+        own = spent.get(id(p), 0.0) - sum(spent.get(id(c), 0.0)
+                                          for c in p.children)
+        name = type(p).__name__
+        if name not in HOST_SOURCE_NAMES:
+            ops.setdefault(name, []).append(own)
+    pairs = []
+    for p in nodes:
+        if isinstance(p, TorchRowToColumnarExec) and type(
+                p.child).__name__.startswith("Cpu") and type(
+                p.child).__name__ not in HOST_SOURCE_NAMES:
+            m = p.metrics.snapshot()
+            pairs.append({
+                "upload_over": type(p.child).__name__,
+                "packBatchTime_s": m.get("packBatchTime", 0) / 1e9,
+                "copyToDeviceTime_s": m.get("copyToDeviceTime", 0) / 1e9,
+                "downloads_under": [
+                    {"copyFromDeviceTime_s":
+                     c.metrics.snapshot().get("copyFromDeviceTime", 0) / 1e9,
+                     "with_device_work_s": spent.get(id(c), 0.0)}
+                    for c in plan_nodes_of(p.child)
+                    if isinstance(c, TorchColumnarToRowExec)]})
+    return {"wall_s": wall, "host_operator_s": ops,
+            "host_operator_total_s": sum(sum(v) for v in ops.values()),
+            "transition_pairs": pairs}, prof
+
+
+def fallback_leg(spark, card: str, what: str, make_df, check,
+                 expect) -> dict:
+    """One leg of phase 18: the first collect (launches counted), its rows
+    through ``check(rows)``, ``expect(plan, host_operators, launches)``
+    for the leg's placement and routes, the plan with its host operators,
+    the explain lines under ``spark.rapids.sql.explain=ALL``, one warm
+    run timed by operator under the profiler (``host_seconds``), and the
+    median of three timed runs."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    df = make_df()
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = [tuple(r) for r in df.collect()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    err = check(rows)
+    plan = spark.last_plan
+    host = host_operators(plan)
+    expect(plan, host, launches)
+    report = spark.last_rewrite_report.summary()
+    t0 = time.perf_counter()
+    lines = explain_lines(spark, df)
+    steps = {"first_run": first_s, "explain": time.perf_counter() - t0}
+    # the warm run: timed by operator, under the profiler
+    t0 = time.perf_counter()
+    split, prof = host_seconds(spark, df, what, card)
+    steps["profiled_run_and_tables"] = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    steps["timed_runs"] = sum(walls)
+    return {"rows": rows, "out": {
+        "rows_out": len(rows), "max_rel_err": err,
+        "plan": plan.tree_string().splitlines()
+        if len(plan_nodes_of(plan)) < 40 else plan_names(plan),
+        "host_operators": host, "coverage": report["coverage"],
+        "explain_all": lines, "launches": launches,
+        "first_run_s": first_s, "seconds": split, "warm_runs": 1,
+        "timed_runs": walls, "median_s": statistics.median(walls),
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_s": prof["device_busy_s"],
+        "profiled_wall_s": prof["profiled_wall_s"],
+        "top_device_us": prof["top_device_us"], "leg_steps_s": steps}}
+
+
+def _expect_q13(plan, host, launches) -> None:
+    """The JAX package's q13 placement: the conditional left join on the
+    host over two downloads, an upload above it, both aggregates on the
+    device through groupbyHash, the project fused with the partial
+    aggregate."""
+    from spark_rapids_tpu_torch.exec.base import (TorchColumnarToRowExec,
+                                                  TorchRowToColumnarExec)
+    from spark_rapids_tpu_torch.exec.fused import TorchFusedStageExec
+    joins = [p for p in plan_nodes_of(plan)
+             if type(p).__name__ in ("CpuShuffledHashJoinExec",
+                                     "CpuBroadcastHashJoinExec")]
+    up = [p for p in plan_nodes_of(plan)
+          if isinstance(p, TorchRowToColumnarExec) and p.child in joins]
+    fused = [[type(o).__name__ for o in p.fused_ops]
+             for p in plan_nodes_of(plan)
+             if isinstance(p, TorchFusedStageExec)]
+    if len(joins) != 1 or host != [type(joins[0]).__name__] \
+            or len(up) != 1 or not all(
+                isinstance(c, TorchColumnarToRowExec)
+                or type(c).__name__ in HOST_SOURCE_NAMES
+                for c in joins[0].children) \
+            or ["TorchProjectExec", "TorchHashAggregateExec"] not in fused \
+            or launches["groupbyHash"] <= 0:
+        raise AssertionError(f"q13 placement: host {host}, fused {fused}, "
+                             f"launches {launches}")
+
+
+def _expect_q28(plan, host, launches) -> None:
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    aggs = [p for p in plan_nodes_of(plan)
+            if isinstance(p, TorchHashAggregateExec)]
+    if host.count("CpuBroadcastNestedLoopJoinExec") != 11 or any(
+            "Aggregate" in h for h in host) or not aggs \
+            or launches["groupbyHash"] <= 0:
+        raise AssertionError(f"q28 placement: host {host}, launches "
+                             f"{launches}")
+
+
+def fallback_phases(device, card: str, arrays, q1_dir: str) -> tuple:
+    """Phase 18: TPC-H q13 at SF1 and TPC-DS q28 from memory and from
+    Parquet, and q1 from phase 7's Parquet files with the aggregate turned
+    off, each with its host operators where the JAX package places its
+    CPU operators; then groupbyHash at q13's and q28's partial batches and
+    the cost model's two constants measured on this card. Every collect
+    leaves no store handle and no permit held."""
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    GATE["strict"] = True
+    legs, shapes = {}, {"groupbyHash": {}}
+    shape_s = {}
+    t0 = time.perf_counter()
+    t13 = q13_tables()
+    b13 = q13_batches(t13)
+    want13 = q13_reference(t13)
+    t28 = q28_tables()
+    b28 = q28_batch(t28)
+    want28 = q28_reference(t28)
+    gen_s = time.perf_counter() - t0
+    del t13, t28
+    sizes = {"customer": Q13_CUSTOMERS, "orders": Q13_ORDERS,
+             "store_sales": Q28_ROWS}
+    dirs = {}
+    write_s = 0.0
+    for name, b in (("customer", b13["customer"]),
+                    ("orders", b13["orders"]), ("store_sales", b28)):
+        dirs[name] = os.path.join(DATA_DIR, f"fallback_{name}")
+        write_s += write_once(
+            dirs[name], lambda d, b=b: TorchSparkSession(dict(FALLBACK_CONF))
+            .createDataFrame(b, num_partitions=N_PARTITIONS)
+            .write.mode("overwrite").parquet(d),
+            data_key(seed=Q13_SEED if name != "store_sales" else Q28_SEED,
+                     table=name, rows=b.num_rows, partitions=N_PARTITIONS))
+
+    def session(source):
+        s = TorchSparkSession(dict(FALLBACK_CONF))
+        for name, b in (("customer", b13["customer"]),
+                        ("orders", b13["orders"]), ("store_sales", b28)):
+            if source == "memory":
+                s.createDataFrame(b, num_partitions=N_PARTITIONS) \
+                    .createOrReplaceTempView(name)
+            else:
+                s.read.parquet(dirs[name]).createOrReplaceTempView(name)
+        return s
+
+    for source in ("memory", "parquet"):
+        spark = session(source)
+        leg = f"q13_{source}"
+
+        def check13(rows, leg=leg):
+            if rows != want13:
+                raise AssertionError(f"{leg}: rows differ from the "
+                                     f"reference ({len(rows)} rows)")
+            return 0.0
+        out = fallback_leg(spark, card, leg, lambda: spark.sql(Q13),
+                           check13, _expect_q13)["out"]
+        if source == "parquet" and out["launches"]["decodeFused"] <= 0:
+            raise AssertionError(f"{leg}: kernels {out['launches']}")
+        phase(leg, card=card, rows_in={k: v for k, v in sizes.items()
+                                       if k != "store_sales"},
+              generate_s=gen_s, tolerance="exact", **out)
+        legs[leg] = out["launches"]
+        if source == "memory":
+            t_shape = time.perf_counter()
+            plan = spark.plan_physical(spark.sql(Q13).plan)
+            # the plain version takes seconds on the overflowing batch:
+            # its time is that of the checked call
+            shapes["groupbyHash"].update(partial_groupby_cases(
+                spark, plan, "q13",
+                pick=lambda a: a.grouping[0].name == "c_custkey",
+                plain_reps=0))
+            from spark_rapids_tpu_torch.memory import release_plan_handles
+            release_plan_handles(plan)
+            shape_s["q13"] = time.perf_counter() - t_shape
+        leg = f"q28_{source}"
+
+        def check28(rows, leg=leg):
+            check_q28_rows(rows, want28, leg)
+            return 0.0
+        out = fallback_leg(spark, card, leg, lambda: spark.sql(Q28),
+                           check28, _expect_q28)["out"]
+        info = cache_info(spark.last_plan)
+        phase(leg, card=card, rows_in=Q28_ROWS, tolerance="exact",
+              cache=info, **out)
+        legs[leg] = out["launches"]
+        if source == "memory":
+            t_shape = time.perf_counter()
+            plan = spark.plan_physical(spark.sql(Q28).plan)
+            shapes["groupbyHash"].update(partial_groupby_cases(
+                spark, plan, "q28_distinct",
+                pick=lambda a: a.grouping[0].name == "ss_list_price"))
+            from spark_rapids_tpu_torch.memory import release_plan_handles
+            release_plan_handles(plan)
+            shape_s["q28"] = time.perf_counter() - t_shape
+        del spark
+    phase("fallback_data", card=card, generate_s=gen_s, write_s=write_s,
+          q13_orders_matching_share=Q13_MATCH_SHARE,
+          q13_comment_pool=Q13_POOL, q28_buckets=Q28_BUCKETS)
+
+    # q1 from Parquet with the aggregate off: decodeFused and the fused
+    # filter/project on the device, both aggregates on the host
+    want_q1 = q1_reference(arrays)
+    off = "spark.rapids.sql.exec.HashAggregateExec"
+    cs = TorchSparkSession(dict(FALLBACK_CONF, **{off: "false"}))
+    cs.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+
+    def check_q1(rows):
+        check_q1_rows(rows, want_q1)
+        return 0.0
+
+    def expect_q1(plan, host, launches):
+        if host != ["CpuHashAggregateExec", "CpuHashAggregateExec"] or \
+                launches["decodeFused"] != N_PARTITIONS or \
+                launches["groupbyHash"] != 0:
+            raise AssertionError(f"q1_cpu_aggregate: host {host}, "
+                                 f"launches {launches}")
+    out = fallback_leg(cs, card, "q1_cpu_aggregate", lambda: cs.sql(Q1),
+                       check_q1, expect_q1)["out"]
+    phase("q1_cpu_aggregate", card=card, rows_in=SF1_ROWS,
+          reference="exact", conf={off: "false"}, **out)
+    legs["q1_cpu_aggregate"] = out["launches"]
+    del cs
+    GATE["strict"] = False
+    phase("fallback_kernel_shapes", card=card, tolerance="exact",
+          seconds=shape_s, **shapes)
+    cbo_constants(card, arrays)
+    return legs, shapes
+
+
+def cbo_constants(card: str, arrays) -> dict:
+    """The cost model's two constants on this card: the bytes a second of
+    a pinned upload and download pair (q1's lineitem at SF1, bytes as the
+    model counts them, both ways, over the round trip's seconds less the
+    flat cost), and the flat seconds of one empty island's round trip (a
+    one-row frame, the median of 20)."""
+    import torch
+
+    from spark_rapids_tpu_torch import overrides as PO
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    spark = TorchSparkSession(dict(FALLBACK_CONF))
+    hb = host_batch_from_numpy(lineitem_fields(), arrays)
+    full = spark.createDataFrame(hb, num_partitions=N_PARTITIONS)
+    one = spark.createDataFrame(hb.slice(0, 1), num_partitions=1)
+
+    def median_s(df, reps):
+        # the batch that comes back, not Python rows built from it
+        df._execute()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            df._execute()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out), out
+    flat_s, flat_runs = median_s(one, 20)
+    full_s, full_runs = median_s(full, 3)
+    width = PO._row_width_bytes(hb.schema)
+    moved = 2 * hb.num_rows * width
+    wire = moved / max(1e-9, full_s - flat_s)
+    out = {"wire_bytes_per_s": wire, "island_flat_s": flat_s,
+           "rows": hb.num_rows, "row_width_bytes": width,
+           "bytes_both_ways": moved, "round_trip_s": full_s,
+           "round_trip_runs": full_runs, "flat_runs": flat_runs,
+           "module_wire_bytes_per_s": PO._WIRE_BYTES_PER_S,
+           "module_island_flat_s": PO._ISLAND_FLAT_S,
+           "plan": plan_names(spark.last_plan)}
+    phase("cbo_constants", card=card, **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5839,6 +6482,7 @@ def main() -> int:
     nested, nshapes = nested_phases(device, card)
     cache_udf, cshapes = cache_udf_phases(device, card, arrays,
                                           dfu["q1_dir"])
+    fallback, fshapes = fallback_phases(device, card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -5867,7 +6511,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in nshapes["groupbyHash"].values()]
                             + [c["max_abs_err"]
-                               for c in cshapes["groupbyHash"].values()]),
+                               for c in cshapes["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in fshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -5880,7 +6526,8 @@ def main() -> int:
                    + tuple(jshapes["groupbyHash"].items())
                    + tuple(wshapes["groupbyHash"].items())
                    + tuple(nshapes["groupbyHash"].items())
-                   + tuple(cshapes["groupbyHash"].items())}},
+                   + tuple(cshapes["groupbyHash"].items())
+                   + tuple(fshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -5956,6 +6603,8 @@ def main() -> int:
         k["launches_nested"] = {leg: nested[leg][name] for leg in nested}
         k["launches_cache_udf"] = {leg: cache_udf[leg][name]
                                    for leg in cache_udf}
+        k["launches_fallback"] = {leg: fallback[leg][name]
+                                  for leg in fallback}
     if any(leak.poll() is None for leak in worker_processes()):
         raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
@@ -6143,6 +6792,27 @@ def cache_udf_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def fallback_only(card: str) -> None:
+    """``--fallback``: the kernels' build and phase 18 (q13 and q28 from
+    memory and from Parquet, q1 with its aggregate on the host, the
+    kernel shapes and the cost model's constants)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    gate_protocol()
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs, _shapes = fallback_phases(device, card, arrays, q1_dir)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"],
+          strict_collects=GATE.get("strict_collects", 0))
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -6160,7 +6830,8 @@ def fusion_only(card: str) -> None:
 if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
                                        "--exprs", "--joins", "--windows",
-                                       "--nested", "--cache-udf")):
+                                       "--nested", "--cache-udf",
+                                       "--fallback")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6182,6 +6853,8 @@ if __name__ == "__main__":
             nested_only(card)
         elif "--cache-udf" in sys.argv[1:]:
             cache_udf_only(card)
+        elif "--fallback" in sys.argv[1:]:
+            fallback_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -186,7 +186,10 @@ TASK_PARALLELISM = _entry(
     "spark.rapids.sql.taskParallelism",
     "Partition-execution threads the scan plans its splits for: the "
     "file scan sizes partitions so its bytes spread over this many "
-    "tasks (Spark's FilePartition.maxSplitBytes).",
+    "tasks (Spark's FilePartition.maxSplitBytes). A plan with no device "
+    "operator (the engine off, or every operator on the host) also "
+    "drains its partitions on this many threads; a plan with a device "
+    "operator drains them on the collecting thread.",
     1, int)
 
 MAX_READER_BATCH_SIZE_ROWS = _entry(
@@ -382,6 +385,34 @@ CONCURRENT_PYTHON_WORKERS = _entry(
     "worker waits for a free one).",
     2, int)
 
+SQL_ENABLED = _entry(
+    "spark.rapids.sql.enabled",
+    "Enable (true) or disable (false) GPU acceleration of SQL plans. Off, "
+    "the CPU plan runs on the host engine with no rewrite.",
+    True, _to_bool)
+
+EXPLAIN = _entry(
+    "spark.rapids.sql.explain",
+    "Explain why parts of a query were or were not placed on the GPU: "
+    "NONE (silent), NOT_ON_GPU (print one line per operator fallback "
+    "with the reason and the offending expression subtree), or ALL (also "
+    "list every operator that will run on the GPU). NOT_ON_TPU is "
+    "accepted as an alias of NOT_ON_GPU.",
+    "NONE", str)
+
+CBO_ENABLED = _entry(
+    "spark.rapids.sql.optimizer.enabled",
+    "Cost-based optimizer: revert a device island between two "
+    "transitions to the CPU when its transition cost outweighs its "
+    "estimated CPU work. Off by default, as in the reference.",
+    False, _to_bool)
+
+TEST_FORCE_DEVICE = _entry(
+    "spark.rapids.sql.test.forceDevice",
+    "Testing: fail instead of falling back to the CPU when an operator "
+    "is unsupported.",
+    False, _to_bool)
+
 
 class TorchConf:
     """Bound view over a conf dict."""
@@ -403,6 +434,23 @@ class TorchConf:
 
     def set(self, key: str, value: Any) -> None:
         self.settings[key] = value
+
+    def is_op_enabled(self, conf_key: str, default: bool = True) -> bool:
+        """``spark.rapids.sql.exec.<Op>`` and
+        ``spark.rapids.sql.expression.<Expr>``: an operator or expression
+        is enabled unless its key says false."""
+        raw = self.settings.get(conf_key)
+        if raw is None:
+            return default
+        return raw if isinstance(raw, bool) else _to_bool(str(raw))
+
+    @property
+    def sql_enabled(self) -> bool:
+        return bool(self.get(SQL_ENABLED))
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
 
     @property
     def batch_size_rows(self) -> int:

@@ -124,9 +124,10 @@ def _groups(batches: Iterator, goal_rows: int) -> Iterator:
 class TorchRowToColumnarExec(TorchExec):
     """CPU rows -> device batches. Coalesces consecutive host batches of
     a partition up to the goal row count and uploads each group through
-    the packed codec (``columnar/transfer.py``). Over a Parquet scan it
-    also takes EncodedBatches (a row group's still-encoded pages) and
-    decodes each on the device with ``decodeFused``.
+    the packed codec (``columnar/transfer.py``). Its child is a host
+    source or any operator the rewrite left on the CPU. Over a Parquet
+    scan it also takes EncodedBatches (a row group's still-encoded pages)
+    and decodes each on the device with ``decodeFused``.
 
     The upload ring (``spark.rapids.sql.format.parquet.deviceDecode.
     maxInFlight``, default 2): a producer thread reads, coalesces and
@@ -229,7 +230,16 @@ class TorchRowToColumnarExec(TorchExec):
                 if hasattr(gen, "close"):
                     gen.close()
 
-        t = threading.Thread(target=producer, daemon=True,
+        # the producer drains this partition's child for the task: where
+        # the child is a host operator over a device subtree, the
+        # transitions it crosses take and release the task's own permit
+        task = get_semaphore(self.conf).current_task()
+
+        def produce() -> None:
+            with get_semaphore(self.conf).adopt(task):
+                producer()
+
+        t = threading.Thread(target=produce, daemon=True,
                              name="torch-upload-prefetch")
         t.start()
         inflight: List = []
@@ -375,14 +385,22 @@ class TorchRowToColumnarExec(TorchExec):
 
 
 class TorchColumnarToRowExec(P.PhysicalPlan):
-    """Device batches -> CPU rows (the plan's root transition), one batch
-    ahead: batch k+1's compaction and copies into pinned host buffers are
-    in flight on a copy stream while batch k converts on the host."""
+    """Device batches -> CPU rows, one batch ahead: batch k+1's
+    compaction and copies into pinned host buffers are in flight on a
+    copy stream while batch k converts on the host. It is the plan's root
+    transition, or the child of an operator the rewrite left on the CPU,
+    which reads it one partition at a time. There
+    (``release_when_drained``) it closes its device subtree's store
+    handles once every partition has been downloaded, so the device
+    memory is free while the host operator works; the session closes any
+    left at the query's end."""
 
-    def __init__(self, child: TorchExec, conf: TorchConf):
+    def __init__(self, child: TorchExec, conf: TorchConf,
+                 release_when_drained: bool = False):
         self.children = [child]
         self.conf = conf
         self.metrics = M.MetricRegistry()
+        self.release_when_drained = release_when_drained
 
     @property
     def child(self) -> TorchExec:
@@ -404,6 +422,18 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
             return h
 
         sem = get_semaphore(self.conf)
+        thunks = device_channel(self.child)
+        left = [len(thunks)]
+        lock = threading.Lock()
+
+        def drained() -> None:
+            with lock:
+                left[0] -= 1
+                done = left[0] == 0
+            if done and self.release_when_drained:
+                from spark_rapids_tpu_torch.memory import \
+                    release_plan_handles
+                release_plan_handles(self.child)
 
         def make(thunk: DevicePartitionThunk) -> P.PartitionThunk:
             def run() -> Iterator[HostBatch]:
@@ -418,11 +448,12 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
                         prev = tok
                     if prev is not None:
                         yield convert(prev)
+                    drained()
                 finally:
                     # the partition's device work is done or failed
                     sem.release_if_necessary()
             return run
-        return [make(t) for t in device_channel(self.child)]
+        return [make(t) for t in thunks]
 
     def simple_string(self):
         return "TorchColumnarToRow"

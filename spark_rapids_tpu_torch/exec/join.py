@@ -20,8 +20,9 @@ pair's columns and applied as a device filter on the joined pairs,
 inside the retried attempt (``_join_one``), on every route: the
 broadcast stream and its chunks, a shuffled co-partition and its chunks,
 and each out-of-core bucket pair. A join with a condition never takes
-the FK fast path, as in the JAX package. A conditional outer join is
-refused with the JAX package's reason (it keeps such joins on the CPU).
+the FK fast path, as in the JAX package. A conditional outer join gets
+the JAX package's reason from ``is_device_join`` and runs on the host
+(``sql/physical.py``), as there.
 
 Adaptive execution (``adaptive.py``), in the JAX package's order:
 a shuffled join first materializes its build-side exchange, and when the
@@ -66,7 +67,7 @@ def is_device_join(join_type: str, left_keys: List[E.Expression],
     """Tagging helper: None when the join runs on the device; else the
     JAX package's reason (``spark_rapids_tpu.exec.join.is_device_join``)."""
     if join_type not in PAIR_JOINS + MASK_JOINS:
-        return f"join type {join_type} is not ported yet"
+        return f"join type {join_type} is not supported on TPU"
     if condition is not None and join_type not in ("inner", "cross"):
         return (f"conditional {join_type} join runs on CPU (residual "
                 "conditions are device-filtered for inner joins only)")
@@ -88,7 +89,7 @@ def is_device_join(join_type: str, left_keys: List[E.Expression],
                 return "ANSI casts in join keys run on CPU"
         if type(lk.data_type) is not type(rk.data_type):
             return (f"mismatched join key types {lk.data_type} vs "
-                    f"{rk.data_type} are not ported yet")
+                    f"{rk.data_type} run on CPU")
     return None
 
 

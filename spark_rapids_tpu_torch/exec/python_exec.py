@@ -10,8 +10,8 @@ form a prefix, just the input columns are downloaded, and the worker's
 output uploads at the batch's capacity under the retry protocol, so the
 result columns line up with the device-resident columns row for row.
 Each exec is a stage boundary: stage fusion never crosses it. The CPU
-nodes are plan nodes only (the rewrite converts each into its device
-variant); they execute with the per-operator CPU fallback.
+nodes run on the host where the rewrite leaves them there (the engine
+off, or a CPU child), through the same worker pool.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ class CpuArrowEvalPythonExec(P.PhysicalPlan):
         self.children = [child]
         self.udfs = udfs  # Alias(PandasUDF) each
         self.conf = conf
+        self.metrics = M.MetricRegistry()
 
     @property
     def child(self) -> P.PhysicalPlan:
@@ -103,6 +104,23 @@ class CpuArrowEvalPythonExec(P.PhysicalPlan):
             out = _ipc_read(pool.run("scalar", payload, _ipc_bytes(tbl)))
         return [arrow_column_to_host(out.column(i), u.data_type)
                 for i, u in enumerate(self.udfs)]
+
+    def partitions(self) -> List[P.PartitionThunk]:
+        from spark_rapids_tpu_torch.python.pool import get_worker_pool
+        payload, needed, in_schema = self._plan_payload(self.child.output)
+        pool = get_worker_pool(self.conf)
+        schema = self.schema
+
+        def make(thunk: P.PartitionThunk) -> P.PartitionThunk:
+            def run() -> Iterator[HostBatch]:
+                for b in thunk():
+                    cols = self._run_udfs([b.columns[j] for j in needed],
+                                          b.num_rows, payload, in_schema,
+                                          pool, self.metrics)
+                    yield HostBatch(schema, list(b.columns) + cols,
+                                    b.num_rows)
+            return run
+        return [make(t) for t in self.child.partitions()]
 
     def simple_string(self):
         return f"ArrowEvalPython {[u.name for u in self.udfs]}"
@@ -198,6 +216,7 @@ class CpuMapInPandasExec(P.PhysicalPlan):
             E.AttributeReference(f.name, f.data_type, f.nullable)
             for f in out_schema.fields]
         self.conf = conf
+        self.metrics = M.MetricRegistry()
 
     @property
     def child(self) -> P.PhysicalPlan:
@@ -223,6 +242,18 @@ class CpuMapInPandasExec(P.PhysicalPlan):
             out = _ipc_read(pool.run("map", payload,
                                      _ipc_bytes(host_batch_to_arrow(hb))))
         return arrow_to_host_batch(out, self._schema)
+
+    def partitions(self) -> List[P.PartitionThunk]:
+        from spark_rapids_tpu_torch.python.pool import get_worker_pool
+        payload = self._payload()
+        pool = get_worker_pool(self.conf)
+
+        def make(thunk: P.PartitionThunk) -> P.PartitionThunk:
+            def run() -> Iterator[HostBatch]:
+                for b in thunk():
+                    yield self._map_batch(b, payload, pool, self.metrics)
+            return run
+        return [make(t) for t in self.child.partitions()]
 
     def simple_string(self):
         return f"MapInPandas {getattr(self.fn, '__name__', '<fn>')}"

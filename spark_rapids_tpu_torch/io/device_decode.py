@@ -427,6 +427,10 @@ def _plain_str_lengths(body: bytes, pos: int, end: int,
     O(page_bytes * log n) numpy work, no per-value Python loop."""
     if nn <= 0:
         return np.zeros(0, dtype=np.int64)
+    if (end - pos) * max(1, nn.bit_length()) > 100 * nn:
+        # long values: one step a value costs less than the doubling's
+        # log(n) passes over every byte
+        return _plain_str_lengths_walk(body, pos, end, nn)
     buf = np.frombuffer(body, dtype=np.uint8, offset=pos,
                         count=end - pos).astype(np.int64)
     B = buf.shape[0]
@@ -453,6 +457,24 @@ def _plain_str_lengths(body: bytes, pos: int, end: int,
     if int(starts[-1]) + 4 + int(lengths[-1]) > B:
         raise UnsupportedColumn("PLAIN byte-array page overruns body")
     return lengths
+
+
+def _plain_str_lengths_walk(body: bytes, pos: int, end: int,
+                            nn: int) -> np.ndarray:
+    """``_plain_str_lengths`` by following the chain one value at a
+    time."""
+    view = memoryview(body)
+    frm = int.from_bytes
+    out = []
+    for _ in range(nn):
+        if pos + 4 > end:
+            raise UnsupportedColumn("PLAIN byte-array page overruns body")
+        ln = frm(view[pos:pos + 4], "little")
+        out.append(ln)
+        pos += 4 + ln
+    if pos > end:
+        raise UnsupportedColumn("PLAIN byte-array page overruns body")
+    return np.array(out, dtype=np.int64)
 
 
 def _parse_delta_header(page: bytes, pos: int) -> Tuple[int, int, int,
@@ -597,21 +619,21 @@ def _decode_dict_page(body: bytes, nvals: int, dt: T.DataType,
         return [hi, lo.view(np.int64)], 0
     if kind == "str":
         from spark_rapids_tpu_torch.columnar.device import bucket_char_cap
-        vals: List[bytes] = []
-        pos = 0
-        max_len = 1
-        for _ in range(nvals):
-            ln = int.from_bytes(body[pos:pos + 4], "little")
-            pos += 4
-            vals.append(body[pos:pos + ln])
-            pos += ln
-            max_len = max(max_len, ln)
-        char_cap = bucket_char_cap(max_len)
+        lens = _plain_str_lengths(body, 0, len(body), nvals)
+        char_cap = bucket_char_cap(max(1, int(lens.max(initial=0))))
         chars = np.zeros((max(nvals, 1), char_cap), dtype=np.uint8)
         lengths = np.zeros(max(nvals, 1), dtype=np.int32)
-        for i, v in enumerate(vals):
-            chars[i, :len(v)] = np.frombuffer(v, dtype=np.uint8)
-            lengths[i] = len(v)
+        if nvals:
+            # value i's bytes follow its 4-byte prefix: gather them all
+            # at once into the rows of the char matrix
+            ends = np.cumsum(lens + 4)
+            firsts = ends - lens
+            inner = np.arange(int(lens.sum())) - np.repeat(
+                np.cumsum(lens) - lens, lens)
+            raw = np.frombuffer(body, dtype=np.uint8)
+            keep = np.arange(char_cap)[None, :] < lens[:, None]
+            chars[:nvals][keep] = raw[np.repeat(firsts, lens) + inner]
+            lengths[:nvals] = lens
         return [chars, lengths], char_cap
     raise UnsupportedColumn(f"dictionary for kind {kind}")
 

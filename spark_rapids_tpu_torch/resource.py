@@ -6,11 +6,15 @@ GpuSemaphore).
 scope, as the reference's withResource / closeOnExcept do. The semaphore
 bounds how many task threads touch the card at once: the row-to-columnar
 upload acquires it before its first device write, the columnar-to-row
-transition releases it when its partition is drained or fails. The port
-runs one task thread, so the semaphore is uncontended; it is kept for
-its contract, that a query that fails returns every permit. A plan run
-inside a running query (a cached relation's materialisation) keeps the
-thread's permit across its own transitions (``hold_across``).
+transition releases it when its partition is drained or fails, and so
+does a task when it ends. Under ``spark.rapids.sql.taskParallelism`` 1
+the port runs one task thread and the semaphore is uncontended; it is
+kept for its contract, that a query that fails returns every permit. A
+plan run inside a running query (a cached relation's materialisation)
+keeps the task's permit across its own transitions (``hold_across``),
+and a host operator between two transitions, whose transitions release
+and take the permit again mid-partition, takes the task's own permit,
+on whichever thread drains it (``adopt``).
 """
 
 from __future__ import annotations
@@ -57,11 +61,27 @@ def close_on_except(resource: T) -> Iterator[T]:
         raise
 
 
+class _TaskPermit:
+    """One task's hold on the semaphore: whether it holds a permit, and
+    how many ``hold_across`` scopes keep it."""
+
+    __slots__ = ("count", "pinned")
+
+    def __init__(self):
+        self.count = 0
+        self.pinned = 0
+
+
 class TorchSemaphore:
-    """Permits for task threads that touch the card. Reentrant per
-    thread: repeated acquires on one thread do not nest, so one release
-    frees the thread's permit however many uploads it made. The wait is
-    recorded as ``semaphoreWaitTime`` on the caller's registry."""
+    """Permits for tasks that touch the card. A permit belongs to a task,
+    not to a thread: each thread is its own task unless it adopts
+    another's (``adopt``), as the upload ring's producer thread adopts
+    the task thread that runs the partition. So a host operator between
+    two transitions, drained on the producer thread, releases and takes
+    again the task's own permit and never waits on it. Reentrant per
+    task: repeated acquires do not nest, so one release frees the task's
+    permit however many uploads it made. The wait is recorded as
+    ``semaphoreWaitTime`` on the caller's registry."""
 
     def __init__(self, permits: int):
         self.permits = max(1, permits)
@@ -69,50 +89,71 @@ class TorchSemaphore:
         self._cv = threading.Condition()
         self._held = threading.local()
 
+    def current_task(self) -> _TaskPermit:
+        """The calling thread's task (its own unless it adopted one)."""
+        task = getattr(self._held, "task", None)
+        if task is None:
+            task = self._held.task = _TaskPermit()
+        return task
+
+    @contextlib.contextmanager
+    def adopt(self, task: _TaskPermit) -> Iterator[None]:
+        """Run the calling thread as part of ``task``: its acquires and
+        releases are the task's."""
+        prev = getattr(self._held, "task", None)
+        self._held.task = task
+        try:
+            yield
+        finally:
+            self._held.task = prev
+
     def acquire_if_necessary(self, metrics=None) -> None:
-        if getattr(self._held, "count", 0) > 0:
+        task = self.current_task()
+        if task.count > 0:
             return
         t0 = time.perf_counter_ns()
         with self._cv:
-            while self._in_use >= self.permits:
+            while task.count == 0 and self._in_use >= self.permits:
                 self._cv.wait()
-            self._in_use += 1
+            if task.count == 0:
+                self._in_use += 1
+                task.count = 1
         if metrics is not None:
             from spark_rapids_tpu_torch import metrics as M
             metrics.create(M.SEMAPHORE_WAIT_TIME).add(
                 time.perf_counter_ns() - t0)
-        self._held.count = 1
 
     def release_if_necessary(self) -> None:
-        """Release the calling thread's permit, if it holds one and no
+        """Release the calling task's permit, if it holds one and no
         ``hold_across`` keeps it."""
-        if getattr(self._held, "pinned", 0) > 0:
-            return
-        if getattr(self._held, "count", 0) > 0:
-            self._held.count = 0
-            with self._cv:
-                self._in_use -= 1
-                self._cv.notify()
+        task = self.current_task()
+        with self._cv:
+            if task.pinned > 0 or task.count == 0:
+                return
+            task.count = 0
+            self._in_use -= 1
+            self._cv.notify_all()
 
     @contextlib.contextmanager
     def hold_across(self) -> Iterator[None]:
-        """Keep the calling thread's permit, if it holds one, across a
+        """Keep the calling task's permit, if it holds one, across a
         nested plan's run: that plan's columnar-to-row transition would
-        otherwise release the permit of the query the thread is running.
-        A thread without a permit gets the nested plan's own acquire and
+        otherwise release the permit of the query the task is running.
+        A task without a permit gets the nested plan's own acquire and
         release."""
-        if getattr(self._held, "count", 0) == 0:
+        task = self.current_task()
+        if task.count == 0:
             yield
             return
-        self._held.pinned = getattr(self._held, "pinned", 0) + 1
+        task.pinned += 1
         try:
             yield
         finally:
-            self._held.pinned -= 1
+            task.pinned -= 1
 
     def held_by_caller(self) -> bool:
-        """Whether the calling thread holds a permit."""
-        return getattr(self._held, "count", 0) > 0
+        """Whether the calling task holds a permit."""
+        return self.current_task().count > 0
 
     def resize(self, permits: int) -> None:
         """Change the permit count in place; holders keep their permits
@@ -144,3 +185,10 @@ def get_semaphore(conf) -> TorchSemaphore:
         elif _SEMAPHORE.permits != want:
             _SEMAPHORE.resize(want)
         return _SEMAPHORE
+
+
+def release_current_thread() -> None:
+    """Release the calling task's permit if the semaphore exists (before
+    a thread blocks on a task pool or a lock, and when a task ends)."""
+    if _SEMAPHORE is not None:
+        _SEMAPHORE.release_if_necessary()

@@ -14,6 +14,8 @@ BoundReference binding before codegen.
 
 from __future__ import annotations
 
+import functools
+
 import itertools
 import math
 from typing import Any, Callable, List, Optional, Sequence
@@ -646,7 +648,33 @@ def _decimal_arith(sym: str, lc: HostColumn, rc: HostColumn,
     in the supported envelope, exact Python-int fallback otherwise
     (CheckOverflow -> NULL, non-ANSI)."""
     from spark_rapids_tpu_torch.ops import decimal_ops as D
+    from spark_rapids_tpu_torch.ops import int128 as I
     lt, rt = lc.dtype, rc.dtype
+    narrow = not (T.is_limb_decimal(lt) or T.is_limb_decimal(rt))
+    if narrow and sym in ("+", "-") and not T.is_limb_decimal(res) \
+            and res.scale >= max(lt.scale, rt.scale):
+        # every operand and the result within 18 digits: the rescaled
+        # operands and their sum or difference are exact in int64
+        a = lc.data.astype(np.int64) * 10 ** (res.scale - lt.scale)
+        b = rc.data.astype(np.int64) * 10 ** (res.scale - rt.scale)
+        v = a + b if sym == "+" else a - b
+        ok = validity & (np.abs(v) < 10 ** res.precision)
+        return HostColumn(res, np.where(ok, v, 0), ok)
+    if sym == "*" and res.scale == lt.scale + rt.scale:
+        a, b = _as_i64(lc), _as_i64(rc)
+        if a is not None and b is not None and _i64_bound(a) \
+                * _i64_bound(b) < (1 << 63):
+            # the exact product fits int64: no limb math, no rescale
+            v = a * b
+            ok = validity if res.precision > 18 else \
+                validity & (np.abs(v) < 10 ** res.precision)
+            return _limbs_to_col(v >> np.int64(63), v, ok, res)
+    if narrow and sym == "*" and res.scale == lt.scale + rt.scale:
+        # two 64-bit operands: their exact 128-bit product, no rescale
+        hi, lo = I.mul_i64(np, lc.data.astype(np.int64),
+                           rc.data.astype(np.int64))
+        ok = I.fits_precision(np, hi, lo, res.precision)
+        return _limbs_to_col(hi, lo, validity & ok, res)
     if sym in ("+", "-"):
         if not D.add_sub_supported(lt, rt):
             return _decimal_slow(sym, lc, rc, validity, res)
@@ -660,6 +688,22 @@ def _decimal_arith(sym: str, lc: HostColumn, rc: HostColumn,
     else:  # exact slow path (both operands wide, or deep rescale)
         return _decimal_slow(sym, lc, rc, validity, res)
     return _limbs_to_col(hi, lo, validity & ok, res)
+
+
+def _as_i64(col: HostColumn) -> Optional[np.ndarray]:
+    """A decimal column's unscaled values as int64, or None where a
+    decimal128 value does not fit."""
+    if not T.is_limb_decimal(col.dtype):
+        return col.data.astype(np.int64)
+    hi, lo = _dec_limbs(col)
+    return lo if bool((hi == (lo >> np.int64(63))).all()) else None
+
+
+def _i64_bound(v: np.ndarray) -> int:
+    """The largest magnitude in ``v`` as a Python int (0 when empty)."""
+    if not len(v):
+        return 0
+    return max(-int(v.min()), int(v.max()), 0)
 
 
 def _decimal_slow(sym: str, lc: HostColumn, rc: HostColumn,
@@ -1495,11 +1539,35 @@ class StartsWith(BinaryExpression):
     def eval(self, batch: HostBatch) -> HostColumn:
         lc, rc = self.left.eval(batch), self.right.eval(batch)
         validity = _combined_validity([lc, rc])
-        out = np.zeros(batch.num_rows, dtype=bool)
-        for i in range(batch.num_rows):
-            if validity[i]:
-                out[i] = self.scalar(lc.data[i], rc.data[i])
+        if isinstance(self.right, Literal) and self.right.value is not None:
+            out = _per_distinct(self.scalar, lc, self.right.value, validity)
+            if out is not None:
+                return HostColumn(T.BooleanT, out, validity)
+        scalar = self.scalar
+        out = np.fromiter(
+            (ok and scalar(a, b) for a, b, ok in zip(
+                lc.data.tolist(), rc.data.tolist(), validity.tolist())),
+            dtype=bool, count=batch.num_rows)
         return HostColumn(T.BooleanT, out, validity)
+
+
+def _per_distinct(scalar, col: HostColumn, p: str,
+                  validity: np.ndarray) -> Optional[np.ndarray]:
+    """``scalar(s, p)`` for each row's string ``s``, computed once per
+    distinct string (Arrow's dictionary encoding) and gathered back; None
+    where pyarrow is missing or a value is not a string."""
+    try:
+        import pyarrow as pa
+        enc = pa.array(col.data, type=pa.string(),
+                       mask=~validity).dictionary_encode()
+    except Exception:
+        return None
+    hits = np.fromiter((scalar(v, p) for v in enc.dictionary.to_pylist()),
+                       dtype=bool, count=len(enc.dictionary))
+    if not len(hits):
+        return np.zeros(len(validity), dtype=bool)
+    idx = enc.indices.fill_null(0).to_numpy(zero_copy_only=False)
+    return hits[idx] & validity
 
 
 class EndsWith(StartsWith):
@@ -1516,9 +1584,15 @@ class Like(StartsWith):
     """SQL LIKE with %% and _ wildcards, escape '\\'."""
 
     def scalar(self, s: str, p: str) -> bool:
-        import re
-        regex = _like_to_regex(p)
-        return re.fullmatch(regex, s, flags=re.DOTALL) is not None
+        return _like_pattern(p).fullmatch(s) is not None
+
+
+@functools.lru_cache(maxsize=256)
+def _like_pattern(pattern: str):
+    """The compiled regular expression of a LIKE pattern, compiled once
+    for all the rows that share the pattern."""
+    import re
+    return re.compile(_like_to_regex(pattern), flags=re.DOTALL)
 
 
 def _like_to_regex(pattern: str) -> str:

@@ -17,13 +17,16 @@ Planning decisions mirrored from Spark:
   expand plan one to one.
 - A cached relation plans as ``CpuCachedScanExec``; mixed DISTINCT and
   plain aggregates become two aggregates over one cached child, joined
-  on null-safe key equality.
+  on null-safe key equality (a cross join without grouping keys).
+- An inner or cross join without equi-keys plans as
+  ``CpuBroadcastNestedLoopJoinExec``, which runs on the host; another
+  join type without equi-keys raises, as in the JAX package.
 - Pandas UDFs are pulled out of a projection into an
   ``CpuArrowEvalPythonExec`` below it (Spark's ExtractPythonUDFs);
   ``mapInPandas`` plans as ``CpuMapInPandasExec``.
 
-Only the logical nodes of the ported slice are planned; every other node
-raises ``NotImplementedError`` naming it.
+Only the logical nodes of the ported slices are planned; every other
+node raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def host_sizeof(b: HostBatch) -> int:
     total = 0
     for c in b.columns:
         if c.data.dtype == object:
-            total += sum(len(str(v)) for v in c.data) + len(c.data)
+            total += sum(map(len, map(str, c.data.tolist()))) + len(c.data)
         else:
             total += c.data.nbytes
         total += c.validity.nbytes
@@ -337,8 +340,8 @@ class Planner:
         join is 1:1; the role Spark's RewriteDistinctAggregates Expand
         plays. The shared child is wrapped in a CachedRelation, so the
         two aggregates read it once. Without grouping keys the two
-        one-row sides need a cross join, which the JAX package runs as a
-        CPU nested-loop join: it raises in ``_plan_join``."""
+        one-row sides meet in a cross join, a nested-loop join on the
+        host."""
         distinct_ids = {id(a) for a in distinct}
         plain = [a for a in aliases if id(a) not in distinct_ids]
         grouping_attr = {id(g): (g if isinstance(g, E.AttributeReference)
@@ -387,12 +390,10 @@ class Planner:
         left_keys, right_keys, null_safe, residual = split_equi_join(
             p.condition, p.left.output, p.right.output)
         if not left_keys:
-            # the JAX package runs these as a CPU nested-loop join: they
-            # wait for the per-operator CPU fallback
+            if p.join_type in ("inner", "cross"):
+                return self._nested_loop(p, left, right)
             raise NotImplementedError(
-                f"non-equi {p.join_type} join (nested-loop join) runs on "
-                "the CPU, and the per-operator CPU fallback is not "
-                "ported yet to spark_rapids_tpu_torch")
+                f"non-equi {p.join_type} join not supported yet")
         threshold = int(self.conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
         est = estimate_plan_bytes(p.right)
         small_right = (threshold >= 0 and est is not None
@@ -411,6 +412,13 @@ class Planner:
         return P.CpuShuffledHashJoinExec(left_keys, right_keys, p.join_type,
                                          residual, lex, rex, p.output,
                                          null_safe=null_safe)
+
+    def _nested_loop(self, p: L.Join, left: P.PhysicalPlan,
+                     right: P.PhysicalPlan) -> P.PhysicalPlan:
+        from spark_rapids_tpu_torch.sql.nested_loop import \
+            CpuBroadcastNestedLoopJoinExec
+        return CpuBroadcastNestedLoopJoinExec(p.join_type, p.condition,
+                                              left, right, p.output)
 
 
 def split_equi_join(condition: Optional[E.Expression],

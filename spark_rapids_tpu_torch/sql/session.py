@@ -5,7 +5,12 @@ trimmed to what the ported slices run: ``createDataFrame``, ``range``,
 ``read.parquet`` and temp views, ``sql``, the ``builder``, ``active()``
 and ``stop()``, plan capture (``start_capture``,
 ``get_captured_plans``), and execution through the CPU
-planner followed by the overrides rewrite onto torch device operators.
+planner followed by the overrides rewrite onto torch device operators,
+which leaves an operator on the host engine exactly where the JAX
+package's rewrite keeps it on its CPU (``last_rewrite_report`` holds the
+query's fallbacks and their reasons; ``spark.rapids.sql.explain`` prints
+them). With ``spark.rapids.sql.enabled=false`` the CPU plan runs on the
+host engine with no rewrite.
 The operators run under the spill store and the OOM retry protocol
 (``memory.py``, ``retry.py``); once a collect ends, or fails, every store
 handle its plan registered is closed (``release_plan_handles``), so none
@@ -84,6 +89,7 @@ class TorchSparkSession:
         self.conf = RuntimeConfApi(self.conf_obj)
         self.catalog_views: Dict[str, L.LogicalPlan] = {}
         self.last_plan = None  # the executed physical plan, for tests
+        self.last_rewrite_report = None  # the last query's RewriteReport
         self._plan_capture: List = []  # ExecutionPlanCaptureCallback twin
         self._capture_enabled = False
         self._assert_kernel_flags()
@@ -195,14 +201,27 @@ class TorchSparkSession:
         plan = udf_compiler.rewrite_plan(plan, self.conf_obj)
         return Planner(self.conf_obj, session=self).plan(plan)
 
-    def plan_physical(self, plan: L.LogicalPlan):
-        """CPU physical plan, then the rewrite onto device operators."""
-        from spark_rapids_tpu_torch.overrides import apply_overrides
-        physical = apply_overrides(self._plan_cpu(plan), self.conf_obj,
-                                   self.device)
+    def plan_physical(self, plan: L.LogicalPlan, announce: bool = True):
+        """CPU physical plan, then the rewrite onto device operators when
+        ``spark.rapids.sql.enabled`` (its report in
+        ``last_rewrite_report``; ``announce`` prints its explain
+        lines)."""
+        physical, self.last_rewrite_report = self._rewrite(
+            self._plan_cpu(plan), announce)
         if self._capture_enabled:
             self._plan_capture.append(physical)
         return physical
+
+    def _rewrite(self, physical, announce: bool = True):
+        """``(plan, report)``: the rewrite of a CPU plan, or the CPU plan
+        itself with no report when the engine is off."""
+        from spark_rapids_tpu_torch.overrides import (RewriteReport,
+                                                      apply_overrides)
+        if not self.conf_obj.sql_enabled:
+            return physical, None
+        report = RewriteReport()
+        return apply_overrides(physical, self.conf_obj, self.device,
+                               report, announce), report
 
     def _assert_kernel_flags(self) -> None:
         """Apply this session's process-wide kernel flags before planning
@@ -216,12 +235,11 @@ class TorchSparkSession:
     def host_partitions(self, plan: L.LogicalPlan):
         """Partition thunks yielding the plan's output as HostBatches (the
         writer's input). A plan that is only a host source needs no trip
-        to the device; anything else runs through the device plan."""
-        from spark_rapids_tpu_torch.overrides import (HOST_SOURCES,
-                                                      apply_overrides)
+        to the device; anything else runs through the rewritten plan."""
+        from spark_rapids_tpu_torch.overrides import HOST_SOURCES
         physical = self._plan_cpu(plan)
         if not isinstance(physical, HOST_SOURCES):
-            physical = apply_overrides(physical, self.conf_obj, self.device)
+            physical, _report = self._rewrite(physical)
         return physical.partitions()
 
     def run_nested(self, plan: L.LogicalPlan, encode) -> List[List[Any]]:
@@ -236,12 +254,11 @@ class TorchSparkSession:
         store handles are released once it ends or fails."""
         from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
         from spark_rapids_tpu_torch.memory import release_plan_handles
-        from spark_rapids_tpu_torch.overrides import apply_overrides
         from spark_rapids_tpu_torch.resource import get_semaphore
         from spark_rapids_tpu_torch.sql import physical as P
         physical = self._plan_cpu(plan)
         if not isinstance(physical, (P.CpuLocalScanExec, CpuCachedScanExec)):
-            physical = apply_overrides(physical, self.conf_obj, self.device)
+            physical, _report = self._rewrite(physical)
         if self._capture_enabled:
             self._plan_capture.append(physical)
         try:
@@ -252,19 +269,36 @@ class TorchSparkSession:
             release_plan_handles(physical)
 
     def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
+        from spark_rapids_tpu_torch.conf import TASK_PARALLELISM
         from spark_rapids_tpu_torch.memory import release_plan_handles
+        from spark_rapids_tpu_torch.overrides import has_device_op
         physical = self.plan_physical(plan)
         self.last_plan = physical
         self._assert_kernel_flags()
+        # a plan with a device operator drains its partitions on this
+        # thread; only a host-only plan spreads them over task threads
+        tasks = 1 if has_device_op(physical) else \
+            int(self.conf_obj.get(TASK_PARALLELISM))
         try:
-            return physical.execute_collect()
+            return physical.execute_collect(tasks)
         finally:
             release_plan_handles(physical)
 
     def explain_string(self, plan: L.LogicalPlan, physical=None) -> str:
+        """The logical and physical plans, then the rewrite's placement:
+        every fallback with its reason, and under
+        ``spark.rapids.sql.explain=ALL`` each operator placed on the GPU
+        too. Planning here prints no explain lines of its own."""
         if physical is None:
-            physical = self.plan_physical(plan)
-        return f"== Logical ==\n{plan!r}\n== Physical ==\n{physical!r}"
+            physical = self.plan_physical(plan, announce=False)
+        out = f"== Logical ==\n{plan!r}\n== Physical ==\n{physical!r}"
+        report = self.last_rewrite_report
+        if report is not None:
+            lines = report.format("ALL" if self.conf_obj.explain == "ALL"
+                                  else "NOT_ON_GPU")
+            if lines:
+                out += f"\n== Placement ==\n{lines}"
+        return out
 
 
 class _BuilderFactory:

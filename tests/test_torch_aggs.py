@@ -28,7 +28,8 @@ from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests import test_device_exec as JX
-from tests.torch_dual import assert_all_torch, rows_close, run_case
+from tests.torch_dual import (assert_all_torch, dual_run, rows_close,
+                              run_case)
 
 torch.set_num_threads(2)
 
@@ -65,12 +66,22 @@ def test_agg_case(name):
     ("stddev", "device stddev/variance may differ from CPU"),
     ("avg", "device float sum/average may differ from CPU")])
 def test_float_aggregates_refused_without_variable_float_agg(func, reason):
+    """With ``variableFloatAgg`` off both packages keep the float
+    aggregate on the host, for the same reason, and give the same rows
+    (within rel_tol=1e-12)."""
+    from spark_rapids_tpu.sql import functions as JF
     from spark_rapids_tpu_torch.sql import functions as PF
-    s = TorchSparkSession(device="cpu")
-    df = s.createDataFrame({"k": ["a", "b", "a"], "v": [1.0, 2.0, 3.0]},
-                           "k string, v double")
-    with pytest.raises(NotImplementedError, match=reason):
-        df.groupBy("k").agg(getattr(PF, func)("v").alias("x")).collect()
+
+    def make(s, F):
+        return s.createDataFrame(
+            {"k": ["a", "b", "a"], "v": [1.0, 2.0, 3.0]},
+            "k string, v double").groupBy("k").agg(
+            getattr(F, func)("v").alias("x"))
+    jax_rec, port_rec = dual_run(lambda s: make(s, JF),
+                                 lambda s: make(s, PF), approx=True)
+    assert reason in port_rec.messages[0]
+    assert [op for op, _up, _down in jax_rec.results[0][3]] == \
+        ["CpuHashAggregateExec"] * 2
 
 
 @pytest.mark.parametrize("func", ["first", "last"])

@@ -3,8 +3,8 @@ package on the CPU.
 
 The JAX package's own cases (``tests/test_device_join.py``): an inner
 join with a residual runs on the device in both packages with equal
-rows; a conditional outer join is refused, by the port with the JAX
-package's reason. Inner joins with residuals over string, decimal and
+rows; a conditional outer join runs on the host in both packages, placed
+alike, with equal rows and the JAX package's reason. Inner joins with residuals over string, decimal and
 double columns run on every route the port has: the broadcast stream,
 the shuffled co-partition, their chunked forms (``batchSizeRows`` 256)
 and the out-of-core bucket pairs (a tiny device budget); the rows equal
@@ -59,10 +59,16 @@ def test_inner_join_with_condition_matches_jax_package():
 
 
 def test_conditional_outer_join_refused_with_jax_reason():
+    """The JAX package keeps a conditional outer join on its CPU; the
+    port runs it on its host engine at the same place, for the JAX
+    package's reason, with the same rows."""
     rec = run_case(TDJ, "test_conditional_outer_join_falls_back")
     (msg,) = rec.messages
     assert ("conditional left join runs on CPU (residual conditions are "
             "device-filtered for inner joins only)") in msg, msg
+    assert rec.results[0][1] and [op for op, _up, _down in
+                                  rec.results[0][3]] == [
+        "CpuBroadcastHashJoinExec"]
 
 
 def run_both(df_fn, conf):

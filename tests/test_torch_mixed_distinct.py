@@ -12,8 +12,8 @@ the plan all ``Torch*`` with the shuffled join on ``<=>`` and both
 aggregates reading one relation, materialised once; the port's plan
 fused as the JAX package's; the JAX cases of
 ``tests/test_device_exec.py`` through ``tests/torch_dual.py``; the
-global form (no GROUP BY), which the JAX package joins on its CPU,
-raising ``NotImplementedError`` with the fallback reason."""
+global form (no GROUP BY), which both packages join on the host in a
+nested-loop join, with the same rows."""
 
 import pytest
 import torch
@@ -30,7 +30,7 @@ from spark_rapids_tpu_torch.io.cache import CpuCachedScanExec
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests.harness import _rows, _sort_key
-from tests.torch_dual import assert_all_torch, compare, run_case
+from tests.torch_dual import assert_all_torch, compare, dual_run, run_case
 
 torch.set_num_threads(2)
 
@@ -110,10 +110,16 @@ def test_jax_cases(case):
 
 
 def test_global_form_raises_with_the_fallback_reason():
-    ps = TorchSparkSession(device="cpu")
-    ps.createDataFrame(MD, MD_DDL).createOrReplaceTempView("md")
-    with pytest.raises(NotImplementedError, match="runs on the CPU"):
-        ps.sql("SELECT count(DISTINCT a) cd, sum(v) sv FROM md").collect()
+    """The global form (no GROUP BY) joins its two one-row sides in a
+    cross join, a nested-loop join on the host in both packages: the same
+    placement and the same rows."""
+    def make(s):
+        s.createDataFrame(MD, MD_DDL).createOrReplaceTempView("md")
+        return s.sql("SELECT count(DISTINCT a) cd, sum(v) sv FROM md")
+    jax_rec, port_rec = dual_run(make, make)
+    assert port_rec.results[0][1] == [(3, 310)]
+    assert any(op == "CpuBroadcastNestedLoopJoinExec"
+               for op, _up, _down in jax_rec.results[0][3])
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,9 @@ windows) against the JAX package's, on the CPU.
   ``tests/test_device_generate.py`` and all 6 of ``tests/test_struct.py``,
   each run through the JAX package's device path and through
   ``TorchSparkSession(device="cpu")`` (``tests/torch_dual.py``): rows
-  exact, the port's plan all ``Torch*``. A case the JAX package keeps
-  (partly) on its CPU raises ``NotImplementedError`` in the port with the
-  JAX package's reason.
+  exact, and the same operators on the host as the JAX package's. A case
+  the JAX package keeps (partly) on its CPU runs there on the port's
+  host engine, with the JAX package's reason in the explain lines.
 - Storage: the serde round trip of ``tests/test_memory_spill.py``'s
   ``test_serde_roundtrip_all_types`` through the port (a struct column
   added, bytes equal to the JAX package's); a device batch with an array
@@ -18,9 +18,10 @@ windows) against the JAX package's, on the CPU.
 - Hashing: the struct murmur3 fold of the plain version against the JAX
   package's ``hash_device_column``, and the partition ids the murmur3
   wrapper computes from a struct's fields against it.
-- Refusals: the shapes the JAX package places on its CPU (``split``,
-  ``collect_list``, nested sort, join and window keys, nested-of-nested
-  types) raise ``NotImplementedError`` in the port.
+- CPU placement: the shapes the JAX package places on its CPU
+  (``split``, ``collect_list``, nested sort, join and window keys,
+  nested-of-nested types, an explode over a copied array) run on the
+  port's host engine at the same places, with the same rows.
 
 Tolerances: none; every value is exact.
 """
@@ -58,7 +59,7 @@ from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests import test_device_generate as JG
 from tests import test_struct as JS
-from tests.torch_dual import cpu_operators, run_case
+from tests.torch_dual import dual_run, run_case
 
 torch.set_num_threads(2)
 
@@ -80,7 +81,7 @@ STRUCT_CASES = [
     "test_time_window_tumbling_device_groupby",
     "test_struct_groupby_key_device"]
 # the cases the JAX package keeps (partly) on its CPU, with the reason
-# the port raises
+# the port's explain lines give
 REFUSED = {
     "test_device_create_array_and_explode":
         "explode over computed arrays runs on CPU",
@@ -362,8 +363,8 @@ def test_chained_explode_equals_python_reference(shape):
     len(b)) outgrows that pool's capacity, and the generate sizes it from
     the count (``explodes_below``). The rows are exact against a Python
     reference. Through a session both packages put the project that
-    carries the arrays between the explodes on the CPU, so the port
-    refuses the query (``test_cpu_placed_shapes_raise``)."""
+    carries the arrays between the explodes on the CPU, and the port runs
+    it there (``test_cpu_placed_shapes_raise``)."""
     from spark_rapids_tpu_torch.conf import TorchConf
     from spark_rapids_tpu_torch.exec.generate import (TorchGenerateExec,
                                                       explode_batch,
@@ -466,7 +467,7 @@ def test_time_window_follows_floor_mod_on_negative_times():
 
 
 # ---------------------------------------------------------------------------
-# Refusals: what the JAX package keeps on its CPU raises in the port
+# What the JAX package keeps on its CPU runs on the port's host engine
 # ---------------------------------------------------------------------------
 
 def _arrays(s):
@@ -503,16 +504,11 @@ REFUSALS = {
 
 @pytest.mark.parametrize("shape", sorted(REFUSALS))
 def test_cpu_placed_shapes_raise(shape):
-    """The JAX package plans each shape with a CPU operator; the port,
-    which has no fallback, raises ``NotImplementedError``."""
+    """The JAX package plans each shape with a CPU operator; the port
+    keeps the same operators on its host engine, at the same places, and
+    gives the same rows."""
     make = REFUSALS[shape]
-    js = TpuSparkSession({"spark.rapids.sql.enabled": "true"})
-    try:
-        js.start_capture()
-        make(js, JF).collect()
-        jplan = js.get_captured_plans()[-1]
-    finally:
-        js.stop()
-    assert cpu_operators(jplan), shape
-    with pytest.raises(NotImplementedError):
-        make(TorchSparkSession(device="cpu"), PF).collect()
+    jax_rec, port_rec = dual_run(lambda s: make(s, JF),
+                                 lambda s: make(s, PF))
+    assert jax_rec.results[0][3], shape
+    assert port_rec.messages, shape

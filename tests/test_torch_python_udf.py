@@ -10,8 +10,9 @@ Python exec a stage boundary, fused as the JAX package's; a UDF error
 raised with the worker's traceback, the worker serving the next call;
 one worker reused across batches; the worker process importing neither
 torch, jax nor either package (asked inside the worker) and the worker
-module neither on import; a pandas UDF in a filter raising with the
-fallback reason; ``stop()`` ending the workers. Each test that starts
+module neither on import; a pandas UDF in a filter or a sort key kept
+on the host as in the JAX package, with the same rows; ``stop()``
+ending the workers. Each test that starts
 workers runs under a time limit of its own."""
 
 import os
@@ -34,7 +35,7 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests.harness import _rows
-from tests.torch_dual import assert_all_torch, run_case
+from tests.torch_dual import assert_all_torch, dual_run, run_case
 
 torch.set_num_threads(2)
 
@@ -184,17 +185,23 @@ def test_worker_module_imports_no_torch():
 
 
 def test_pandas_udf_in_filter_raises_with_the_fallback_reason():
-    @F.pandas_udf("long")
+    """A pandas UDF in a filter or a sort key is not extracted into the
+    Python exec: both packages keep that filter or sort on the host, for
+    the same reason, and give the same rows."""
     def twice(v):
         return v * 2
 
-    ps = TorchSparkSession(device="cpu")
-    df = ps.createDataFrame({"a": [1, 2, 3]}, "a long")
-    with pytest.raises(NotImplementedError,
-                       match="PandasUDF.*per-operator CPU fallback"):
-        df.filter(twice("a") > 2).collect()
-    with pytest.raises(NotImplementedError, match="CPU fallback"):
-        df.orderBy(twice("a")).collect()
+    def frame(s):
+        return s.createDataFrame({"a": [1, 2, 3]}, "a long")
+
+    for query, ordered in (
+            (lambda df, u: df.filter(u("a") > 2), False),
+            (lambda df, u: df.orderBy(u("a")), True)):
+        _jax_rec, port_rec = dual_run(
+            lambda s: query(frame(s), JF.pandas_udf(twice, "long")),
+            lambda s: query(frame(s), F.pandas_udf(twice, "long")),
+            ignore_order=not ordered)
+        assert "PandasUDF" in port_rec.messages[0]
 
 
 def test_stop_ends_the_workers():

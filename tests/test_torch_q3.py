@@ -27,6 +27,8 @@ from spark_rapids_tpu_torch.interop import host_batch_from_numpy
 from spark_rapids_tpu_torch.sql import types as PT
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
+from tests.torch_dual import dual_run
+
 torch.set_num_threads(2)
 
 N_SALES = 20_000
@@ -300,8 +302,8 @@ def test_limit_without_order_identical_to_jax_package():
 
 @pytest.mark.parametrize("on", ["f.v < d.pk", "f.fk = d.pk AND f.v < d.pk"])
 def test_unported_join_conditions_raise(on):
-    """A join with no equi-key (a nested-loop join, which the JAX package
-    runs on the CPU) raises until the CPU fallback is ported; an
+    """A join with no equi-key is a nested-loop join, which both packages
+    run on their host engines (the same plan, the same rows); an
     equi-join with a residual condition runs on the device and gives the
     JAX package's rows."""
     fact, fvalid, dim, _dv = _join_views(False)
@@ -311,8 +313,16 @@ def test_unported_join_conditions_raise(on):
         .createOrReplaceTempView("f")
     port.createDataFrame(_torch_batch(dim)).createOrReplaceTempView("d")
     if "=" not in on:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port.sql(sql).collect()
+        def make(s, batch):
+            s.createDataFrame(batch(fact, fvalid)).createOrReplaceTempView(
+                "f")
+            s.createDataFrame(batch(dim)).createOrReplaceTempView("d")
+            return s.sql(sql)
+        jax_rec, _port_rec = dual_run(lambda s: make(s, _jax_batch),
+                                      lambda s: make(s, _torch_batch))
+        assert jax_rec.results[0][1] and jax_rec.results[0][3] == [
+            ("CpuBroadcastNestedLoopJoinExec", "device",
+             ("source", "source"))]
         return
     jax_s = TpuSparkSession(dict(JAX_CONF))
     try:

@@ -9,8 +9,9 @@ their bytecode's COPY is outside both executors); the cases of ``tests/test_tool
 methods and local variables, each against row-at-a-time Python) on the
 port's session; the compiled project inside the aggregate's stage,
 fused as the JAX package's; an uncompilable ``F.udf``, and any
-``F.udf`` with the compiler off, raising ``NotImplementedError`` with
-the fallback reason."""
+``F.udf`` with the compiler off, evaluated on the host in both packages
+with the same rows; each lambda neither compiles, run as a Python UDF in
+both packages."""
 
 import math
 import random
@@ -33,7 +34,7 @@ from spark_rapids_tpu_torch.sql import types as T
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests.harness import _rows
-from tests.torch_dual import assert_all_torch, port_type
+from tests.torch_dual import assert_all_torch, dual_run, port_type
 
 torch.set_num_threads(2)
 
@@ -108,11 +109,42 @@ def test_compiled_tree_equals_jax_package(name, fn, types):
     assert _norm(got) == _norm(want)
 
 
+# each refused lambda's result type and its arguments' rows
+REFUSED_RUNS = {
+    "and_or": ("boolean", {"c0": [1, 2, 3, 0], "c1": [3, 1, 3, 2]}),
+    "or_methods": ("boolean", {"c0": ["Abz", "qz", "q", "ab"]}),
+    "call": ("int", {"c0": [1, -5, 42, 7]}),
+    "strip": ("string", {"c0": [" a ", "b", "  c", "d "]}),
+    "floor_div": ("int", {"c0": [1, -5, 42, 7]}),
+    "float_mod": ("double", {"c0": [1.5, -3.25, 4.0, 9.75]}),
+    "loop": ("int", {"c0": [1, 0, 5, 3]}),
+    "shadowed": ("int", {"c0": [1, -5, 42, 7]}),
+    "subscript": ("string", {"c0": ["ab", "c", "de", "f"]}),
+}
+
+
 @pytest.mark.parametrize("name,fn,types",
                          REFUSED, ids=[c[0] for c in REFUSED])
 def test_refused_by_both(name, fn, types):
+    """Neither compiler takes the lambda, so it stays a Python UDF, which
+    both packages evaluate in a projection on the host: the same
+    placement and the same rows."""
     assert _compile("jax", fn, types, JT.IntegerT) is None
     assert _compile("port", fn, types, JT.IntegerT) is None
+    rtype, data = REFUSED_RUNS[name]
+    ddl = ", ".join(f"c{i} {port_type(t).simple_string}"
+                    for i, t in enumerate(types))
+
+    def make(s, Fm):
+        df = s.createDataFrame({k: data[k] for k in
+                                [f"c{i}" for i in range(len(types))]},
+                               ddl)
+        u = Fm.udf(fn, rtype)
+        return df.select(u(*[Fm.col(f"c{i}")
+                             for i in range(len(types))]).alias("u"))
+    _jax_rec, port_rec = dual_run(lambda s: make(s, JF),
+                                  lambda s: make(s, F), conf=dict(ON))
+    assert "PythonUDF" in port_rec.messages[0]
 
 
 def test_device_placement():
@@ -132,23 +164,36 @@ def test_device_placement():
 def test_conditionals_compile_and_uncompilable_raises():
     """``test_udf_compiler_conditionals_and_fallback``: the conditional
     compiles (rows as row-at-a-time Python gives them); the UDF with a
-    call stays a Python UDF, which the JAX package runs on its CPU."""
+    call stays a Python UDF, which both packages run on the host, and so
+    does any ``F.udf`` with the compiler off: the same placement and the
+    same rows."""
     sp = TorchSparkSession(ON, device="cpu")
     df = sp.createDataFrame({"a": [1, 2, 5, -3], "b": [2.0, 0.5, 1.0, 4.0]},
                             "a int, b double")
     fn = lambda x: x * 2 if x > 1 else -x  # noqa: E731
     cond = F.udf(fn, "int")
-    hard = F.udf(lambda x: int(str(x)) + 1, "int")
     assert [r[0] for r in df.select(cond(F.col("a"))).collect()] == \
         [fn(a) for a in (1, 2, 5, -3)]
-    with pytest.raises(NotImplementedError,
-                       match="PythonUDF.*per-operator CPU fallback"):
-        df.select(cond(F.col("a")).alias("c"),
-                  hard(F.col("a")).alias("h")).collect()
-    off = TorchSparkSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="CPU fallback"):
-        off.createDataFrame({"a": [1]}, "a int").select(
-            cond(F.col("a"))).collect()
+    _jax_rec, port_rec = dual_run(
+        lambda s: _two_udfs(s, JF, fn), lambda s: _two_udfs(s, F, fn),
+        conf=dict(ON))
+    assert "PythonUDF" in port_rec.messages[0]
+    # the compiler off: every F.udf is a Python UDF on the host
+    _jax_rec, port_rec = dual_run(
+        lambda s: _two_udfs(s, JF, fn, both=False),
+        lambda s: _two_udfs(s, F, fn, both=False))
+    assert "PythonUDF" in port_rec.messages[0]
+
+
+def _two_udfs(s, Fm, fn, both: bool = True):
+    """The conditional UDF beside one no compiler takes."""
+    df = s.createDataFrame({"a": [1, 2, 5, -3], "b": [2.0, 0.5, 1.0, 4.0]},
+                           "a int, b double")
+    cols = [Fm.udf(fn, "int")(Fm.col("a")).alias("c")]
+    if both:
+        cols.append(Fm.udf(lambda x: int(str(x)) + 1, "int")(
+            Fm.col("a")).alias("h"))
+    return df.select(*cols)
 
 
 def _v1_rows(n=200):

@@ -11,21 +11,34 @@ integer, rank and offset results included; a case the JAX package marks
 approximate (the whole-partition aggregates, avg among them) holds
 floats within rel_tol=1e-12, since the port's segmented float scan adds
 in another order than XLA's. A case the JAX package keeps on the CPU
-(a float window sum with ``variableFloatAgg`` off) raises
-``NotImplementedError`` in the port with the JAX package's reason.
+(a float window sum with ``variableFloatAgg`` off) runs on the port's
+host engine, placed as in the JAX package, with the JAX package's reason
+in the explain lines; its rows are also held against a numpy reference
+within rel_tol=1e-12, once as the session runs it and once with one
+device permit and the upload ring two units deep (the host window drained
+on the ring's producer thread between two transitions), each under a
+time limit of its own: the JAX package's own CPU window has hung there.
 
 Also here: the window's running and bounded min/max tie rules, each held
 against the JAX window's own (``_seg_running_extreme`` keeps the later
 of two tied rows, ``_sparse_table_extreme`` the earlier), bit for bit.
 """
 
+import math
+import signal
 import struct
 
 import numpy as np
 import pytest
 
+from spark_rapids_tpu_torch.sql import functions as PF
+from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
 from tests import test_device_window as JW
-from tests.torch_dual import run_case
+from tests.datagen import DoubleGen, IntegerGen, SmallIntGen
+from tests.torch_dual import port_batch, run_case
+
+LIMIT_S = 120
 
 CASES = [
     ("test_ranking_functions", 4), ("test_running_aggregates", 4),
@@ -71,6 +84,68 @@ def test_window_case(name, i):
         rec = run_case(JW, name, _jax_param(name, i))
     if name == "test_float_window_sum_falls_back":
         assert rec.messages and "variableFloatAgg" in rec.messages[0]
+        assert rec.reports[0].fallbacks[0][0] == "CpuWindowExec"
+        for conf in ({}, {"spark.rapids.sql.concurrentGpuTasks": "1",
+                          "spark.rapids.sql.format.parquet.deviceDecode"
+                          ".maxInFlight": "2"}):
+            _float_window_sum_against_numpy(conf)
+
+
+def _float_window_sum_against_numpy(conf):
+    """``test_float_window_sum_falls_back``'s query on the port (a
+    running double sum over ``k`` ordered by ``o``, the window on the
+    host) against numpy, under a time limit."""
+    from tests.datagen import gen_batch
+    jb = gen_batch([("k", SmallIntGen()), ("o", IntegerGen()),
+                    ("v", DoubleGen())], JW.N, 13)
+    cols = {f.name: (c.data, c.validity)
+            for f, c in zip(jb.schema.fields, jb.columns)}
+
+    def expire(_sig, _frame):
+        raise TimeoutError(f"the host window ran over {LIMIT_S} s")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(LIMIT_S)
+    try:
+        s = TorchSparkSession(conf, device="cpu")
+        w = PF.Window.partitionBy("k").orderBy("o")
+        got = [tuple(r) for r in s.createDataFrame(
+            port_batch(jb), num_partitions=2).select(
+            "k", PF.sum("v").over(w).alias("s")).collect()]
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    assert [n for n, _ in s.last_rewrite_report.fallbacks] == \
+        ["CpuWindowExec"]
+    (k, kv), (o, ov), (v, vv) = cols["k"], cols["o"], cols["v"]
+    want = []
+    for key in {(int(x) if ok else None) for x, ok in zip(k, kv)}:
+        rows = [i for i in range(len(k))
+                if (int(k[i]) if kv[i] else None) == key]
+        # nulls first, then ascending; peers share the running sum
+        rows.sort(key=lambda i: (ov[i], int(o[i])) if ov[i] else (False,))
+        order = [(int(o[i]) if ov[i] else None) for i in rows]
+        for j, i in enumerate(rows):
+            peers = [r for r, x in zip(rows, order) if x == order[j]]
+            last = max(rows.index(r) for r in peers)
+            vals = [float(v[r]) for r in rows[:last + 1] if vv[r]]
+            want.append((key, math.fsum(vals) if vals else None))
+    assert len(got) == len(want)
+    by_key = {}
+    for key, val in got:
+        by_key.setdefault(key, []).append(val)
+    def order(x):
+        nan = x is not None and math.isnan(x)
+        return (x is None, nan, 0.0 if x is None or nan else x)
+    for key in by_key:
+        g = sorted(by_key[key], key=order)
+        w_ = sorted([val for kk, val in want if kk == key], key=order)
+        assert len(g) == len(w_)
+        for a, b in zip(g, w_):
+            assert (a is None and b is None) or (
+                a is not None and b is not None and (
+                    (math.isnan(a) and math.isnan(b))
+                    or math.isclose(a, b, rel_tol=1e-12, abs_tol=1e-9))), \
+                (key, a, b)
 
 
 ZERO_TIES = [0.0, -0.0, 2.0, -0.0, 0.0, -1.0, -1.0, 0.0, -0.0, 3.0]

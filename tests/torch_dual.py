@@ -13,10 +13,10 @@ the same seeded numpy columns to the port, and a recorder that runs the
 query on ``TorchSparkSession(device="cpu")``. The recorded results must
 agree: rows exact (NaN equal to NaN, -0.0 distinct from 0.0), or within
 ``rel_tol=1e-12`` where the case is marked approximate (transcendentals
-and float aggregates); a query the JAX package keeps on the CPU
-(``assert_tpu_fallback_collect``, or a ``require_device=False`` case
-whose JAX plan holds a ``Cpu*`` operator) must raise
-``NotImplementedError`` in the port, which has no fallback.
+and float aggregates). Where the JAX package keeps part of a query on its
+CPU (``assert_tpu_fallback_collect``, or a ``Cpu*`` operator in any of
+its plans), the port must keep the same operators on its host engine at
+the same places in the tree (``placement``), and give the same rows.
 """
 
 from __future__ import annotations
@@ -67,74 +67,72 @@ def port_batch(jb) -> PHostBatch:
 
 class Recorder:
     """Stands in for the JAX harness's assertions and records what each
-    query gives on one package."""
+    query gives on one package: its rows and its placement. On the port,
+    ``messages`` holds the explain lines of each query that fell back
+    (``!Exec <op> cannot run on GPU because ...``) and ``reports`` each
+    query's ``RewriteReport``."""
 
     def __init__(self, port: bool):
         self.port = port
         self.results: List[tuple] = []
         self.messages: List[str] = []
+        self.reports: List = []
 
     def equal(self, df_fn: Callable, conf: Optional[Dict] = None,
               ignore_order: bool = True, approx: bool = False,
               require_device: bool = True, expect_execs=None) -> None:
-        """A case that lets the JAX package keep part of the query on
-        its CPU (``require_device=False``) records a fallback where it
-        did (a ``Cpu*`` operator in its plan) and then requires the port
-        to raise ``NotImplementedError``; where it did not, rows."""
-        if not require_device:
-            if self.port:
-                try:
-                    rows, plan = self._run(df_fn, dict(conf or {}))
-                except NotImplementedError as e:
-                    self.results.append(("fallback",))
-                    self.messages.append(str(e))
-                    return
-            else:
-                rows, plans = self._run(df_fn, dict(conf or {}),
-                                        capture=True)
-                if any(cpu_operators(p) for p in plans):
-                    self.results.append(("fallback",))
-                    return
-        else:
-            rows, plan = self._run(df_fn, dict(conf or {}))
+        rows, where = self._run(df_fn, dict(conf or {}))
         if ignore_order:
             rows = sorted(rows, key=_sort_key)
-        self.results.append(("rows", rows, approx))
-        if self.port:
-            assert_all_torch(plan)
+        self.results.append(("rows", rows, approx, where))
 
     def fallback(self, df_fn: Callable, fallback_exec: str,
                  conf: Optional[Dict] = None) -> None:
-        if not self.port:
-            self.results.append(("fallback",))
-            return
-        try:
-            self._run(df_fn, dict(conf or {}))
-        except NotImplementedError as e:
-            self.results.append(("fallback",))
-            self.messages.append(str(e))
-            return
-        raise AssertionError(
-            "the JAX package keeps this query on the CPU, but the port "
-            "ran it")
+        """The named CPU operator must have stayed on the host with a
+        recorded reason, in the port as in the JAX package."""
+        self.equal(df_fn, conf)
+        if self.port:
+            names = [n for n, _ in self.reports[-1].fallbacks]
+            assert fallback_exec in names, (fallback_exec,
+                                            self.reports[-1].fallbacks)
 
-    def _run(self, df_fn, conf, capture: bool = False):
+    def _run(self, df_fn, conf):
+        """``(rows, placement)`` of one query; the placement over every
+        plan that ran it (a cached relation's materialisation too)."""
         if self.port:
             s = TorchSparkSession(conf, device="cpu")
-            batch = df_fn(s)._execute()
-            return _rows(batch.to_pydict()), s.last_plan
+            s.start_capture()
+            rows = _rows(df_fn(s)._execute().to_pydict())
+            plans = s.get_captured_plans()
+            report = s.last_rewrite_report
+            self.reports.append(report)
+            text = report.format() if report is not None else ""
+            if text:
+                self.messages.append(text)
+            return rows, placement(plans)
         s = TpuSparkSession(dict(conf, **{"spark.rapids.sql.enabled":
                                           "true"}))
         try:
-            if not capture:
-                return _rows(df_fn(s)._execute().to_pydict()), None
             with _materializations() as nested:
                 s.start_capture()
                 rows = _rows(df_fn(s)._execute().to_pydict())
                 plans = s.get_captured_plans()
-            return rows, query_plans(plans, nested)
+            return rows, placement(query_plans(plans, nested))
         finally:
             s.stop()
+
+
+def dual_run(jax_fn: Callable, port_fn: Callable,
+             conf: Optional[Dict] = None, ignore_order: bool = True,
+             approx: bool = False):
+    """One query on both packages (``jax_fn`` builds it over a
+    ``TpuSparkSession``, ``port_fn`` over a ``TorchSparkSession`` on the
+    CPU): rows and placement must agree. Returns both recorders."""
+    jax_rec, port_rec = Recorder(port=False), Recorder(port=True)
+    jax_rec.equal(jax_fn, conf, ignore_order, approx)
+    port_rec.equal(port_fn, conf, ignore_order, approx)
+    compare(jax_rec.results, port_rec.results)
+    return jax_rec, port_rec
 
 
 @contextlib.contextmanager
@@ -167,20 +165,53 @@ def query_plans(plans, nested) -> list:
     return outer[-1:] + [p for p in plans if id(p) in nested]
 
 
+HOST_SOURCES = ("CpuLocalScanExec", "CpuFileScanExec", "CpuCachedScanExec")
+
+
 def cpu_operators(plan) -> List[str]:
-    """The CPU operators of a JAX package plan (its host sources
-    aside): where the JAX package kept part of a query on its CPU."""
+    """The CPU operators of a plan of either package (its host sources
+    aside): where the query ran partly on the host."""
     out = []
 
     def walk(p):
         n = type(p).__name__
-        if n.startswith("Cpu") and n not in (
-                "CpuLocalScanExec", "CpuFileScanExec", "CpuCachedScanExec"):
+        if n.startswith("Cpu") and n not in HOST_SOURCES:
             out.append(n)
         for c in p.children:
             walk(c)
     walk(plan)
     return out
+
+
+def _kind(p) -> str:
+    """A node as a neighbour of a CPU operator: a transition to or from
+    the device, a host source, or a CPU operator by name."""
+    n = type(p).__name__
+    if n in ("TpuColumnarToRowExec", "TorchColumnarToRowExec",
+             "TpuRowToColumnarExec", "TorchRowToColumnarExec"):
+        return "device"
+    if n in HOST_SOURCES:
+        return "source"
+    return n
+
+
+def placement(plans) -> List[tuple]:
+    """Each CPU operator of the plans, with what sits above it (``root``,
+    ``device`` through an upload, or a CPU operator) and below it (a
+    download from the device, a host source, or a CPU operator), sorted:
+    two packages place a query alike when these lists are equal."""
+    out = []
+
+    def walk(p, parent: str):
+        n = type(p).__name__
+        if n.startswith("Cpu") and n not in HOST_SOURCES:
+            out.append((n, parent, tuple(_kind(c) for c in p.children)))
+        for c in p.children:
+            walk(c, _kind(p) if n.startswith("Cpu") or _kind(p) ==
+                 "device" else "device-op")
+    for plan in plans:
+        walk(plan, "root")
+    return sorted(out)
 
 
 def assert_all_torch(plan) -> None:
@@ -195,8 +226,7 @@ def assert_all_torch(plan) -> None:
     assert names[0] == "TorchColumnarToRowExec", names
     for n in names:
         if n.startswith("Cpu"):
-            assert n in ("CpuLocalScanExec", "CpuFileScanExec",
-                         "CpuCachedScanExec"), names
+            assert n in HOST_SOURCES, names
         else:
             assert n.startswith("Torch"), names
 
@@ -275,9 +305,9 @@ def run_case(module, test_name: str, *args) -> List[tuple]:
 def compare(want: List[tuple], got: List[tuple]) -> None:
     assert [w[0] for w in want] == [g[0] for g in got], (want, got)
     for w, g in zip(want, got):
-        if w[0] != "rows":
-            continue
         wrows, grows, approx = w[1], g[1], w[2]
+        if len(w) > 3 and len(g) > 3:
+            assert w[3] == g[3], f"placement: JAX {w[3]}, port {g[3]}"
         assert len(wrows) == len(grows), (len(wrows), len(grows))
         for i, (wr, gr) in enumerate(zip(wrows, grows)):
             for j, (a, b) in enumerate(zip(wr, gr)):
