@@ -10,7 +10,9 @@ windowed count and Stack Overflow tag queries over nested columns,
 ClickBench Q10 and Q9 (mixed DISTINCT over a cached child), q1 over a
 cached Parquet read and pandas UDFs, TPC-H q13 and TPC-DS q28 with
 their joins on the host and q1 with its aggregate on the host (the
-per-operator CPU fallback), and check the rows against exact
+per-operator CPU fallback), q1 from delimited text, under each reader
+strategy and from a partitioned tree, q3 from ORC and YSB from JSON
+lines (the readers and writers), and check the rows against exact
 references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
@@ -202,10 +204,31 @@ absent or any phase fails. Output, one line per phase:
      operators, the explain lines under ``spark.rapids.sql.explain=ALL``,
      each kernel's launches, the seconds in the host operators and in
      each upload and download around them (``host_seconds``), the wall
-     (one warm run, median of three) and the idle share; every collect
+     (one warm run, mean of two) and the idle share; every collect
      leaves no store handle and no permit held. Then groupbyHash at q13's
      and q28's partial batches (``fallback_kernel_shapes``) and the cost
      model's two constants on this card (``cbo_constants``);
+  19. readers and writers (``formats_phases``), every file written first
+     by the port's writers: q1 at SF1 from dbgen-style ``|``-delimited
+     text (8 files, ``read.csv`` with a decimal(15,2) schema) under the
+     PERFILE and MULTITHREADED readers in turns (``q1_tbl_*``: no
+     decodeFused, a groupbyHash launch per upload); q1 from phase 7's 8
+     Parquet files under PERFILE, MULTITHREADED and COALESCING in turns
+     (``q1_readers_*``: 8, 8 and 0 decodeFused) and ``input_file_name()``
+     with its count per file under COALESCING, read as PERFILE, against
+     the footers' row counts; q1 over lineitem written with
+     ``partitionBy("l_returnflag", "l_linestatus")`` (``q1_partitioned``:
+     6 directories, a decodeFused launch per file); TPC-DS q3's pushed
+     form from ORC at 2,000,000 store_sales rows (``q3_orc``: 16
+     joinProbe); the YSB windowed count over 1,000,000 events in JSON
+     lines (``ysb_json``). Each exact against its numpy reference, with
+     its launches, the first run, two timed runs in turns, the idle
+     share of a profiled run and that run's scan ``decodeTime`` and
+     ``convertTime`` and upload ``packBatchTime`` and
+     ``copyToDeviceTime``;
+  every profiled run above traces the device's activity only
+  (``profile_collect``; phase 11's ``stage_profile`` also the launch
+  calls), read from the profiler's raw events;
   with ``--breakdown``, q1 (from
   memory and from Parquet) and each q3 form under torch.profiler (device
   busy time, idle share, top kernels and host ops; full tables in
@@ -218,14 +241,15 @@ absent or any phase fails. Output, one line per phase:
   (``windows_only``); with ``--nested``, only the build and phase 16
   (``nested_only``); with ``--cache-udf``, only the build and phase 17
   (``cache_udf_only``); with ``--fallback``, only the build and phase 18
-  (``fallback_only``);
+  (``fallback_only``); with ``--formats``, only the build and phase 19
+  (``formats_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's and 18's legs, and those phases'
-  shapes among its cases)
+  and on phase 14's, 15's, 16's, 17's, 18's and 19's legs, and those
+  phases' shapes among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1492,14 +1516,17 @@ def murmur3_wide_batch(n: int, seed: int):
 
 
 def profile_collect(df, name: str, card: str, warm: bool = True,
-                    host_ops: bool = True) -> dict:
+                    host_ops: bool = False) -> dict:
     """One warm ``df.collect()`` under torch.profiler (after a warm-up
     collect unless the caller's runs warmed it): wall, device-busy
-    time (sum of device-side event time), idle share, and the top device
-    kernels and host ops; the full tables go to
-    chiprun_out/<name>_profile.txt. Without ``host_ops`` only the
-    device's activity is traced (the same busy time and idle share, no
-    host-op table, a fraction of the events to read back)."""
+    time (sum of device-side event time), idle share and the top device
+    kernels; the table goes to ``<name>_profile.txt`` beside the phase
+    log. Only the device's activity is traced, read from the profiler's
+    raw events: building the per-event objects that ``key_averages``
+    needs costs seconds on a run of tens of thousands of events, and
+    tracing the host's ops slows the run it measures. With ``host_ops``
+    (the ``--breakdown`` runs) the host's ops are traced too, and the
+    tables (``key_averages``) also give the top host ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1515,6 +1542,25 @@ def profile_collect(df, name: str, card: str, warm: bool = True,
         df.collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if not host_ops:
+        dev = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                n, ns = dev.get(e.name(), (0, 0))
+                dev[e.name()] = (n + 1, ns + e.duration_ns())
+        busy_s = sum(ns for _n, ns in dev.values()) / 1e9
+        top = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)
+        out_dir = os.path.dirname(PHASE_LOG["path"])
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
+            f.write(card + "\ndevice us, calls, name\n")
+            f.writelines(f"{ns / 1e3:.3f} {n} {k}\n"
+                         for k, (n, ns) in top[:40])
+        return {"profiled_wall_s": wall, "device_busy_s": busy_s,
+                "device_idle_share": 1.0 - busy_s / wall,
+                "device_events": sum(n for n, _ns in dev.values()),
+                "top_device_us": {k[:60]: ns / 1e3
+                                  for k, (_n, ns) in top[:10]}}
     events = prof.key_averages()
 
     def dev_us(e):
@@ -1545,7 +1591,8 @@ def profile_collect(df, name: str, card: str, warm: bool = True,
 def breakdown(df, card) -> None:
     """``--breakdown``: where one warm q1 spends its wall, under the
     profiler (``profile_collect``); the upload alone is ``upload_split``."""
-    phase("q1_breakdown", card=card, **profile_collect(df, "q1", card))
+    phase("q1_breakdown", card=card,
+          **profile_collect(df, "q1", card, host_ops=True))
 
 
 def repartition_reference(tables) -> dict:
@@ -2220,7 +2267,8 @@ def q3_phases(device, card, profiled: bool = False,
               generate_s=round(gen_s, 3))
         if profiled:
             phase(f"q3_{form}_breakdown", card=card,
-                  **profile_collect(df, f"q3_{form}", card))
+                  **profile_collect(df, f"q3_{form}", card,
+                                    host_ops=True))
 
     # joinProbe at q3's per-chunk shapes, alone and with the key
     # evaluation that feeds it (the join's kernel route: probe_inputs +
@@ -2549,7 +2597,7 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
     if profiled:
         phase("q1_parquet_breakdown", card=card,
               **scan_walls(spark.last_plan),
-              **profile_collect(df, "q1_parquet", card))
+              **profile_collect(df, "q1_parquet", card, host_ops=True))
 
     # -- bench.py's q3 from Parquet ------------------------------------------
     for name in tables:
@@ -2624,22 +2672,24 @@ def stage_profile(df) -> dict:
         df.collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # read from the profiler's raw events: the runtime's launch calls
+    # have no children, so a call's duration is its self time
+    raw = prof.profiler.kineto_results.events()
     host = {}
-    for e in prof.key_averages():
-        if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch")):
-            k = "graph" if e.key.startswith("cudaGraphLaunch") else "kernel"
+    for e in raw:
+        if e.name().startswith(("cudaLaunchKernel", "cudaGraphLaunch")):
+            k = "graph" if e.name().startswith("cudaGraphLaunch") \
+                else "kernel"
             n, us = host.get(k, (0, 0.0))
-            host[k] = (n + e.count, us + e.self_cpu_time_total)
-    kernels = [e for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA
-               and not e.name().startswith(("Memcpy", "Memset"))]
-    busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
-                  .events() if e.device_type() == DeviceType.CUDA)
+            host[k] = (n + 1, us + e.duration_ns() / 1e3)
+    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA]
+    kernels = [e for e in on_device
+               if not e.name().startswith(("Memcpy", "Memset"))]
+    busy_ns = sum(e.duration_ns() for e in on_device)
     # device-to-device copies: fused, these hold each replay's copies
     # into the graph's static inputs and out of its memory pool
-    d2d_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
-                 .events() if e.device_type() == DeviceType.CUDA
-                 and e.name().startswith("Memcpy DtoD"))
+    d2d_ns = sum(e.duration_ns() for e in on_device
+                 if e.name().startswith("Memcpy DtoD"))
     return {"wall_s": wall, "device_d2d_copy_s": d2d_ns / 1e9,
             "launch_kernel_calls": host.get("kernel", (0, 0.0))[0],
             "launch_kernel_host_us": host.get("kernel", (0, 0.0))[1],
@@ -5893,7 +5943,7 @@ def host_seconds(spark, df, what: str, card: str) -> tuple:
         timed(p)
     try:
         prof = profile_collect(_Runs(plan.execute_collect), what, card,
-                               warm=False, host_ops=False)
+                               warm=False)
     finally:
         release_plan_handles(plan)
     wall = prof["profiled_wall_s"]
@@ -5932,7 +5982,7 @@ def fallback_leg(spark, card: str, what: str, make_df, check,
     for the leg's placement and routes, the plan with its host operators,
     the explain lines under ``spark.rapids.sql.explain=ALL``, one warm
     run timed by operator under the profiler (``host_seconds``), and the
-    median of three timed runs."""
+    mean of two timed runs."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     df = make_df()
@@ -5955,7 +6005,7 @@ def fallback_leg(spark, card: str, what: str, make_df, check,
     split, prof = host_seconds(spark, df, what, card)
     steps["profiled_run_and_tables"] = time.perf_counter() - t0
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -6182,6 +6232,298 @@ def cbo_constants(card: str, arrays) -> dict:
            "plan": plan_names(spark.last_plan)}
     phase("cbo_constants", card=card, **out)
     return out
+
+
+# -- phase 19: readers and writers ------------------------------------------
+#
+# (a) TPC-H q1 at SF1 from dbgen-style delimited text: phase 7's seeded
+# lineitem written by the port's CSV writer with ``sep='|'`` and no
+# header, as dbgen writes ``lineitem.tbl``, read with a decimal(15,2)
+# schema. ``reduced``: dbgen's 16 columns and its trailing separator cut
+# to q1's seven.
+# (b) q1 from phase 7's eight Parquet files under each reader strategy,
+# and ``input_file_name()`` under COALESCING (the scan reads as PERFILE).
+# (c) q1 over lineitem written with ``partitionBy("l_returnflag",
+# "l_linestatus")``: 6 directories, the two columns from their names.
+# (d) TPC-DS q3 in its pushed form at bench's q3 scale from ORC written by
+# the port's ORC writer, each file a scan partition as in memory.
+# (e) The YSB windowed campaign count over JSON lines, the events' wire
+# form in the Yahoo Streaming Benchmark. ``reduced``: 1,000,000 events of
+# phase 16's 6,000,000 (the JSON writer encodes row by row in the
+# reference).
+FORMATS_CONF = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+READER_KEY = "spark.rapids.sql.format.parquet.reader.type"
+LINEITEM_DDL = ("l_quantity decimal(15,2), l_extendedprice decimal(15,2), "
+                "l_discount decimal(15,2), l_tax decimal(15,2), "
+                "l_returnflag string, l_linestatus string, l_shipdate date")
+YSB_JSON_EVENTS = 1_000_000
+YSB_EVENTS_DDL = ("user_id string, page_id string, ad_id string, "
+                  "ad_type string, event_type string, event_time timestamp, "
+                  "ip_address string")
+YSB_ADS_DDL = "ad_id string, campaign_id string"
+# every ORC file its own scan partition, as store_sales' 8 partitions and
+# the dimensions' 4 from memory
+ORC_CONF = {"spark.sql.files.maxPartitionBytes": str(1 << 20)}
+IFF_SQL = ("SELECT f, count(*) AS c FROM (SELECT input_file_name() AS f "
+           "FROM lineitem) x GROUP BY f")
+
+
+def scan_seconds(plan) -> dict:
+    """One run's host seconds in the scan (``decodeTime``, ``convertTime``
+    and ``ioRetryCount``, summed over its threads) and in the upload
+    (``packBatchTime``, ``copyToDeviceTime``)."""
+    scan = scan_counts(plan)
+    up = r2c_metrics(plan)
+    return {"decodeTime_s": scan.get("decodeTime", 0) / 1e9,
+            "convertTime_s": scan.get("convertTime", 0) / 1e9,
+            "packBatchTime_s": up.get("packBatchTime", 0) / 1e9,
+            "copyToDeviceTime_s": up.get("copyToDeviceTime", 0) / 1e9,
+            "scan": {k: v for k, v in scan.items()
+                     if not k.endswith("Time")},
+            "r2c_batches": up.get("numOutputBatches", 0)}
+
+
+def formats_runs(card: str, what: str, dfs: dict, check, expect,
+                 timed: bool = True) -> dict:
+    """One leg of phase 19 over one or more sessions' frames ``dfs``
+    ({variant: (spark, df)}): each variant's first collect (its launches
+    counted, its rows through ``check``, ``expect(variant, launches,
+    plan)``), then, where ``timed``, two timed runs in turns (the first
+    collect was the warm run; a variant's second run follows the others'
+    second) and one profiled run of each, tracing the device only, whose
+    scan and upload seconds are read from its plan."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    out = {}
+    for v, (spark, df) in dfs.items():
+        KR.reset_launches()
+        t0 = time.perf_counter()
+        rows = [tuple(r) for r in df.collect()]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(KR.LAUNCHES)
+        check(rows)
+        expect(v, launches, spark.last_plan)
+        out[v] = {"rows_out": len(rows), "launches": launches,
+                  "first_run_s": first_s,
+                  "plan": plan_names(spark.last_plan)}
+        if not timed:
+            out[v]["first_run"] = scan_seconds(spark.last_plan)
+    if not timed:
+        return out
+    turns = in_turns({v: df for v, (_s, df) in dfs.items()}, rounds=2)
+    for v, (spark, df) in dfs.items():
+        prof = profile_collect(df, f"{what}_{v.lower()}", card, warm=False)
+        out[v].update(turns[v], warm_runs=1, **prof,
+                      profiled_run=scan_seconds(spark.last_plan))
+    return out
+
+
+def formats_phases(device, card: str, arrays, q1_dir: str) -> dict:
+    """Phase 19: the file formats, reader strategies and writers (legs (a)
+    to (e) above), each leg exact against its numpy reference, with its
+    launches, walls, idle share and the scan's and upload's seconds.
+    Returns each leg's and reader's kernel launches."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    t_phase = time.perf_counter()
+    legs = {}
+    want_q1 = q1_reference(arrays)
+
+    def check_q1(rows):
+        check_q1_rows(rows, want_q1)
+
+    def session(conf=None):
+        return TorchSparkSession(dict(FORMATS_CONF, **(conf or {})))
+
+    # -- set-up: every file written by the port's writers ---------------
+    t0 = time.perf_counter()
+    lineitem = host_batch_from_numpy(lineitem_fields(), arrays)
+    q3 = q3_tables()
+    want_q3 = q3_reference(q3)
+    q3_types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+                "dec72": T.DecimalType(7, 2)}
+    ysb = ysb_tables(YSB_JSON_EVENTS)
+    yb = ysb_batches(ysb)
+    want_ysb = ysb_reference(ysb)
+    gen_s = time.perf_counter() - t0
+    dirs = {k: os.path.join(DATA_DIR, f"formats_{k}")
+            for k in ("lineitem_tbl", "lineitem_partitioned", "q3_orc",
+                      "ysb_json")}
+    writes = {}
+    writes["lineitem_tbl"] = write_once(
+        dirs["lineitem_tbl"], lambda d: session().createDataFrame(
+            lineitem, num_partitions=N_PARTITIONS).write.mode("overwrite")
+        .csv(d, sep="|"),
+        data_key(seed=SEED, rows=SF1_ROWS, partitions=N_PARTITIONS,
+                 fmt="tbl"))
+    writes["lineitem_partitioned"] = write_once(
+        dirs["lineitem_partitioned"], lambda d: session().createDataFrame(
+            lineitem, num_partitions=N_PARTITIONS).write.mode("overwrite")
+        .partitionBy("l_returnflag", "l_linestatus").parquet(d),
+        data_key(seed=SEED, rows=SF1_ROWS, partitions=N_PARTITIONS,
+                 fmt="partitioned"))
+
+    def write_q3(d):
+        s = session()
+        for name, cols in q3.items():
+            s.createDataFrame(host_batch_from_numpy(
+                [(c, q3_types[k]) for c, k, _a in cols],
+                [a for _c, _k, a in cols]),
+                num_partitions=Q3_PARTITIONS[name]).write \
+                .mode("overwrite").orc(os.path.join(d, name))
+    writes["q3_orc"] = write_once(dirs["q3_orc"], write_q3, data_key(
+        seed=Q3_SEED, rows=Q3_SALES_ROWS, partitions=Q3_PARTITIONS,
+        fmt="orc"))
+
+    def write_ysb(d):
+        s = session()
+        for name, b in yb.items():
+            s.createDataFrame(b, num_partitions=N_PARTITIONS
+                              if name == "events" else 1).write \
+                .mode("overwrite").json(os.path.join(d, name))
+    writes["ysb_json"] = write_once(dirs["ysb_json"], write_ysb, data_key(
+        seed=YSB_SEED, rows=YSB_JSON_EVENTS, partitions=N_PARTITIONS,
+        fmt="json"))
+    sizes = {k: sum(os.path.getsize(os.path.join(r, f))
+                    for r, _d, fs in os.walk(d) for f in fs)
+             for k, d in dirs.items()}
+    n_partition_dirs = sum(
+        1 for r, ds, _fs in os.walk(dirs["lineitem_partitioned"])
+        if os.path.basename(r).startswith("l_linestatus="))
+    if n_partition_dirs != 6:
+        raise AssertionError(f"partitioned lineitem: {n_partition_dirs} "
+                             "directories, want 6")
+    phase("formats_data", card=card, generate_s=gen_s, write_s=writes,
+          bytes=sizes, partition_dirs=n_partition_dirs,
+          ysb_events=YSB_JSON_EVENTS)
+
+    def launched(name, want=None, at_least=1):
+        def expect(v, launches, plan):
+            got = launches[name]
+            if (want is not None and got != want(v, plan)) or \
+                    (want is None and got < at_least):
+                raise AssertionError(f"{name} launches under {v}: "
+                                     f"{launches}")
+        return expect
+
+    def also(*checks):
+        def expect(v, launches, plan):
+            for c in checks:
+                c(v, launches, plan)
+        return expect
+
+    def uploads(v, plan):
+        return r2c_metrics(plan).get("numOutputBatches", 0)
+
+    # -- (a) q1 from delimited text, PERFILE and MULTITHREADED in turns ---
+    dfs = {}
+    for reader in ("PERFILE", "MULTITHREADED"):
+        s = session({READER_KEY: reader})
+        s.read.csv(dirs["lineitem_tbl"], schema=LINEITEM_DDL, sep="|") \
+            .createOrReplaceTempView("lineitem")
+        dfs[reader] = (s, s.sql(Q1))
+    out = formats_runs(card, "q1_tbl", dfs, check_q1, also(
+        launched("decodeFused", lambda v, p: 0),
+        launched("groupbyHash", uploads)))
+    for v, o in out.items():
+        phase(f"q1_tbl_{v.lower()}", card=card, rows_in=SF1_ROWS,
+              reader=v, reference="exact", **o)
+        legs[f"q1_tbl_{v.lower()}"] = o["launches"]
+
+    # -- (b) q1 from Parquet under each reader, and input_file_name() ---
+    dfs = {}
+    for reader in ("PERFILE", "MULTITHREADED", "COALESCING"):
+        s = session({READER_KEY: reader})
+        s.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+        dfs[reader] = (s, s.sql(Q1))
+    out = formats_runs(card, "q1_readers", dfs, check_q1, also(
+        launched("decodeFused",
+                 lambda v, p: 0 if v == "COALESCING" else N_PARTITIONS),
+        launched("groupbyHash")))
+    for v, o in out.items():
+        phase(f"q1_readers_{v.lower()}", card=card, rows_in=SF1_ROWS,
+              reader=v, reference="exact", **o)
+        legs[f"q1_readers_{v.lower()}"] = o["launches"]
+    import pyarrow.parquet as pq
+    want_files = {os.path.join(q1_dir, f): pq.ParquetFile(
+        os.path.join(q1_dir, f)).metadata.num_rows
+        for f in os.listdir(q1_dir) if f.endswith(".parquet")}
+    s = session({READER_KEY: "COALESCING"})
+    s.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+
+    def check_iff(rows):
+        got = {os.path.abspath(f): c for f, c in rows}
+        if got != {os.path.abspath(f): c for f, c in want_files.items()}:
+            raise AssertionError(f"input_file_name counts: {got}")
+
+    def expect_iff(v, launches, plan):
+        from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+        scan = next(p for p in plan_nodes_of(plan)
+                    if isinstance(p, CpuFileScanExec))
+        if scan.reader_type() != "PERFILE" or launches["groupbyHash"] <= 0:
+            raise AssertionError(f"input_file_name: reader "
+                                 f"{scan.reader_type()}, {launches}")
+    # one collect: the leg's walls are q1's above
+    out = formats_runs(card, "q1_readers_iff",
+                       {"COALESCING": (s, s.sql(IFF_SQL))}, check_iff,
+                       expect_iff, timed=False)["COALESCING"]
+    phase("q1_readers_input_file_name", card=card, rows_in=SF1_ROWS,
+          conf_reader="COALESCING", read_as="PERFILE", files=want_files,
+          reference="exact (footer row counts)", **out)
+    legs["q1_readers_input_file_name"] = out["launches"]
+
+    # -- (c) q1 over the partitioned tree ----------------------------------
+    s = session()
+    s.read.parquet(dirs["lineitem_partitioned"]) \
+        .createOrReplaceTempView("lineitem")
+
+    def decoded_all(v, plan):
+        return scan_counts(plan).get("deviceDecodedBatches", -1)
+    out = formats_runs(card, "q1_partitioned", {"PERFILE": (s, s.sql(Q1))},
+                       check_q1, also(launched("decodeFused", decoded_all),
+                                      launched("groupbyHash")))["PERFILE"]
+    phase("q1_partitioned", card=card, rows_in=SF1_ROWS,
+          partition_dirs=n_partition_dirs, reference="exact", **out)
+    legs["q1_partitioned"] = out["launches"]
+
+    # -- (d) TPC-DS q3 (pushed form) from ORC --------------------------------
+    s = session(ORC_CONF)
+    for name in q3:
+        s.read.orc(os.path.join(dirs["q3_orc"], name)) \
+            .createOrReplaceTempView(name)
+    out = formats_runs(card, "q3_orc", {"PERFILE": (s, s.sql(Q3_PUSHED))},
+                       lambda rows: check_q3_rows(rows, want_q3, "q3_orc"),
+                       also(launched("joinProbe", lambda v, p: 16),
+                            launched("decodeFused", lambda v, p: 0),
+                            launched("groupbyHash")))["PERFILE"]
+    phase("q3_orc", card=card, rows_in=Q3_SALES_ROWS, reference="exact",
+          conf=ORC_CONF, **out)
+    legs["q3_orc"] = out["launches"]
+
+    # -- (e) YSB over JSON lines ---------------------------------------------
+    s = session()
+    s.read.json(os.path.join(dirs["ysb_json"], "events"),
+                schema=YSB_EVENTS_DDL).createOrReplaceTempView("events")
+    s.read.json(os.path.join(dirs["ysb_json"], "ads"),
+                schema=YSB_ADS_DDL).createOrReplaceTempView("ads")
+
+    def check_ysb(rows):
+        if sorted(rows) != want_ysb:
+            raise AssertionError(f"ysb_json: {len(rows)} rows, "
+                                 f"{sorted(rows)[:2]} != {want_ysb[:2]}")
+    out = formats_runs(card, "ysb_json", {"PERFILE": (s, s.sql(YSB_SQL))},
+                       check_ysb, also(launched("joinProbe"),
+                                       launched("decodeFused",
+                                                lambda v, p: 0)))["PERFILE"]
+    phase("ysb_json", card=card, rows_in={"events": YSB_JSON_EVENTS,
+                                          "ads": len(ysb["ads"]["ad"])},
+          reference="exact", **out)
+    legs["ysb_json"] = out["launches"]
+    phase("formats_total", card=card,
+          seconds=time.perf_counter() - t_phase, launches=legs)
+    return legs
 
 
 def main() -> int:
@@ -6483,6 +6825,7 @@ def main() -> int:
     cache_udf, cshapes = cache_udf_phases(device, card, arrays,
                                           dfu["q1_dir"])
     fallback, fshapes = fallback_phases(device, card, arrays, dfu["q1_dir"])
+    formats = formats_phases(device, card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -6605,6 +6948,7 @@ def main() -> int:
                                    for leg in cache_udf}
         k["launches_fallback"] = {leg: fallback[leg][name]
                                   for leg in fallback}
+        k["launches_formats"] = {leg: formats[leg][name] for leg in formats}
     if any(leak.poll() is None for leak in worker_processes()):
         raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
@@ -6813,6 +7157,26 @@ def fallback_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def formats_only(card: str) -> None:
+    """``--formats``: the kernels' build and phase 19 (q1 from delimited
+    text, under each reader and from a partitioned tree, q3 from ORC and
+    YSB from JSON lines)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    gate_protocol()
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs = formats_phases(device, card, arrays, q1_dir)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -6831,7 +7195,7 @@ if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
                                        "--exprs", "--joins", "--windows",
                                        "--nested", "--cache-udf",
-                                       "--fallback")):
+                                       "--fallback", "--formats")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6855,6 +7219,8 @@ if __name__ == "__main__":
             cache_udf_only(card)
         elif "--fallback" in sys.argv[1:]:
             fallback_only(card)
+        elif "--formats" in sys.argv[1:]:
+            formats_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

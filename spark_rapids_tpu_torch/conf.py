@@ -201,11 +201,24 @@ MAX_READER_BATCH_SIZE_ROWS = _entry(
 
 PARQUET_READER_TYPE = _entry(
     "spark.rapids.sql.format.parquet.reader.type",
-    "PERFILE: the task thread reads and plans its units one by one. "
-    "MULTITHREADED and COALESCING are not ported yet (a thread pool "
+    "The file scan's reader strategy, for every format. PERFILE: the "
+    "task thread reads its units one by one. MULTITHREADED: a shared "
+    "pool of multiThreadedRead.numThreads threads reads and converts "
+    "a sliding window of numThreads + 2 units ahead of the task thread "
+    "(a Parquet unit still stages for the device decode). COALESCING: "
+    "the partition's units are read and stitched into one table, "
+    "decoded on the host (no device decode) and emitted in "
+    "reader.batchSizeRows slices. The JAX package defaults to "
+    "MULTITHREADED; the port keeps PERFILE, since a thread pool "
     "measured slower than the task thread on q1's host planner, which "
-    "holds the GIL).",
+    "holds the GIL.",
     "PERFILE", str)
+
+MULTITHREADED_READ_NUM_THREADS = _entry(
+    "spark.rapids.sql.format.parquet.multiThreadedRead.numThreads",
+    "Thread pool size for the multithreaded reader "
+    "(GpuMultiFileReader.scala:300).",
+    8, int)
 
 PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT = _entry(
     "spark.rapids.sql.format.parquet.deviceDecode.maxInFlight",
@@ -329,7 +342,7 @@ RETRY_MAX_BACKOFF_MS = _entry(
 
 READER_MAX_RETRIES = _entry(
     "spark.rapids.sql.reader.maxRetries",
-    "Retries of a transient IO error in the Parquet reader; the original "
+    "Retries of a transient IO error in the file reader; the original "
     "error is raised after them.",
     3, int)
 

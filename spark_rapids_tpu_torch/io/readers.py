@@ -1,21 +1,30 @@
-"""Parquet scan: DataFrameReader + CpuFileScanExec (the port's counterpart
-of ``spark_rapids_tpu.io.readers``, Parquet only).
+"""File scans: DataFrameReader + CpuFileScanExec (the port's counterpart
+of ``spark_rapids_tpu.io.readers``).
 
 The host lists files (with Hive ``k=v`` partition-directory discovery),
-reads footers and plans one scan unit per row group, prunes units whose
+plans scan units (one per row group of a Parquet file, one per stripe of a
+multi-stripe ORC file, else one per file), prunes Parquet units whose
 footer statistics rule out a pushed-down predicate, and bin-packs the
 units into partitions as Spark's FilePartition does. Each partition then
-reads its units one by one on the task thread (PERFILE).
+reads its units with the reader strategy of
+``spark.rapids.sql.format.parquet.reader.type``, for every format:
 
-When ``TorchRowToColumnarExec`` consumes the scan directly, a row group is
-staged as an ``EncodedBatch`` (still-encoded pages plus plan tables) for
-the ``decodeFused`` kernel; otherwise, and for units the device decode
-cannot take, pyarrow decodes on the host; that host decode is also the
-upload's fallback for one batch after an out-of-memory error. The file
-reads of both paths run under the IO retry protocol (``io_with_retry``:
-bounded backoff, the original error after
-``spark.rapids.sql.reader.maxRetries``). The MULTITHREADED and COALESCING
-readers, the other formats and the mesh scan are not ported yet.
+- PERFILE       the task thread reads the units one by one;
+- MULTITHREADED a shared thread pool reads and converts a sliding window
+                of units ahead of the task thread;
+- COALESCING    the partition's units are stitched into one table,
+                decoded on the host and emitted in batch-size slices.
+
+Parquet, ORC, CSV, JSON and text decode through pyarrow on the host. When
+``TorchRowToColumnarExec`` consumes the scan directly, a Parquet row group
+(PERFILE or MULTITHREADED) is staged instead as an ``EncodedBatch``
+(still-encoded pages plus plan tables) for the ``decodeFused`` kernel;
+otherwise, and for units the device decode cannot take, pyarrow decodes
+on the host; that host decode is also the upload's fallback for one batch
+after an out-of-memory error. The file reads of every path run under the
+IO retry protocol (``io_with_retry``: bounded backoff, the original error
+after ``spark.rapids.sql.reader.maxRetries``). The mesh scan is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,15 +32,21 @@ from __future__ import annotations
 import glob
 import os
 import re
+import threading
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from itertools import islice
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.conf import (MAX_READER_BATCH_SIZE_ROWS,
+                                         MULTITHREADED_READ_NUM_THREADS,
                                          PARQUET_READER_TYPE,
                                          TASK_PARALLELISM, TorchConf)
+from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import logical as L
 from spark_rapids_tpu_torch.sql import physical as P
 from spark_rapids_tpu_torch.sql import types as T
@@ -39,11 +54,6 @@ from spark_rapids_tpu_torch.sql import types as T
 DEFAULT_MAX_PARTITION_BYTES = 128 << 20
 
 HIVE_DEFAULT_PARTITION = "__HIVE_DEFAULT_PARTITION__"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet to spark_rapids_tpu_torch")
 
 
 def list_files(paths: Sequence[str]) -> List[tuple]:
@@ -79,6 +89,17 @@ def list_files(paths: Sequence[str]) -> List[tuple]:
     if not out:
         raise FileNotFoundError(f"no input files in {list(paths)}")
     return out
+
+
+def file_fingerprints(files: Sequence[str]):
+    """``(path, size, mtime_ns)`` of each input file, or None when a file
+    cannot be statted (it vanished between listing and here): an input
+    set without fingerprints is uncacheable, never stale."""
+    try:
+        return tuple((f, st.st_size, st.st_mtime_ns)
+                     for f, st in ((f, os.stat(f)) for f in files))
+    except OSError:
+        return None
 
 
 def discovered_partition_fields(files: List[tuple]) -> List[T.StructField]:
@@ -120,20 +141,53 @@ def _infer_part_type(raw: List[str]) -> T.DataType:
 
 @dataclass
 class ScanUnit:
-    """One decode unit: a row group of a Parquet file (or the whole file
-    when its footer cannot be read). ``stats`` maps column -> (min, max,
-    null_count, num_rows) from the footer, None where absent."""
+    """One decode unit: a row group of a Parquet file, a stripe of an ORC
+    file, or a whole file (``row_groups`` None; also a Parquet file whose
+    footer cannot be read). ``stats`` maps column -> (min, max,
+    null_count, num_rows) from a Parquet footer, None where absent."""
 
     path: str
     size_bytes: int
-    row_groups: Optional[List[int]] = None
+    row_groups: Optional[List[int]] = None  # row groups, or ORC stripes
     part_values: Optional[Dict[str, str]] = None
     stats: Optional[Dict[str, tuple]] = None
 
 
+# Footer parses memoized per (format, file set) and checked against each
+# file's size and mtime, so planning the same DataFrame again (every
+# collect) reads no footer twice, and a rewritten file is planned anew. A
+# bounded LRU: a session reading many datasets keeps the newest.
+_UNITS_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_UNITS_CACHE_MAX = 64
+_UNITS_LOCK = threading.Lock()
+
+
 def plan_scan_units(fmt: str, files: List[tuple]) -> List[ScanUnit]:
-    if fmt != "parquet":
-        raise _not_ported(f"reading {fmt}")
+    key = (fmt, tuple(f for f, _ in files))
+    stats = [os.stat(f) for f, _ in files]
+    sig = tuple((tuple(sorted(pv.items())), st.st_mtime_ns, st.st_size)
+                for (_f, pv), st in zip(files, stats))
+    with _UNITS_LOCK:
+        cached = _UNITS_CACHE.get(key)
+        if cached is not None and cached[0] == sig:
+            _UNITS_CACHE.move_to_end(key)
+            return cached[1]
+    if fmt == "parquet":
+        units = _parquet_units(files)
+    elif fmt == "orc":
+        units = _orc_units(files)
+    else:
+        units = [ScanUnit(f, os.path.getsize(f), part_values=pv)
+                 for f, pv in files]
+    with _UNITS_LOCK:
+        _UNITS_CACHE[key] = (sig, units)
+        _UNITS_CACHE.move_to_end(key)
+        if len(_UNITS_CACHE) > _UNITS_CACHE_MAX:
+            _UNITS_CACHE.popitem(last=False)
+    return units
+
+
+def _parquet_units(files: List[tuple]) -> List[ScanUnit]:
     import pyarrow.parquet as pq
     units: List[ScanUnit] = []
     for f, pv in files:
@@ -170,6 +224,26 @@ def plan_scan_units(fmt: str, files: List[tuple]) -> List[ScanUnit]:
     return units
 
 
+def _orc_units(files: List[tuple]) -> List[ScanUnit]:
+    """One unit per stripe of a multi-stripe ORC file (each stripe decodes
+    on its own, so a large file spreads over partitions and the pool),
+    one per file otherwise."""
+    import pyarrow.orc as po
+    units: List[ScanUnit] = []
+    for f, pv in files:
+        size = os.path.getsize(f)
+        try:
+            ns = po.ORCFile(f).nstripes
+        except Exception:
+            ns = 0
+        if ns <= 1:
+            units.append(ScanUnit(f, size, part_values=pv))
+            continue
+        per = max(1, size // ns)
+        units.extend(ScanUnit(f, per, [st], pv) for st in range(ns))
+    return units
+
+
 def pack_partitions(units: List[ScanUnit], max_bytes: int,
                     open_cost: int = 0) -> List[List[ScanUnit]]:
     """Bin-pack units into partitions (FilePartition.getFilePartitions;
@@ -189,23 +263,111 @@ def pack_partitions(units: List[ScanUnit], max_bytes: int,
     return parts
 
 
-def _read_unit(fmt: str, unit: ScanUnit, schema: T.StructType):
+def _read_unit(fmt: str, unit: ScanUnit, schema: T.StructType,
+               options: Dict[str, Any]):
     """Decode one unit to a pyarrow Table with ``schema``'s columns."""
-    if fmt != "parquet":
-        raise _not_ported(f"reading {fmt}")
     import pyarrow as pa
-    import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.io.arrow_convert import sql_type_to_arrow
     names = [f.name for f in schema.fields]
-    pf = pq.ParquetFile(unit.path)
-    if unit.row_groups is not None:
-        if not unit.row_groups:
-            return pa.table(
-                {n: pa.array([], type=sql_type_to_arrow(f.data_type))
-                 for n, f in zip(names, schema.fields)})
-        return pf.read_row_groups(unit.row_groups, columns=names)
-    return pf.read(columns=names)
+    if fmt == "parquet":
+        import pyarrow.parquet as pq
+        pf = pq.ParquetFile(unit.path)
+        if unit.row_groups is not None:
+            if not unit.row_groups:
+                return pa.table(
+                    {n: pa.array([], type=sql_type_to_arrow(f.data_type))
+                     for n, f in zip(names, schema.fields)})
+            return _conform(pf.read_row_groups(
+                unit.row_groups, columns=_present(pf.schema_arrow, names)),
+                schema)
+        return _conform(pf.read(columns=_present(pf.schema_arrow, names)),
+                        schema)
+    if fmt == "orc":
+        import pyarrow.orc as po
+        of = po.ORCFile(unit.path)
+        cols = _present(of.schema, names)
+        if unit.row_groups:  # stripe indices
+            return _conform(pa.Table.from_batches(
+                [of.read_stripe(st, columns=cols)
+                 for st in unit.row_groups]), schema)
+        return _conform(of.read(columns=cols), schema)
+    if fmt == "csv":
+        return _read_csv(unit.path, schema, options)
+    if fmt == "json":
+        import pyarrow.json as pj
+        return _conform(pj.read_json(unit.path), schema)
+    if fmt == "text":
+        import pyarrow.csv as pc
+        return pc.read_csv(unit.path, parse_options=pc.ParseOptions(
+            delimiter="\x01", quote_char=False, escape_char=False),
+            read_options=pc.ReadOptions(column_names=[names[0]]))
+    raise ValueError(f"unknown file format {fmt!r}")
+
+
+def _present(file_schema, names: List[str]) -> List[str]:
+    """The names a file holds: a column the file lacks is read as nulls
+    (``_conform``)."""
+    have = set(file_schema.names)
+    return [n for n in names if n in have]
+
+
+def _read_csv(path: str, schema: T.StructType, options: Dict[str, Any]):
+    """A CSV file with the schema's types; a file whose column count
+    differs from the schema is read again by position (Spark's
+    PERMISSIVE mode): extra columns are dropped, missing ones are null."""
+    import pyarrow as pa
+    import pyarrow.csv as pc
+
+    from spark_rapids_tpu_torch.io.arrow_convert import sql_type_to_arrow
+    header = str(options.get("header", "false")).lower() == "true"
+    sep = options.get("sep", options.get("delimiter", ","))
+    null_value = options.get("nullValue", "")
+    names = [f.name for f in schema.fields]
+    null_values = [null_value] if null_value else [""]
+    parse_opts = pc.ParseOptions(delimiter=sep)
+    timestamp_parsers = [pc.ISO8601, "%Y-%m-%d %H:%M:%S"]
+    try:
+        tbl = pc.read_csv(
+            path,
+            read_options=pc.ReadOptions(
+                column_names=None if header else names),
+            parse_options=parse_opts,
+            convert_options=pc.ConvertOptions(
+                column_types={f.name: sql_type_to_arrow(f.data_type)
+                              for f in schema.fields},
+                null_values=null_values, strings_can_be_null=True,
+                timestamp_parsers=timestamp_parsers))
+    except pa.lib.ArrowInvalid:
+        # the same null semantics; the types are cast by _conform below
+        tbl = pc.read_csv(
+            path,
+            read_options=pc.ReadOptions(autogenerate_column_names=True,
+                                        skip_rows=1 if header else 0),
+            parse_options=parse_opts,
+            convert_options=pc.ConvertOptions(
+                null_values=null_values, strings_can_be_null=True,
+                timestamp_parsers=timestamp_parsers))
+    # by position: a header's names may differ from the schema's
+    n = min(len(names), tbl.num_columns)
+    tbl = tbl.select(list(range(n))).rename_columns(names[:n])
+    return _conform(tbl, schema)
+
+
+def _conform(tbl, schema: T.StructType):
+    """The table's columns in the schema's order and types; a column the
+    table lacks is all null, one the schema lacks is dropped."""
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch.io.arrow_convert import sql_type_to_arrow
+    cols = []
+    for f in schema.fields:
+        at = sql_type_to_arrow(f.data_type)
+        if f.name in tbl.column_names:
+            cols.append(tbl.column(f.name).cast(at))
+        else:
+            cols.append(pa.nulls(tbl.num_rows, type=at))
+    return pa.Table.from_arrays(cols, names=[f.name for f in schema.fields])
 
 
 def _partition_value_array(f: T.StructField, raw: Optional[str], n: int):
@@ -309,12 +471,36 @@ def unit_can_match(u: ScanUnit, preds: List[tuple],
     return True
 
 
+_READ_POOL: Optional[ThreadPoolExecutor] = None
+_POOL_SIZE = 0
+_POOL_LOCK = threading.Lock()
+
+
+def _shared_pool(n_threads: int) -> ThreadPoolExecutor:
+    """The MULTITHREADED reader's pool, shared by every scan of the
+    process and made anew only when the thread count changes. Its threads
+    do host work only (file reads, decompression, run-header parsing,
+    Arrow conversion): they take no device permit and touch no device."""
+    global _READ_POOL, _POOL_SIZE
+    with _POOL_LOCK:
+        if _READ_POOL is None or _POOL_SIZE != n_threads:
+            if _READ_POOL is not None:
+                _READ_POOL.shutdown(wait=False)
+            _READ_POOL = ThreadPoolExecutor(
+                max_workers=n_threads, thread_name_prefix="torch-multifile")
+            _POOL_SIZE = n_threads
+        return _READ_POOL
+
+
 class ScanMetrics(M.MetricRegistry):
     """Named counters of one scan: ``deviceDecodedBatches``,
     ``deviceFallbackUnits``, ``deviceFallbackColumns``,
-    ``deviceDecodedValues.<ENC>`` and ``hostDecodedValues.<ENC>``, and
-    the IO retry protocol's ``ioRetryCount`` and ``retryBlockTime``. A
-    registry, so ``plan_metrics`` sums them with the operators'."""
+    ``deviceDecodedValues.<ENC>`` and ``hostDecodedValues.<ENC>``, the
+    IO retry protocol's ``ioRetryCount`` and ``retryBlockTime``, and the
+    host walls ``decodeTime`` (a unit's read and pyarrow decode) and
+    ``convertTime`` (Arrow to HostBatch), in nanoseconds summed over the
+    threads that ran them. A registry, so ``plan_metrics`` sums them with
+    the operators'."""
 
     def add(self, name: str, v: int = 1) -> None:
         self.create(name).add(v)
@@ -327,8 +513,6 @@ class CpuFileScanExec(P.PhysicalPlan):
 
     def __init__(self, output, fmt: str, paths: List[str],
                  options: Dict[str, Any], conf: TorchConf):
-        if fmt != "parquet":
-            raise _not_ported(f"reading {fmt}")
         self.children = []
         self._output = output
         self.fmt = fmt
@@ -338,6 +522,9 @@ class CpuFileScanExec(P.PhysicalPlan):
         self.metrics = ScanMetrics()
         listed = list_files(paths)
         self.files = [f for f, _ in listed]
+        # (path, size, mtime_ns) of the inputs at planning time: what a
+        # cache of this scan's results is keyed on and checked against
+        self.fingerprints = file_fingerprints(self.files)
         part_names = {k for _f, pv in listed for k in pv}
         self._part_fields = [f for f in self.schema.fields
                              if f.name in part_names]
@@ -358,6 +545,9 @@ class CpuFileScanExec(P.PhysicalPlan):
         self.pruned_units = 0
         self._parts = pack_partitions(self._units, self._max_bytes,
                                       open_cost)
+        # set by the planner when input_file_name() sits above this scan:
+        # every reader then runs as PERFILE
+        self.force_perfile = False
         # set at execution time by TorchRowToColumnarExec when IT is the
         # direct consumer: only then may partitions() emit EncodedBatch
         # staging objects instead of HostBatches
@@ -365,10 +555,11 @@ class CpuFileScanExec(P.PhysicalPlan):
 
     def set_pushdown(self, preds: List[tuple]) -> None:
         """Install pushed-down predicates (name, op, storage value) and
-        prune row-group units whose footer stats preclude matches. The
-        enclosing Filter still runs, so pruning may be conservative."""
+        prune Parquet row-group units whose footer stats preclude
+        matches. The enclosing Filter still runs, so pruning may be
+        conservative."""
         self._pushed = preds
-        if not preds:
+        if not preds or self.fmt != "parquet":
             return
         fields = {f.name: f.data_type for f in self.schema.fields}
         kept = [u for u in self._units if unit_can_match(u, preds, fields)]
@@ -383,9 +574,16 @@ class CpuFileScanExec(P.PhysicalPlan):
         return self._output
 
     def units_per_partition(self) -> List[int]:
-        """The units (row groups) of each partition, from the footers,
-        before any read."""
+        """The units (row groups, stripes or files) of each partition,
+        from the footers, before any read."""
         return [len(us) for us in self._parts]
+
+    def reader_type(self) -> str:
+        """The reader strategy the partitions run: the conf's, or PERFILE
+        where ``input_file_name()`` forced it."""
+        if self.force_perfile:
+            return "PERFILE"
+        return str(self.conf.get(PARQUET_READER_TYPE)).upper()
 
     def simple_string(self):
         s = (f"FileScan {self.fmt} [{len(self.files)} files, "
@@ -396,34 +594,45 @@ class CpuFileScanExec(P.PhysicalPlan):
         return s + "]"
 
     def partitions(self):
-        reader_type = str(self.conf.get(PARQUET_READER_TYPE)).upper()
-        if reader_type != "PERFILE":
-            raise _not_ported(f"the {reader_type} Parquet reader")
+        reader_type = self.reader_type()
+        if reader_type not in ("PERFILE", "MULTITHREADED", "COALESCING"):
+            raise ValueError(f"unknown reader type {reader_type!r} "
+                             f"({PARQUET_READER_TYPE.key})")
         max_rows = int(self.conf.get(MAX_READER_BATCH_SIZE_ROWS))
         schema = self.schema
         part_fields = self._part_fields
         part_names = {f.name for f in part_fields}
         data_schema = T.StructType(
             [f for f in schema.fields if f.name not in part_names])
-        device_decode = self.emit_encoded
+        # COALESCING's point is the one-table stitch, which the device
+        # decode does not do: its units decode on the host
+        device_decode = (self.fmt == "parquet"
+                         and reader_type != "COALESCING"
+                         and self.emit_encoded)
         metrics = self.metrics
 
         def decode(u: ScanUnit):
-            # a transient IO error retries with bounded backoff
-            tbl = R.io_with_retry(
-                lambda: _read_unit(self.fmt, u, data_schema), self.conf,
-                metrics, path=u.path)
-            if part_fields:
-                tbl = _append_partition_columns(tbl, part_fields,
-                                                u.part_values or {})
-                tbl = tbl.select([f.name for f in schema.fields])
+            with metrics.timed("decodeTime"):
+                # a transient IO error retries with bounded backoff, on
+                # whichever thread reads the unit
+                tbl = R.io_with_retry(
+                    lambda: _read_unit(self.fmt, u, data_schema,
+                                       self.options),
+                    self.conf, metrics, path=u.path)
+                if part_fields:
+                    tbl = _append_partition_columns(tbl, part_fields,
+                                                    u.part_values or {})
+                    tbl = tbl.select([f.name for f in schema.fields])
             return tbl
 
         def emit(tbl) -> Iterator[HostBatch]:
             from spark_rapids_tpu_torch.io.arrow_convert import \
                 arrow_to_host_batch
             for lo in range(0, max(1, tbl.num_rows), max_rows):
-                yield arrow_to_host_batch(tbl.slice(lo, max_rows), schema)
+                with metrics.timed("convertTime"):
+                    hb = arrow_to_host_batch(tbl.slice(lo, max_rows),
+                                             schema)
+                yield hb
 
         def plan_device(u: ScanUnit):
             """ScanUnit -> EncodedBatch (host IO, decompression and
@@ -450,21 +659,72 @@ class CpuFileScanExec(P.PhysicalPlan):
                     metrics.add(f"deviceDecodedValues.{ename}", nvals)
             return enc
 
+        def decode_unit(u: ScanUnit) -> List[Any]:
+            """One unit's batches, materialised on a pool thread: its
+            EncodedBatch, or its HostBatches converted from Arrow there,
+            so the consuming thread only packs and uploads."""
+            enc = plan_device(u) if device_decode else None
+            return [enc] if enc is not None else list(emit(decode(u)))
+
+        def set_file(path: str) -> None:
+            # input_file_name()'s context, read by a project over this
+            # scan on the thread that pulls the scan's batches
+            E._PART_CTX.input_file = path
+
+        def coalescing(units: List[ScanUnit]) -> Iterator[Any]:
+            import pyarrow as pa
+            tbl = pa.concat_tables([decode(u) for u in units])
+            set_file("")  # the stitched batches span files
+            yield from emit(tbl)
+
+        def multithreaded(units: List[ScanUnit]) -> Iterator[Any]:
+            n_threads = int(self.conf.get(MULTITHREADED_READ_NUM_THREADS))
+            pool = _shared_pool(n_threads)
+            # a sliding window: converted HostBatches are several times
+            # their Arrow size, so only numThreads + 2 units are in flight
+            ahead = iter(units)
+            futures = deque(pool.submit(decode_unit, u)
+                            for u in islice(ahead, n_threads + 2))
+            try:
+                for u in units:
+                    f = futures.popleft()
+                    nxt = next(ahead, None)
+                    if nxt is not None:
+                        futures.append(pool.submit(decode_unit, nxt))
+                    batches = f.result()
+                    set_file(u.path)
+                    yield from batches
+            finally:
+                # an error or a consumer that stopped early cancels the
+                # reads not yet started, so the shared pool drains
+                for f in futures:
+                    f.cancel()
+
+        def perfile(units: List[ScanUnit]) -> Iterator[Any]:
+            for u in units:
+                enc = plan_device(u) if device_decode else None
+                if enc is not None:
+                    set_file(u.path)
+                    yield enc
+                    continue
+                tbl = decode(u)
+                set_file(u.path)
+                yield from emit(tbl)
+
         def make(units: List[ScanUnit]):
             def run() -> Iterator[Any]:
-                for u in units:
-                    enc = plan_device(u) if device_decode else None
-                    if enc is not None:
-                        yield enc
-                    else:
-                        yield from emit(decode(u))
+                if len(units) > 1 and reader_type == "COALESCING":
+                    return coalescing(units)
+                if len(units) > 1 and reader_type == "MULTITHREADED":
+                    return multithreaded(units)
+                return perfile(units)
             return run
 
         return [make(us) for us in self._parts]
 
 
 class DataFrameReader:
-    """spark.read facade (pyspark DataFrameReader shape), Parquet only."""
+    """spark.read facade (pyspark DataFrameReader shape)."""
 
     def __init__(self, session):
         self._session = session
@@ -487,13 +747,15 @@ class DataFrameReader:
         self._options[key] = value
         return self
 
+    def options(self, **opts) -> "DataFrameReader":
+        self._options.update(opts)
+        return self
+
     def load(self, path=None):
         from spark_rapids_tpu_torch.sql.dataframe import DataFrame
-        if self._format != "parquet":
-            raise _not_ported(f"reading {self._format}")
         paths = [path] if isinstance(path, str) else list(path)
-        listed = list_files(paths)
-        schema = self._schema or self._infer_schema(listed[0][0])
+        listed = list_files(paths)  # one walk for inference and discovery
+        schema = self._schema or self._infer_schema_from(listed)
         # append Hive-style partition columns discovered from k=v dirs
         have = {f.name for f in schema.fields}
         extra = [f for f in discovered_partition_fields(listed)
@@ -506,10 +768,94 @@ class DataFrameReader:
     def parquet(self, *paths: str):
         return self.format("parquet").load(list(paths))
 
-    @staticmethod
-    def _infer_schema(first: str) -> T.StructType:
-        import pyarrow.parquet as pq
+    def orc(self, *paths: str):
+        return self.format("orc").load(list(paths))
 
+    def csv(self, path, schema=None, header=None, sep=None,
+            inferSchema=None, nullValue=None):
+        if schema is not None:
+            self.schema(schema)
+        if header is not None:
+            self.option("header", str(header).lower())
+        if sep is not None:
+            self.option("sep", sep)
+        if inferSchema is not None:
+            self.option("inferSchema", str(inferSchema).lower())
+        if nullValue is not None:
+            self.option("nullValue", nullValue)
+        return self.format("csv").load(path)
+
+    def json(self, path, schema=None):
+        if schema is not None:
+            self.schema(schema)
+        return self.format("json").load(path)
+
+    def text(self, path):
+        self._schema = T.StructType([T.StructField("value", T.StringT)])
+        return self.format("text").load(path)
+
+    def table(self, name: str):
+        return self._session.table(name)
+
+    # -- schema inference --------------------------------------------------
+
+    def _infer_schema_from(self, listed: List[tuple]) -> T.StructType:
+        """The first file's schema: its footer for Parquet and ORC, pyarrow's
+        inference for JSON, ``_infer_csv_schema`` for CSV."""
         from spark_rapids_tpu_torch.io.arrow_convert import \
             arrow_schema_to_sql
-        return arrow_schema_to_sql(pq.ParquetFile(first).schema_arrow)
+        first = listed[0][0]
+        fmt = self._format
+        if fmt == "parquet":
+            import pyarrow.parquet as pq
+            return arrow_schema_to_sql(pq.ParquetFile(first).schema_arrow)
+        if fmt == "orc":
+            import pyarrow.orc as po
+            return arrow_schema_to_sql(po.ORCFile(first).schema)
+        if fmt == "json":
+            import pyarrow.json as pj
+            return arrow_schema_to_sql(pj.read_json(first).schema)
+        if fmt == "csv":
+            return self._infer_csv_schema(first)
+        raise ValueError(
+            f"cannot infer schema for format {fmt}; pass .schema(...)")
+
+    def _infer_csv_schema(self, path: str) -> T.StructType:
+        """Column names from the header (else ``_c0``, ``_c1``, ...);
+        with ``inferSchema`` the types pyarrow infers, widened as
+        ``arrow_type_to_sql_for_csv`` says, else every column a string."""
+        import pyarrow.csv as pc
+        header = str(self._options.get("header", "false")).lower() == "true"
+        sep = self._options.get("sep", self._options.get("delimiter", ","))
+        infer = str(self._options.get("inferSchema",
+                                      "false")).lower() == "true"
+        tbl = pc.read_csv(path, parse_options=pc.ParseOptions(delimiter=sep))
+        names = (tbl.column_names if header
+                 else [f"_c{i}" for i in range(tbl.num_columns)])
+        if not header:
+            # the first row was data: read again without taking it as names
+            tbl = pc.read_csv(
+                path, read_options=pc.ReadOptions(column_names=names),
+                parse_options=pc.ParseOptions(delimiter=sep))
+        if infer:
+            return T.StructType([
+                T.StructField(n, arrow_type_to_sql_for_csv(col.type))
+                for n, col in zip(names, tbl.columns)])
+        return T.StructType([T.StructField(n, T.StringT) for n in names])
+
+
+def arrow_type_to_sql_for_csv(at) -> T.DataType:
+    """CSV inference's types: integers as LONG and floats as DOUBLE
+    (Spark's CSVInferSchema), anything unrecognised as a string."""
+    import pyarrow as pa
+    if pa.types.is_boolean(at):
+        return T.BooleanT
+    if pa.types.is_integer(at):
+        return T.LongT
+    if pa.types.is_floating(at):
+        return T.DoubleT
+    if pa.types.is_timestamp(at):
+        return T.TimestampT
+    if pa.types.is_date(at):
+        return T.DateT
+    return T.StringT

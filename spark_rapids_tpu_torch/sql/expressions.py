@@ -1698,8 +1698,15 @@ class InputFileName(Expression):
 
     def eval(self, batch: HostBatch) -> HostColumn:
         f = getattr(_PART_CTX, "input_file", "")
-        return HostColumn.all_valid(
-            np.full(batch.num_rows, f, dtype=object), T.StringT)
+        n = batch.num_rows
+        col = HostColumn.all_valid(np.full(n, f, dtype=object), T.StringT)
+        if f:
+            # the compact bytes too: an upload ships them as they are
+            # instead of encoding the path once a row
+            raw = np.frombuffer(f.encode("utf-8"), dtype=np.uint8)
+            col.varbytes = (np.tile(raw, n),
+                            np.full(n, len(raw), dtype=np.int32))
+        return col
 
 
 class RLike(StartsWith):

@@ -5,7 +5,9 @@ that the port's overrides then rewrite onto torch device operators.
 Planning decisions mirrored from Spark:
 - A file scan plans as ``CpuFileScanExec``; attribute-vs-literal
   conjuncts of a Filter directly above it are pushed into it for
-  row-group pruning by footer statistics (the Filter stays).
+  row-group pruning by footer statistics (the Filter stays). A
+  project with ``input_file_name()`` reads a COALESCING scan below it
+  as PERFILE.
 - Aggregate splits into partial -> hash exchange on keys -> final.
 - Equi-joins become exchange(left) + exchange(right) + shuffled hash join,
   or a broadcast hash join when the build side's estimated bytes are at
@@ -78,6 +80,11 @@ def estimate_plan_bytes(p: L.LogicalPlan) -> Optional[int]:
                       L.SubqueryAlias)):
         return estimate_plan_bytes(p.child)
     return None
+
+
+def _has_input_file_name(e: E.Expression) -> bool:
+    return isinstance(e, E.InputFileName) or any(
+        _has_input_file_name(c) for c in e.children)
 
 
 class Planner:
@@ -181,6 +188,18 @@ class Planner:
     def _plan_project(self, p: L.Project) -> P.PhysicalPlan:
         child = self.plan(p.child)
         plist, child = self._extract_pandas_udfs(p.project_list, child)
+        # input_file_name() needs batches of one file each: a COALESCING
+        # scan under this project reads as PERFILE (the reference's
+        # InputFileBlockRule)
+        if any(_has_input_file_name(e) for e in plist):
+            from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+            node = child
+            while node is not None:
+                if isinstance(node, CpuFileScanExec):
+                    node.force_perfile = True
+                    break
+                node = node.children[0] if len(node.children) == 1 \
+                    else None
         return P.CpuProjectExec(plist, child)
 
     def _plan_filter(self, p: L.Filter) -> P.PhysicalPlan:

@@ -141,10 +141,18 @@ def test_q1_identical_to_jax_package(q1_files, reader):
 
 @pytest.mark.parametrize("reader", ["MULTITHREADED", "COALESCING"])
 def test_unported_reader_types_raise(q1_files, reader):
-    s = TorchSparkSession({READER: reader}, device="cpu")
-    s.read.parquet(q1_files[0]).createOrReplaceTempView("lineitem")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        s.sql(Q1).collect()
+    """q1 under the port's MULTITHREADED and COALESCING readers: rows
+    equal to the JAX package's under the same reader; every row group
+    staged for decodeFused under MULTITHREADED, none under COALESCING,
+    which decodes on the host."""
+    base, arrays = q1_files
+    views = {"lineitem": base}
+    want, _snap, _pruned = _jax_run(views, Q1, {READER: reader})
+    got, counts, _pruned, _plan = _port_run(views, Q1, {READER: reader})
+    assert got == want
+    check_q1_rows(got, q1_reference(arrays))
+    assert counts.get("deviceDecodedBatches", 0) == (
+        24 if reader == "MULTITHREADED" else 0)
 
 
 def test_pushdown_prunes_the_same_row_groups(tmp_path):
@@ -294,7 +302,10 @@ def test_write_modes(tmp_path):
     df.write.mode("ignore").parquet(path)
     df.write.mode("overwrite").parquet(path)
     assert pq.read_table(path).column("x").to_pylist() == list(range(10))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        df.write.format("orc").save(str(tmp_path / "orc"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        s.read.format("csv").load(path)
+    orc = str(tmp_path / "orc")
+    df.write.format("orc").save(orc)
+    assert sorted(r.x for r in s.read.orc(orc).collect()) == list(range(10))
+    csv = str(tmp_path / "csv")
+    df.write.csv(csv)
+    assert sorted(r.x for r in s.read.format("csv").schema("x bigint")
+                  .load(csv).collect()) == list(range(10))
