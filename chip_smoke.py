@@ -226,6 +226,25 @@ absent or any phase fails. Output, one line per phase:
      share of a profiled run and that run's scan ``decodeTime`` and
      ``convertTime`` and upload ``packBatchTime`` and
      ``copyToDeviceTime``;
+  20. the query server (``serve_phases``): q1 at SF1 from phase 7's
+     Parquet at three shipdate bounds and TPC-DS q3's pushed form at
+     three bindings (store_sales from phase 4's Parquet, the two
+     dimensions again in 4 files each) served by ``QueryServer`` on the
+     card to four tenants at the JAX package's defaults, every response
+     decoded from Arrow IPC and exact: ``serve_mixed`` (p50/p99 a
+     tenant, queries a second, plan-cache hits on every repeat,
+     semaphoreWaitTime, a profiled served q1's idle share against the
+     same query in a plain session), ``serve_fusion`` (eight q1 in one
+     batch and one admission slot), ``serve_lifecycle`` (deadline, an
+     injected site:cancel stop, the cancel verb, a disconnect: each
+     leaves no permit, store handle or ledger byte; shutdown drains),
+     ``serve_result_cache`` (a hit launches nothing, a touched file
+     re-executes), ``serve_concurrency`` (four q1 requests at
+     maxConcurrentQueries 1 and 4 in turns: walls, process CPU over
+     wall, each execution's wall, semaphore wait and host timers) and
+     ``serve_launches`` (the global launch counters equal the executed
+     plans' own counts; the executions' streams, the graphs captured
+     and replayed, the allocator's bytes after each leg);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -242,13 +261,14 @@ absent or any phase fails. Output, one line per phase:
   (``nested_only``); with ``--cache-udf``, only the build and phase 17
   (``cache_udf_only``); with ``--fallback``, only the build and phase 18
   (``fallback_only``); with ``--formats``, only the build and phase 19
-  (``formats_only``);
+  (``formats_only``); with ``--serve``, only the build and phase 20
+  (``serve_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's, 18's and 19's legs, and those
+  and on phase 14's, 15's, 16's, 17's, 18's, 19's and 20's legs, and those
   phases' shapes among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -356,12 +376,21 @@ def q3_tables(n_sales: int = Q3_SALES_ROWS, seed: int = Q3_SEED):
     return {"item": item, "date_dim": date_dim, "store_sales": store_sales}
 
 
-def q3_reference(tables):
+def q3_reference(tables, manufact: int = 128, moy: int = 11):
     """Exact q3 rows, independent of any engine: each join by key arrays
     (searchsorted over the sorted dimension keys), the filter, the group
     sums of the unscaled decimals as Python ints, then ORDER BY d_year,
     sum_agg DESC, brand_id and LIMIT 100. Rows are (d_year, brand_id,
-    brand, Decimal sum_agg at scale 2)."""
+    brand, Decimal sum_agg at scale 2). ``manufact`` and ``moy`` are the
+    query's bindings (``q3_text``); computed once for a given ``tables``
+    object and binding."""
+    return _memo("q3", tables, (manufact, moy), lambda: q3_references(
+        tables, [(manufact, moy)])[(manufact, moy)])
+
+
+def q3_references(tables, bindings) -> dict:
+    """``{(manufact, moy): q3_reference(tables, manufact, moy)}``, the
+    joins' key lookups made once for every binding."""
     col = {t: {name: a for name, _k, a in cols}
            for t, cols in tables.items()}
     ss, dd, it = col["store_sales"], col["date_dim"], col["item"]
@@ -375,19 +404,22 @@ def q3_reference(tables):
 
     drow, dhit = lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
     irow, ihit = lookup(it["i_item_sk"], ss["ss_item_sk"])
-    keep = dhit & ihit & (dd["d_moy"][drow] == 11) \
-        & (it["i_manufact_id"][irow] == 128)
-    groups: dict = {}
-    for y, b, s, p in zip(dd["d_year"][drow][keep],
-                          it["i_brand_id"][irow][keep],
-                          it["i_brand"][irow][keep],
-                          ss["ss_ext_sales_price"][keep]):
-        k = (int(y), int(b), s)
-        groups[k] = groups.get(k, 0) + int(p)
-    rows = sorted(((y, b, s, v) for (y, b, s), v in groups.items()),
-                  key=lambda r: (r[0], -r[3], r[1]))
-    return [(y, b, s, decimal.Decimal(v).scaleb(-2))
-            for y, b, s, v in rows[:100]]
+    moys, manufacts = dd["d_moy"][drow], it["i_manufact_id"][irow]
+    out = {}
+    for manufact, moy in bindings:
+        keep = dhit & ihit & (moys == moy) & (manufacts == manufact)
+        groups: dict = {}
+        for y, b, s, p in zip(dd["d_year"][drow][keep],
+                              it["i_brand_id"][irow][keep],
+                              it["i_brand"][irow][keep],
+                              ss["ss_ext_sales_price"][keep]):
+            k = (int(y), int(b), s)
+            groups[k] = groups.get(k, 0) + int(p)
+        rows = sorted(((y, b, s, v) for (y, b, s), v in groups.items()),
+                      key=lambda r: (r[0], -r[3], r[1]))
+        out[(manufact, moy)] = [(y, b, s, decimal.Decimal(v).scaleb(-2))
+                                for y, b, s, v in rows[:100]]
+    return out
 
 
 def check_q3_rows(got, want, what: str) -> None:
@@ -1109,12 +1141,33 @@ def _half_up_div(num: int, den: int) -> int:
     return -q if num < 0 else q
 
 
-def q1_reference(arrays):
+# the references of the arrays and tables this run made, by identity: every
+# phase that checks q1 or q3 over the same data reads one computation
+_REFERENCES: dict = {}
+
+
+def _memo(kind: str, data, key, compute):
+    hit = _REFERENCES.get((kind, id(data), key))
+    if hit is None or hit[0] is not data:
+        while len(_REFERENCES) >= 8:  # the newest few: they hold their data
+            del _REFERENCES[next(iter(_REFERENCES))]
+        hit = _REFERENCES[(kind, id(data), key)] = (data, compute())
+    return hit[1]
+
+
+def q1_reference(arrays, shipdate: str = "1998-09-02"):
     """Exact q1 rows: unscaled sums as Python ints, the products at scale
     4 and 6, avg as HALF_UP at scale 6 (Spark's avg(decimal(15,2)) is
-    decimal(19,6)). Returns [(rf, ls, (value, scale)...)] sorted."""
+    decimal(19,6)). Returns [(rf, ls, (value, scale)...)] sorted.
+    ``shipdate`` is the query's bound (``q1_text``); computed once for a
+    given ``arrays`` object and bound."""
+    return _memo("q1", arrays, shipdate,
+                 lambda: _q1_reference(arrays, shipdate))
+
+
+def _q1_reference(arrays, shipdate: str):
     qty, price, disc, tax, rf, ls, ship = arrays
-    cutoff = (np.datetime64("1998-09-02")
+    cutoff = (np.datetime64(shipdate)
               - np.datetime64("1970-01-01")).astype(int)
     keep = ship <= cutoff
     disc_price = price * (100 - disc)                # scale 4
@@ -1527,19 +1580,27 @@ def profile_collect(df, name: str, card: str, warm: bool = True,
     tracing the host's ops slows the run it measures. With ``host_ops``
     (the ``--breakdown`` runs) the host's ops are traced too, and the
     tables (``key_averages``) also give the top host ops."""
+    if warm:
+        df.collect()
+    return profile_call(df.collect, name, card, host_ops)
+
+
+def profile_call(run, name: str, card: str,
+                 host_ops: bool = False) -> dict:
+    """``profile_collect``'s measurement around any call ``run`` (a
+    served query's round trip, phase 20): one run under torch.profiler,
+    the device traced whichever thread launched its work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if warm:
-        df.collect()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
     if host_ops:
         activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        df.collect()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if not host_ops:
@@ -1845,8 +1906,10 @@ def ring_phases(card, fields, arrays, q1_dir, tables) -> None:
                     f"pinnedStreamCopies {pinned} of "
                     f"{m['numOutputBatches']} uploads")
             walls = timed_collects(df)
+            # (the timed runs warmed it)
             prof = profile_collect(
-                df, f"q1_{source}_depth{depth}_turn{turn}", card)
+                df, f"q1_{source}_depth{depth}_turn{turn}", card,
+                warm=False)
             phase("upload_ring", card=card, query="q1", source=source,
                   max_in_flight=depth, turn=turn, reference="exact",
                   upload_ahead_batches=ahead, pinned_stream_copies=pinned,
@@ -2480,6 +2543,31 @@ def timed_collects(df) -> dict:
             "median_s": statistics.median(walls)}
 
 
+Q3_PARQUET_PARTS = {"item": 1, "date_dim": 1, "store_sales": N_PARTITIONS}
+
+
+def write_q3_parquet(spark, tables, parts=None, name="tpcds_q3"):
+    """bench's q3 tables written once under ``build/data/<name>/``, a
+    table a directory, each from ``parts[table]`` partitions (a file
+    each): ``(directory, seconds spent writing)``."""
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.sql import types as T
+    parts = parts or Q3_PARQUET_PARTS
+    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    q3_dir = os.path.join(DATA_DIR, name)
+
+    def write_q3(d):
+        for table, n in parts.items():
+            cols = tables[table]
+            spark.createDataFrame(host_batch_from_numpy(
+                [(c, types[k]) for c, k, _a in cols],
+                [a for _c, _k, a in cols]), num_partitions=n).write \
+                .mode("overwrite").parquet(os.path.join(d, table))
+    return q3_dir, write_once(q3_dir, write_q3, data_key(
+        seed=Q3_SEED, rows=Q3_SALES_ROWS, partitions=parts))
+
+
 def write_q1_parquet(spark, arrays):
     """q1's lineitem written once under ``build/data/`` from 8 partitions
     (8 files of one row group): ``(directory, seconds spent writing)``."""
@@ -2501,9 +2589,7 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     from spark_rapids_tpu_torch.columnar import transfer as X
-    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
     from spark_rapids_tpu_torch.kernels import decode_fused as DF
-    from spark_rapids_tpu_torch.sql import types as T
     from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
     try:
@@ -2518,20 +2604,8 @@ def parquet_phases(device, card, arrays, profiled: bool = False) -> dict:
                       if f.endswith(".parquet"))
 
     tables = q3_tables()
-    types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
-             "dec72": T.DecimalType(7, 2)}
-    q3_dir = os.path.join(DATA_DIR, "tpcds_q3")
-    q3_parts = {"item": 1, "date_dim": 1, "store_sales": N_PARTITIONS}
-
-    def write_q3(d):
-        for name, parts in q3_parts.items():
-            cols = tables[name]
-            spark.createDataFrame(host_batch_from_numpy(
-                [(c, types[k]) for c, k, _a in cols],
-                [a for _c, _k, a in cols]), num_partitions=parts).write \
-                .mode("overwrite").parquet(os.path.join(d, name))
-    q3_write_s = write_once(q3_dir, write_q3, data_key(
-        seed=Q3_SEED, rows=Q3_SALES_ROWS, partitions=q3_parts))
+    q3_dir, q3_write_s = write_q3_parquet(spark, tables)
+    q3_parts = Q3_PARQUET_PARTS
 
     # -- decodeFused against its plain version on the card ---------------
     # the corpus (every page class and kind), one q1 row group, and every
@@ -2951,8 +3025,9 @@ def gate_protocol() -> None:
                               for k in PRESSURE_KEYS):
             GATE["skipped"] += 1
             return out
-        bad = {k: v for k, v in protocol_counts(self.last_plan).items()
-               if v}
+        # this thread's plan: a server runs several queries on one session
+        bad = {k: v for k, v in protocol_counts(
+            self.thread_last_plan() or self.last_plan).items() if v}
         if bad:
             raise AssertionError(
                 f"retry protocol ran on a run without pressure: {bad}")
@@ -3480,7 +3555,7 @@ def q12_run(spark, card: str, what: str, want, profile_name: str) -> dict:
     if launches["groupbyHash"] <= 0:
         raise AssertionError(f"{what}: no groupbyHash launch: {launches}")
     walls = timed_collects(df)
-    prof = profile_collect(df, profile_name, card)
+    prof = profile_collect(df, profile_name, card, warm=False)
     return {"rows": rows, "reference": "exact", "plan": names,
             "join_route": joins, "launches": launches,
             "first_run_s": first_s, "wall": walls,
@@ -3570,7 +3645,7 @@ def q1_double_phase(card: str, arrays) -> dict:
     names = plan_names(spark.last_plan)
     all_torch(names, "q1_double")
     walls = timed_collects(df)
-    prof = profile_collect(df, "q1_double", card)
+    prof = profile_collect(df, "q1_double", card, warm=False)
     phase("q1_double", card=card, rows_in=len(arrays[0]),
           rows_out=len(rows),
           reference="math.fsum", rel_tol=1e-12, max_rel_err=worst,
@@ -6526,6 +6601,632 @@ def formats_phases(device, card: str, arrays, q1_dir: str) -> dict:
     return legs
 
 
+# -- phase 20: the query server (serve/) -------------------------------------
+
+# TPC-H q1's DELTA is drawn from [60, 120] days before 1998-12-01 (spec
+# 2.4.1.3); Q1 itself is DELTA 90
+Q1_DELTAS = (60, 90, 120)
+# i_manufact_id bindings (the generator's item table holds 1..1000) and
+# d_moy 11 or 12
+Q3_BINDINGS = ((128, 11), (436, 12), (677, 11))
+SERVE_TENANTS = ("t0", "t1", "t2", "t3")
+SERVE_REQUESTS = 8  # per tenant in the mixed leg, q1 and q3 in turn
+
+
+def q1_shipdate(delta: int) -> str:
+    return str(np.datetime64("1998-12-01") - np.timedelta64(delta, "D"))
+
+
+def q1_text(delta: int = 90) -> str:
+    """Q1 with its shipdate bound ``delta`` days before 1998-12-01."""
+    return Q1.replace("date '1998-09-02'", f"date '{q1_shipdate(delta)}'")
+
+
+def q1_references(arrays, shipdates) -> dict:
+    """``{shipdate: q1_reference(arrays, shipdate)}`` for several bounds
+    at once, the rows ``q1_reference``'s exactly: the rows sorted once by
+    group and shipdate, every sum read off exact int64 prefix sums."""
+    qty, price, disc, tax, rf, ls, ship = arrays
+    flags, stats = ("A", "N", "R"), ("F", "O")
+    code = (rf.astype("U1").view(np.uint32).astype(np.int64) << 40) \
+        | (ls.astype("U1").view(np.uint32).astype(np.int64) << 32)
+    order = np.argsort(code | ship.astype(np.int64), kind="stable")
+    code_s, ship_s = code[order], ship[order]
+    disc_price = price * (100 - disc)
+    prefix = {}
+    for name, a in (("qty", qty), ("price", price), ("disc", disc),
+                    ("disc_price", disc_price),
+                    ("charge", disc_price * (100 + tax))):
+        prefix[name] = np.concatenate(([0], np.cumsum(
+            a[order], dtype=np.int64)))
+    out = {}
+    for day in shipdates:
+        cutoff = (np.datetime64(day) - np.datetime64("1970-01-01")).astype(
+            int)
+        rows = []
+        for f in flags:
+            for st in stats:
+                g = (ord(f) << 40) | (ord(st) << 32)
+                lo = int(np.searchsorted(code_s, g, side="left"))
+                hi = int(np.searchsorted(code_s, g + (1 << 32),
+                                         side="left"))
+                end = lo + int(np.searchsorted(ship_s[lo:hi], cutoff,
+                                               side="right"))
+                cnt = end - lo
+                if cnt == 0:
+                    continue
+
+                def total(name):
+                    return int(prefix[name][end] - prefix[name][lo])
+                sq, sp, sdisc = total("qty"), total("price"), total("disc")
+                rows.append((f, st, (sq, 2), (sp, 2),
+                             (total("disc_price"), 4), (total("charge"), 6),
+                             (_half_up_div(sq * 10**4, cnt), 6),
+                             (_half_up_div(sp * 10**4, cnt), 6),
+                             (_half_up_div(sdisc * 10**4, cnt), 6), cnt))
+        out[day] = rows
+    return out
+
+
+def q3_text(manufact: int = 128, moy: int = 11) -> str:
+    """Q3_PUSHED with its two bindings."""
+    return Q3_PUSHED.replace("d_moy = 11", f"d_moy = {moy}").replace(
+        "i_manufact_id = 128", f"i_manufact_id = {manufact}")
+
+
+def execution_launches(plan) -> dict:
+    """The kernel launches one executed plan made, from its own counters
+    (``kernelDispatchCount.*`` and the joins' ``route_counts``): the
+    per-execution counts phase 20 sums against the global counters."""
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    m = plan_metrics(plan)
+    out = {k: m.get(f"kernelDispatchCount.{k}", 0)
+           for k in ("groupbyHash", "decodeFused", "murmur3")}
+    out["joinProbe"] = sum(getattr(p, "route_counts", {}).get("joinProbe", 0)
+                           for p in plan_nodes_of(plan))
+    return out
+
+
+@contextlib.contextmanager
+def recording_executions():
+    """Every plan a session executes while the block runs, from any
+    thread: ``[{"launches", "semaphore_wait_s", "wall_s", "host_s"}]``
+    (a wrapper around ``execute_plan``; ``host_s`` sums the upload's
+    ``packBatchTime``, ``scanPrefetchTime`` and ``copyToDeviceTime`` and
+    the download's ``copyFromDeviceTime``, host nanoseconds). A
+    cancelled or failed run is recorded too, with what it launched
+    before it stopped; a run that failed in planning launched
+    nothing."""
+    import threading
+
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    inner = TorchSparkSession.execute_plan
+    runs: list = []
+    lock = threading.Lock()
+
+    def recorded(self, plan):
+        before = self.thread_last_plan()
+        t0 = time.perf_counter()
+        try:
+            return inner(self, plan)
+        finally:
+            wall = time.perf_counter() - t0
+            done = self.thread_last_plan()
+            if done is not None and done is not before:
+                m = plan_metrics(done)
+                import torch
+                entry = {"launches": execution_launches(done),
+                         "stream": (torch.cuda.current_stream().cuda_stream
+                                    if torch.cuda.is_available() else 0),
+                         "semaphore_wait_s":
+                         m.get("semaphoreWaitTime", 0) / 1e9,
+                         "wall_s": wall,
+                         "host_s": sum(m.get(k, 0) for k in (
+                             "packBatchTime", "scanPrefetchTime",
+                             "copyToDeviceTime",
+                             "copyFromDeviceTime")) / 1e9}
+                with lock:
+                    runs.append(entry)
+    TorchSparkSession.execute_plan = recorded
+    try:
+        yield runs
+    finally:
+        TorchSparkSession.execute_plan = inner
+
+
+def serve_state(srv, tenant: str) -> dict:
+    """What a finished or cancelled query must leave behind: permits in
+    use, open store handles (no cache is on), the tenant's live ledger
+    bytes, queries in flight."""
+    from spark_rapids_tpu_torch import memory
+    from spark_rapids_tpu_torch.resource import _SEMAPHORE
+    store = memory._STORE
+    return {"permits_in_use": _SEMAPHORE.in_use if _SEMAPHORE else 0,
+            "store_handles": store.live_handles() if store else 0,
+            "tenant_live_bytes": memory.store_tenant_stats().get(
+                tenant, {}).get("liveBytes", 0),
+            "in_flight": srv.stats()["admission"]["inFlight"]}
+
+
+def settled(srv, tenant: str, timeout: float = 5.0) -> dict:
+    """``serve_state`` once every count is 0 (the server's last
+    ``finally`` may trail its response by a moment); raises if one
+    stays up."""
+    end = time.perf_counter() + timeout
+    while True:
+        st = serve_state(srv, tenant)
+        if not any(st.values()):
+            return st
+        if time.perf_counter() > end:
+            raise AssertionError(f"serve: {st} held after a query ended")
+        time.sleep(0.005)
+
+
+def serve_phases(card: str, arrays, q1_dir: str) -> dict:
+    """Phase 20: TPC-H q1 at SF1 from phase 7's Parquet and TPC-DS q3's
+    pushed form over bench's tables, served by ``QueryServer`` on the
+    card to four tenants (4 concurrent queries, 2 a tenant,
+    concurrentGpuTasks 2: the JAX package's defaults), every response
+    decoded from Arrow IPC and held exactly against its binding's
+    reference. Legs: ``serve_mixed`` (four tenants' clients at once, q1
+    and q3 in turn over several bindings: per-tenant p50/p99, queries a
+    second, plan-cache hits, semaphoreWaitTime, the idle share of one
+    profiled served query against the same query's wall in a plain
+    session), ``serve_concurrency`` (four q1 requests, one a tenant, at
+    maxConcurrentQueries 1 and 4 in turns), ``serve_fusion`` (eight
+    same-shape q1 requests while the server is saturated),
+    ``serve_lifecycle`` (a deadline, an injected site:cancel stop, the
+    cancel verb and a disconnect, each leaving no permit, handle or
+    ledger byte), ``serve_result_cache`` (a hit launches nothing; a
+    touched file re-executes) and ``serve_launches`` (each kernel's
+    global count equals the sum of the executed plans' own counts).
+    Returns the launches of each leg."""
+    import socket
+    import threading
+
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import plan_cache as PC
+    from spark_rapids_tpu_torch.retry import reset_fault_injection
+    from spark_rapids_tpu_torch.serve import QueryServer, ServeClient
+    from spark_rapids_tpu_torch.serve import protocol as SP
+    from spark_rapids_tpu_torch.serve.client import ServeCancelled
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    tables = q3_tables()
+    q3_dir, _w = write_q3_parquet(TorchSparkSession(), tables)
+    # the dimensions again in 4 files each (phase 19's ORC partitioning),
+    # so the pushed filters' build sides concatenate to joinProbe's size
+    dims_dir, dims_write_s = write_q3_parquet(
+        TorchSparkSession(), tables,
+        {k: Q3_PARTITIONS[k] for k in ("item", "date_dim")},
+        name="tpcds_q3_dims4")
+    views = {"lineitem": q1_dir,
+             "store_sales": os.path.join(q3_dir, "store_sales"),
+             "item": os.path.join(dims_dir, "item"),
+             "date_dim": os.path.join(dims_dir, "date_dim")}
+    t0 = time.perf_counter()
+    q1_want = q1_references(arrays, [q1_shipdate(d)
+                                     for d in Q1_DELTAS + (105,)])
+    want = {q1_text(d): ("q1", q1_want[q1_shipdate(d)])
+            for d in Q1_DELTAS + (105,)}
+    q3_want = q3_references(tables, Q3_BINDINGS)
+    want.update({q3_text(m, y): ("q3", q3_want[(m, y)])
+                 for m, y in Q3_BINDINGS})
+    ref_s = time.perf_counter() - t0
+
+    def check(sql: str, batch, what: str) -> None:
+        kind, rows = want[sql]
+        got = [tuple(r) for r in batch.rows()]
+        if kind == "q1":
+            check_q1_rows(got, rows)
+        else:
+            check_q3_rows(got, rows, what)
+
+    def server(**conf):
+        srv = QueryServer({k: str(v) for k, v in conf.items()}).start()
+        for name, path in views.items():
+            srv.register_view(name, path)
+        return srv
+
+    def mixed_sqls(tenant_i: int, n: int) -> list:
+        out = []
+        for j in range(n):
+            k = tenant_i + j // 2
+            out.append(q1_text(Q1_DELTAS[k % len(Q1_DELTAS)]) if j % 2 == 0
+                       else q3_text(*Q3_BINDINGS[k % len(Q3_BINDINGS)]))
+        return out
+
+    def drive(srv, n: int) -> tuple:
+        """Each tenant's client thread sends its ``n`` requests; returns
+        (wall, per-tenant latencies, headers, errors)."""
+        lat = {t: [] for t in SERVE_TENANTS}
+        heads, errors = [], []
+        lock = threading.Lock()
+        go = threading.Event()
+
+        def client(i: int, tenant: str) -> None:
+            try:
+                with ServeClient(srv.port, tenant=tenant,
+                                 timeout=120) as c:
+                    go.wait(30)
+                    for sql in mixed_sqls(i, n):
+                        t1 = time.perf_counter()
+                        batch, head = c.sql(sql)
+                        dt = time.perf_counter() - t1
+                        check(sql, batch, f"serve {tenant}")
+                        with lock:
+                            lat[tenant].append(dt)
+                            heads.append((sql, head))
+            except BaseException as e:  # reported on the main thread
+                with lock:
+                    errors.append(f"{tenant}: {type(e).__name__}: {e}")
+        threads = [threading.Thread(target=client, args=(i, t))
+                   for i, t in enumerate(SERVE_TENANTS)]
+        for t in threads:
+            t.start()
+        t1 = time.perf_counter()
+        go.set()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t1
+        if any(t.is_alive() for t in threads):
+            errors.append("a client thread did not finish in 120 s")
+        if errors:
+            raise AssertionError(f"serve: {errors}")
+        return wall, lat, heads
+
+    def since(snap: dict) -> dict:
+        now = KR.launch_counts()
+        return {k: now[k] - snap[k] for k in now}
+
+    from spark_rapids_tpu_torch.exec import fused as FU
+    legs = {}
+    launches_before = KR.launch_counts()
+    graphs_before = dict(FU.GRAPH_COUNTS)
+    allocated = {}
+    with recording_executions() as runs:
+        # -- mixed: four tenants, q1 and q3 in turn ------------------------
+        srv = server()
+        pc0 = PC.stats()
+        alloc0 = torch.cuda.memory_allocated(device)
+        snap = KR.launch_counts()
+        n_runs = len(runs)
+        cpu0 = time.process_time()
+        wall, lat, heads = drive(srv, SERVE_REQUESTS)
+        cpu_s = time.process_time() - cpu0
+        mixed_launches = since(snap)
+        pc1 = PC.stats()
+        shapes = {sql for sql, _h in heads}
+        # responses arrive in completion order, so a shape's first request
+        # may answer after its repeats: at most one miss a shape. A fused
+        # executor reports its thread's last lookup, which may be another
+        # member's group: only unfused responses count
+        miss_by_shape: dict = {}
+        for sql, head in heads:
+            if not head.get("planCacheHit") and "fusedWith" not in head:
+                miss_by_shape[sql] = miss_by_shape.get(sql, 0) + 1
+        misses_on_repeat = sum(n - 1 for n in miss_by_shape.values())
+        # a shape's first request may be a hit too, when an earlier phase
+        # or another tenant planned it; every repeat must hit
+        if misses_on_repeat or pc1["misses"] - pc0["misses"] > len(shapes):
+            raise AssertionError(
+                f"serve_mixed: plan cache missed on {misses_on_repeat} "
+                f"repeats; misses {pc1['misses'] - pc0['misses']} for "
+                f"{len(shapes)} shapes")
+        if not all(mixed_launches[k] for k in ("groupbyHash", "decodeFused",
+                                               "joinProbe")):
+            raise AssertionError(f"serve_mixed launched {mixed_launches}: "
+                                 "want groupbyHash, decodeFused and "
+                                 "joinProbe")
+        stats = srv.stats()
+        mixed_runs = runs[n_runs:]
+        sem_wait_s = sum(r["semaphore_wait_s"] for r in mixed_runs)
+        settled(srv, "t0")
+        alloc1 = torch.cuda.memory_allocated(device)
+        # one served q1 under the profiler, and the same query's wall in a
+        # plain session in this call: the serving overhead
+        q1 = q1_text(90)
+        with ServeClient(srv.port, tenant="t0", timeout=120) as c:
+            c.sql(q1)  # warm
+            served = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                batch, _h = c.sql(q1)
+                served.append(time.perf_counter() - t1)
+            check(q1, batch, "served q1")
+            prof = profile_call(lambda: c.sql(q1), "serve_q1", card)
+        plain = TorchSparkSession()
+        plain.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+        pdf = plain.sql(q1)
+        check_q1_rows([tuple(r) for r in pdf.collect()], want[q1][1])
+        plain_walls = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            pdf.collect()
+            torch.cuda.synchronize()
+            plain_walls.append(time.perf_counter() - t1)
+        tenants = stats["admission"]["tenants"]
+        phase("serve_mixed", card=card, tenants=len(SERVE_TENANTS),
+              requests=len(heads), shapes=len(shapes), reference="exact",
+              wall_s=wall, qps=len(heads) / wall,
+              latency_ms={t: {"p50": tenants[t]["latencyMs"]["p50"],
+                              "p99": tenants[t]["latencyMs"]["p99"]}
+                          for t in SERVE_TENANTS},
+              client_p50_ms={t: statistics.median(v) * 1e3
+                             for t, v in lat.items()},
+              plan_cache={"hits": pc1["hits"] - pc0["hits"],
+                          "misses": pc1["misses"] - pc0["misses"],
+                          "misses_on_repeat": misses_on_repeat},
+              semaphore_wait_s=sem_wait_s, executions=len(mixed_runs),
+              execution_wall_s=sum(r["wall_s"] for r in mixed_runs),
+              execution_host_timers_s=sum(r["host_s"]
+                                          for r in mixed_runs),
+              process_cpu_s=cpu_s, process_cpu_per_wall=cpu_s / wall,
+              fused=stats.get("batchFusion"), launches=mixed_launches,
+              memory_allocated={"before": alloc0, "after": alloc1},
+              served_q1_walls=served, served_q1_median_s=statistics.median(
+                  served), plain_q1_walls=plain_walls,
+              plain_q1_median_s=statistics.median(plain_walls),
+              serving_overhead_s=statistics.median(served)
+              - statistics.median(plain_walls),
+              references_s=ref_s, dims_write_s=dims_write_s,
+              **{f"served_q1_{k}": v for k, v in prof.items()})
+        legs["serve_mixed"] = mixed_launches
+        allocated["after_mixed"] = torch.cuda.memory_allocated(device)
+
+        # -- fusion: eight same-shape q1 while the server is saturated ------
+        # (one slot, held by another query, saturates it; the 8 join one
+        # batch)
+        srv.shutdown(30)
+        # the batch closes when its eighth member joins (maxBatch), well
+        # inside the window, so no timing decides who fuses
+        srv = server(**{"spark.rapids.sql.serve.batchFusion.windowMs":
+                        30000,
+                        "spark.rapids.sql.serve.batchFusion.maxBatch": 8,
+                        "spark.rapids.sql.serve.maxConcurrentQueries": 1})
+        acquires = []
+        plain_acquire = srv._admission.acquire
+
+        def counted_acquire(tenant, token=None, signature=None):
+            acquires.append(tenant)
+            return plain_acquire(tenant, token=token, signature=signature)
+        srv._admission.acquire = counted_acquire
+        blockers, fused_heads, errors = [], [], []
+        lock = threading.Lock()
+        q1f = q1_text(120)
+
+        def send(tenant, sql, sink):
+            try:
+                with ServeClient(srv.port, tenant=tenant, timeout=120) as c:
+                    batch, head = c.sql(sql)
+                    check(sql, batch, f"fusion {tenant}")
+                    with lock:
+                        sink.append(head)
+            except BaseException as e:
+                with lock:
+                    errors.append(f"{tenant}: {type(e).__name__}: {e}")
+        # the blocker is a q1 at another bound: its own batch closed when
+        # it was admitted (the server was idle), and it holds the slot
+        # longer than a q3 would
+        bl = threading.Thread(target=send, args=(
+            "t0", q1_text(60), blockers))
+        snap = KR.launch_counts()
+        bl.start()
+        end = time.perf_counter() + 30
+        while not srv._admission.saturated() and time.perf_counter() < end:
+            time.sleep(0.001)
+        saturated = srv._admission.saturated()
+        fl = [threading.Thread(target=send, args=(
+            SERVE_TENANTS[i % len(SERVE_TENANTS)], q1f, fused_heads))
+            for i in range(8)]
+        for t in fl:
+            t.start()
+        for t in [bl] + fl:
+            t.join(120)
+        if errors or len(fused_heads) != 8 or len(blockers) != 1:
+            raise AssertionError(f"serve_fusion: {errors}")
+        fstats = srv.stats()["batchFusion"]
+        sizes = sorted(h.get("fusedWith", 1) for h in fused_heads)
+        q1_acquires = len(acquires) - 1
+        # each fused batch took one slot, each unfused request its own
+        slots_expected = fstats["fusedBatches"] + (
+            8 - fstats["fusedQueries"])
+        if not saturated or fstats["fusedBatches"] < 1 \
+                or q1_acquires != slots_expected:
+            raise AssertionError(
+                f"serve_fusion: saturated {saturated}, {fstats}, sizes "
+                f"{sizes}, {q1_acquires} admission slots, want "
+                f"{slots_expected}")
+        fusion_launches = since(snap)
+        phase("serve_fusion", card=card, saturated=saturated,
+              max_concurrent_queries=1, window_ms=30000, max_batch=8,
+              requests=8,
+              reference="exact", fused_sizes=sizes, batch_fusion=fstats,
+              admission_slots_q1=q1_acquires, launches=fusion_launches)
+        legs["serve_fusion"] = fusion_launches
+        allocated["after_fusion"] = torch.cuda.memory_allocated(device)
+        srv._admission.acquire = plain_acquire
+        srv.shutdown(30)
+        srv = server()
+
+        # -- lifecycle: deadline, injected stop, cancel verb, disconnect ---
+        life = {}
+        snap = KR.launch_counts()
+        with ServeClient(srv.port, tenant="t1", timeout=120) as c:
+            try:
+                c.sql(q1_text(60), timeout_ms=150)
+                raise AssertionError("serve: a 150 ms deadline did not "
+                                     "stop a served q1")
+            except ServeCancelled as e:
+                life["deadline"] = {"reason": e.reason, "where": e.where}
+            if c.broken or life["deadline"]["reason"] != "deadline":
+                raise AssertionError(f"serve deadline: {life}")
+            life["deadline"].update(settled(srv, "t1"))
+            check(q1_text(60), c.sql(q1_text(60))[0], "after a deadline")
+
+            # the cancel verb from another connection, mid-flight
+            res = {}
+
+            def victim():
+                try:
+                    c.sql(q1_text(90), query_id="victim")
+                    res["status"] = "ok"
+                except ServeCancelled as e:
+                    res.update(reason=e.reason, where=e.where)
+            vt = threading.Thread(target=victim)
+            vt.start()
+            end = time.perf_counter() + 30
+            while time.perf_counter() < end and not any(
+                    tok.query_id == "victim" and tok.admitted is not None
+                    for tok in list(srv._inflight.values())):
+                time.sleep(0.001)
+            with ServeClient(srv.port, tenant="ops", timeout=60) as op:
+                n_cancel = op.cancel(query_id="victim")
+            vt.join(60)
+            if n_cancel != 1 or res.get("reason") != "cancel" \
+                    or c.broken:
+                raise AssertionError(f"serve cancel: {n_cancel}, {res}")
+            life["cancel"] = dict(res, cancelled=n_cancel,
+                                  **settled(srv, "t1"))
+            check(q1_text(90), c.sql(q1_text(90))[0], "after a cancel")
+
+        # a client that disconnects mid-query
+        before = srv.stats()["lifecycle"]["cancelledByReason"].get(
+            "disconnect", 0)
+        raw = socket.create_connection(("127.0.0.1", srv.port), timeout=30)
+        SP.send_msg(raw, {"op": "sql", "sql": q1_text(120),
+                          "tenant": "t2"})
+        end = time.perf_counter() + 30
+        while time.perf_counter() < end and not any(
+                tok.tenant == "t2" and tok.admitted is not None
+                for tok in list(srv._inflight.values())):
+            time.sleep(0.001)
+        raw.close()
+        end = time.perf_counter() + 30
+        while time.perf_counter() < end and srv.stats()["lifecycle"][
+                "cancelledByReason"].get("disconnect", 0) == before:
+            time.sleep(0.005)
+        life["disconnect"] = {
+            "cancelled": srv.stats()["lifecycle"]["cancelledByReason"].get(
+                "disconnect", 0) - before, **settled(srv, "t2")}
+        if life["disconnect"]["cancelled"] != 1:
+            raise AssertionError(f"serve disconnect: {life}")
+        life_launches = since(snap)
+        life["shutdown_drained"] = srv.shutdown(30)
+        if not life["shutdown_drained"]:
+            raise AssertionError("serve: shutdown() did not drain")
+
+        # an injected site:cancel stop, on a server of its own (the
+        # schedule counts every checkpoint of the process)
+        reset_fault_injection()
+        srv = server(**{"spark.rapids.sql.test.injectOOM": "site:cancel:5"})
+        with ServeClient(srv.port, tenant="t3", timeout=120) as c:
+            try:
+                c.sql(q1_text(90))
+                raise AssertionError("serve: site:cancel:5 did not stop q1")
+            except ServeCancelled as e:
+                life["injected"] = {"reason": e.reason, "where": e.where,
+                                    **settled(srv, "t3")}
+            if c.broken or life["injected"]["reason"] != "injected":
+                raise AssertionError(f"serve injected: {life}")
+        if not srv.shutdown(30):
+            raise AssertionError("serve: shutdown() did not drain")
+        reset_fault_injection()
+        phase("serve_lifecycle", card=card, statuses=life,
+              launches=life_launches)
+        legs["serve_lifecycle"] = life_launches
+        allocated["after_lifecycle"] = torch.cuda.memory_allocated(device)
+
+        # -- result cache: a hit launches nothing, a touched file re-runs --
+        srv = server(**{"spark.rapids.sql.resultCache.enabled": "true"})
+        rc = {}
+        q1r = q1_text(105)
+        with ServeClient(srv.port, tenant="t0", timeout=120) as c:
+            snap = KR.launch_counts()
+            b1, h1 = c.sql(q1r)
+            rc["miss"] = since(snap)
+            check(q1r, b1, "result cache miss")
+            snap = KR.launch_counts()
+            b2, h2 = c.sql(q1r)
+            rc["hit"] = since(snap)
+            if not h2.get("resultCacheHit") or any(rc["hit"].values()) \
+                    or SP.batch_to_ipc(b1) != SP.batch_to_ipc(b2):
+                raise AssertionError(f"serve result cache hit: {h2}, {rc}")
+            f0 = sorted(f for f in os.listdir(q1_dir)
+                        if f.endswith(".parquet"))[0]
+            path = os.path.join(q1_dir, f0)
+            st = os.stat(path)
+            os.utime(path, ns=(st.st_atime_ns,
+                               st.st_mtime_ns + 1_000_000_000))
+            snap = KR.launch_counts()
+            b3, h3 = c.sql(q1r)
+            rc["after_touch"] = since(snap)
+            check(q1r, b3, "result cache after a touch")
+            if h3.get("resultCacheHit") or rc["after_touch"] != rc["miss"]:
+                raise AssertionError(f"serve result cache touch: {h3}, {rc}")
+        rstats = srv.stats()["cache"]["result"]
+        if not srv.shutdown(30):
+            raise AssertionError("serve: shutdown() did not drain")
+        phase("serve_result_cache", card=card, reference="exact",
+              launches=rc, result_cache=rstats,
+              hit_exec_ms=h2["execMs"], miss_exec_ms=h1["execMs"])
+        legs["serve_result_cache"] = rc["miss"]
+        allocated["after_result_cache"] = torch.cuda.memory_allocated(device)
+
+        # -- maxConcurrentQueries 1 against 4, in turns --------------------
+        # (the process CPU seconds of all threads over the wall: near 1
+        # where the interpreter's lock serialises the host work)
+        turns = {1: [], 4: []}
+        detail = {1: [], 4: []}
+        for mcq in (1, 4, 4, 1):
+            srv = server(**{"spark.rapids.sql.serve.maxConcurrentQueries":
+                            mcq})
+            n_runs = len(runs)
+            cpu0 = time.process_time()
+            w, _lat, _h = drive(srv, 1)
+            cpu_s = time.process_time() - cpu0
+            turn = runs[n_runs:]
+            turns[mcq].append(w)
+            detail[mcq].append({
+                "process_cpu_per_wall": cpu_s / w,
+                "mean_execution_wall_s": statistics.mean(
+                    r["wall_s"] for r in turn),
+                "semaphore_wait_s": sum(r["semaphore_wait_s"]
+                                        for r in turn),
+                "host_timers_s": sum(r["host_s"] for r in turn)})
+            if not srv.shutdown(30):
+                raise AssertionError("serve: shutdown() did not drain")
+        phase("serve_concurrency", card=card, requests=len(
+            SERVE_TENANTS), reference="exact", walls_s={
+                f"max_concurrent_{k}": v for k, v in turns.items()},
+              turns={f"max_concurrent_{k}": v for k, v in detail.items()},
+              locks=["kernels._COUNT_LOCK", "fused._GRAPH_COUNT_LOCK"])
+
+    # -- launch totals: the global counters against the executions --------
+    total = since(launches_before)
+    summed = {k: sum(r["launches"][k] for r in runs) for k in total}
+    if total != summed:
+        raise AssertionError(f"serve launches: counted {total}, the "
+                             f"executions' own counts sum to {summed}")
+    allocated["after_concurrency"] = torch.cuda.memory_allocated(device)
+    # every connection thread's device work: its stream (the default
+    # stream unless one is set), the stage graphs captured and replayed
+    # while queries ran at once, the allocator's bytes after each leg
+    phase("serve_launches", card=card, executions=len(runs),
+          launches=total, per_execution_sum=summed,
+          execution_streams=sorted({r["stream"] for r in runs}),
+          graphs={k: FU.GRAPH_COUNTS[k] - graphs_before[k]
+                  for k in ("captures", "replays")},
+          memory_allocated=allocated,
+          seconds=time.perf_counter() - t_phase)
+    legs["serve_phase"] = total
+    return legs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6826,6 +7527,7 @@ def main() -> int:
                                           dfu["q1_dir"])
     fallback, fshapes = fallback_phases(device, card, arrays, dfu["q1_dir"])
     formats = formats_phases(device, card, arrays, dfu["q1_dir"])
+    serve = serve_phases(card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -6949,6 +7651,7 @@ def main() -> int:
         k["launches_fallback"] = {leg: fallback[leg][name]
                                   for leg in fallback}
         k["launches_formats"] = {leg: formats[leg][name] for leg in formats}
+        k["launches_serve"] = {leg: serve[leg][name] for leg in serve}
     if any(leak.poll() is None for leak in worker_processes()):
         raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
@@ -7177,6 +7880,26 @@ def formats_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def serve_only(card: str) -> None:
+    """``--serve``: the kernels' build and phase 20 (q1 and q3 served to
+    four tenants: the mixed leg, fusion, the lifecycle, the result cache,
+    maxConcurrentQueries 1 against 4, the launch totals)."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    gate_protocol()
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs = serve_phases(card, arrays, q1_dir)
+    phase("protocol_gate", collects_checked=GATE["collects"],
+          collects_under_pressure=GATE["skipped"])
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def fusion_only(card: str) -> None:
     """``--fusion``: the kernels' build and ``stage_fusion_phase`` alone."""
     import torch
@@ -7195,7 +7918,8 @@ if __name__ == "__main__":
     if any(a in sys.argv[1:] for a in ("--walls", "--fusion", "--memory",
                                        "--exprs", "--joins", "--windows",
                                        "--nested", "--cache-udf",
-                                       "--fallback", "--formats")):
+                                       "--fallback", "--formats",
+                                       "--serve")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7221,6 +7945,8 @@ if __name__ == "__main__":
             fallback_only(card)
         elif "--formats" in sys.argv[1:]:
             formats_only(card)
+        elif "--serve" in sys.argv[1:]:
+            serve_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

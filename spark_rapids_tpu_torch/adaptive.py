@@ -16,6 +16,8 @@ run-time replan.
 
 from __future__ import annotations
 
+import re
+
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -207,3 +209,31 @@ def slice_groups(weights: Sequence[int], k: int) -> List[List[int]]:
     if cur:
         groups.append(cur)
     return groups
+
+
+# ---------------------------------------------------------------------------
+# Same-signature batch fusion key (serve/scheduler.py)
+# ---------------------------------------------------------------------------
+
+_SQL_STRING = re.compile(r"'(?:[^']|'')*'")
+_SQL_NUMBER = re.compile(
+    r"(?<![A-Za-z0-9_.'\"])\d+(?:\.\d+)?(?![A-Za-z0-9_])")
+
+
+def fusion_key(sql: str) -> Tuple[str, Tuple[str, ...]]:
+    """(normalized text, literal vector) for one SQL string: string and
+    numeric literals become ``?`` placeholders and whitespace collapses,
+    so queries differing only in literal bindings share a key. The
+    literal vector is the binding that distinguishes members inside one
+    fused batch (identical SQL => identical vector => one execution).
+    The serving layer's proxy for "same plan-cache signature modulo
+    literals"; the result cache probes on the pair."""
+    literals: List[str] = []
+
+    def keep(m: "re.Match[str]") -> str:
+        literals.append(m.group(0))
+        return "?"
+
+    s = _SQL_STRING.sub(keep, sql)
+    s = _SQL_NUMBER.sub(keep, s)
+    return " ".join(s.split()), tuple(literals)

@@ -355,9 +355,11 @@ READER_RETRY_BACKOFF_MS = _entry(
 CONCURRENT_GPU_TASKS = _entry(
     "spark.rapids.sql.concurrentGpuTasks",
     "Tasks that may use the card at once (the device semaphore's "
-    "permits). The port runs one task thread, so the semaphore is "
-    "uncontended; it keeps its contract that a failed query returns "
-    "every permit.",
+    "permits). Under the query server (serve/) several queries run at "
+    "once, each on its connection thread, and contend for these "
+    "permits; a waiting task is a lifecycle checkpoint (a cancel or a "
+    "deadline interrupts the wait), and a failed or cancelled query "
+    "returns every permit.",
     2, int)
 
 SHUFFLE_COMPRESSION_CODEC = _entry(
@@ -425,6 +427,207 @@ TEST_FORCE_DEVICE = _entry(
     "Testing: fail instead of falling back to the CPU when an operator "
     "is unsupported.",
     False, _to_bool)
+
+
+# -- serving (serve/, lifecycle.py, plan_cache.py) ----------------------------
+
+PLAN_CACHE_ENABLED = _entry(
+    "spark.rapids.sql.planCache.enabled",
+    "Cross-query plan-rewrite cache: the finished physical plan (Planner "
+    "+ the overrides rewrite + stage fusion) is cached per normalized "
+    "logical-plan signature, and repeated query shapes clone the cached "
+    "template instead of re-running the rewrite. Results are identical "
+    "(each execution gets fresh operator instances and metric "
+    "registries); the cache is the bounded LRU 'planRewrite' in the "
+    "jit-cache registry. Off by default; the query server enables it for "
+    "its sessions.",
+    False, _to_bool)
+
+RESULT_CACHE_ENABLED = _entry(
+    "spark.rapids.sql.resultCache.enabled",
+    "Serve-tier result cache: the final Arrow IPC payload of a finished "
+    "query is kept in a bounded LRU keyed on (plan-signature digest, "
+    "extracted literal bindings, input-file fingerprint set). A hit is "
+    "detected before admission and served straight from memory (no "
+    "device work, no queue wait, no admission slot), and any input-file "
+    "fingerprint mismatch (path/size/mtime) invalidates the entry and "
+    "falls through to normal execution, so served bytes are always "
+    "identical to a fresh run. Off by default.",
+    False, _to_bool)
+
+RESULT_CACHE_MAX_ENTRIES = _entry(
+    "spark.rapids.sql.resultCache.maxEntries",
+    "Bound on distinct cached results; least-recently-served entries "
+    "are evicted past it.",
+    256, int)
+
+RESULT_CACHE_MAX_BYTES = _entry(
+    "spark.rapids.sql.resultCache.maxBytes",
+    "Bound on total cached Arrow IPC payload bytes held by the result "
+    "cache; LRU eviction keeps the sum under it.",
+    256 << 20, int)
+
+SUBPLAN_CACHE_ENABLED = _entry(
+    "spark.rapids.sql.subplanCache.enabled",
+    "Cross-query broadcast build-table cache: the device-resident build "
+    "side of a broadcast hash join is kept keyed on the build subtree's "
+    "structural signature + its input-file fingerprint set and reused "
+    "across queries and tenants. Entries register in the device store "
+    "as evict-first: pool pressure drops cached build tables before any "
+    "live query's batches spill. Fingerprints are re-checked on every "
+    "reuse; a mismatch drops the entry and rebuilds. Off by default.",
+    False, _to_bool)
+
+SUBPLAN_CACHE_MAX_ENTRIES = _entry(
+    "spark.rapids.sql.subplanCache.maxEntries",
+    "Bound on distinct cached build tables; least-recently-reused "
+    "entries are dropped past it.",
+    32, int)
+
+SUBPLAN_CACHE_MAX_BYTES = _entry(
+    "spark.rapids.sql.subplanCache.maxBytes",
+    "Bound on total device bytes the subplan cache may pin; LRU drops "
+    "keep the sum under it. The device store may additionally drop "
+    "entries at any moment under pool pressure.",
+    64 << 20, int)
+
+SERVE_MAX_CONCURRENT = _entry(
+    "spark.rapids.sql.serve.maxConcurrentQueries",
+    "Queries the server executes simultaneously across all tenants; "
+    "admitted queries still contend on concurrentGpuTasks for actual "
+    "device access: this bounds whole-query concurrency the way the "
+    "semaphore bounds task concurrency.",
+    4, int)
+
+SERVE_MAX_QUEUED = _entry(
+    "spark.rapids.sql.serve.maxQueued",
+    "Bound on queries waiting for admission; a request arriving with the "
+    "queue full is REJECTED immediately (backpressure: the client sees "
+    "status=rejected and retries with its own policy) instead of growing "
+    "an unbounded queue.",
+    32, int)
+
+SERVE_MAX_PER_TENANT = _entry(
+    "spark.rapids.sql.serve.maxConcurrentPerTenant",
+    "Per-tenant in-flight query limit: one tenant cannot occupy every "
+    "execution slot no matter how fast it submits.",
+    2, int)
+
+SERVE_FAIR_SHARE_FACTOR = _entry(
+    "spark.rapids.sql.serve.fairShareFactor",
+    "Fair-share device-memory arbitration: a tenant whose live "
+    "device-store bytes exceed factor * (pool budget / live tenants) is "
+    "over share: its batches spill FIRST under pool pressure (billing "
+    "the spill to the offender, not an LRU victim) and its queued "
+    "queries are passed over while other tenants wait.",
+    1.5, float)
+
+SERVE_BATCH_FUSION_ENABLED = _entry(
+    "spark.rapids.sql.serve.batchFusion.enabled",
+    "Same-signature batch fusion: concurrent queries whose SQL differs "
+    "only in literal bindings are collected within batchFusion.windowMs "
+    "and executed under ONE admission slot; identical texts share a "
+    "single execution, distinct bindings ride the same cached plan "
+    "template and stage programs back-to-back. Per-tenant results stay "
+    "identical and each member bills its own tenant ledger and queue "
+    "wait; the window engages only while the server is saturated, so an "
+    "idle server adds no latency.",
+    True, _to_bool)
+
+SERVE_BATCH_FUSION_WINDOW_MS = _entry(
+    "spark.rapids.sql.serve.batchFusion.windowMs",
+    "Collection window for batch fusion: the first query of a shape "
+    "holds its batch open this long (only while the server is saturated) "
+    "so same-shape peers can join before execution.",
+    10, int)
+
+SERVE_BATCH_FUSION_MAX_BATCH = _entry(
+    "spark.rapids.sql.serve.batchFusion.maxBatch",
+    "Maximum member queries one fused batch accepts; the next arrival "
+    "opens a fresh batch.",
+    16, int)
+
+SERVE_HOST = _entry(
+    "spark.rapids.sql.serve.host",
+    "Interface the query server binds (local serving).",
+    "127.0.0.1", str)
+
+SERVE_PORT = _entry(
+    "spark.rapids.sql.serve.port",
+    "Port the query server binds (0 = ephemeral; the bound port is "
+    "returned for clients).",
+    0, int)
+
+SERVE_QUERY_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.serve.queryTimeoutMs",
+    "Per-query deadline in milliseconds, enforced from request admission "
+    "(queue wait counts against the budget): a query that exceeds it is "
+    "cooperatively cancelled at the engine's lifecycle checkpoints and "
+    "returns status=cancelled (reason=deadline) on the wire. 0 disables. "
+    "Per-tenant override: set spark.rapids.sql.serve.queryTimeoutMs."
+    "<tenant>; a client may TIGHTEN the deadline (or set one where the "
+    "operator set none) per request via the sql header's timeoutMs "
+    "field: it can never loosen or disable an operator-enforced bound.",
+    0, int)
+
+SERVE_WATCHDOG_FACTOR = _entry(
+    "spark.rapids.sql.serve.watchdogFactor",
+    "Stuck-query watchdog: a running query whose elapsed wall exceeds "
+    "this factor times its plan-cache signature's observed p99 wall is "
+    "flagged (and, with serve.watchdogCancel, cooperatively cancelled). "
+    "Signatures with fewer than 5 observed walls are never flagged. 0 "
+    "disables.",
+    0.0, float)
+
+SERVE_WATCHDOG_CANCEL = _entry(
+    "spark.rapids.sql.serve.watchdogCancel",
+    "When the stuck-query watchdog flags a query, also CANCEL it "
+    "(reason=watchdog) instead of only counting it. Off by default: "
+    "observation first, enforcement opt-in.",
+    False, _to_bool)
+
+SERVE_QUARANTINE_THRESHOLD = _entry(
+    "spark.rapids.sql.serve.quarantineThreshold",
+    "Poison-query quarantine: a plan-cache signature that fails this "
+    "many CONSECUTIVE times with a runtime-fatal error (cancellations "
+    "and deadline timeouts never count) is blacklisted: further "
+    "submissions fail fast with status=quarantined before touching the "
+    "device, instead of re-wedging the runtime. One success clears the "
+    "streak; a restart clears the blacklist. 0 disables.",
+    0, int)
+
+SERVE_DRAIN_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.serve.drainTimeoutMs",
+    "Graceful-drain deadline of a server shutdown: admission stops "
+    "immediately, in-flight queries get this long to finish, then "
+    "stragglers are cooperatively cancelled (reason=shutdown) so the "
+    "process ends with the store empty and all permits restored.",
+    60000, int)
+
+SERVE_TENANT_ID = _entry(
+    "spark.rapids.sql.serve.tenantId",
+    "Session-scoped tenant id the server sets on each tenant's session; "
+    "it bills the store's per-tenant device-memory ledger.",
+    "", str)
+
+# Keys of the observability slice (A11b: trace, profile, event log,
+# telemetry, SLO burn and the tuning controller). The port does not read
+# them yet; a conf that sets one is refused instead of being ignored.
+UNPORTED_PREFIXES = ("spark.rapids.sql.serve.slo.",
+                     "spark.rapids.sql.serve.tuning.",
+                     "spark.rapids.sql.telemetry.")
+
+
+def refuse_unported(settings: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` naming A11b when ``settings`` sets a
+    key of the observability slice the port has not taken yet."""
+    bad = sorted(k for k in settings
+                 if str(k).startswith(UNPORTED_PREFIXES))
+    if bad:
+        raise NotImplementedError(
+            f"{bad[0]}: the serve SLO, tuning and telemetry keys come "
+            "with the observability slice (ROADMAP A11b) and are not "
+            "ported yet to spark_rapids_tpu_torch")
 
 
 class TorchConf:

@@ -22,6 +22,12 @@ counted in ``deviceDecodeOomFallbacks``, as the JAX package does. An OOM
 while the ring issues a copy ahead
 shrinks the ring: the older in-flight uploads complete first, then the
 unit takes the synchronous protocol.
+
+Lifecycle checkpoints (``lifecycle.checkpoint``): each upload, each
+batch the root transition downloads, and each wait on the upload ring's
+queue; the ring's producer thread runs under the query's cancel token,
+so a cancelled query stops at its next batch and its handles, permit
+and producer are released on the way out.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import lifecycle as LC
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
@@ -234,10 +241,23 @@ class TorchRowToColumnarExec(TorchExec):
         # the child is a host operator over a device subtree, the
         # transitions it crosses take and release the task's own permit
         task = get_semaphore(self.conf).current_task()
+        # the query's cancel token follows the work onto the producer
+        # thread (a thread-local cannot cross threads by itself)
+        token = LC.current_token()
 
         def produce() -> None:
-            with get_semaphore(self.conf).adopt(task):
+            with get_semaphore(self.conf).adopt(task), \
+                    LC.token_scope(token):
                 producer()
+
+        def get_item():
+            # a cancelled query must not park on the ring (the raise runs
+            # the finally below, which stops and joins the producer)
+            while True:
+                try:
+                    return q.get(timeout=LC.WAIT_SLICE_S)
+                except queue.Empty:
+                    LC.checkpoint("prefetch")
 
         t = threading.Thread(target=produce, daemon=True,
                              name="torch-upload-prefetch")
@@ -245,7 +265,7 @@ class TorchRowToColumnarExec(TorchExec):
         inflight: List = []
         try:
             while True:
-                kind, item = q.get()
+                kind, item = get_item()
                 if kind == "done":
                     break
                 if kind == "error":
@@ -319,6 +339,9 @@ class TorchRowToColumnarExec(TorchExec):
         """Decode a started upload under the retry protocol; when it runs
         out, the unit degrades (``_upload_degraded``)."""
         from spark_rapids_tpu_torch.columnar.transfer import finish_started
+        # the per-upload cancellation point: the upload loop is the
+        # highest-frequency batch loop of a plan
+        LC.checkpoint("batch")
         try:
             with self.metrics.timed(M.COPY_TO_DEVICE_TIME):
                 out = [R.with_retry(lambda: finish_started(started),
@@ -442,6 +465,7 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
                 prev = None
                 try:
                     for b in thunk():
+                        LC.checkpoint("batch")
                         tok = start_to_host(b, stream)
                         if prev is not None:
                             yield convert(prev)

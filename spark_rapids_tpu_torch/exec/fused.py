@@ -89,6 +89,8 @@ STAGE_CACHE = JitCache("fusedStage")
 # the host nanoseconds spent in the replay calls (the graph launches)
 GRAPH_COUNTS: Dict[str, int] = {"captures": 0, "replays": 0,
                                 "replay_host_ns": 0}
+# guards GRAPH_COUNTS: several query threads capture and replay at once
+_GRAPH_COUNT_LOCK = threading.Lock()
 # per thread and device: the side stream a program warms up and is
 # captured on (a stream cannot hold two captures at once)
 _SIDE = threading.local()
@@ -98,8 +100,15 @@ ProgramFn = Callable[[List[torch.Tensor]], Tuple[List[torch.Tensor], object]]
 
 
 def reset_graph_counts() -> None:
-    for k in GRAPH_COUNTS:
-        GRAPH_COUNTS[k] = 0
+    with _GRAPH_COUNT_LOCK:
+        for k in GRAPH_COUNTS:
+            GRAPH_COUNTS[k] = 0
+
+
+def _bump_graph_counts(**deltas: int) -> None:
+    with _GRAPH_COUNT_LOCK:
+        for k, v in deltas.items():
+            GRAPH_COUNTS[k] += v
 
 
 def _side_stream(device: torch.device):
@@ -202,7 +211,7 @@ class StageProgram:
                 self._static_in = []
                 raise
             graph.capture_end()
-        GRAPH_COUNTS["captures"] += 1
+        _bump_graph_counts(captures=1)
         self.graph = graph
         self.kernels = list(names)
         self.meta = meta
@@ -224,9 +233,9 @@ class StageProgram:
                 s.copy_(t)
             t0 = time.perf_counter_ns()
             self.graph.replay()
-            GRAPH_COUNTS["replay_host_ns"] += time.perf_counter_ns() - t0
+            _bump_graph_counts(replay_host_ns=time.perf_counter_ns() - t0,
+                               replays=1)
             KR.count_replay(self.kernels)
-            GRAPH_COUNTS["replays"] += 1
             copied: Dict[int, torch.Tensor] = {}
             outs = []
             for o, j in zip(self._static_out, self._out_from_input):

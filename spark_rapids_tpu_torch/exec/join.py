@@ -33,8 +33,14 @@ and the surviving subtree cloned, re-fused and put in its place
 (``_replan_stream_side``), so ``last_plan`` shows what ran. Otherwise,
 a stream-side partition above ``adaptive.skewFactor`` x the median
 splits into sub-partitions, each joined against the same build
-partition (``aqeSkewSplits``). The cross-query build cache is not
-ported.
+partition (``aqeSkewSplits``).
+
+The cross-query build cache (``spark.rapids.sql.subplanCache.enabled``,
+``serve/result_cache.py``): a broadcast join's built table, and a
+demoted join's, is kept in the device store's cache tier keyed on the
+build subtree's structural signature and checked against its input
+files' fingerprints at every reuse; a hit skips the build subtree
+(``subplanCacheHits``).
 """
 
 from __future__ import annotations
@@ -256,6 +262,28 @@ class TorchShuffledHashJoinExec(TorchExec):
                 for lt, rt in zip(lparts, rparts)]
 
     # -- adaptive execution ------------------------------------------------
+    # -- cross-query subplan cache (serve/result_cache.py) -----------------
+    def _subplan_cache_key(self) -> Optional[tuple]:
+        """``(cache, key)`` for this join's build side when the
+        cross-query subplan cache is on, else None. The key is the build
+        subtree's structural signature: identical build sides across
+        queries, sessions and tenants share one device-resident table."""
+        from spark_rapids_tpu_torch.serve import result_cache as RC
+        if not RC.subplan_cache_enabled(self.conf):
+            return None
+        key = RC.subplan_signature(self.right, self.conf)
+        return (RC.get_subplan_cache(self.conf), key)
+
+    def _subplan_cache_put(self, probe, captured, rwhole) -> None:
+        """Publish a freshly built broadcast table for cross-query reuse
+        (a refused entry, with no fingerprints or too large, is
+        skipped)."""
+        if probe is None or captured is None:
+            return
+        from spark_rapids_tpu_torch.memory import get_device_store
+        cache, key = probe
+        cache.put(key, captured, rwhole, get_device_store(self.conf))
+
     def _aqe_try_broadcast(self) -> Optional[List[DevicePartitionThunk]]:
         """Materialize the build-side exchange; when its measured bytes
         are at or under ``adaptive.autoBroadcastBytes``, run as a
@@ -289,10 +317,22 @@ class TorchShuffledHashJoinExec(TorchExec):
                     return None
         self.metrics.create(M.AQE_BROADCAST_FLIP).add(1)
         self.metrics.create(M.AQE_REPLANS).add(1)
-        # the exchange keeps its handles: release_plan_handles closes
-        # them with the plan (the exchange stays the join's right child)
-        rwhole = self._whole([h.get() for h in handles], self.right.schema,
-                             self.device)
+        from spark_rapids_tpu_torch.serve import result_cache as RC
+        probe = self._subplan_cache_key()
+        rwhole = probe[0].lookup(probe[1]) if probe is not None else None
+        if rwhole is not None:
+            self.metrics.create("subplanCacheHits").add(1)
+        else:
+            # the exchange keeps its handles: release_plan_handles closes
+            # them with the plan (the exchange stays the join's right
+            # child)
+            rwhole = self._whole([h.get() for h in handles],
+                                 self.right.schema, self.device)
+            # the build ran during the exchange's materialization above,
+            # so the pre-execution capture (a superset of this subtree's
+            # inputs) is the only fingerprint honest for this data
+            self._subplan_cache_put(
+                probe, RC.current_execution_fingerprints(), rwhole)
         left_src = self.left
         if isinstance(left_src, TorchShuffleExchangeExec) and not getattr(
                 left_src.partitioning, "user_specified", False):
@@ -515,11 +555,24 @@ class TorchBroadcastHashJoinExec(TorchShuffledHashJoinExec):
     all stream partitions."""
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
+        from spark_rapids_tpu_torch.serve import result_cache as RC
+        probe = self._subplan_cache_key()
+        captured = None
+        if probe is not None:
+            cached = probe[0].lookup(probe[1])
+            if cached is not None:
+                # cross-query build reuse: the build subtree never runs
+                self.metrics.create("subplanCacheHits").add(1)
+                return self._broadcast_stream_thunks(self.left, cached)
+            # fingerprint the build inputs before the build reads them:
+            # a file changed mid-build mismatches at reuse time
+            captured = RC.capture_fingerprints(self.right)
         rbatches: List[DeviceBatch] = []
         for t in device_channel(self.right):
             rbatches.extend(b for b in t() if b._num_rows != 0)
         # a TorchBroadcastExchangeExec child yields its one built batch
         rwhole = self._whole(rbatches, self.right.schema, self.device)
+        self._subplan_cache_put(probe, captured, rwhole)
         return self._broadcast_stream_thunks(self.left, rwhole)
 
     def simple_string(self):

@@ -11,7 +11,13 @@ frees its pool). A re-planned stage simply builds again.
 
 The port's operators other than fused stages run eagerly and keep no
 program here: the JAX package's per-operator caches (``window``,
-``sort``, ``agg`` and the rest) have no counterpart.
+``sort``, ``agg`` and the rest) have no counterpart. The plan cache
+(``plan_cache.PLAN_CACHE``, "planRewrite") is one of these caches: its
+values are finished physical plans.
+
+A thread waiting on another thread's build of the same key is a
+lifecycle checkpoint (``cancellable_wait``): a cancelled query stops
+waiting and raises, while the build goes on for its other waiters.
 
 Hit and miss counters are kept per cache and surfaced two ways: execs
 that own a cache mirror the counts into their metric registries
@@ -23,7 +29,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from spark_rapids_tpu_torch import metrics as M
 
@@ -51,8 +57,19 @@ class JitCache:
         self.misses = 0
         self.evictions = 0
         self.contention = 0  # threads that blocked on an in-progress build
+        # optional eviction-protection predicate over keys (the plan
+        # cache's pre-warm digests): protected entries are evicted last;
+        # the capacity bound always wins
+        self._protector: Optional[Callable[[Any], bool]] = None
         with _REG_LOCK:
             _CACHES[name] = self
+
+    def set_protector(self,
+                      pred: Optional[Callable[[Any], bool]]) -> None:
+        """Install (or clear, with None) the eviction-protection
+        predicate; it runs under the cache lock, so keep it cheap."""
+        with self._lock:
+            self._protector = pred
 
     def _put_locked(self, key, value) -> list:
         """Insert ``value``; returns the evicted values, which the
@@ -61,7 +78,20 @@ class JitCache:
         self._data.move_to_end(key)
         evicted = []
         while len(self._data) > self.capacity:
-            evicted.append(self._data.popitem(last=False)[1])
+            victim = None
+            if self._protector is not None:
+                for k in self._data:  # oldest-used first
+                    try:
+                        if not self._protector(k):
+                            victim = k
+                            break
+                    except Exception:
+                        victim = k
+                        break
+            if victim is None:
+                evicted.append(self._data.popitem(last=False)[1])
+            else:
+                evicted.append(self._data.pop(victim))
             self.evictions += 1
         return evicted
 
@@ -85,7 +115,9 @@ class JitCache:
                     my_ev = self._building[key] = threading.Event()
                     break
                 self.contention += 1
-            ev.wait()
+            # a cancelled query stops waiting on another thread's build
+            from spark_rapids_tpu_torch.lifecycle import cancellable_wait
+            cancellable_wait(ev, site="jitWait")
         try:
             val = build()
             with self._lock:

@@ -21,7 +21,9 @@ integer launch counter (``LAUNCHES``), bumped where it launches its
 kernel and nowhere else. A launch made while a stage program is being
 captured as a CUDA graph does not run then: ``recording_launches``
 records it instead, and every replay of that graph adds the recorded
-kernels (``count_replay``). Nothing here falls back: on a CUDA tensor a
+kernels (``count_replay``). The counters are exact under concurrent
+queries (the query server's connection threads): every change to
+``LAUNCHES`` is made under ``_COUNT_LOCK``. Nothing here falls back: on a CUDA tensor a
 wrapper launches its kernel or raises; only a CPU tensor takes the plain
 PyTorch version beside it.
 """
@@ -51,6 +53,8 @@ LAUNCHES: Dict[str, int] = {"murmur3": 0, "groupbyHash": 0,
                              "joinProbe": 0, "decodeFused": 0}
 
 _LOCK = threading.Lock()
+# guards LAUNCHES: several threads launch kernels and replay graphs at once
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Optional[float] = None
 # per thread: the kernel names launched into a graph being captured
@@ -73,8 +77,15 @@ CUDA_ERROR_MEMORY_ALLOCATION = 2
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A consistent snapshot of ``LAUNCHES``."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
 
 
 def count_launch(name: str) -> None:
@@ -82,7 +93,8 @@ def count_launch(name: str) -> None:
     if names is not None:
         names.append(name)
     else:
-        LAUNCHES[name] += 1
+        with _COUNT_LOCK:
+            LAUNCHES[name] += 1
 
 
 @contextlib.contextmanager
@@ -99,8 +111,9 @@ def recording_launches() -> Iterator[List[str]]:
 
 def count_replay(names: List[str]) -> None:
     """One replay of a captured graph launched these kernels."""
-    for n in names:
-        LAUNCHES[n] += 1
+    with _COUNT_LOCK:
+        for n in names:
+            LAUNCHES[n] += 1
 
 
 def _nvcc() -> str:

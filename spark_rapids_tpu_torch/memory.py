@@ -32,14 +32,23 @@ and the capacity and remap (the range exchange, the out-of-core sort).
 
 The store bounds what operators hold between programs; it does not see
 the allocations inside a program or a captured stage graph's private
-pool (the retry protocol's recovery releases those graphs). Not ported:
-the serving tenant ledger and the cache-entry tier (serving), trace
-spans and telemetry samples.
+pool (the retry protocol's recovery releases those graphs).
+
+Serving (``serve/``): every handle bills a tenant's ledger (live, peak
+and spilled device bytes per tenant: ``stamp_plan_tenant`` tags the
+executing plan's registries, ``tenant_scope`` is the fallback for a
+registration without one), and a tenant over its fair share
+(``serve.fairShareFactor`` x budget / live tenants) spills first. A
+cache entry (``register(..., cache_entry=True)``: a subplan cache's
+broadcast table) is reconstructible, so under pressure it is dropped
+outright, before any live query's batch spills. Not ported: trace
+spans and telemetry samples (ROADMAP A11b).
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import glob
 import logging
 import os
@@ -75,6 +84,59 @@ TIER_DISK = "disk"
 
 UNATTRIBUTED = "(unattributed)"
 
+# ---------------------------------------------------------------------------
+# Tenant attribution: the server runs each query under a tenant, and every
+# handle registered during that query bills the tenant's ledger. The
+# attribution rides on the registering exec's metric registry
+# (``stamp_plan_tenant`` tags every registry of the executing plan before
+# the collect), because the registry travels with the exec into whatever
+# thread registers (the upload ring's producer, a task thread); a
+# thread-local scope is the fallback for registrations without one.
+# ---------------------------------------------------------------------------
+
+_TENANT_TLS = threading.local()
+
+
+def current_tenant() -> Optional[str]:
+    """The calling thread's fallback tenant (None = untenanted)."""
+    return getattr(_TENANT_TLS, "name", None)
+
+
+@contextlib.contextmanager
+def tenant_scope(name: Optional[str]):
+    """Thread-local fallback tenant for registrations that carry no
+    metric registry (no-op for None)."""
+    if name is None:
+        yield
+        return
+    prev = getattr(_TENANT_TLS, "name", None)
+    _TENANT_TLS.name = name
+    try:
+        yield
+    finally:
+        _TENANT_TLS.name = prev
+
+
+def stamp_plan_tenant(physical, tenant: Optional[str]) -> None:
+    """Tag every metric registry of ``physical`` (fused constituents
+    included) with its tenant, so registrations from any thread bill the
+    right ledger."""
+    if tenant is None:
+        return
+
+    def walk(p) -> None:
+        m = getattr(p, "metrics", None)
+        if m is not None:
+            m._tenant = tenant
+        for op in getattr(p, "fused_ops", []) or []:
+            fm = getattr(op, "metrics", None)
+            if fm is not None:
+                fm._tenant = tenant
+        for c in getattr(p, "children", []):
+            walk(c)
+
+    walk(physical)
+
 
 class _State:
     """Per-handle storage owned by the store (it outlives the handle, so
@@ -82,9 +144,10 @@ class _State:
 
     __slots__ = ("tier", "batch", "host", "disk_path", "device_bytes",
                  "host_bytes", "closed", "rows", "ever_spilled", "owner",
-                 "metrics_ref", "device")
+                 "metrics_ref", "device", "tenant", "cache_entry")
 
-    def __init__(self, batch: DeviceBatch, owner: str, metrics):
+    def __init__(self, batch: DeviceBatch, owner: str, metrics,
+                 cache_entry: bool = False):
         self.tier = TIER_DEVICE
         self.batch: Optional[DeviceBatch] = batch
         self.host: Optional[HostBatch] = None
@@ -100,6 +163,13 @@ class _State:
         # held weakly: accounting never pins a released plan's metrics
         self.metrics_ref = (weakref.ref(metrics)
                             if metrics is not None else None)
+        # the registry's stamp follows the work across threads; the
+        # thread-local scope is the fallback
+        self.tenant: Optional[str] = (
+            getattr(metrics, "_tenant", None) if metrics is not None
+            else None) or current_tenant()
+        # a cache entry drops (never spills) under pressure, first
+        self.cache_entry = cache_entry
 
 
 class SpillableBatch:
@@ -188,6 +258,18 @@ class DeviceStore:
         # sum(owner_live.values()) == device_bytes at all times
         self.owner_live: Dict[str, int] = {}
         self.owner_peak: Dict[str, int] = {}
+        # per serving tenant: live, peak and spilled device bytes;
+        # sum(tenant_live) == the device bytes registered under a tenant
+        self.tenant_live: Dict[str, int] = {}
+        self.tenant_peak: Dict[str, int] = {}
+        self.tenant_spill: Dict[str, int] = {}
+        # a tenant over fair_share_factor x (budget / live tenants)
+        # spills first (spark.rapids.sql.serve.fairShareFactor, set in
+        # place by get_device_store)
+        self.fair_share_factor = 1.5
+        # cache entries dropped under pressure (released, not spilled)
+        self.cache_drop_count = 0
+        self.cache_dropped_bytes = 0
         # every disk file carries this store's prefix, so close() sweeps
         # stragglers without touching another store's files
         self._file_prefix = f"spill-{uuid.uuid4().hex[:8]}"
@@ -201,6 +283,11 @@ class DeviceStore:
         self.owner_live[st.owner] = live
         if delta > 0 and live > self.owner_peak.get(st.owner, 0):
             self.owner_peak[st.owner] = live
+        if st.tenant is not None:
+            tlive = self.tenant_live.get(st.tenant, 0) + delta
+            self.tenant_live[st.tenant] = tlive
+            if delta > 0 and tlive > self.tenant_peak.get(st.tenant, 0):
+                self.tenant_peak[st.tenant] = tlive
         m = st.metrics_ref() if st.metrics_ref is not None else None
         if m is not None:
             inst = getattr(m, "_store_live_bytes", 0) + delta
@@ -209,11 +296,13 @@ class DeviceStore:
                 m.create(M.PEAK_DEVICE_MEMORY).set_max(inst)
 
     def register(self, batch: DeviceBatch, owner: str = UNATTRIBUTED,
-                 metrics=None) -> SpillableBatch:
+                 metrics=None, cache_entry: bool = False) -> SpillableBatch:
         """Track ``batch`` as spillable; ``owner`` and ``metrics`` name the
-        registering operator (``TorchExec.register_spillable``)."""
+        registering operator (``TorchExec.register_spillable``).
+        ``cache_entry`` marks reconstructible cache data, dropped first
+        under pressure instead of spilled."""
         with self._lock:
-            st = _State(batch, owner, metrics)
+            st = _State(batch, owner, metrics, cache_entry)
             hid = self._next_id
             self._next_id += 1
             self._states[hid] = st
@@ -260,14 +349,53 @@ class DeviceStore:
             self._enforce(exclude=hid)
             return st.batch
 
+    def _over_share_tenants(self) -> Dict[str, int]:
+        """Tenants whose live device bytes exceed ``fair_share_factor``
+        times the equal share of the budget, most over first (under the
+        lock). A lone tenant is never over share."""
+        live = {t: v for t, v in self.tenant_live.items() if v > 0}
+        if len(live) < 2:
+            return {}
+        limit = self.fair_share_factor * (self.device_budget / len(live))
+        over = {t: v for t, v in live.items() if v > limit}
+        return dict(sorted(over.items(), key=lambda kv: -kv[1]))
+
+    def _device_spill_order(self, exclude: int) -> list:
+        """Handle ids in the order the pool demotes them: cache entries
+        first, then over-share tenants' handles (most over first), then
+        least recently used."""
+        over = self._over_share_tenants()
+        rank = {t: i for i, t in enumerate(over)}
+        return sorted(
+            (h for h in self._states if h != exclude),
+            key=lambda h: (0 if self._states[h].cache_entry else 1,
+                           rank.get(self._states[h].tenant, len(rank))))
+
+    def _evict_one(self, hid: int, st: _State) -> None:
+        """Free one device-tier handle: a cache entry drops, anything
+        else spills to the host."""
+        if st.cache_entry:
+            self._drop_cache_entry(hid, st)
+        else:
+            self._spill_to_host(st)
+
+    def _drop_cache_entry(self, hid: int, st: _State) -> None:
+        """Release a cache entry outright: its data is reconstructible,
+        so spilling it would spend copies on bytes nobody is owed. The
+        owning cache sees the closed handle at its next lookup."""
+        dropped = st.device_bytes
+        self._release_id(hid)
+        self.cache_drop_count += 1
+        self.cache_dropped_bytes += dropped
+
     def _enforce(self, exclude: int) -> None:
         if self.device_bytes > self.device_budget:
-            for hid in [h for h in self._states if h != exclude]:
+            for hid in self._device_spill_order(exclude):
                 if self.device_bytes <= self.device_budget:
                     break
                 st = self._states[hid]
                 if st.tier == TIER_DEVICE:
-                    self._spill_to_host(st)
+                    self._evict_one(hid, st)
         if self.host_bytes > self.host_budget:
             for hid in list(self._states):
                 if self.host_bytes <= self.host_budget:
@@ -291,6 +419,9 @@ class DeviceStore:
         st.ever_spilled = True
         self.spill_count += 1
         self.spilled_device_bytes += st.device_bytes
+        if st.tenant is not None:
+            self.tenant_spill[st.tenant] = (
+                self.tenant_spill.get(st.tenant, 0) + st.device_bytes)
         self._owner_delta(st, -st.device_bytes)
         # billed to the owning operator, not the one that tripped the
         # budget
@@ -358,13 +489,14 @@ class DeviceStore:
         recovery step). Returns the device bytes freed."""
         freed = 0
         with self._lock:
-            for hid in list(self._states):
+            for hid in self._device_spill_order(exclude=-1):
                 if self.device_bytes <= target_bytes:
                     break
-                st = self._states[hid]
-                if st.tier == TIER_DEVICE and not st.closed:
+                st = self._states.get(hid)
+                if st is not None and st.tier == TIER_DEVICE \
+                        and not st.closed:
                     freed += st.device_bytes
-                    self._spill_to_host(st)
+                    self._evict_one(hid, st)
         return freed
 
     def close(self) -> None:
@@ -392,7 +524,9 @@ class DeviceStore:
                     "spilledDeviceBytes": self.spilled_device_bytes,
                     "diskSpillCount": self.disk_spill_count,
                     "diskFilesLive": self.disk_files_live,
-                    "liveHandles": len(self._states)}
+                    "liveHandles": len(self._states),
+                    "cacheDropCount": self.cache_drop_count,
+                    "cacheDroppedBytes": self.cache_dropped_bytes}
 
     def owner_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-operator ledger: live and peak device bytes."""
@@ -401,6 +535,30 @@ class DeviceStore:
             return {o: {"liveBytes": self.owner_live.get(o, 0),
                         "peakBytes": self.owner_peak.get(o, 0)}
                     for o in sorted(owners)}
+
+    def over_share_tenants(self) -> Dict[str, int]:
+        """The fair-share offenders, most over first (the admission
+        controller's throttle signal)."""
+        with self._lock:
+            return self._over_share_tenants()
+
+    def tenant_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-tenant ledger: live, peak and spilled device bytes."""
+        with self._lock:
+            tenants = (set(self.tenant_live) | set(self.tenant_peak)
+                       | set(self.tenant_spill))
+            return {t: {"liveBytes": self.tenant_live.get(t, 0),
+                        "peakBytes": self.tenant_peak.get(t, 0),
+                        "spillBytes": self.tenant_spill.get(t, 0)}
+                    for t in sorted(tenants)}
+
+    def live_handles(self, owner: Optional[str] = None) -> int:
+        """Open handles, of one owner when given (the serve checks: no
+        query's handle outlives it; cache entries are their own
+        owner)."""
+        with self._lock:
+            return sum(1 for st in self._states.values()
+                       if owner is None or st.owner == owner)
 
 
 def _host_sizeof(b: HostBatch) -> int:
@@ -465,7 +623,10 @@ def get_device_store(conf: TorchConf) -> DeviceStore:
                                  codec=codec)
             _STORE_KEY = key
             _ALL_STORES.append(_STORE)
+        # policy, set in place: a flip never replaces the live store
         _STORE.debug = bool(conf.get(MEMORY_DEBUG))
+        from spark_rapids_tpu_torch.conf import SERVE_FAIR_SHARE_FACTOR
+        _STORE.fair_share_factor = float(conf.get(SERVE_FAIR_SHARE_FACTOR))
         return _STORE
 
 
@@ -486,6 +647,11 @@ def plan_registries(physical) -> set:
             walk(c)
     walk(physical)
     return regs
+
+
+def store_tenant_stats() -> Dict[str, Dict[str, int]]:
+    """The process store's per-tenant ledger ({} without a store)."""
+    return _STORE.tenant_stats() if _STORE is not None else {}
 
 
 def release_plan_handles(physical) -> int:

@@ -129,6 +129,19 @@ class MetricRegistry:
     def snapshot(self) -> Dict[str, int]:
         return {k: m.value for k, m in list(self.metrics.items())}
 
+    def clone_empty(self) -> "MetricRegistry":
+        """A fresh registry of the same class holding this one's metrics
+        at their values: a plan-cache clone's registry. The cached
+        template is never executed, so its values are the ones its
+        operators set when they were built (a fused stage's
+        ``fusedOps``), which a freshly planned operator holds too."""
+        r = type(self).__new__(type(self))
+        r.metrics = {}
+        r._lock = threading.Lock()
+        for k, m in list(self.metrics.items()):
+            r.create(k).add(m.value)
+        return r
+
 
 def plan_metrics(plan) -> Dict[str, int]:
     """Every exec registry of an executed plan summed by name, fused-stage

@@ -7,9 +7,11 @@ scope, as the reference's withResource / closeOnExcept do. The semaphore
 bounds how many task threads touch the card at once: the row-to-columnar
 upload acquires it before its first device write, the columnar-to-row
 transition releases it when its partition is drained or fails, and so
-does a task when it ends. Under ``spark.rapids.sql.taskParallelism`` 1
-the port runs one task thread and the semaphore is uncontended; it is
-kept for its contract, that a query that fails returns every permit. A
+does a task when it ends. The query server runs several queries at
+once, each on its connection thread, so the permits are contended
+there; the wait is a lifecycle checkpoint (a cancelled or timed-out
+query stops waiting and raises, holding nothing), and a query that
+fails or is cancelled returns every permit. A
 plan run inside a running query (a cached relation's materialisation)
 keeps the task's permit across its own transitions (``hold_across``),
 and a host operator between two transitions, whose transitions release
@@ -114,7 +116,12 @@ class TorchSemaphore:
         t0 = time.perf_counter_ns()
         with self._cv:
             while task.count == 0 and self._in_use >= self.permits:
-                self._cv.wait()
+                # bounded wait + lifecycle checkpoint: a cancelled query
+                # must not park here; raising leaves the count untouched
+                self._cv.wait(timeout=0.05)
+                if task.count == 0 and self._in_use >= self.permits:
+                    from spark_rapids_tpu_torch.lifecycle import checkpoint
+                    checkpoint("semaphore")
             if task.count == 0:
                 self._in_use += 1
                 task.count = 1

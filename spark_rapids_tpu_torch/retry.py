@@ -30,10 +30,13 @@ The injector (``spark.rapids.sql.test.injectOOM`` / ``injectIOError``)
 throws synthetic faults at the Nth wrapped allocation or reader access,
 with the JAX package's grammar. The wrap sites differ between the two
 packages, so one schedule can hit different operations in each; only
-the rows are comparable across them. Not ported: mesh chip-failure
-degrade, the ``site:cancel`` lifecycle leg (a cancel schedule is scoped
-to a site the port never names, so it never fires), cancellable
-backoff, trace spans and telemetry hooks.
+the rows are comparable across them. ``site:cancel:N`` is the lifecycle
+leg: it counts the query lifecycle's cancellation checkpoints
+(``lifecycle.checkpoint``) and cancels the live query's token at the Nth
+one (``on_cancel_point``). Every backoff sleep is a cancellable sleep,
+so a cancelled query never sleeps through its deadline, and a
+cancellation is never retried. Not ported: mesh chip-failure degrade
+(ROADMAP A12), trace spans and telemetry hooks (A11b).
 """
 
 from __future__ import annotations
@@ -110,7 +113,9 @@ class _Schedule:
       with site NAME (``site:upload`` = the upload's copy to the card,
       issued ahead by the ring or by the synchronous protocol);
       ``site:budget:SPEC`` counts budget-oracle queries and makes the
-      firing query report half the real headroom, never an error
+      firing query report half the real headroom, never an error;
+      ``site:cancel:SPEC`` counts lifecycle cancellation checkpoints and
+      cancels the live query's token (reason ``injected``) when it fires
     """
 
     __slots__ = ("every_n", "streak", "split", "seed", "prob", "rng",
@@ -161,6 +166,11 @@ class FaultInjector:
         self._budget = None
         if self._oom is not None and self._oom.site == "budget":
             self._budget, self._oom = self._oom, None
+        # site:cancel is the lifecycle leg: it counts cancellation
+        # checkpoints, and its fault is a cooperative cancel
+        self._cancel = None
+        if self._oom is not None and self._oom.site == "cancel":
+            self._cancel, self._oom = self._oom, None
         self._io = _parse_schedule(io_spec)
         self._lock = threading.Lock()
         self._alloc_count = 0
@@ -168,6 +178,8 @@ class FaultInjector:
         self._io_count = 0
         self._io_streak = 0
         self._budget_count = 0
+        self._cancel_count = 0
+        self.cancels_injected = 0
         self.oom_injected = 0
         self.io_injected = 0
         self.budget_faults_injected = 0
@@ -223,6 +235,22 @@ class FaultInjector:
             raise IOError(f"injected IO error reading {path!r} "
                           "(spark.rapids.sql.test.injectIOError)")
 
+    def on_cancel_point(self, token, site: str = "") -> None:
+        """Checkpoint at one lifecycle cancellation checkpoint
+        (``lifecycle.checkpoint``): a ``site:cancel:N`` schedule cancels
+        the live query's token at the Nth one, so the query unwinds
+        through the cooperative-cancel protocol, not the retry protocol.
+        Recovery paths are exempt like every other injection site."""
+        if self._cancel is None or token is None or _suppressed():
+            return
+        with self._lock:
+            self._cancel_count += 1
+            if not self._fire(self._cancel, self._cancel_count):
+                return
+            self.cancels_injected += 1
+        from spark_rapids_tpu_torch.lifecycle import REASON_INJECTED
+        token.cancel(REASON_INJECTED)
+
     def on_budget_query(self) -> bool:
         """Checkpoint at one budget-oracle headroom query: True when a
         ``site:budget`` schedule fires (the oracle then reports half the
@@ -241,7 +269,8 @@ class FaultInjector:
             return {"allocations": self._alloc_count,
                     "oomInjected": self.oom_injected,
                     "ioInjected": self.io_injected,
-                    "budgetFaultsInjected": self.budget_faults_injected}
+                    "budgetFaultsInjected": self.budget_faults_injected,
+                    "cancelsInjected": self.cancels_injected}
 
 
 _INJECTOR: Optional[FaultInjector] = None
@@ -319,7 +348,10 @@ def _recover(conf, metrics, attempt: int, backoff_ms: int,
             torch.cuda.empty_cache()
         delay = min(backoff_ms * (1 << (attempt - 1)), max_backoff_ms)
         if delay > 0:
-            time.sleep(delay / 1000.0)
+            # a cancelled or timed-out query must not sleep through its
+            # deadline
+            from spark_rapids_tpu_torch.lifecycle import cancellable_sleep
+            cancellable_sleep(delay / 1000.0, site="retryBackoff")
     if metrics is not None:
         metrics.create(M.RETRY_COUNT).add(1)
         if freed:
@@ -354,6 +386,8 @@ def with_retry(fn: Callable[[], T], conf=None, metrics=None, *,
             if attempt > max_retries:
                 raise
         except Exception as e:
+            # a cooperative cancel is not an OOM: it unwinds, never
+            # retried (is_oom_error refuses it)
             if not is_oom_error(e):
                 raise
             attempt += 1
@@ -440,8 +474,10 @@ def io_with_retry(fn: Callable[[], T], conf=None, metrics=None,
             if metrics is not None:
                 metrics.create(M.IO_RETRY_COUNT).add(1)
             t0 = time.perf_counter_ns()
-            time.sleep(min(backoff_ms * (1 << (attempt - 1)), 1000)
-                       / 1000.0)
+            from spark_rapids_tpu_torch.lifecycle import cancellable_sleep
+            cancellable_sleep(
+                min(backoff_ms * (1 << (attempt - 1)), 1000) / 1000.0,
+                site="retryBackoff")
             if metrics is not None:
                 metrics.create(M.RETRY_BLOCK_TIME).add(
                     time.perf_counter_ns() - t0)

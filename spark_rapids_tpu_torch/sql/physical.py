@@ -93,12 +93,21 @@ class PhysicalPlan:
         """Drain all partitions, in partition order, on this thread or on
         a pool of ``parallelism`` task threads. Each task returns the
         device permit its thread holds when it ends or fails, and so does
-        this thread."""
+        this thread. The query's cancel token follows the work onto the
+        task threads, and every drained batch is a cancellation
+        checkpoint."""
+        from spark_rapids_tpu_torch import lifecycle as LC
         from spark_rapids_tpu_torch.resource import release_current_thread
+        token = LC.current_token()
 
         def drain(t) -> list:
             try:
-                return list(t())
+                with LC.token_scope(token):
+                    out = []
+                    for b in t():
+                        LC.checkpoint("batch")
+                        out.append(b)
+                    return out
             finally:
                 release_current_thread()
 

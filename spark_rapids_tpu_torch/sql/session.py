@@ -23,8 +23,24 @@ first reads it (``run_nested``). Under
 ``spark.rapids.sql.udfCompiler.enabled`` the planner first rewrites
 compilable ``F.udf`` lambdas into expressions (``udf_compiler.py``).
 ``stop()`` shuts the pandas-UDF worker pool down, as interpreter exit
-does. Telemetry, plan cache, lifecycle and serving hooks are not ported
-yet.
+does.
+
+Serving (``serve/``): a session may carry a tenant
+(``spark.rapids.sql.serve.tenantId``), whose ledger in the device store
+every query's handles bill (``memory.stamp_plan_tenant``). Several
+threads may run queries on one session at once, so what belongs to one
+query is kept per thread too (``thread_last_plan``,
+``thread_plan_signature``, ``thread_rewrite_report``). Under
+``spark.rapids.sql.planCache.enabled`` the execute path looks the
+query's signature up in the cross-query plan cache
+(``plan_cache.get_or_clone``) and runs a clone of the cached template.
+``execute_plan`` runs under the calling thread's lifecycle token: a
+cancelled query closes its plan's handles and returns its permit, a
+quarantined signature fails before touching the device, and each
+finished query's wall feeds its signature's history. The trace, profile,
+event-log, telemetry trigger and query-history hooks of the JAX
+package's ``execute_plan`` come with the observability slice (ROADMAP
+A11b).
 
 The device is an explicit ``torch.device`` threaded through every
 operator. It is the CUDA card unless the caller asks for the CPU
@@ -84,8 +100,19 @@ class TorchSparkSession:
 
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device: Union[None, str, torch.device] = None):
+        from spark_rapids_tpu_torch.conf import (SERVE_TENANT_ID,
+                                                 refuse_unported)
+        refuse_unported(conf or {})
         self.conf_obj = TorchConf(conf)
         self.device = resolve_device(device)
+        # the serving tenant this session runs for (None outside serving)
+        self.tenant: Optional[str] = \
+            str(self.conf_obj.get(SERVE_TENANT_ID) or "") or None
+        # per-thread state of the query a thread runs on this session
+        self._tls = threading.local()
+        # terminal outcomes other than success, by status
+        self.terminal_counts: Dict[str, int] = {}
+        self._terminal_lock = threading.Lock()
         self.conf = RuntimeConfApi(self.conf_obj)
         self.catalog_views: Dict[str, L.LogicalPlan] = {}
         self.last_plan = None  # the executed physical plan, for tests
@@ -201,16 +228,72 @@ class TorchSparkSession:
         plan = udf_compiler.rewrite_plan(plan, self.conf_obj)
         return Planner(self.conf_obj, session=self).plan(plan)
 
-    def plan_physical(self, plan: L.LogicalPlan, announce: bool = True):
+    def plan_physical(self, plan: L.LogicalPlan, announce: bool = True,
+                      use_plan_cache: bool = False):
         """CPU physical plan, then the rewrite onto device operators when
         ``spark.rapids.sql.enabled`` (its report in
         ``last_rewrite_report``; ``announce`` prints its explain
-        lines)."""
-        physical, self.last_rewrite_report = self._rewrite(
-            self._plan_cpu(plan), announce)
+        lines). ``use_plan_cache`` (the execute path) consults the
+        cross-query plan cache when ``spark.rapids.sql.planCache.enabled``:
+        a repeated shape runs a clone of the cached template and skips
+        the planner, the rewrite and fusion."""
+        from spark_rapids_tpu_torch.conf import PLAN_CACHE_ENABLED
+        if use_plan_cache and bool(self.conf_obj.get(PLAN_CACHE_ENABLED)):
+            from spark_rapids_tpu_torch import lifecycle as LC
+            from spark_rapids_tpu_torch import plan_cache as PC
+            from spark_rapids_tpu_torch import udf_compiler
+            self._assert_kernel_flags()
+            lplan = udf_compiler.rewrite_plan(plan, self.conf_obj)
+            # the device is part of the key: a CPU session's template
+            # holds CPU operators
+            sig = (PC.plan_signature(lplan, self.conf_obj)
+                   + f"||device:{self.device}")
+            # the digest keys the lifecycle (wall history, quarantine);
+            # the cache keys on the whole string
+            sig_key = PC.signature_digest(sig)
+            self._tls.plan_signature = sig_key
+            ltok = LC.current_token()
+            if ltok is not None:
+                ltok.signature = sig_key
+            # single flight: concurrent cold misses of one shape run the
+            # rewrite once; everyone executes a clone of the template
+            physical, report, was_miss = PC.get_or_clone(
+                sig, lambda: self._rewrite_fresh(lplan, announce),
+                conf_obj=self.conf_obj)
+            if not was_miss and report is not None and announce:
+                # the building thread printed inside apply_overrides
+                report.print_explain(self.conf_obj)
+        else:
+            self._tls.plan_signature = None
+            physical, report = self._rewrite(self._plan_cpu(plan), announce)
+        self.last_rewrite_report = report
+        self._tls.rewrite_report = report
         if self._capture_enabled:
             self._plan_capture.append(physical)
         return physical
+
+    def _rewrite_fresh(self, plan: L.LogicalPlan, announce: bool = True):
+        """``(physical, report)`` of the whole pipeline over a logical
+        plan the UDF compiler already rewrote: the plan cache's build
+        callback, which touches no session state (it may run for another
+        thread's identical query)."""
+        physical = Planner(self.conf_obj, session=self).plan(plan)
+        return self._rewrite(physical, announce)
+
+    def thread_plan_signature(self) -> Optional[str]:
+        """The calling thread's last plan-cache signature digest on this
+        session (None when its last query planned without the cache)."""
+        return getattr(self._tls, "plan_signature", None)
+
+    def thread_rewrite_report(self):
+        """The calling thread's last rewrite report on this session
+        (``last_rewrite_report`` is the last any thread planned)."""
+        return getattr(self._tls, "rewrite_report", None)
+
+    def thread_last_plan(self):
+        """The plan the calling thread last executed on this session
+        (``last_plan`` is the last any thread executed)."""
+        return getattr(self._tls, "last_plan", None)
 
     def _rewrite(self, physical, announce: bool = True):
         """``(plan, report)``: the rewrite of a CPU plan, or the CPU plan
@@ -269,20 +352,86 @@ class TorchSparkSession:
             release_plan_handles(physical)
 
     def execute_plan(self, plan: L.LogicalPlan) -> HostBatch:
-        from spark_rapids_tpu_torch.conf import TASK_PARALLELISM
-        from spark_rapids_tpu_torch.memory import release_plan_handles
+        import time as _time
+
+        from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch import memory as _mem
+        from spark_rapids_tpu_torch import retry as _retry
+        from spark_rapids_tpu_torch.conf import (RESULT_CACHE_ENABLED,
+                                                 SERVE_QUARANTINE_THRESHOLD,
+                                                 SUBPLAN_CACHE_ENABLED,
+                                                 TASK_PARALLELISM)
         from spark_rapids_tpu_torch.overrides import has_device_op
-        physical = self.plan_physical(plan)
-        self.last_plan = physical
-        self._assert_kernel_flags()
-        # a plan with a device operator drains its partitions on this
-        # thread; only a host-only plan spreads them over task threads
-        tasks = 1 if has_device_op(physical) else \
-            int(self.conf_obj.get(TASK_PARALLELISM))
+        from spark_rapids_tpu_torch.serve import result_cache as _RC
+        # the injector exists before the first checkpoint, so a
+        # site:cancel schedule counts from the query's start
+        _retry.get_fault_injector(self.conf_obj)
+        quar_thr = int(self.conf_obj.get(SERVE_QUARANTINE_THRESHOLD))
+        sig = None
+        physical = None
         try:
-            return physical.execute_collect(tasks)
+            physical = self.plan_physical(plan, use_plan_cache=True)
+            self.last_plan = physical
+            self._tls.last_plan = physical
+            sig = self.thread_plan_signature()
+            if quar_thr > 0 and sig is not None and LC.is_quarantined(sig):
+                # fail before touching the device: the signature already
+                # failed quar_thr consecutive times
+                raise LC.TorchQueryQuarantined(
+                    sig, LC.quarantined_failures(sig))
+            self._assert_kernel_flags()
+            # every registry of this execution bills the session's tenant
+            _mem.stamp_plan_tenant(physical, self.tenant)
+            # the serve caches' fingerprints of every file the plan reads,
+            # taken before the plan reads them: a file changed mid-query
+            # then mismatches at lookup instead of going stale
+            if (bool(self.conf_obj.get(RESULT_CACHE_ENABLED))
+                    or bool(self.conf_obj.get(SUBPLAN_CACHE_ENABLED))):
+                _RC.set_execution_fingerprints(
+                    _RC.capture_fingerprints(physical))
+            else:
+                _RC.set_execution_fingerprints(None)
+            # a plan with a device operator drains its partitions on this
+            # thread; only a host-only plan spreads them over task threads
+            tasks = 1 if has_device_op(physical) else \
+                int(self.conf_obj.get(TASK_PARALLELISM))
+            t0 = _time.perf_counter()
+            with _mem.tenant_scope(self.tenant):
+                result = physical.execute_collect(tasks)
+            wall_s = _time.perf_counter() - t0
+        except LC.TorchQueryCancelled as e:
+            # never counts toward quarantine: not a runtime failure
+            self._record_terminal(
+                "timed-out" if e.reason == LC.REASON_DEADLINE
+                else "cancelled")
+            raise
+        except LC.TorchQueryQuarantined:
+            self._record_terminal("quarantined")
+            raise  # never ran: neither a failure nor a success
+        except BaseException:
+            if quar_thr > 0 and sig is not None:
+                LC.record_runtime_failure(sig, quar_thr)
+            self._record_terminal("failed")
+            raise
         finally:
-            release_plan_handles(physical)
+            # a finished, failed or cancelled query's device memory frees
+            # now, not at plan GC
+            _mem.release_plan_handles(physical)
+        if sig is not None:
+            # the watchdog's wall history; a success clears the streak
+            LC.record_wall(sig, wall_s)
+            if quar_thr > 0:
+                LC.record_success(sig)
+        return result
+
+    def _record_terminal(self, status: str) -> None:
+        """Count one non-finished outcome (cancelled, timed-out,
+        quarantined, failed). The JAX package also writes it to its event
+        log and query history; those sinks come with the observability
+        slice (ROADMAP A11b)."""
+        with self._terminal_lock:
+            self.terminal_counts[status] = \
+                self.terminal_counts.get(status, 0) + 1
 
     def explain_string(self, plan: L.LogicalPlan, physical=None) -> str:
         """The logical and physical plans, then the rewrite's placement:

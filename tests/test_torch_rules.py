@@ -74,6 +74,14 @@ def test_python_worker_imports_no_torch():
             n, ast.ImportFrom) and n.level > 0], path
 
 
+def test_scan_covers_the_serving_modules():
+    rels = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("serve/__init__.py", "serve/server.py", "serve/client.py",
+                "serve/protocol.py", "serve/scheduler.py",
+                "serve/result_cache.py", "lifecycle.py", "plan_cache.py"):
+        assert f"spark_rapids_tpu_torch/{mod}" in rels, mod
+
+
 def test_forbidden_matches_module_names_exactly():
     assert _forbidden("spark_rapids_tpu.sql.types")
     assert _forbidden("spark_rapids_tpu")
