@@ -41,7 +41,7 @@ absent or any phase fails. Output, one line per phase:
      executed plan all ``Torch*``, groupbyHash launched, no murmur3
      (one card coalesces the planner's exchanges to one partition, as
      the JAX package does) and no overflow re-run;
-  5. q1 wall (one warm run, median of three) and rows/s; per-kernel
+  5. q1 wall (one warm run, mean of two) and rows/s; per-kernel
      device time, launches per q1, bound and plain-version time, with
      the CUDA kernels of each murmur3 case and of one ``partition_ids``
      call at q1's exchange shape counted in torch.profiler's device trace
@@ -54,7 +54,7 @@ absent or any phase fails. Output, one line per phase:
      FK join route, no joinProbe)
      and the form with the dimension predicates pushed into the joins
      (every join through joinProbe), each against an exact reference
-     computed here, with its wall (one warm run, median of three) and
+     computed here, with its wall (one warm run, mean of two) and
      rows/s; joinProbe's device time at q3's per-chunk shapes beside
      its byte bound and the plain version's time, its CUDA kernels (one,
      or the run fails) and the time of the join's whole kernel route
@@ -67,7 +67,7 @@ absent or any phase fails. Output, one line per phase:
      ``read.parquet`` against the exact reference, with 8 decodeFused
      launches and no host-decoded column or unit; bench.py's q3 text
      from Parquet (store_sales in 8 files, item and date_dim in one
-     each) against its reference; walls (one warm run, median of three)
+     each) against its reference; walls (one warm run, mean of two)
      and decodeFused's device time beside its byte bound and the plain
      version's time at q1's row group, at a 250,000-row q3 store_sales
      row group and at the corpus's ``dict`` case (nulls and strings: the
@@ -92,7 +92,7 @@ absent or any phase fails. Output, one line per phase:
      memory synchronous, from Parquet running ahead);
   11. whole-stage fusion (``stage_fusion_phase``): q1 from memory and from
      Parquet and both q3 forms with ``spark.rapids.sql.stageFusion.
-     enabled`` on and off in turns (on, off, off, on), each exact, with
+     enabled`` off and on in turns (off, on), each exact, with
      capture seconds, walls, graph replays against the stages'
      ``dispatchCount``, kernel and graph launch calls and their host
      microseconds, device kernels, busy time and idle share from
@@ -148,7 +148,7 @@ absent or any phase fails. Output, one line per phase:
      1e-12 relative, everything else exact), the plan all ``Torch*``
      with its window, expand, union or range node, each kernel's
      launches, the window's ``dispatchCount`` and the CUDA kernels of
-     one window batch, the wall (one warm run, median of three) and the
+     one window batch, the wall (one warm run, mean of two) and the
      idle share of one profiled warm run; then joinProbe at q98's two
      joins and groupbyHash at the rollup's and the range's first partial
      batch (``windows_kernel_shapes``), exact against their plain
@@ -166,7 +166,7 @@ absent or any phase fails. Output, one line per phase:
      with its overflow re-runs) from memory and from Parquet (the array
      column host-decoded, counted in ``deviceFallbackColumns``). Each
      leg exact against its numpy reference, the plan all ``Torch*``,
-     each kernel's launches, the wall (one warm run, median of three),
+     each kernel's launches, the wall (one warm run, mean of two),
      the idle share of one profiled warm run; then joinProbe at the ad
      join, murmur3 on the struct key and groupbyHash on a tags batch
      (``nested_kernel_shapes``), exact against their plain versions,
@@ -245,6 +245,24 @@ absent or any phase fails. Output, one line per phase:
      ``serve_launches`` (the global launch counters equal the executed
      plans' own counts; the executions' streams, the graphs captured
      and replayed, the allocator's bytes after each leg);
+  21. observability (``observe_phases``): q1 at SF1 and q3 pushed from
+     Parquet with a file trace, a profile, the event log, the query
+     history and ``metrics.level=DEBUG`` (``observe_traced``: rows exact,
+     every span and instant kind catalogued, and per kernel the
+     ``LAUNCHES`` delta equal to the plan's ``kernelDispatchCount.*``, to
+     the trace's kernelDispatch spans plus its replays' recorded kernels
+     and to the profile's kernel summary; one event-log line and one
+     history record a query; groupbyHash, decodeFused and joinProbe held
+     against their plain versions at these runs' shapes), q1 with
+     tracing off, in file mode and in ring mode in turns
+     (``observe_overhead``: two timed runs each), a ``QueryServer`` with
+     the ring recorder and a 1 ms slow-query trigger
+     (``observe_server``: the bundle and its ring dump load, the dump's
+     launches, the ``metrics`` verb's and a loopback scrape's
+     kernel-dispatch counters equal the launch delta; a second server
+     over the same history after a reset of the lifecycle layer
+     warm-starts and its first q1 is a plan-cache hit) and q1's metric
+     names at ESSENTIAL and DEBUG (``observe_levels``);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -262,14 +280,15 @@ absent or any phase fails. Output, one line per phase:
   (``cache_udf_only``); with ``--fallback``, only the build and phase 18
   (``fallback_only``); with ``--formats``, only the build and phase 19
   (``formats_only``); with ``--serve``, only the build and phase 20
-  (``serve_only``);
+  (``serve_only``); with ``--observe``, only the build and phase 21
+  (``observe_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's, 18's, 19's and 20's legs, and those
-  phases' shapes among its cases)
+  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's and 21's legs,
+  and those phases' shapes among its cases)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1858,10 +1877,9 @@ def upload_split(fields, arrays, device, card) -> None:
 
 def ring_phases(card, fields, arrays, q1_dir, tables) -> None:
     """The main paths with the upload ring off (``maxInFlight`` 0) and at
-    its default depth 2, in turns (0, 2, 2, 0, so that a drift of the
-    host over the phase weighs on both). q1 at SF1 from memory and from
+    its default depth 2, in turns (0, 2). q1 at SF1 from memory and from
     Parquet: rows
-    exact, the walls (one warm run, median of three), the device's idle
+    exact, the walls (one warm run, mean of two), the device's idle
     share from one profiled run, and the ring's counters
     (``uploadAheadBatches`` must be 0 at depth 0 and above 0 at depth
     2; ``pinnedStreamCopies`` must count every upload at both). Both q3
@@ -1877,7 +1895,7 @@ def ring_phases(card, fields, arrays, q1_dir, tables) -> None:
     batch = host_batch_from_numpy(fields, arrays)
     types = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
              "dec72": T.DecimalType(7, 2)}
-    for turn, depth in enumerate((0, 2, 2, 0)):
+    for turn, depth in enumerate((0, 2)):
         spark = TorchSparkSession({
             "spark.sql.shuffle.partitions": str(N_PARTITIONS),
             "spark.rapids.sql.format.parquet.deviceDecode.maxInFlight":
@@ -1940,7 +1958,7 @@ def ring_phases(card, fields, arrays, q1_dir, tables) -> None:
     ring_runs(card, tables, want_rp)
 
 
-def ring_runs(card, tables, want, pairs: int = 6) -> None:
+def ring_runs(card, tables, want, pairs: int = 3) -> None:
     """The repartition path at ``maxInFlight`` 0 and 2 in alternate runs,
     each run with its wall and what could make one run slow: the R2C's
     host times, the garbage collector's passes and seconds, and the
@@ -2314,7 +2332,7 @@ def q3_phases(device, card, profiled: bool = False,
                                  f"{launches} {routes}")
         df.collect()  # warm
         walls = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             df.collect()
             torch.cuda.synchronize()
@@ -2529,12 +2547,12 @@ def scan_walls(plan) -> dict:
 
 
 def timed_collects(df) -> dict:
-    """One warm ``collect`` then three timed ones: the walls and their
-    median."""
+    """One warm ``collect`` then two timed ones: the walls and their
+    median (their mean)."""
     import torch
     df.collect()
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -2847,12 +2865,12 @@ def sorted_row_arrays(hb) -> list:
 
 
 def stage_fusion_phase(card, fields, arrays, q1_dir, tables) -> None:
-    """Whole-stage fusion on and off, in turns (on, off, off, on): q1 from
+    """Whole-stage fusion off and on, in turns (off, on): q1 from
     memory and from Parquet and both q3 forms, each exact. Per query and
     turn: the first run (every turn starts with an empty stage cache,
     so a fused turn captures: ``stageCompileTime``, captures), the walls
     (one warm run,
-    median of three), a counted run (graph replays against the stages'
+    mean of two), a counted run (graph replays against the stages'
     ``dispatchCount``, kernel launches, the host time of the replay calls
     without the profiler), a profiled run
     (``stage_profile``), and ``torch.cuda.memory_reserved()`` after the
@@ -2879,9 +2897,10 @@ def stage_fusion_phase(card, fields, arrays, q1_dir, tables) -> None:
         [(c, types[k]) for c, k, _a in cols], [a for _c, _k, a in cols])
         for name, cols in tables.items()}
     spark = None
-    for turn, fused in enumerate((True, False, False, True)):
-        # each turn starts with no cached graph, so the fused turns both
-        # capture and the memory of the turns compares like with like
+    # off first: the held-outputs check below needs the fused session
+    for turn, fused in enumerate((False, True)):
+        # each turn starts with no cached graph, so the fused turn
+        # captures and the memory of the turns compares like with like
         F.STAGE_CACHE.clear()
         torch.cuda.empty_cache()
         spark = TorchSparkSession({
@@ -3333,7 +3352,7 @@ def memory_phase(card, fields, arrays, q1_dir, tables, device=None) -> dict:
 
     # -- 5. the store's cost on an unpressured q1 ---------------------------
     walls = []
-    for turn, pool_size in enumerate((None, 1 << 40, 1 << 40, None)):
+    for turn, pool_size in enumerate((None, 1 << 40)):
         extra = {} if pool_size is None else {
             "spark.rapids.memory.tpu.poolSize": str(pool_size)}
         s = session(extra)
@@ -3535,7 +3554,7 @@ def capability_phase(device) -> dict:
 def q12_run(spark, card: str, what: str, want, profile_name: str) -> dict:
     """One q12 leg: the first collect (launches per query counted), rows
     exact, the plan all Torch*, the join's route, then the wall (one
-    warm run, median of three) and one profiled warm run."""
+    warm run, mean of two) and one profiled warm run."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     df = spark.sql(Q12)
@@ -3880,7 +3899,7 @@ def joins_leg(spark, card: str, what: str, query: str, want, check,
     Torch*, the joins and the adaptive counters, ``check(plan, counters,
     launches)`` for the leg's own conditions; the same query with
     adaptive execution off (the same rows, no adaptive counter); the
-    walls of both, three timed runs each in turns (on, off) after their
+    walls of both, one timed run each in turns (on, off) after their
     first runs; one profiled warm run."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
@@ -3924,7 +3943,7 @@ def joins_leg(spark, card: str, what: str, query: str, want, check,
                              f"equal: {off_rows == rows}")
     off_joins = join_nodes(spark.last_plan)
     walls = {True: [], False: []}
-    for _ in range(3):
+    for _ in range(1):
         for adaptive in (True, False):
             walls[adaptive].append(collect(adaptive)[1])
     prof = profile_collect(df, what, card, warm=False)
@@ -3938,7 +3957,7 @@ def joins_leg(spark, card: str, what: str, query: str, want, check,
             "exchange_total_bytes": m.get("exchangeTotalBytes", 0),
             "launches": launches, "groupby_overflow_reruns": reruns,
             "first_run_s": first_s,
-            "wall": wall(walls[True]), "turns": "on, off x 3",
+            "wall": wall(walls[True]), "turns": "on, off",
             "device_idle_share": prof["device_idle_share"],
             "device_busy_s": prof["device_busy_s"],
             "profiled_wall_s": prof["profiled_wall_s"],
@@ -4437,7 +4456,7 @@ def windows_leg(spark, card: str, what: str, make_df, check,
     rows through ``check(rows)`` (which raises unless they are right and
     returns the largest relative error), the plan all Torch* with
     ``node`` in it, the window's ``dispatchCount``, one warm run and the
-    median of three timed, and one profiled warm run."""
+    mean of two timed, and one profiled warm run."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     df = make_df()
@@ -4457,7 +4476,7 @@ def windows_leg(spark, card: str, what: str, make_df, check,
                for w in window_execs(plan)]
     df.collect()  # warm
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -5388,7 +5407,7 @@ def pudf_reference(tables) -> dict:
     return out
 
 
-def in_turns(dfs: dict, rounds: int = 3) -> dict:
+def in_turns(dfs: dict, rounds: int = 2) -> dict:
     """Each query's wall in turns (A B, B A, A B, ...), the queries
     already warm: the timed runs and their median."""
     import torch
@@ -6386,7 +6405,7 @@ def formats_runs(card: str, what: str, dfs: dict, check, expect,
             out[v]["first_run"] = scan_seconds(spark.last_plan)
     if not timed:
         return out
-    turns = in_turns({v: df for v, (_s, df) in dfs.items()}, rounds=2)
+    turns = in_turns({v: df for v, (_s, df) in dfs.items()})
     for v, (spark, df) in dfs.items():
         prof = profile_collect(df, f"{what}_{v.lower()}", card, warm=False)
         out[v].update(turns[v], warm_runs=1, **prof,
@@ -7227,6 +7246,425 @@ def serve_phases(card: str, arrays, q1_dir: str) -> dict:
     return legs
 
 
+OBSERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "observe")
+
+
+def span_launches(loaded) -> dict:
+    """Per kernel, the launches a loaded trace records: its
+    ``kernelDispatch`` spans (direct launches) plus the kernels each
+    stage-program replay span carries (``kernels``)."""
+    out: dict = {}
+    for s in loaded["spans"]:
+        args = s.get("args") or {}
+        names = ([args["kernel"]] if s["name"] == "kernelDispatch"
+                 else list(args.get("kernels") or []))
+        for k in names:
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def uncatalogued_kinds(loaded) -> list:
+    """Span and instant kinds of a loaded trace that neither catalog
+    names nor ``describe_metric`` resolves as an ``<exec>.<metric>``
+    mirror."""
+    from spark_rapids_tpu_torch import trace as TR
+    from spark_rapids_tpu_torch.metrics import describe_metric
+    bad = set()
+    for s in loaded["spans"]:
+        name = s["name"]
+        owner, _, metric = name.partition(".")
+        if name not in TR.SPAN_CATALOG and not (
+                metric and describe_metric(metric) is not None):
+            bad.add(name)
+    bad |= {i["name"] for i in loaded["instants"]
+            if i["name"] not in TR.INSTANT_CATALOG}
+    return sorted(bad)
+
+
+def prom_kernel_counts(text: str) -> dict:
+    """``srt_kernel_dispatch_count_total{key="<kernel>"}`` of a
+    Prometheus exposition, by kernel."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("srt_kernel_dispatch_count_total{"):
+            key = line.split('key="', 1)[1].split('"', 1)[0]
+            out[key] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def flight_breakdown(qt, since_ns: int) -> dict:
+    """Where the time of the spans a flight recorder took since
+    ``since_ns`` went: per span kind its count, its total seconds and
+    its exclusive seconds (nested spans on the same thread taken off,
+    ``doctor.exclusive_times``), and the recording threads by name."""
+    from spark_rapids_tpu_torch.telemetry.doctor import exclusive_times
+    spans = [{"name": k, "t0": t0 / 1e3, "t1": t1 / 1e3, "tid": ident}
+             for k, t0, t1, ident, *_rest in qt.spans if t0 >= since_ns]
+    ex = sorted(exclusive_times(spans).items(),
+                key=lambda kv: -kv[1]["exclusive"])
+    threads: dict = {}
+    for sp in spans:
+        name = qt._thread_names.get(sp["tid"], str(sp["tid"]))
+        threads.setdefault(name, set()).add(sp["tid"])
+    return {"threads": {n: len(v) for n, v in sorted(threads.items())},
+            "kinds": {k: {"count": d["count"],
+                          "total_s": round(d["total"] / 1e6, 4),
+                          "exclusive_s": round(d["exclusive"] / 1e6, 4)}
+                      for k, d in ex}}
+
+
+def observe_phases(card: str, arrays, q1_dir: str) -> tuple:
+    """Phase 21: the observability slice on the card. ``observe_traced``:
+    TPC-H q1 at SF1 from phase 7's Parquet and TPC-DS q3's pushed form
+    (phase 20's files) with a file trace, a profile, the event log, the
+    query history and ``metrics.level=DEBUG``; rows exact, the trace
+    loads and every kind in it is catalogued, and per kernel the
+    ``LAUNCHES`` delta equals the plan's ``kernelDispatchCount.*``, the
+    trace's kernelDispatch spans plus its replays' recorded kernels and
+    the profile's kernel summary; one event-log line and one history
+    record a query. ``observe_overhead``: q1 with tracing off, on in file
+    mode and in ring mode, in turns, two timed runs each.
+    ``observe_server``: a ``QueryServer`` (the ring recorder on, a 1 ms
+    slow-query trigger) serves q1: its bundle and ring dump load and
+    the dump's launches equal the delta, the ``metrics`` verb's and a
+    loopback scrape's kernel-dispatch counters move by the launches;
+    four tenants' q1 at once, read back from the flight recorder (where
+    their time went, by span kind and thread); then a second server over the same history, after the lifecycle
+    layer is reset (a restart of it), warm-starts its walls and answers
+    its first q1 from the plan cache. ``observe_levels``: q1's metric
+    names under ``metrics.level`` ESSENTIAL and DEBUG. groupbyHash,
+    joinProbe and decodeFused are held against their plain versions at
+    the shapes of the traced runs. Returns ``(launches a leg, kernel
+    cases)``."""
+    import shutil
+    import urllib.request
+
+    import torch
+    from spark_rapids_tpu_torch import event_log as EL
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import lifecycle as LC
+    from spark_rapids_tpu_torch import metrics as M
+    from spark_rapids_tpu_torch import profile as PROF
+    from spark_rapids_tpu_torch import trace as TR
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.exec.join import TorchBroadcastHashJoinExec
+    from spark_rapids_tpu_torch.kernels import decode_fused as DF
+    from spark_rapids_tpu_torch.serve import QueryServer, ServeClient
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    from spark_rapids_tpu_torch.telemetry import history as H
+    from spark_rapids_tpu_torch.telemetry import triggers as TRG
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    tables = q3_tables()
+    q3_dir, _w = write_q3_parquet(TorchSparkSession(), tables)
+    dims_dir, _w = write_q3_parquet(
+        TorchSparkSession(), tables,
+        {k: Q3_PARTITIONS[k] for k in ("item", "date_dim")},
+        name="tpcds_q3_dims4")
+    q1_views = {"lineitem": q1_dir}
+    q3_views = {"store_sales": os.path.join(q3_dir, "store_sales"),
+                "item": os.path.join(dims_dir, "item"),
+                "date_dim": os.path.join(dims_dir, "date_dim")}
+    q1_want = q1_reference(arrays)
+    q3_want = q3_reference(tables)
+
+    def nonzero(d: dict) -> dict:
+        return {k: v for k, v in d.items() if v}
+
+    def since(snap: dict) -> dict:
+        now = KR.launch_counts()
+        return nonzero({k: now[k] - snap[k] for k in now})
+
+    def session(views: dict, conf: dict):
+        s = TorchSparkSession(dict(
+            {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}, **conf))
+        for name, path in views.items():
+            s.read.parquet(path).createOrReplaceTempView(name)
+        return s
+
+    def timed_collect(df):
+        t0 = time.perf_counter()
+        rows = [tuple(r) for r in df.collect()]
+        return rows, time.perf_counter() - t0
+
+    legs, shapes = {}, {"groupbyHash": {}, "joinProbe": {},
+                        "decodeFused": {}}
+
+    # -- a. q1 and q3 traced, profiled, logged, kept in the history -------
+    traced = {}
+    for q, views, sql in (("q1", q1_views, Q1), ("q3", q3_views,
+                                                 Q3_PUSHED)):
+        d = os.path.join(OBSERVE_DIR, q)
+        TR.reset_tracing()
+        s = session(views, {
+            "spark.rapids.sql.trace.enabled": "true",
+            "spark.rapids.sql.trace.dir": os.path.join(d, "trace"),
+            "spark.rapids.sql.profile.enabled": "true",
+            "spark.rapids.sql.profile.dir": os.path.join(d, "profile"),
+            "spark.rapids.sql.eventLog.dir": os.path.join(d, "events"),
+            "spark.rapids.sql.telemetry.history.dir":
+                os.path.join(d, "history"),
+            "spark.rapids.sql.metrics.level": "DEBUG"})
+        df = s.sql(sql)
+        snap = KR.launch_counts()
+        rows, wall = timed_collect(df)
+        launches = since(snap)
+        if q == "q1":
+            check_q1_rows(rows, q1_want)
+        else:
+            check_q3_rows(rows, q3_want, "observe q3")
+        plan = s.last_plan
+        plan_counts = nonzero({k.split(".", 1)[1]: v for k, v in
+                               M.plan_metrics(plan).items()
+                               if k.startswith("kernelDispatchCount.")})
+        files = sorted(os.listdir(os.path.join(d, "trace")))
+        if len(files) != 1:
+            raise AssertionError(f"observe {q}: trace files {files}")
+        loaded = TR.load_trace(os.path.join(d, "trace", files[0]))
+        spans = span_launches(loaded)
+        bad = uncatalogued_kinds(loaded)
+        profs = list(PROF.read_profiles(os.path.join(d, "profile")))
+        events = list(EL.read_events(os.path.join(d, "events")))
+        records = H.read_records(os.path.join(d, "history"))
+        if len(profs) != 1 or len(events) != 1 or len(records) != 1 \
+                or events[0]["status"] != "finished" \
+                or records[0]["status"] != "finished":
+            raise AssertionError(
+                f"observe {q}: {len(profs)} profiles, {len(events)} "
+                f"event lines, {len(records)} history records")
+        prof_counts = profs[0]["kernels"]["dispatches"]
+        if bad or not launches or not (
+                launches == plan_counts == spans == prof_counts):
+            raise AssertionError(
+                f"observe {q}: launches {launches}, plan {plan_counts}, "
+                f"trace {spans}, profile {prof_counts}, uncatalogued "
+                f"{bad}")
+        kinds = sorted({sp["name"] for sp in loaded["spans"]})
+        traced[q] = {"rows": len(rows), "wall_s": wall,
+                     "launches": launches, "plan_counts": plan_counts,
+                     "trace_counts": spans, "profile_counts": prof_counts,
+                     "replay_spans": sum(1 for sp in loaded["spans"]
+                                         if (sp.get("args") or {}).get(
+                                             "kernels")),
+                     "spans": len(loaded["spans"]),
+                     "instants": len(loaded["instants"]),
+                     "counters": len(loaded["counters"]),
+                     "span_kinds": kinds,
+                     "trace_bytes": os.path.getsize(
+                         os.path.join(d, "trace", files[0])),
+                     "history_fields": sorted(records[0])}
+        legs[f"observe_traced_{q}"] = launches
+        # the kernels at this run's shapes, against their plain versions
+        if q == "q1":
+            from spark_rapids_tpu_torch.memory import release_plan_handles
+            plan2 = s.plan_physical(s.sql(sql).plan)
+            try:
+                shapes["groupbyHash"].update(partial_groupby_cases(
+                    s, plan2, "observe_q1", plain_reps=1))
+            finally:
+                release_plan_handles(plan2)
+            path = os.path.join(q1_dir, sorted(
+                f for f in os.listdir(q1_dir) if f.endswith(".parquet"))[0])
+            layout, cap, n, w, ex, in_bytes = staged_on_card(path, device)
+            k_active, k_outs = DF.decode_fused(layout, cap, n, w, ex)
+            p_active, p_outs = X._encoded_decode_body(layout, cap, w, n, ex)
+            torch.cuda.synchronize()
+            errs = [max_abs_diff(a, b) for a, b in zip(
+                (k_active,) + tuple(k_outs), (p_active,) + tuple(p_outs))]
+            if len(k_outs) != len(p_outs) or any(errs):
+                raise AssertionError(f"decodeFused != plain: {errs}")
+            shapes["decodeFused"]["observe_q1_row_group"] = {
+                "rows": n, "cap": cap, "max_abs_err": max(errs)}
+        else:
+            plan2 = s.plan_physical(s.sql(sql).plan)
+            try:
+                for j in plan_nodes_of(plan2):
+                    if isinstance(j, TorchBroadcastHashJoinExec):
+                        what = f"observe_q3_join{len(shapes['joinProbe'])}"
+                        shapes["joinProbe"][what] = join_probe_case(j, what)
+            finally:
+                from spark_rapids_tpu_torch.memory import \
+                    release_plan_handles
+                release_plan_handles(plan2)
+    TR.reset_tracing()
+    phase("observe_traced", card=card, reference="exact", queries=traced,
+          tolerance="exact", kernel_cases={
+              k: {n: {f: c[f] for f in ("rows", "max_abs_err")}
+                  for n, c in v.items()} for k, v in shapes.items()})
+
+    # -- b. tracing off, file and ring in turns ----------------------------
+    modes = {"off": {},
+             "file": {"spark.rapids.sql.trace.enabled": "true",
+                      "spark.rapids.sql.trace.dir":
+                          os.path.join(OBSERVE_DIR, "overhead")},
+             "ring": {"spark.rapids.sql.trace.enabled": "true",
+                      "spark.rapids.sql.trace.mode": "ring"}}
+    dfs = {m: session(q1_views, c).sql(Q1) for m, c in modes.items()}
+    walls = {m: [] for m in modes}
+    snap = KR.launch_counts()
+    for m in ("off", "file", "ring"):  # a warm run each
+        TR.reset_tracing()
+        check_q1_rows(timed_collect(dfs[m])[0], q1_want)
+    for m in ("off", "file", "ring", "ring", "file", "off"):
+        TR.reset_tracing()
+        rows, wall = timed_collect(dfs[m])
+        check_q1_rows(rows, q1_want)
+        walls[m].append(wall)
+    TR.reset_tracing()
+    legs["observe_overhead"] = since(snap)
+    med = {m: statistics.median(v) for m, v in walls.items()}
+    phase("observe_overhead", card=card, reference="exact", walls_s=walls,
+          median_s=med, file_over_off=med["file"] / med["off"] - 1,
+          ring_over_off=med["ring"] / med["off"] - 1,
+          launches=legs["observe_overhead"])
+
+    # -- c. a server: the flight recorder, a bundle, the exporter, a warm
+    #       start -----------------------------------------------------------
+    hist = os.path.join(OBSERVE_DIR, "server_history")
+    tel = os.path.join(OBSERVE_DIR, "telemetry")
+    conf = {"spark.rapids.sql.telemetry.slowQueryMs": "1",
+            "spark.rapids.sql.telemetry.dir": tel,
+            "spark.rapids.sql.telemetry.history.dir": hist}
+
+    def server():
+        srv = QueryServer(dict(conf))
+        srv.register_view("lineitem", q1_dir)
+        return srv.start()
+
+    TR.reset_tracing()
+    TRG.engine().reset()
+    srv = server()
+    hport = srv.start_metrics_http(0)
+    before = prom_kernel_counts(srv.metrics_text())
+    snap = KR.launch_counts()
+    with ServeClient(srv.port, tenant="t0", timeout=120) as c:
+        batch, head = c.sql(Q1)
+        check_q1_rows([tuple(r) for r in batch.rows()], q1_want)
+        launches = since(snap)
+        if not TRG.engine().drain(60):
+            raise AssertionError("observe: the bundle was not written")
+        text = c.metrics()
+    with urllib.request.urlopen(f"http://127.0.0.1:{hport}/metrics",
+                                timeout=60) as r:
+        scraped = r.read().decode()
+    verb = {k: v - before.get(k, 0)
+            for k, v in prom_kernel_counts(text).items()}
+    scrape = {k: v - before.get(k, 0)
+              for k, v in prom_kernel_counts(scraped).items()}
+    bundles = sorted(f for f in os.listdir(tel) if f.startswith("bundle-"))
+    if len(bundles) != 1 or not bundles[0].endswith("-slowQuery.json"):
+        raise AssertionError(f"observe: bundles {bundles}")
+    with open(os.path.join(tel, bundles[0])) as f:
+        bundle = json.load(f)
+    ring = TR.load_trace(bundle["ringDump"])
+    ring_counts = span_launches(ring)
+    bad = uncatalogued_kinds(ring)
+    if bad or not (launches == ring_counts == nonzero(verb)
+                   == nonzero(scrape)):
+        raise AssertionError(
+            f"observe server: launches {launches}, ring {ring_counts}, "
+            f"metrics verb {verb}, scrape {scrape}, uncatalogued {bad}")
+    families = sorted({line.split()[2] for line in text.splitlines()
+                       if line.startswith("# TYPE ")})
+    # the watchdog keeps a p99 from 5 walls of a shape
+    with ServeClient(srv.port, tenant="t0", timeout=120) as c:
+        for _ in range(4):
+            check_q1_rows([tuple(r) for r in c.sql(Q1)[0].rows()], q1_want)
+    # four tenants' q1 at once (2 permits, the JAX package's defaults),
+    # read back from the flight recorder
+    import threading
+    errors = []
+
+    def tenant(i: int) -> None:
+        try:
+            with ServeClient(srv.port, tenant=f"c{i}", timeout=120) as c:
+                check_q1_rows([tuple(r) for r in c.sql(Q1)[0].rows()],
+                              q1_want)
+        except BaseException as e:  # reported on this thread
+            errors.append(f"c{i}: {type(e).__name__}: {e}")
+    ring_qt = TR.ring_active()
+    mark = time.perf_counter_ns()
+    threads = [threading.Thread(target=tenant, args=(i,))
+               for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    four_wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or ring_qt is None:
+        raise AssertionError(f"observe four tenants: {errors}")
+    flight = flight_breakdown(ring_qt.snapshot(), mark)
+    if not srv.shutdown(30):
+        raise AssertionError("observe: shutdown() did not drain")
+    sig = H.read_records(hist)[-1]["signature"]
+    # the lifecycle layer's restart: its walls and streaks are gone
+    LC.reset_lifecycle()
+    H.reset_history()
+    TR.reset_tracing()
+    srv2 = server()
+    warm = dict(srv2.warm_start_summary)
+    p99 = LC.signature_p99(sig)
+    with ServeClient(srv2.port, tenant="t1", timeout=120) as c:
+        batch, head2 = c.sql(Q1)
+        check_q1_rows([tuple(r) for r in batch.rows()], q1_want)
+    if not srv2.shutdown(30):
+        raise AssertionError("observe: shutdown() did not drain")
+    TR.reset_tracing()
+    TRG.engine().reset()
+    if warm.get("walls", 0) < 5 or p99 is None \
+            or head2.get("planCacheHit") is not True:
+        raise AssertionError(f"observe warm start: {warm}, p99 {p99}, "
+                             f"{head2}")
+    legs["observe_server"] = launches
+    phase("observe_server", card=card, reference="exact",
+          launches=launches, ring_counts=ring_counts,
+          metrics_verb_counts=verb, scrape_counts=scrape,
+          bundle=bundles[0], bundle_trigger=bundle["trigger"],
+          ring_spans=len(ring["spans"]), ring_instants=len(ring["instants"]),
+          families=len(families), exec_ms=head["execMs"],
+          four_tenants={"wall_s": four_wall, **flight},
+          warm_start=warm, warm_signature_p99_s=p99,
+          warm_first_query={k: head2.get(k) for k in (
+              "planCacheHit", "execMs", "queueWaitMs")})
+
+    # -- d. metric names at ESSENTIAL and at DEBUG -------------------------
+    names = {}
+    snap = KR.launch_counts()
+    for level in ("ESSENTIAL", "DEBUG"):
+        s = session(q1_views, {"spark.rapids.sql.metrics.level": level})
+        check_q1_rows(timed_collect(s.sql(Q1))[0], q1_want)
+        names[level] = sorted(M.plan_metrics(s.last_plan))
+    legs["observe_levels"] = since(snap)
+    ess, dbg = set(names["ESSENTIAL"]), set(names["DEBUG"])
+    if not ess or not ess < dbg or any(
+            M.default_level(n) != M.ESSENTIAL for n in ess):
+        raise AssertionError(f"observe levels: {names}")
+    phase("observe_levels", card=card, reference="exact",
+          essential=names["ESSENTIAL"], debug=names["DEBUG"],
+          launches=legs["observe_levels"],
+          seconds=time.perf_counter() - t_phase)
+    return legs, shapes
+
+
+def observe_only(card: str) -> None:
+    """``--observe``: the kernels' build and phase 21."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs, _shapes = observe_phases(card, arrays, q1_dir)
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7408,7 +7846,7 @@ def main() -> int:
     # -- 5. times -------------------------------------------------------------
     df.collect()  # warm
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -7528,6 +7966,7 @@ def main() -> int:
     fallback, fshapes = fallback_phases(device, card, arrays, dfu["q1_dir"])
     formats = formats_phases(device, card, arrays, dfu["q1_dir"])
     serve = serve_phases(card, arrays, dfu["q1_dir"])
+    observe, oshapes = observe_phases(card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -7558,7 +7997,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in cshapes["groupbyHash"].values()]
                             + [c["max_abs_err"]
-                               for c in fshapes["groupbyHash"].values()]),
+                               for c in fshapes["groupbyHash"].values()]
+                            + [c["max_abs_err"]
+                               for c in oshapes["groupbyHash"].values()]),
          "ms": gb_q1["ms"], "plain_ms": gb_q1["plain_ms"],
          "bound_ms": gb_q1["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -7572,7 +8013,8 @@ def main() -> int:
                    + tuple(wshapes["groupbyHash"].items())
                    + tuple(nshapes["groupbyHash"].items())
                    + tuple(cshapes["groupbyHash"].items())
-                   + tuple(fshapes["groupbyHash"].items())}},
+                   + tuple(fshapes["groupbyHash"].items())
+                   + tuple(oshapes["groupbyHash"].items())}},
         {"name": "murmur3", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
          "replaces": "spark_rapids_tpu/kernels/murmur3.py:62",
@@ -7619,7 +8061,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in nshapes["joinProbe"].values()]
                             + [c["max_abs_err"]
-                               for c in cshapes["joinProbe"].values()]),
+                               for c in cshapes["joinProbe"].values()]
+                            + [c["max_abs_err"]
+                               for c in oshapes["joinProbe"].values()]),
          "ms": jp["ms"], "plain_ms": jp["plain_ms"],
          "bound_ms": jp["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -7627,11 +8071,15 @@ def main() -> int:
              name: {k: c[k] for k in ("rows", "ms", "plain_ms", "bound_ms")}
              for name, c in list(wshapes["joinProbe"].items())
              + list(nshapes["joinProbe"].items())
-             + list(cshapes["joinProbe"].items())})},
+             + list(cshapes["joinProbe"].items())
+             + list(oshapes["joinProbe"].items())})},
         {"name": "decodeFused", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/decode_fused.cu",
          "replaces": "spark_rapids_tpu/kernels/decode_fused.py:95",
-         "launches": dfu["launches"], "max_abs_err": dfu["max_abs_err"],
+         "launches": dfu["launches"],
+         "max_abs_err": max([dfu["max_abs_err"]]
+                            + [c["max_abs_err"] for c in
+                               oshapes["decodeFused"].values()]),
          "ms": dfu["ms"], "plain_ms": dfu["plain_ms"],
          "bound_ms": dfu["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -7652,6 +8100,8 @@ def main() -> int:
                                   for leg in fallback}
         k["launches_formats"] = {leg: formats[leg][name] for leg in formats}
         k["launches_serve"] = {leg: serve[leg][name] for leg in serve}
+        k["launches_observe"] = {leg: observe[leg].get(name, 0)
+                                 for leg in observe}
     if any(leak.poll() is None for leak in worker_processes()):
         raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
@@ -7919,7 +8369,7 @@ if __name__ == "__main__":
                                        "--exprs", "--joins", "--windows",
                                        "--nested", "--cache-udf",
                                        "--fallback", "--formats",
-                                       "--serve")):
+                                       "--serve", "--observe")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7947,6 +8397,8 @@ if __name__ == "__main__":
             formats_only(card)
         elif "--serve" in sys.argv[1:]:
             serve_only(card)
+        elif "--observe" in sys.argv[1:]:
+            observe_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -527,10 +527,13 @@ def finish_upload(staged, device: torch.device):
     """Synchronous device half of an upload: the staged buffers written
     into one pageable buffer, one copy on the current stream, then the
     decode."""
-    wires, offsets, total = wire_layout(staged)
-    host = torch.empty(total, dtype=torch.uint8)
-    write_wires(wires, offsets, host.numpy())
-    return decode_staged(staged, host.to(device), offsets)
+    from spark_rapids_tpu_torch import trace as _trace
+    with _trace.span("finishUpload", mode=staged[0],
+                     chip=device.index):
+        wires, offsets, total = wire_layout(staged)
+        host = torch.empty(total, dtype=torch.uint8)
+        write_wires(wires, offsets, host.numpy())
+        return decode_staged(staged, host.to(device), offsets)
 
 
 def upload_batch(batch, cap: int, device: torch.device):

@@ -610,24 +610,299 @@ SERVE_TENANT_ID = _entry(
     "it bills the store's per-tenant device-memory ledger.",
     "", str)
 
-# Keys of the observability slice (A11b: trace, profile, event log,
-# telemetry, SLO burn and the tuning controller). The port does not read
-# them yet; a conf that sets one is refused instead of being ignored.
-UNPORTED_PREFIXES = ("spark.rapids.sql.serve.slo.",
-                     "spark.rapids.sql.serve.tuning.",
-                     "spark.rapids.sql.telemetry.")
+# The observability slice: span traces and the flight recorder
+# (trace.py, telemetry/ring.py), query profiles (profile.py), the
+# event log (event_log.py), metric verbosity (metrics.py), the
+# telemetry triggers, query history and SLO burn (telemetry/), and
+# the serving tier's tuning controller (telemetry/tuning.py). Keys,
+# defaults and docs are the JAX package's.
 
+EVENT_LOG_DIR = _entry(
+    'spark.rapids.sql.eventLog.dir',
+    'Directory for per-query JSON event logs (empty = disabled); the '
+    'offline qualification/profiling tools read these '
+    '(Qualification.scala:34 / Profiler.scala:31 data source).',
+    '', str)
 
-def refuse_unported(settings: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` naming A11b when ``settings`` sets a
-    key of the observability slice the port has not taken yet."""
-    bad = sorted(k for k in settings
-                 if str(k).startswith(UNPORTED_PREFIXES))
-    if bad:
-        raise NotImplementedError(
-            f"{bad[0]}: the serve SLO, tuning and telemetry keys come "
-            "with the observability slice (ROADMAP A11b) and are not "
-            "ported yet to spark_rapids_tpu_torch")
+METRICS_LEVEL = _entry(
+    'spark.rapids.sql.metrics.level',
+    'ESSENTIAL, MODERATE or DEBUG op metric verbosity '
+    '(RapidsConf.scala:491, GpuExec.scala:17-103).',
+    'MODERATE', str)
+
+TELEMETRY_DIR = _entry(
+    'spark.rapids.sql.telemetry.dir',
+    'Directory for slow-query bundles emitted by the telemetry '
+    'trigger engine (bundle-<pid>-<n>-<trigger>.json + the '
+    'flight-recorder dump trace-ring-<pid>-<n>.json it references; '
+    "docs/observability.md 'Live telemetry').",
+    os.path.join(tempfile.gettempdir(), 'srt_telemetry'), str)
+
+TELEMETRY_SLOW_QUERY_MS = _entry(
+    'spark.rapids.sql.telemetry.slowQueryMs',
+    'Slow-query trigger: a query whose wall exceeds this many '
+    'milliseconds emits a slow-query bundle (flight-recorder dump + '
+    'profile artifact path + server stats + the condition) into '
+    'spark.rapids.sql.telemetry.dir. 0 disables the trigger.',
+    0, int)
+
+TELEMETRY_RETRY_COUNT_THRESHOLD = _entry(
+    'spark.rapids.sql.telemetry.retryCountThreshold',
+    'Per-query retry trigger: a query whose plan accumulates MORE '
+    'than this many retryCount (OOM retries) emits a slow-query '
+    'bundle. 0 disables the trigger.',
+    0, int)
+
+TELEMETRY_KERNEL_FALLBACK_THRESHOLD = _entry(
+    'spark.rapids.sql.telemetry.kernelFallbackThreshold',
+    'Per-query kernel-fallback trigger: a query whose plan '
+    'accumulates MORE than this many kernelFallbacks.* (kernel calls '
+    'that fell back to an oracle composition) emits a slow-query '
+    'bundle. 0 disables the trigger. The port has no oracle fallback, '
+    'so kernelFallbacks.* stay 0 and this trigger never fires on its '
+    'own queries.',
+    0, int)
+
+TELEMETRY_RETRY_STORM_THRESHOLD = _entry(
+    'spark.rapids.sql.telemetry.retryStormThreshold',
+    'Process-wide retry-storm trigger: MORE than this many OOM '
+    'retries inside one 60-second window emits a retryStorm bundle '
+    '(evaluated at retry time, not query end — a storm is visible '
+    'while the storm is happening). 0 disables the trigger.',
+    0, int)
+
+TELEMETRY_HBM_WATERMARK = _entry(
+    'spark.rapids.sql.telemetry.hbmWatermark',
+    'HBM-occupancy trigger: a device-store sample whose live bytes '
+    'exceed this fraction of the pool budget emits an hbmWatermark '
+    'bundle (evaluated at every store transition). 0 disables the '
+    'trigger. Arm it via any session that sets a telemetry conf '
+    '(triggers.configure).',
+    0.0, float)
+
+TELEMETRY_QUEUE_WATERMARK = _entry(
+    'spark.rapids.sql.telemetry.queueWatermark',
+    'Admission-saturation trigger: an admission queue whose depth '
+    'exceeds this fraction of serve.maxQueued emits a queueSaturation'
+    ' bundle (evaluated at every enqueue). 0 disables the trigger.',
+    0.0, float)
+
+TELEMETRY_MIN_INTERVAL_S = _entry(
+    'spark.rapids.sql.telemetry.triggerMinIntervalS',
+    'Per-trigger rate limit: after a trigger fires, further firings '
+    'of the SAME trigger inside this many seconds are counted '
+    '(rateLimited in the engine stats, '
+    'srt_telemetry_triggers_rate_limited_total on the endpoint) but '
+    'emit no bundle — a storm cannot flood the disk.',
+    60.0, float)
+
+TELEMETRY_MAX_BUNDLES = _entry(
+    'spark.rapids.sql.telemetry.maxBundles',
+    'Retention bound on telemetry artifacts in '
+    'spark.rapids.sql.telemetry.dir: trigger bundles (bundle-*.json) '
+    'and flight-recorder dumps (trace-ring-*.json) beyond this count '
+    'are pruned OLDEST-FIRST by the bundle-worker thread after each '
+    'write (never under a hot-path lock). Pruned counts show in the '
+    'engine stats, the server stats telemetry section, and '
+    'srt_telemetry_bundles_pruned_total. 0 disables count-based '
+    'retention.',
+    256, int)
+
+TELEMETRY_MAX_BUNDLE_BYTES = _entry(
+    'spark.rapids.sql.telemetry.maxBundleBytes',
+    'Retention bound on the TOTAL bytes of telemetry artifacts '
+    '(bundles + ring dumps) in spark.rapids.sql.telemetry.dir, pruned'
+    ' oldest-first alongside spark.rapids.sql.telemetry.maxBundles. 0'
+    ' disables byte-based retention.',
+    0, parse_bytes)
+
+TELEMETRY_HISTORY_DIR = _entry(
+    'spark.rapids.sql.telemetry.history.dir',
+    'Directory of the persistent query-history store: one compact '
+    'JSONL record per finished query (signature, tenant, terminal '
+    'status/reason, wall/queue-wait, retry/spill/kernel/jit counters,'
+    ' fallback coverage, peak HBM, artifact paths), appended at query'
+    ' close by session.execute_plan and the query server, rotated '
+    'into bounded segments and compacted by '
+    'telemetry.history.maxBytes / maxAgeDays. The store is the '
+    'cross-run performance memory behind server warm-start, SLO '
+    'tracking, `tools history`, and `tools doctor` '
+    "(docs/observability.md 'Query history'). Empty = disabled.",
+    '', str)
+
+TELEMETRY_HISTORY_MAX_BYTES = _entry(
+    'spark.rapids.sql.telemetry.history.maxBytes',
+    'Size bound on the query-history store: segments are rotated at a'
+    ' fraction of this and the OLDEST whole segments are deleted once'
+    " the store's total size exceeds it (each record is one JSON "
+    'line, so compaction never truncates a record mid-line).',
+    67108864, parse_bytes)
+
+TELEMETRY_HISTORY_MAX_AGE_DAYS = _entry(
+    'spark.rapids.sql.telemetry.history.maxAgeDays',
+    'Age bound on the query-history store: a rotated segment whose '
+    'newest record is older than this many days is deleted at '
+    'compaction. 0 disables age-based compaction.',
+    14.0, float)
+
+TELEMETRY_HISTORY_WARM_START = _entry(
+    'spark.rapids.sql.telemetry.history.warmStart',
+    "Seed the serving tier's lifecycle state from the query-history "
+    'store at server start: per-signature wall reservoirs (so the '
+    'stuck-query watchdog has a p99 from query one after a restart) '
+    'and consecutive-failure streaks / quarantine blacklisting (so a '
+    'poison signature stays fail-fast across restarts). Effective '
+    'only when spark.rapids.sql.telemetry.history.dir is set '
+    "(docs/observability.md 'Query history').",
+    True, _to_bool)
+
+SERVE_SLO_P99_MS = _entry(
+    'spark.rapids.sql.serve.slo.p99Ms',
+    "Per-tenant latency objective: the tenant's observed p99 wall "
+    'over the spark.rapids.sql.serve.slo.window seconds of query '
+    'history must stay under this many milliseconds. Evaluated over '
+    'the persistent history store (telemetry.history.dir must be '
+    'set), exported as the srt_slo_* Prometheus families, and — when '
+    'the observed p99 exceeds the objective — fires a rate-limited '
+    'sloBurn bundle through the telemetry trigger engine. Per-tenant '
+    'override: spark.rapids.sql.serve.slo.p99Ms.<tenant>. 0 disables '
+    "(docs/observability.md 'SLO tracking').",
+    0, int)
+
+SERVE_SLO_WINDOW = _entry(
+    'spark.rapids.sql.serve.slo.window',
+    'SLO evaluation window in seconds: objectives under '
+    'spark.rapids.sql.serve.slo.p99Ms are checked against the query '
+    "history's finished records newer than this.",
+    3600.0, float)
+
+SERVE_TUNING_ENABLED = _entry(
+    'spark.rapids.sql.serve.tuning.enabled',
+    'History-driven feedback control (docs/tuning.md): the server '
+    'embeds a TuningController that scores the query history through '
+    'the signature-aggregate + doctor verdict pipeline at start and '
+    'on a periodic tick, and applies bounded, logged, reversible '
+    'per-signature actions from the declared ACTION_CATALOG — cache '
+    'pre-warm for compile storms, admission narrowing / out-of-core '
+    'seeding for retry-spill shapes, and per-tenant admission weight shifts for SLO burn. Every '
+    'action lands in the history store as a tuning record, exports as'
+    ' srt_tuning_* Prometheus families, and auto-reverts when the '
+    'post-action baseline regresses (tools tuning '
+    'inspects/pins/reverts). Requires telemetry.history.dir; off by '
+    'default.',
+    False, _to_bool)
+
+SERVE_TUNING_INTERVAL_S = _entry(
+    'spark.rapids.sql.serve.tuning.intervalS',
+    'Seconds between TuningController scan ticks (history scoring + '
+    'action application + guardrail evaluation). The start-of-server '
+    'scan always runs regardless (docs/tuning.md).',
+    30.0, float)
+
+SERVE_TUNING_MAX_ACTIONS = _entry(
+    'spark.rapids.sql.serve.tuning.maxActionsPerTick',
+    'Ceiling on NEW tuning actions one scan tick may apply — the '
+    'controller converges knob by knob instead of rewriting the whole'
+    " server's posture from one noisy window (docs/tuning.md).",
+    4, int)
+
+SERVE_TUNING_GUARD_WINDOW = _entry(
+    'spark.rapids.sql.serve.tuning.guardWindowQueries',
+    'Guardrail sample window: an applied action is judged once this '
+    'many post-action finished records exist for its scope — p50/p99 '
+    'over the window diffed against the pre-action baseline captured '
+    "in the action's evidence; a regression past "
+    'serve.tuning.revertThreshold auto-reverts the action '
+    '(docs/tuning.md).',
+    5, int)
+
+SERVE_TUNING_REVERT_THRESHOLD = _entry(
+    'spark.rapids.sql.serve.tuning.revertThreshold',
+    'Relative p50/p99 regression past which the guardrail reverts an '
+    'applied action — the same relative-change discipline tools '
+    'bench-diff gates on ((baseline - candidate) / baseline for '
+    'lower-is-better metrics; docs/tuning.md).',
+    0.25, float)
+
+SERVE_TUNING_MAX_PREWARM = _entry(
+    'spark.rapids.sql.serve.tuning.maxPrewarm',
+    'Ceiling on the signatures the compile-storm pre-warm action may '
+    'hold in its replay ledger (and therefore on the planning replays'
+    ' a server start performs) — startup cost stays bounded no matter'
+    ' how storm-prone the history looks (docs/tuning.md).',
+    8, int)
+
+TRACE_ENABLED = _entry(
+    'spark.rapids.sql.trace.enabled',
+    'Record per-query span traces (reader IO/decode, host pack, '
+    'upload, per-chip device dispatch, exchange, JIT compiles, '
+    'semaphore waits, spills, retries) and write one Chrome-trace '
+    'JSON file per query under spark.rapids.sql.trace.dir. Open the '
+    'files in Perfetto (https://ui.perfetto.dev) or analyze offline '
+    'with `python -m spark_rapids_tpu.tools trace <file>` '
+    '(docs/observability.md).',
+    False, _to_bool)
+
+TRACE_DIR = _entry(
+    'spark.rapids.sql.trace.dir',
+    'Directory for per-query Chrome-trace files '
+    '(trace-<pid>-q<n>.json).',
+    os.path.join(tempfile.gettempdir(), 'srt_traces'), str)
+
+TRACE_SAMPLE_RATE = _entry(
+    'spark.rapids.sql.trace.sampleRate',
+    'Fraction of queries to trace (1.0 = every query). Sampling is '
+    'deterministic for a fixed spark.rapids.sql.trace.sampleSeed: the'
+    ' Nth traced-candidate query of the process is sampled iff the '
+    'Nth draw of the seeded stream is below the rate — production use'
+    ' traces a stable subset at bounded overhead.',
+    1.0, float)
+
+TRACE_SAMPLE_SEED = _entry(
+    'spark.rapids.sql.trace.sampleSeed',
+    'Seed of the deterministic query-sampling stream used by '
+    'spark.rapids.sql.trace.sampleRate.',
+    0, int)
+
+TRACE_MODE = _entry(
+    'spark.rapids.sql.trace.mode',
+    "Trace sink: 'file' writes one Chrome-trace JSON per sampled "
+    "query (the per-query exporter); 'ring' is the FLIGHT RECORDER — "
+    'an always-on, fixed-size, lock-free per-thread ring buffer that '
+    'survives across queries with bounded memory (the last '
+    'spark.rapids.sql.trace.ringSpans records per thread) and dumps '
+    'on demand — slow-query triggers (spark.rapids.sql.telemetry.*) '
+    'or telemetry.dump_ring() — as the SAME Chrome-trace JSON, so '
+    '`tools trace`/`tools hotspots` work unchanged on dumps. Query '
+    "server sessions default to 'ring' (docs/observability.md 'Live "
+    "telemetry').",
+    'file', str)
+
+TRACE_RING_SPANS = _entry(
+    'spark.rapids.sql.trace.ringSpans',
+    'Flight-recorder capacity in trace.mode=ring: spans (and instants'
+    ' / counter samples) retained PER THREAD before the oldest are '
+    'overwritten. Bounds recorder memory on a long-lived server; a '
+    'dump reconstructs the most recent window of work.',
+    4096, int)
+
+PROFILE_ENABLED = _entry(
+    'spark.rapids.sql.profile.enabled',
+    'Write one structured profile artifact per executed query '
+    '(profile-<pid>-q<n>.json under spark.rapids.sql.profile.dir): '
+    "the annotated physical plan with every operator's metrics, the "
+    'owner-attributed HBM accounting (per-operator live/peak bytes '
+    'against the device-store pool watermarks), and the plan-rewrite '
+    'explain (fallbacks with reasons, operator coverage). Render with'
+    ' `python -m spark_rapids_tpu.tools profile <file-or-dir>` '
+    '(docs/observability.md).',
+    False, _to_bool)
+
+PROFILE_DIR = _entry(
+    'spark.rapids.sql.profile.dir',
+    'Directory for per-query profile artifacts '
+    '(profile-<pid>-q<n>.json).',
+    os.path.join(tempfile.gettempdir(), 'srt_profiles'), str)
 
 
 class TorchConf:

@@ -41,12 +41,14 @@ over the share re-buckets at a doubled modulus.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import trace as TR
 from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceBatch, DeviceColumn, DeviceDecimal128Column,
@@ -418,14 +420,24 @@ class TorchHashAggregateExec(TorchExec):
                              slots, spec, layout, self.device)
         flat_in = flat + [batch.active] + flat_lits
         if kind == "kernel":
-            self.metrics.create("kernelDispatchCount.groupbyHash").add(1)
+            KR.count_dispatch(self.metrics, "groupbyHash")
+        t0 = time.perf_counter_ns()
         if self._prelude_ops is None:
             self.metrics.create(M.DISPATCH_COUNT).add(1)
+            qt = TR._ACTIVE
             outs, ospec = fn(flat_in)
+            if qt is not None:
+                qt.add("TorchHashAggregateExec.dispatch", t0,
+                       time.perf_counter_ns(), chip=TR.chip_of(batch),
+                       mode=kind, compile=False,
+                       kernel="groupbyHash" if kind == "kernel" else None)
         else:
             key = ("agg", kind, skey, slots,
                    tuple((repr(dt), a) for dt, a in spec))
             outs, ospec = F.run_program(key, fn, flat_in, self.metrics)
+        # the program's host enqueue wall (the JAX package's
+        # computeAggTime, which it books without a span of its own)
+        self.metrics.create(M.AGG_TIME).add(time.perf_counter_ns() - t0)
         n = sum(a for _dt, a in ospec)
         out = DeviceBatch(self.schema, rebuild_columns(ospec, outs[:n]),
                           outs[n], None, outs[n + 1])
@@ -544,6 +556,7 @@ class TorchHashAggregateExec(TorchExec):
         ``outOfCore.maxRecursion``; past it the retry protocol is the
         backstop."""
         from spark_rapids_tpu_torch.exec.exchange import hash_buckets
+        TR.instant("oocAggPlan", modulus=modulus, depth=depth)
         # murmur3 of the grouping keys, never a range: a run of equal keys
         # never straddles two buckets
         buckets = hash_buckets(
@@ -644,10 +657,13 @@ class TorchHashAggregateExec(TorchExec):
                                 out._num_rows_dev, overflow))
         if not pending:
             return
-        host = torch.cat(
-            [cnt.reshape(1) for _i, _h, cnt, _o in pending]
-            + [o.to(torch.int64) for _i, _h, _c, o in pending
-               if o is not None]).cpu().tolist()
+        # the one host read of the partition: it waits for the device
+        # work queued above (the JAX package's pipelineDrainTime)
+        with self.metrics.timed_wall("pipelineDrainTime"):
+            host = torch.cat(
+                [cnt.reshape(1) for _i, _h, cnt, _o in pending]
+                + [o.to(torch.int64) for _i, _h, _c, o in pending
+                   if o is not None]).cpu().tolist()
         flags = host[len(pending):] or [0] * len(pending)
         shrunk = []
         for (h_in, h, _c, _o), n, ovf in zip(pending, host, flags):

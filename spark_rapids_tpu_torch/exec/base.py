@@ -34,18 +34,22 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import lifecycle as LC
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     bucket_capacity,
                                                     concat_device)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
-from spark_rapids_tpu_torch.conf import (PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT,
+from spark_rapids_tpu_torch.conf import (METRICS_LEVEL,
+                                         PARQUET_DEVICE_DECODE_MAX_IN_FLIGHT,
                                          TorchConf)
 from spark_rapids_tpu_torch.resource import get_semaphore
 from spark_rapids_tpu_torch.sql import physical as P
@@ -60,7 +64,8 @@ class TorchExec(P.PhysicalPlan):
     def __init__(self, conf: TorchConf, device: torch.device):
         self.conf = conf
         self.device = device
-        self.metrics = M.MetricRegistry()
+        self.metrics = M.MetricRegistry(str(conf.get(METRICS_LEVEL)),
+                                        owner=type(self).__name__)
         # created up front, so an operator that saw no rows reports 0
         self.metrics.create(M.NUM_OUTPUT_ROWS)
         self.metrics.create(M.NUM_OUTPUT_BATCHES)
@@ -208,6 +213,7 @@ class TorchRowToColumnarExec(TorchExec):
         ring = StagingRing(self.device, depth + 2)
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
+        prefetch = self.metrics.create(M.SCAN_PREFETCH_TIME)
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -224,8 +230,18 @@ class TorchRowToColumnarExec(TorchExec):
                 for unit in _groups(gen, self.goal_rows):
                     if stop.is_set():
                         return
-                    with self.metrics.timed(M.SCAN_PREFETCH_TIME):
+                    # mirrored as a scanPrefetch span, as in the JAX
+                    # package (not the <owner>.<metric> mirror)
+                    qt = _trace._ACTIVE
+                    t0 = time.perf_counter_ns()
+                    try:
                         prepared = self._prepare(unit, ring)
+                    finally:
+                        t1 = time.perf_counter_ns()
+                        prefetch.add(t1 - t0)
+                        if qt is not None:
+                            qt.add("scanPrefetch", t0, t1,
+                                   chip=self.device.index)
                     if not put(("unit", prepared)):
                         return
                 put(("done", None))
@@ -327,9 +343,12 @@ class TorchRowToColumnarExec(TorchExec):
         shrinks the ring. Not retried here."""
         inj = R.get_fault_injector(self.conf)
         try:
-            if inj is not None:
-                inj.on_alloc("upload")
-            return self._start(ring, placed)
+            with _trace.span("uploadAhead", mode=placed.staged[0],
+                             chip=self.device.index,
+                             bytes=placed.nbytes):
+                if inj is not None:
+                    inj.on_alloc("upload")
+                return self._start(ring, placed)
         except Exception as e:
             if not R.is_oom_error(e):
                 raise
@@ -350,7 +369,10 @@ class TorchRowToColumnarExec(TorchExec):
         except R.TorchRetryOOM:
             return self._upload_degraded(src)
         if started.staged[0] == "encoded":
-            self.metrics.create("kernelDispatchCount.decodeFused").add(1)
+            KR.count_dispatch(self.metrics, "decodeFused")
+            # the decode is one kernel a batch (the JAX package's XLA
+            # chain bills its stage count here)
+            self.metrics.create("deviceDecodePrograms").add(1)
         return out
 
     def _upload_sync(self, ring, placed, src) -> List[DeviceBatch]:
@@ -422,7 +444,8 @@ class TorchColumnarToRowExec(P.PhysicalPlan):
                  release_when_drained: bool = False):
         self.children = [child]
         self.conf = conf
-        self.metrics = M.MetricRegistry()
+        self.metrics = M.MetricRegistry(str(conf.get(METRICS_LEVEL)),
+                                        owner=type(self).__name__)
         self.release_when_drained = release_when_drained
 
     @property

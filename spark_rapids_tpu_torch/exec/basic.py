@@ -57,14 +57,15 @@ class TorchProjectExec(TorchExec):
         bound = P.bind_list(self.project_list, self.child.output)
         schema = self.schema
         needs_part = X._needs_part_ctx(bound)
-        device = self.device
+        device, metrics = self.device, self.metrics
 
         def make(pid: int, thunk: DevicePartitionThunk
                  ) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
                 ctx = _part_ctx(pid, device) if needs_part else None
                 for b in thunk():
-                    cols = X.run_project(bound, b, part_ctx=ctx)
+                    with metrics.timed(M.OP_TIME):
+                        cols = X.run_project(bound, b, part_ctx=ctx)
                     if needs_part:
                         ctx = _advance(ctx, b.active)
                     yield b.with_columns(schema, cols)
@@ -94,14 +95,15 @@ class TorchFilterExec(TorchExec):
     def device_partitions(self) -> List[DevicePartitionThunk]:
         bound = E.bind_references(self.condition, self.child.output)
         needs_part = X._needs_part_ctx([bound])
-        device = self.device
+        device, metrics = self.device, self.metrics
 
         def make(pid: int, thunk: DevicePartitionThunk
                  ) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:
                 ctx = _part_ctx(pid, device) if needs_part else None
                 for b in thunk():
-                    out = X.run_filter(bound, b, part_ctx=ctx)
+                    with metrics.timed(M.OP_TIME):
+                        out = X.run_filter(bound, b, part_ctx=ctx)
                     if needs_part:
                         ctx = _advance(ctx, b.active)
                     yield out

@@ -35,8 +35,10 @@ from typing import Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
+from spark_rapids_tpu_torch import trace as TR
 from spark_rapids_tpu_torch.columnar.device import (
     DeviceBatch, bucket_capacity, concat_device, flatten_columns,
     rebuild_columns, sort_with_payload)
@@ -154,7 +156,7 @@ def hash_buckets(op: TorchExec, store, handles: List, bound_keys,
                 lambda b=b: split_by_pid(
                     b, hash_partition_ids(bound_keys, b, modulus), modulus),
                 op.conf, op.metrics)
-        op.metrics.create("kernelDispatchCount.murmur3").add(1)
+        KR.count_dispatch(op.metrics, "murmur3")
         h.close()
         for pid, part in enumerate(parts):
             if part is not None:
@@ -203,6 +205,11 @@ class TorchShuffleExchangeExec(TorchExec):
         if self._cache is not None and not any(
                 h.closed for part in self._cache for h in part):
             return self._cache
+        with TR.span("exchangeMaterialize",
+                     parts=self.partitioning.num_partitions):
+            return self._materialize_inner()
+
+    def _materialize_inner(self) -> List[List]:
         from spark_rapids_tpu_torch.memory import get_device_store
         store = get_device_store(self.conf)
         p = self.partitioning
@@ -222,8 +229,7 @@ class TorchShuffleExchangeExec(TorchExec):
                 bound = P.bind_list(p.exprs, self.child.output)
                 for thunk in device_channel(self.child):
                     for b in thunk():
-                        self.metrics.create(
-                            "kernelDispatchCount.murmur3").add(1)
+                        KR.count_dispatch(self.metrics, "murmur3")
                         # the split is pure over b: a retry re-runs it
                         with self.metrics.timed(M.PARTITION_TIME):
                             parts = R.with_retry(

@@ -71,6 +71,7 @@ import torch
 from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
+from spark_rapids_tpu_torch import trace as TR
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     flatten_columns,
                                                     rebuild_columns)
@@ -264,7 +265,11 @@ def run_program(key, fn: ProgramFn, flat_in: List[torch.Tensor],
     captured) on the first call for ``key`` and the inputs' signature,
     replayed after. ``fn`` must depend on nothing but its inputs and what
     ``key`` names. Counts ``dispatchCount``, the cache outcome and, for a
-    new program, ``stageCompileTime``."""
+    new program, ``stageCompileTime``. With tracing on, the dispatch is
+    one ``<owner>.dispatch`` span (``TorchFusedStageExec.dispatch`` or
+    ``TorchHashAggregateExec.dispatch``): a replay's span carries the
+    kernels its graph launched (``kernels=``), which pass through no
+    wrapper and so take no ``kernelDispatch`` span of their own."""
     first = []
 
     def build():
@@ -272,10 +277,19 @@ def run_program(key, fn: ProgramFn, flat_in: List[torch.Tensor],
         first.append(out)
         return prog
 
+    qt = TR._ACTIVE
     t0 = time.perf_counter_ns()
     prog, was_miss = STAGE_CACHE.get_or_build(
         (key, input_signature(flat_in)), build)
     out = first[0] if was_miss else prog.run(flat_in)
+    if qt is not None:
+        attrs = {"compile": bool(was_miss)}
+        if not was_miss and prog.graph is not None and prog.kernels:
+            attrs["kernels"] = list(prog.kernels)
+        dev = flat_in[0].device if flat_in else None
+        qt.add(f"{metrics.owner}.dispatch", t0, time.perf_counter_ns(),
+               chip=dev.index if dev is not None and dev.type == "cuda"
+               else None, **attrs)
     mirror_to_metrics(metrics, was_miss)
     metrics.create(M.DISPATCH_COUNT).add(1)
     if was_miss:

@@ -45,12 +45,14 @@ files' fingerprints at every reuse; a hit skips the build subtree
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
+from spark_rapids_tpu_torch import trace as TR
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     concat_device)
 from spark_rapids_tpu_torch.conf import TorchConf
@@ -171,12 +173,14 @@ class TorchShuffledHashJoinExec(TorchExec):
         def attempt() -> DeviceBatch:
             out = device_join(lwhole, rwhole, lk, rk, self.join_type,
                               out_schema, null_safe=self.null_safe,
-                              fk_hint=fk_hint, counts=self.route_counts)
+                              fk_hint=fk_hint, counts=self.route_counts,
+                              metrics=self.metrics)
             if cond is not None:
                 out = X.run_filter(cond, out)
             return out
 
-        out = R.with_retry(attempt, self.conf, self.metrics)
+        with self.metrics.timed(M.JOIN_TIME, chip=TR.chip_of(lwhole)):
+            out = R.with_retry(attempt, self.conf, self.metrics)
         # the exec's declared output may prune/reorder pair columns
         if self.join_type not in MASK_JOINS:
             out = self._project_output(out)
@@ -231,6 +235,7 @@ class TorchShuffledHashJoinExec(TorchExec):
                     rwhole, rk, self.null_safe) <= 1
                 if fk_state["v"]:
                     self.route_counts["fkFastPathJoins"] += 1
+                    self.metrics.create("fkFastPathJoins").add(1)
             return fk_state["v"]
 
         def make(lt: DevicePartitionThunk) -> DevicePartitionThunk:
@@ -315,6 +320,8 @@ class TorchShuffledHashJoinExec(TorchExec):
                 total += int(h.sizeof() * frac)
                 if total > threshold:
                     return None
+        qt = TR._ACTIVE
+        t0 = time.perf_counter_ns()
         self.metrics.create(M.AQE_BROADCAST_FLIP).add(1)
         self.metrics.create(M.AQE_REPLANS).add(1)
         from spark_rapids_tpu_torch.serve import result_cache as RC
@@ -333,6 +340,10 @@ class TorchShuffledHashJoinExec(TorchExec):
             # inputs) is the only fingerprint honest for this data
             self._subplan_cache_put(
                 probe, RC.current_execution_fingerprints(), rwhole)
+        if qt is not None:
+            qt.add("aqeReplan", t0, time.perf_counter_ns(),
+                   action="broadcastDemotion", buildBytes=total,
+                   thresholdBytes=threshold)
         left_src = self.left
         if isinstance(left_src, TorchShuffleExchangeExec) and not getattr(
                 left_src.partitioning, "user_specified", False):
@@ -380,9 +391,12 @@ class TorchShuffledHashJoinExec(TorchExec):
         plan = A.skew_splits(stats, factor)
         if not plan:
             return None
-        self.metrics.create(M.AQE_SKEW_SPLITS).add(len(plan))
-        self.metrics.create(M.AQE_REPLANS).add(1)
-        rparts = device_channel(rexch)
+        with TR.span("aqeReplan", action="skewSplit",
+                     partitions=len(plan),
+                     skewRatio=round(stats.skew_ratio, 2)):
+            self.metrics.create(M.AQE_SKEW_SPLITS).add(len(plan))
+            self.metrics.create(M.AQE_REPLANS).add(1)
+            rparts = device_channel(rexch)
         assert len(mat) == len(rparts), \
             "join children must be co-partitioned"
         thunks: List[DevicePartitionThunk] = []
@@ -474,6 +488,7 @@ class TorchShuffledHashJoinExec(TorchExec):
         ``outOfCore.maxRecursion``; past it the retry protocol is the
         backstop."""
         from spark_rapids_tpu_torch.exec.exchange import hash_buckets
+        TR.instant("oocJoinPlan", modulus=modulus, depth=depth)
         # equal keys land in the same bucket on both sides
         lk, rk = self._bound_keys()
         lbuckets = hash_buckets(self, store, lhandles, lk, modulus)
@@ -532,7 +547,7 @@ class TorchShuffledHashJoinExec(TorchExec):
                 lambda: device_join(
                     lwhole, rwhole, lk, rk, chunk_type, pair_schema,
                     collect_matched_r=True, null_safe=self.null_safe,
-                    counts=self.route_counts),
+                    counts=self.route_counts, metrics=self.metrics),
                 self.conf, self.metrics)
             matched_any = matched if matched_any is None \
                 else matched_any | matched

@@ -47,7 +47,8 @@ class CpuArrowEvalPythonExec(P.PhysicalPlan):
         self.children = [child]
         self.udfs = udfs  # Alias(PandasUDF) each
         self.conf = conf
-        self.metrics = M.MetricRegistry()
+        self.metrics = M.MetricRegistry("essential",
+                                        owner=type(self).__name__)
 
     @property
     def child(self) -> P.PhysicalPlan:
@@ -216,7 +217,8 @@ class CpuMapInPandasExec(P.PhysicalPlan):
             E.AttributeReference(f.name, f.data_type, f.nullable)
             for f in out_schema.fields]
         self.conf = conf
-        self.metrics = M.MetricRegistry()
+        self.metrics = M.MetricRegistry("essential",
+                                        owner=type(self).__name__)
 
     @property
     def child(self) -> P.PhysicalPlan:

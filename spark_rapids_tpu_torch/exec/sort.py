@@ -22,6 +22,7 @@ from typing import Iterator, List
 
 import torch
 
+from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (
     DeviceBatch, concat_device, mask_col, take_columns)
@@ -82,10 +83,12 @@ class TorchSortExec(TorchExec):
                     batches = [b for b in thunk() if b.row_count() != 0]
                     if batches:
                         whole = concat_device(batches)
-                        yield R.with_retry(
-                            lambda: sorted_batch(self.order, bound, whole,
-                                                 limit),
-                            self.conf, self.metrics)
+                        with self.metrics.timed(M.SORT_TIME):
+                            out = R.with_retry(
+                                lambda: sorted_batch(self.order, bound,
+                                                     whole, limit),
+                                self.conf, self.metrics)
+                        yield out
                     return
                 yield from self._sort_partition(thunk, bound, goal)
             return run
@@ -112,9 +115,11 @@ class TorchSortExec(TorchExec):
                 whole = concat_device([h.get() for h in handles])
                 for h in handles:
                     h.close()
-                yield R.with_retry(
-                    lambda: sorted_batch(self.order, bound, whole, -1),
-                    self.conf, self.metrics)
+                with self.metrics.timed(M.SORT_TIME):
+                    out = R.with_retry(
+                        lambda: sorted_batch(self.order, bound, whole, -1),
+                        self.conf, self.metrics)
+                yield out
                 return
             yield from self._out_of_core(store, handles, keycols, actives,
                                          total, goal, bound)
@@ -155,9 +160,12 @@ class TorchSortExec(TorchExec):
                 whole = concat_device(parts)
                 for h in buckets[pid]:
                     h.close()
-                yield R.with_retry(
-                    lambda w=whole: sorted_batch(self.order, bound, w, -1),
-                    self.conf, self.metrics)
+                with self.metrics.timed(M.SORT_TIME):
+                    out = R.with_retry(
+                        lambda w=whole: sorted_batch(self.order, bound, w,
+                                                     -1),
+                        self.conf, self.metrics)
+                yield out
         finally:
             for bucket in buckets:
                 for h in bucket:

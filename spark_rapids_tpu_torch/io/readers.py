@@ -519,7 +519,9 @@ class CpuFileScanExec(P.PhysicalPlan):
         self.paths = paths
         self.options = options or {}
         self.conf = conf
-        self.metrics = ScanMetrics()
+        from spark_rapids_tpu_torch.conf import METRICS_LEVEL
+        self.metrics = ScanMetrics(str(conf.get(METRICS_LEVEL)),
+                                   owner="FileScan")
         listed = list_files(paths)
         self.files = [f for f, _ in listed]
         # (path, size, mtime_ns) of the inputs at planning time: what a
@@ -638,10 +640,12 @@ class CpuFileScanExec(P.PhysicalPlan):
             """ScanUnit -> EncodedBatch (host IO, decompression and
             header parsing only), or None when the unit host-decodes."""
             from spark_rapids_tpu_torch.io import device_decode as DD
-            # the planner's file reads ride the same IO retry protocol
-            enc = R.io_with_retry(
-                lambda: DD.plan_unit_encoded(u, data_schema), self.conf,
-                metrics, path=u.path)
+            # the planner's file reads ride the same IO retry protocol;
+            # timed as the JAX package's host half of the device decode
+            with metrics.timed_wall("deviceDecodeTime", path=u.path):
+                enc = R.io_with_retry(
+                    lambda: DD.plan_unit_encoded(u, data_schema),
+                    self.conf, metrics, path=u.path)
             if enc is None or enc.num_rows > max_rows:
                 metrics.add("deviceFallbackUnits")
                 return None
@@ -651,7 +655,8 @@ class CpuFileScanExec(P.PhysicalPlan):
             # the upload's OOM fallback: this unit's host decode
             enc.host_fallback = lambda u=u: list(emit(decode(u)))
             metrics.add("deviceDecodedBatches")
-            metrics.add("deviceFallbackColumns", len(enc.fallbacks))
+            if enc.fallbacks:
+                metrics.add("deviceFallbackColumns", len(enc.fallbacks))
             for ename, nvals in enc.fallback_encodings.items():
                 metrics.add(f"hostDecodedValues.{ename}", nvals)
             for plan in enc.plans.values():

@@ -28,10 +28,12 @@ returns the whole registry.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import trace as _trace
 
 # Large enough that no single query thrashes, small enough that thousands
 # of distinct plan shapes cannot pin unbounded programs.
@@ -115,14 +117,22 @@ class JitCache:
                     my_ev = self._building[key] = threading.Event()
                     break
                 self.contention += 1
+            _trace.instant("compileCacheContention", cache=self.name)
             # a cancelled query stops waiting on another thread's build
             from spark_rapids_tpu_torch.lifecycle import cancellable_wait
             cancellable_wait(ev, site="jitWait")
+        t0 = time.perf_counter_ns()
         try:
             val = build()
             with self._lock:
                 evicted = self._put_locked(key, val)
             release_values(evicted)
+            # the build on a miss: a stage program's warm-up and capture,
+            # or a plan rewrite (cache= names which)
+            qt = _trace._ACTIVE
+            if qt is not None:
+                qt.add("compile", t0, time.perf_counter_ns(),
+                       cache=self.name)
             return val, True
         finally:
             with self._lock:

@@ -41,6 +41,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
+from spark_rapids_tpu_torch import trace as _trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("probe", "murmur3", "groupby_hash", "join_probe",
@@ -116,6 +118,37 @@ def count_replay(names: List[str]) -> None:
             LAUNCHES[n] += 1
 
 
+def dispatch_start() -> Optional[int]:
+    """The start of one direct launch's ``kernelDispatch`` span (its
+    host enqueue, not the kernel's run on the card; on the CPU, the call
+    of the plain version), or None: one None check when tracing is off.
+    A launch recorded into a graph being captured runs at each replay
+    instead, where the replay's span carries it, so it takes no span
+    here."""
+    if _trace._ACTIVE is None or getattr(_CAPTURE, "names",
+                                         None) is not None:
+        return None
+    return time.perf_counter_ns()
+
+
+def dispatch_end(t0: int, name: str, chip=None, **attrs) -> None:
+    """Record the ``kernelDispatch`` span of kernel ``name`` that
+    ``dispatch_start`` began (``kernel=<name>``); call it only with a
+    start that is not None, so an untraced launch pays nothing more."""
+    qt = _trace._ACTIVE
+    if qt is not None:
+        qt.add("kernelDispatch", t0, time.perf_counter_ns(), chip=chip,
+               kernel=name, **attrs)
+
+
+def count_dispatch(metrics, name: str) -> None:
+    """One dispatch of kernel ``name`` by the operator owning
+    ``metrics``: ``kernelDispatchCount.<name>`` (MODERATE), counted on
+    the CPU too, where the plain version runs."""
+    if metrics is not None:
+        metrics.create(f"kernelDispatchCount.{name}").add(1)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -138,7 +171,7 @@ def build_all() -> float:
     with _LOCK:
         if BUILD_SECONDS is not None:
             return BUILD_SECONDS
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         todo = [n for n in SOURCES if not _lib_path(n).exists()]
         nvcc = _nvcc() if todo else ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -160,7 +193,11 @@ def build_all() -> float:
                 out.with_suffix(".ptxas").write_bytes(log)
         if errors:
             raise KernelError("nvcc failed:\n" + "\n".join(errors))
-        BUILD_SECONDS = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        BUILD_SECONDS = (t1 - t0) / 1e9
+        qt = _trace._ACTIVE
+        if todo and qt is not None:
+            qt.add("compile", t0, t1, cache="nvcc", kernels=len(todo))
         return BUILD_SECONDS
 
 

@@ -60,7 +60,12 @@ def decode_fused(layout: Tuple, cap: int, n: int, words: torch.Tensor,
     from spark_rapids_tpu_torch.columnar.transfer import (
         _encoded_decode_body, walk_layout)
     if not words.is_cuda:
-        return _encoded_decode_body(layout, cap, words, n, extras)
+        # the plain version's call takes the kernel's span on the CPU
+        t0 = KR.dispatch_start()
+        out = _encoded_decode_body(layout, cap, words, n, extras)
+        if t0 is not None:
+            KR.dispatch_end(t0, "decodeFused", bucket=cap)
+        return out
     return _launch(list(walk_layout(layout, extras)), cap, n, words)
 
 
@@ -162,12 +167,15 @@ def _launch(entries, cap: int, n: int, words: torch.Tensor):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [vp, cl, vp, ci, cl, cl, ci, vp, vp, vp, vp]
     fn.restype = ci
+    t0 = KR.dispatch_start()
     KR.count_launch("decodeFused")
     KR.check(fn(words.data_ptr(), words.numel() * 4, desc.data_ptr(),
                 len(descs), n, cap, n_slots,
                 part.data_ptr() if n_slots else None,
                 bsum.data_ptr() if n_slots else None, active.data_ptr(),
                 KR.stream_handle(device)), "decodeFused launch")
+    if t0 is not None:
+        KR.dispatch_end(t0, "decodeFused", chip=device.index, bucket=cap)
     return active, tuple(outs)
 
 

@@ -295,7 +295,12 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
     min_out, max_out int64[T, n], overflow int32[1])``; ``owner`` is -1
     for unused slots, else the group's first row."""
     if not kw.is_cuda:
-        return groupby_table_plain(kw, h, valid, add, mn, mx, slots)
+        # the plain version's call takes the kernel's span on the CPU
+        t0 = KR.dispatch_start()
+        out = groupby_table_plain(kw, h, valid, add, mn, mx, slots)
+        if t0 is not None:
+            KR.dispatch_end(t0, "groupbyHash", slots=slots)
+        return out
     ins = [kw, h, valid, add, mn, mx]
     KR.require_cuda(ins, "groupbyHash")
     n, K = kw.shape
@@ -323,6 +328,7 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
     min_out = torch.empty((slots, n_min), dtype=torch.int64, device=device)
     max_out = torch.empty((slots, n_max), dtype=torch.int64, device=device)
     overflow = torch.empty(1, dtype=torch.int32, device=device)
+    t0 = KR.dispatch_start()
     KR.count_launch("groupbyHash")
     KR.check(fn(kw.data_ptr(), K, h.data_ptr(), valid.data_ptr(), n,
                 add.data_ptr(), n_add, mn.data_ptr(), n_min,
@@ -332,6 +338,8 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
                 max_out.data_ptr(), overflow.data_ptr(),
                 KR.stream_handle(device)),
              "groupbyHash launch")
+    if t0 is not None:
+        KR.dispatch_end(t0, "groupbyHash", chip=device.index, slots=slots)
     return owner, add_out, min_out, max_out, overflow
 
 

@@ -75,7 +75,12 @@ def build_probe(kw_r: torch.Tensor, valid_r: torch.Tensor,
     ``kw_*`` are ``(cap, K)`` int64 word matrices in one layout on both
     sides (string char caps padded alike); the kernel hashes them."""
     if not kw_l.is_cuda:
-        return build_probe_plain(kw_r, valid_r, kw_l, valid_l)
+        # the plain version's call takes the kernel's span on the CPU
+        t0 = KR.dispatch_start()
+        out = build_probe_plain(kw_r, valid_r, kw_l, valid_l)
+        if t0 is not None:
+            KR.dispatch_end(t0, "joinProbe")
+        return out
     KR.require_cuda([kw_r, valid_r, kw_l, valid_l], "joinProbe")
     n_r, K = kw_r.shape
     n_l = kw_l.shape[0]
@@ -102,10 +107,13 @@ def build_probe(kw_r: torch.Tensor, valid_r: torch.Tensor,
     device = kw_l.device
     matched = torch.empty(n_l, dtype=torch.bool, device=device)
     first_row = torch.empty(n_l, dtype=torch.int32, device=device)
+    t0 = KR.dispatch_start()
     KR.count_launch("joinProbe")
     KR.check(fn(kw_r.data_ptr(), valid_r.data_ptr(), n_r,
                 kw_l.data_ptr(), valid_l.data_ptr(), n_l, K, slots,
                 matched.data_ptr(), first_row.data_ptr(),
                 KR.stream_handle(device)),
              "joinProbe launch")
+    if t0 is not None:
+        KR.dispatch_end(t0, "joinProbe", chip=device.index)
     return matched, first_row

@@ -69,7 +69,11 @@ def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42,
         raise KR.KernelError(f"murmur3: n_parts {n_parts} < 0")
     if not cols[0].validity.is_cuda:
         from spark_rapids_tpu_torch.ops.hashing import murmur3_columns as plain
+        # the plain version's call takes the kernel's span on the CPU
+        t0 = KR.dispatch_start()
         h = plain(cols, capacity, seed)
+        if t0 is not None:
+            KR.dispatch_end(t0, "murmur3")
         if n_parts:
             return torch.remainder(h.to(torch.int64),
                                    n_parts).to(torch.int32)
@@ -98,7 +102,10 @@ def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42,
     fn.restype = ctypes.c_int
     device = tensors[0].device
     out = torch.empty(capacity, dtype=torch.int32, device=device)
+    t0 = KR.dispatch_start()
     KR.count_launch("murmur3")
     KR.check(fn(words.ctypes.data, len(descs), capacity, seed, n_parts,
                 out.data_ptr(), KR.stream_handle(device)), "murmur3 launch")
+    if t0 is not None:
+        KR.dispatch_end(t0, "murmur3", chip=device.index)
     return out

@@ -28,10 +28,9 @@ the session-server twin of that layer:
 - **Stuck-query watchdog** — :class:`StuckQueryWatchdog`: a running
   query whose elapsed wall exceeds ``serve.watchdogFactor`` x its
   plan-cache signature's observed p99 is flagged and (when
-  ``serve.watchdogCancel``) cancelled with reason ``watchdog``. The
-  JAX package also fires a ``stuckQuery`` slow-query bundle through
-  its telemetry trigger engine; that comes with the observability
-  slice (ROADMAP A11b).
+  ``serve.watchdogCancel``) cancelled with reason ``watchdog``; each
+  flag also fires a ``stuckQuery`` slow-query bundle through the
+  telemetry trigger engine (``telemetry/triggers.py``).
 - **Poison-query quarantine** — a signature that fails
   ``serve.quarantineThreshold`` CONSECUTIVE times with a runtime-fatal
   error (cancellations and timeouts never count) is blacklisted:
@@ -137,8 +136,9 @@ class CancelToken:
                 return False
             self._reason = reason
         self._event.set()
-        # the JAX package records a queryCancelled trace instant here;
-        # span tracing comes with the observability slice (A11b)
+        from spark_rapids_tpu_torch import trace as _trace
+        _trace.instant("queryCancelled", reason=reason,
+                       tenant=self.tenant)
         return True
 
     @property
@@ -459,8 +459,13 @@ class StuckQueryWatchdog:
     def __init__(self, conf_obj):
         from spark_rapids_tpu_torch.conf import (SERVE_WATCHDOG_CANCEL,
                                                  SERVE_WATCHDOG_FACTOR)
+        from spark_rapids_tpu_torch.conf import (TELEMETRY_DIR,
+                                                 TELEMETRY_MIN_INTERVAL_S)
         self.factor = float(conf_obj.get(SERVE_WATCHDOG_FACTOR))
         self.cancel_stuck = bool(conf_obj.get(SERVE_WATCHDOG_CANCEL))
+        # where a flagged query's stuckQuery bundle goes
+        self._dir = str(conf_obj.get(TELEMETRY_DIR))
+        self._min_interval = float(conf_obj.get(TELEMETRY_MIN_INTERVAL_S))
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.flagged = 0
@@ -473,6 +478,10 @@ class StuckQueryWatchdog:
     def start(self) -> None:
         if not self.enabled or self._thread is not None:
             return
+        # the bundle worker must exist before a firing can come from
+        # this thread (the engine never starts it from _maybe_fire)
+        from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
+        _telemetry.engine()._ensure_worker()
         self._thread = threading.Thread(
             target=self._loop, name="torch-lifecycle-watchdog",
             daemon=True)
@@ -512,9 +521,15 @@ class StuckQueryWatchdog:
             tok.watchdog_flagged = True
             flagged += 1
             self.flagged += 1
-            # the JAX package fires a stuckQuery slow-query bundle
-            # through its telemetry trigger engine here; bundles come
-            # with the observability slice (A11b)
+            from spark_rapids_tpu_torch.telemetry import triggers as _tel
+            _tel.engine()._maybe_fire(
+                "stuckQuery",
+                {"tenant": tok.tenant, "queryId": tok.query_id,
+                 "runElapsedS": round(elapsed, 4),
+                 "signatureP99S": round(p99, 4),
+                 "factor": self.factor,
+                 "willCancel": self.cancel_stuck},
+                out_dir=self._dir, min_interval=self._min_interval)
             if self.cancel_stuck and tok.cancel(REASON_WATCHDOG):
                 self.cancelled += 1
         return flagged

@@ -41,8 +41,10 @@ registration without one), and a tenant over its fair share
 (``serve.fairShareFactor`` x budget / live tenants) spills first. A
 cache entry (``register(..., cache_entry=True)``: a subplan cache's
 broadcast table) is reconstructible, so under pressure it is dropped
-outright, before any live query's batch spills. Not ported: trace
-spans and telemetry samples (ROADMAP A11b).
+outright, before any live query's batch spills. Each transition is
+sampled into the active trace (``deviceStoreBytes``, ``hostStoreBytes``
+counters; spill and promotion spans) and the telemetry HBM-watermark
+trigger.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ from typing import Dict, Optional
 import torch
 
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import trace as _trace
+from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
 from spark_rapids_tpu_torch.columnar.device import DeviceBatch
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.conf import (DEVICE_BUDGET_BYTES,
@@ -295,6 +299,17 @@ class DeviceStore:
             if delta > 0:
                 m.create(M.PEAK_DEVICE_MEMORY).set_max(inst)
 
+    def _sample_counters(self) -> None:
+        """Pool occupancy sample into the active trace (Chrome "C"
+        counter events) and the telemetry HBM-watermark trigger. One
+        None/bool check each when off; the trigger only enqueues (no IO
+        under this store's lock)."""
+        _telemetry.on_store_sample(self.device_bytes, self.device_budget)
+        qt = _trace._ACTIVE
+        if qt is not None:
+            qt.count("deviceStoreBytes", self.device_bytes)
+            qt.count("hostStoreBytes", self.host_bytes)
+
     def register(self, batch: DeviceBatch, owner: str = UNATTRIBUTED,
                  metrics=None, cache_entry: bool = False) -> SpillableBatch:
         """Track ``batch`` as spillable; ``owner`` and ``metrics`` name the
@@ -315,6 +330,7 @@ class DeviceStore:
                           st.device_bytes, self.device_bytes,
                           self.device_budget)
             self._enforce(exclude=hid)
+            self._sample_counters()
             return SpillableBatch(self, st, hid)
 
     def _access(self, hid: int) -> DeviceBatch:
@@ -324,7 +340,8 @@ class DeviceStore:
                 raise RuntimeError("SpillableBatch used after close")
             if st.tier == TIER_DISK:
                 from spark_rapids_tpu_torch.columnar import serde
-                with open(st.disk_path, "rb") as f:
+                with _trace.span("promoteFromDisk"), \
+                        open(st.disk_path, "rb") as f:
                     st.host = serde.deserialize_batch(f.read())
                 os.unlink(st.disk_path)
                 self.disk_files_live -= 1
@@ -336,7 +353,8 @@ class DeviceStore:
                 if self.debug:
                     _log.info("promote host->device: %d bytes",
                               st.host_bytes)
-                st.batch = DeviceBatch.from_host(st.host, st.device)
+                with _trace.span("promoteToDevice", bytes=st.host_bytes):
+                    st.batch = DeviceBatch.from_host(st.host, st.device)
                 self.host_bytes -= st.host_bytes
                 st.host, st.host_bytes = None, 0
                 st.tier = TIER_DEVICE
@@ -345,6 +363,7 @@ class DeviceStore:
                 self.peak_device_bytes = max(self.peak_device_bytes,
                                              self.device_bytes)
                 self._owner_delta(st, st.device_bytes)
+                self._sample_counters()
             self._states.move_to_end(hid)
             self._enforce(exclude=hid)
             return st.batch
@@ -384,7 +403,8 @@ class DeviceStore:
         so spilling it would spend copies on bytes nobody is owed. The
         owning cache sees the closed handle at its next lookup."""
         dropped = st.device_bytes
-        self._release_id(hid)
+        with _trace.span("cacheEntryDrop", bytes=dropped, owner=st.owner):
+            self._release_id(hid)
         self.cache_drop_count += 1
         self.cache_dropped_bytes += dropped
 
@@ -409,7 +429,8 @@ class DeviceStore:
             _log.info("spill device->host: %d bytes (pool %d/%d)",
                       st.device_bytes, self.device_bytes,
                       self.device_budget)
-        st.host = st.batch.to_host()
+        with _trace.span("spillToHost", bytes=st.device_bytes):
+            st.host = st.batch.to_host()
         st.rows = st.host.num_rows
         st.batch = None
         self.device_bytes -= st.device_bytes
@@ -428,6 +449,7 @@ class DeviceStore:
         m = st.metrics_ref() if st.metrics_ref is not None else None
         if m is not None:
             m.create(M.SPILL_BYTES).add(st.device_bytes)
+        self._sample_counters()
 
     def _spill_to_disk(self, st: _State) -> None:
         if self.debug:
@@ -438,7 +460,8 @@ class DeviceStore:
             self.spill_dir,
             f"{self._file_prefix}-{uuid.uuid4().hex[:16]}.bin")
         from spark_rapids_tpu_torch.columnar import serde
-        with open(path, "wb") as f:
+        with _trace.span("spillToDisk", bytes=st.host_bytes), \
+                open(path, "wb") as f:
             f.write(serde.serialize_batch(st.host, self.codec))
         self.host_bytes -= st.host_bytes
         st.host, st.host_bytes = None, 0
@@ -446,6 +469,7 @@ class DeviceStore:
         st.tier = TIER_DISK
         self.disk_spill_count += 1
         self.disk_files_live += 1
+        self._sample_counters()
 
     def _release_id(self, hid: int) -> None:
         with self._lock:
@@ -467,6 +491,7 @@ class DeviceStore:
                 st.disk_path = None
             st.batch = None
             st.host = None
+            self._sample_counters()
 
     def release_for_registries(self, reg_ids) -> int:
         """Close every live handle registered under one of the given
@@ -527,6 +552,20 @@ class DeviceStore:
                     "liveHandles": len(self._states),
                     "cacheDropCount": self.cache_drop_count,
                     "cacheDroppedBytes": self.cache_dropped_bytes}
+
+    def reset_peaks(self) -> None:
+        """Re-base the pool, per-owner and per-tenant high-watermarks at
+        the current live occupancy, so a profile reports its own query's
+        peaks."""
+        with self._lock:
+            self.peak_device_bytes = self.device_bytes
+            self.owner_live = {o: v for o, v in self.owner_live.items()
+                               if v}
+            self.owner_peak = dict(self.owner_live)
+            self.tenant_live = {t: v for t, v
+                                in self.tenant_live.items() if v}
+            self.tenant_peak = dict(self.tenant_live)
+            self.tenant_spill = {}
 
     def owner_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-operator ledger: live and peak device bytes."""
@@ -652,6 +691,13 @@ def plan_registries(physical) -> set:
 def store_tenant_stats() -> Dict[str, Dict[str, int]]:
     """The process store's per-tenant ledger ({} without a store)."""
     return _STORE.tenant_stats() if _STORE is not None else {}
+
+
+def reset_store_peaks() -> None:
+    """Re-base the process store's high-watermarks (no-op without a
+    store)."""
+    if _STORE is not None:
+        _STORE.reset_peaks()
 
 
 def release_plan_handles(physical) -> int:

@@ -36,6 +36,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.device import (
     AnyDeviceColumn, DeviceBatch, DeviceStringColumn, bucket_capacity,
     flatten_columns, make_column, rebuild_columns, take_columns, torch_dtype)
+from spark_rapids_tpu_torch import kernels as KR
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.sql import expressions as E
@@ -373,20 +374,23 @@ def device_join(left: DeviceBatch, right: DeviceBatch,
                 join_type: str, out_schema: T.StructType,
                 collect_matched_r: bool = False,
                 null_safe: Sequence[bool] = (), fk_hint: bool = False,
-                counts: Optional[Dict[str, int]] = None):
+                counts: Optional[Dict[str, int]] = None,
+                metrics=None):
     """The equi-join of two device batches; keys are bound device
     expressions. Returns the joined batch (pair layout: left columns then
     right columns) or, for semi/anti, the masked left batch. With
     ``collect_matched_r`` returns ``(batch, matched_r)``, ``matched_r``
     the mask of right rows that matched any left row (None on the mask
     routes). ``counts["joinProbe"]`` counts the joins that took the
-    kernel route."""
+    kernel route, and so does ``kernelDispatchCount.joinProbe`` in
+    ``metrics`` (the join exec's registry)."""
     ns = tuple(null_safe) or (False,) * len(lkeys)
     kern_ok = _probe_kernel_eligible(lkeys, rkeys, right.capacity)
 
     def dispatched():
         if counts is not None:
             counts["joinProbe"] = counts.get("joinProbe", 0) + 1
+        KR.count_dispatch(metrics, "joinProbe")
 
     if join_type in MASK_JOINS:
         if kern_ok:

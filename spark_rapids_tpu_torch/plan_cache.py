@@ -317,7 +317,7 @@ def stats() -> Dict[str, int]:
 # Pre-warm (docs/tuning.md)
 # ---------------------------------------------------------------------------
 
-# signature digests the tuning controller (ROADMAP A11b) flags
+# signature digests the tuning controller (telemetry/tuning.py) flags
 # compile-storm-prone:
 # resident templates for these shapes are evicted LAST (the JitCache
 # protector below), and the controller's start-of-server replay plans

@@ -125,10 +125,14 @@ class TorchSemaphore:
             if task.count == 0:
                 self._in_use += 1
                 task.count = 1
+        t1 = time.perf_counter_ns()
         if metrics is not None:
             from spark_rapids_tpu_torch import metrics as M
-            metrics.create(M.SEMAPHORE_WAIT_TIME).add(
-                time.perf_counter_ns() - t0)
+            metrics.create(M.SEMAPHORE_WAIT_TIME).add(t1 - t0)
+        from spark_rapids_tpu_torch import trace as _trace
+        qt = _trace._ACTIVE
+        if qt is not None:
+            qt.add("semaphoreWait", t0, t1)
 
     def release_if_necessary(self) -> None:
         """Release the calling task's permit, if it holds one and no

@@ -35,8 +35,11 @@ leg: it counts the query lifecycle's cancellation checkpoints
 (``lifecycle.checkpoint``) and cancels the live query's token at the Nth
 one (``on_cancel_point``). Every backoff sleep is a cancellable sleep,
 so a cancelled query never sleeps through its deadline, and a
-cancellation is never retried. Not ported: mesh chip-failure degrade
-(ROADMAP A12), trace spans and telemetry hooks (A11b).
+cancellation is never retried. Each recovery records a ``retryOOM``
+instant and a ``retryBlock`` span (a split a ``splitRetry``, an IO retry
+an ``ioRetry``) and feeds the telemetry retry-storm trigger; the
+``site:tuning:N`` leg counts tuning-controller ticks. Not ported: mesh
+chip-failure degrade (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -115,7 +118,10 @@ class _Schedule:
       ``site:budget:SPEC`` counts budget-oracle queries and makes the
       firing query report half the real headroom, never an error;
       ``site:cancel:SPEC`` counts lifecycle cancellation checkpoints and
-      cancels the live query's token (reason ``injected``) when it fires
+      cancels the live query's token (reason ``injected``) when it fires;
+      ``site:tuning:SPEC`` counts TuningController scan ticks and makes
+      the firing tick apply a deliberately harmful action (never an
+      error), so the guardrail's revert is testable
     """
 
     __slots__ = ("every_n", "streak", "split", "seed", "prob", "rng",
@@ -171,6 +177,11 @@ class FaultInjector:
         self._cancel = None
         if self._oom is not None and self._oom.site == "cancel":
             self._cancel, self._oom = self._oom, None
+        # site:tuning is the feedback-control leg: it counts tuning scan
+        # ticks, and its fault is a harmful synthetic action
+        self._tuning = None
+        if self._oom is not None and self._oom.site == "tuning":
+            self._tuning, self._oom = self._oom, None
         self._io = _parse_schedule(io_spec)
         self._lock = threading.Lock()
         self._alloc_count = 0
@@ -183,6 +194,8 @@ class FaultInjector:
         self.oom_injected = 0
         self.io_injected = 0
         self.budget_faults_injected = 0
+        self._tuning_count = 0
+        self.tuning_faults_injected = 0
 
     @staticmethod
     def _fire(sched: _Schedule, count: int) -> bool:
@@ -264,13 +277,27 @@ class FaultInjector:
             self.budget_faults_injected += 1
             return True
 
+    def on_tuning_tick(self) -> bool:
+        """Checkpoint at one TuningController scan tick: True when a
+        ``site:tuning`` schedule fires (the controller then applies a
+        deliberately harmful action for its guardrail to revert)."""
+        if self._tuning is None or _suppressed():
+            return False
+        with self._lock:
+            self._tuning_count += 1
+            if not self._fire(self._tuning, self._tuning_count):
+                return False
+            self.tuning_faults_injected += 1
+            return True
+
     def stats(self) -> dict:
         with self._lock:
             return {"allocations": self._alloc_count,
                     "oomInjected": self.oom_injected,
                     "ioInjected": self.io_injected,
                     "budgetFaultsInjected": self.budget_faults_injected,
-                    "cancelsInjected": self.cancels_injected}
+                    "cancelsInjected": self.cancels_injected,
+                    "tuningFaultsInjected": self.tuning_faults_injected}
 
 
 _INJECTOR: Optional[FaultInjector] = None
@@ -335,7 +362,13 @@ def _recover(conf, metrics, attempt: int, backoff_ms: int,
     a capture), so an OOM raised inside a capture may leave free cached
     blocks reserved: they are returned here, after the capture ended."""
     from spark_rapids_tpu_torch import memory
+    from spark_rapids_tpu_torch import trace as TR
     from spark_rapids_tpu_torch.exec.fused import release_stage_programs
+    from spark_rapids_tpu_torch.telemetry import triggers as TEL
+    TR.instant("retryOOM", attempt=attempt)
+    # the retry-storm trigger is evaluated here, at retry time, so a
+    # storm shows while it is happening
+    TEL.on_retry()
     t0 = time.perf_counter_ns()
     with suppress_injection():
         freed = release_stage_programs(everything=attempt > 1)
@@ -352,11 +385,17 @@ def _recover(conf, metrics, attempt: int, backoff_ms: int,
             # deadline
             from spark_rapids_tpu_torch.lifecycle import cancellable_sleep
             cancellable_sleep(delay / 1000.0, site="retryBackoff")
+    t1 = time.perf_counter_ns()
+    # a nested span over the retryBlockTime interval, so an analysis of
+    # exclusive times does not count it twice inside the operator's
+    qt = TR._ACTIVE
+    if qt is not None:
+        qt.add("retryBlock", t0, t1, attempt=attempt, freedBytes=freed)
     if metrics is not None:
         metrics.create(M.RETRY_COUNT).add(1)
         if freed:
             metrics.create(M.SPILL_BYTES_ON_RETRY).add(freed)
-        metrics.create(M.RETRY_BLOCK_TIME).add(time.perf_counter_ns() - t0)
+        metrics.create(M.RETRY_BLOCK_TIME).add(t1 - t0)
 
 
 def with_retry(fn: Callable[[], T], conf=None, metrics=None, *,
@@ -442,6 +481,8 @@ def _split_piece(b, split, metrics) -> Optional[list]:
         return None
     if metrics is not None:
         metrics.create(M.SPLIT_RETRY_COUNT).add(1)
+    from spark_rapids_tpu_torch import trace as TR
+    TR.instant("splitRetry", pieces=len(halves))
     return halves
 
 
@@ -471,6 +512,8 @@ def io_with_retry(fn: Callable[[], T], conf=None, metrics=None,
             attempt += 1
             if attempt > max_retries:
                 raise first_err
+            from spark_rapids_tpu_torch import trace as TR
+            TR.instant("ioRetry", path=path, attempt=attempt)
             if metrics is not None:
                 metrics.create(M.IO_RETRY_COUNT).add(1)
             t0 = time.perf_counter_ns()

@@ -24,9 +24,7 @@ response reports ``cancelled``: how many tokens newly cancelled),
 the frame PAYLOAD with ``contentType`` in the header — clients poll
 it, `tools top` and Prometheus scrapers both ride this verb),
 ``ping``, ``shutdown`` (graceful drain: in-flight queries finish
-within the drain deadline, stragglers are cancelled). The port's server
-answers ``metrics`` with ``status: error`` until the observability slice
-(ROADMAP A11b) brings its Prometheus exporter.
+within the drain deadline, stragglers are cancelled).
 Responses carry ``status``
 (ok | rejected | cancelled | quarantined | error) plus op-specific
 fields; ``sql`` responses attach ``rows``, ``queueWaitMs``, ``execMs``,

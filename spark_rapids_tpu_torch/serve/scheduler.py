@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 from spark_rapids_tpu_torch.conf import (SERVE_MAX_CONCURRENT,
                                          SERVE_MAX_PER_TENANT,
                                          SERVE_MAX_QUEUED, TorchConf)
+from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
 
 # bounded reservoir per tenant: enough for stable p99 at bench scale
 # without unbounded growth on a long-lived server
@@ -79,8 +80,7 @@ class AdmissionController:
         self._in_flight = 0
         self._tenant_flight: Dict[str, int] = {}
         self._shutdown = False
-        # tuning-controller actuators (the controller itself comes with
-        # the observability slice, ROADMAP A11b): per-signature
+        # TuningController actuators (telemetry/tuning.py): per-signature
         # concurrency ceilings (digest -> limit; a retrySpill action
         # narrows a thrashing shape) and per-tenant admission weights
         # (weight scales the per-tenant cap; an sloBurn action widens
@@ -219,8 +219,9 @@ class AdmissionController:
             self._seq += 1
             tk = _Ticket(self._seq, tenant, signature)
             self._queue.append(tk)
-            # the JAX package's telemetry queue-saturation trigger fires
-            # here; triggers come with the observability slice (A11b)
+            # telemetry queue-saturation trigger (enqueue only: the
+            # bundle writer runs on its own thread, never under _cv)
+            _telemetry.on_admission(len(self._queue), self.max_queued)
             # maxQueued bounds WAITING queries: a ticket that can run
             # immediately is admitted regardless (maxQueued=0 means
             # "reject whenever anything must wait", not "reject all")
@@ -275,7 +276,12 @@ class AdmissionController:
             waits = self._tenant_waits.setdefault(tenant, [])
             waits.append(wait)
             del waits[:-_RESERVOIR]
-        # (the JAX package records a serveQueueWait span here: A11b)
+        from spark_rapids_tpu_torch import trace as _trace
+        qt = _trace._ACTIVE
+        if qt is not None:
+            now = time.perf_counter_ns()
+            qt.add("serveQueueWait", now - int(wait * 1e9), now,
+                   tenant=tenant)
         return wait
 
     def bill_fused_member(self, tenant: str, wait_s: float) -> None:
@@ -293,6 +299,12 @@ class AdmissionController:
             waits = self._tenant_waits.setdefault(tenant, [])
             waits.append(max(0.0, wait_s))
             del waits[:-_RESERVOIR]
+        from spark_rapids_tpu_torch import trace as _trace
+        qt = _trace._ACTIVE
+        if qt is not None:
+            now = time.perf_counter_ns()
+            qt.add("serveQueueWait", now - int(max(0.0, wait_s) * 1e9),
+                   now, tenant=tenant)
 
     def bill_cache_hit(self, tenant: str) -> None:
         """Result-cache-hit accounting (docs/caching.md): a hit is

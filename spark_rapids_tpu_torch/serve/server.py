@@ -29,12 +29,18 @@ stage's CUDA graph as it always did. Each connection thread runs its
 query's device work on the thread's current stream, the default stream,
 so two queries' stage-graph replays and kernels are ordered by it.
 
-Not ported yet (ROADMAP A11b, the observability slice): the trace
-flight recorder, the ``metrics`` verb and ``start_metrics_http``
-(Prometheus), the query history and its warm start, SLO burn tracking
-and the tuning controller. The ``metrics`` verb answers
-``status: error`` naming A11b; ``start_metrics_http`` raises; a conf
-that sets an A11b key raises at construction.
+Observability (the JAX package's): server sessions run the trace flight
+recorder (``trace.mode=ring``) unless the operator set a trace key; the
+server opens each query's trace scope before admission, so the queue
+wait is in it. The ``metrics`` and ``stats-stream`` verbs and
+``start_metrics_http`` (on 127.0.0.1 unless told otherwise) answer the
+Prometheus exposition (``telemetry/prometheus.py``). With
+``telemetry.history.dir`` the server warm-starts the lifecycle layer
+from the query history at ``start()``, writes the history records of
+the queries its sessions never ran (cancelled while queued, result-cache
+hits), tracks per-tenant SLO burn (``serve.slo.*``) and, with
+``serve.tuning.enabled``, runs the tuning controller
+(``telemetry/tuning.py``) over its admission.
 """
 
 from __future__ import annotations
@@ -50,17 +56,12 @@ from spark_rapids_tpu_torch.conf import (RESULT_CACHE_ENABLED,
                                          SERVE_BATCH_FUSION_ENABLED,
                                          SERVE_BATCH_FUSION_MAX_BATCH,
                                          SERVE_BATCH_FUSION_WINDOW_MS,
-                                         SERVE_HOST, SERVE_PORT, TorchConf,
-                                         refuse_unported)
+                                         SERVE_HOST, SERVE_PORT,
+                                         SERVE_TUNING_ENABLED, TorchConf)
 from spark_rapids_tpu_torch.serve import protocol
 from spark_rapids_tpu_torch.serve.scheduler import (AdmissionController,
                                                     QueryRejected,
                                                     percentile)
-
-# what the A11b surfaces answer until the observability slice ports them
-A11B_ERROR = ("not ported yet to spark_rapids_tpu_torch: the metrics "
-              "verb and its Prometheus exporter come with the "
-              "observability slice (ROADMAP A11b)")
 
 _LAT_RESERVOIR = 4096
 
@@ -84,15 +85,20 @@ class QueryServer:
                  device=None):
         from spark_rapids_tpu_torch.sql.session import resolve_device
         base = dict(conf or {})
-        refuse_unported(base)
         # the card unless the caller asks for the CPU: resolved once, so
         # a server without a card raises here, before it listens
         self.device = resolve_device(device)
         # serving default: cross-query plan caching ON unless the
         # operator explicitly disabled it
         base.setdefault("spark.rapids.sql.planCache.enabled", "true")
-        # (the JAX package also turns its trace flight recorder on here;
-        # that comes with the observability slice, A11b)
+        # serving default: the flight recorder is on (trace.mode=ring),
+        # bounded memory at one None check a hook, so a slow-query
+        # trigger can dump the query nobody instrumented beforehand. An
+        # operator who set either trace key keeps exactly that choice
+        if "spark.rapids.sql.trace.enabled" not in base \
+                and "spark.rapids.sql.trace.mode" not in base:
+            base["spark.rapids.sql.trace.enabled"] = "true"
+            base["spark.rapids.sql.trace.mode"] = "ring"
         self._base_conf = base
         cobj = TorchConf(base)
         self._conf_obj = cobj
@@ -127,6 +133,7 @@ class QueryServer:
         self._tenant_locks: Dict[str, threading.Lock] = {}
         self._views: Dict[str, Tuple[str, str]] = {}  # name -> (fmt, path)
         self._sock: Optional[socket.socket] = None
+        self._metrics_httpd = None
         self._accept_thread: Optional[threading.Thread] = None
         self._conn_threads: List[threading.Thread] = []
         self._conns: List[socket.socket] = []
@@ -151,12 +158,34 @@ class QueryServer:
         from spark_rapids_tpu_torch.lifecycle import StuckQueryWatchdog
         self._watchdog = StuckQueryWatchdog(cobj)
         self._disco_thread: Optional[threading.Thread] = None
+        # the persistent query history (the cross-run memory the
+        # warm start reads) and the per-tenant SLO burn tracker
+        from spark_rapids_tpu_torch.telemetry import history as _history
+        self._history = _history.store_for(cobj)
+        self._slo = _history.SloTracker(cobj)
+        self.warm_start_summary: Dict = {"enabled": False}
+        # history-driven feedback control: never constructed when off
+        self._tuning = None
+        if self._history is not None and \
+                bool(cobj.get(SERVE_TUNING_ENABLED)):
+            from spark_rapids_tpu_torch.telemetry.tuning import \
+                TuningController
+            self._tuning = TuningController(
+                cobj, admission=self._admission, slo=self._slo,
+                session_for=self._session,
+                set_conf=self._set_conf_key,
+                get_conf=self._get_conf_key)
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "QueryServer":
         """Bind + listen + start the accept loop; ``self.port`` holds
         the bound port (ephemeral when configured 0)."""
+        # warm start: seed the watchdog's per-signature walls and the
+        # quarantine streaks from the history before serving, so the
+        # lifecycle layer works from query one after a restart
+        from spark_rapids_tpu_torch.telemetry import history as _history
+        self.warm_start_summary = _history.warm_start(self._conf_obj)
         sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         sock.bind((self.host, self.port))
@@ -173,10 +202,19 @@ class QueryServer:
             target=self._accept_loop, name="torch-serve-accept",
             daemon=True)
         self._accept_thread.start()
+        # slow-query bundles written while this server is up embed a
+        # snapshot of its stats
+        from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
+        _telemetry.set_stats_provider(self.stats)
         # lifecycle threads: the stuck-query watchdog (conf-gated) and
         # the client-disconnect monitor (always on — a vanished client
         # must not pin its admission slot/permit/ledger)
         self._watchdog.start()
+        # feedback control: re-apply persisted actions, replay the
+        # pre-warm ledger (views registered before start() are visible
+        # to the replay sessions), scan once, then tick periodically
+        if self._tuning is not None:
+            self._tuning.start()
         self._disco_thread = threading.Thread(
             target=self._disconnect_monitor, name="torch-serve-disco",
             daemon=True)
@@ -185,8 +223,13 @@ class QueryServer:
 
     def start_metrics_http(self, port: int,
                            host: Optional[str] = None) -> int:
-        """The HTTP twin of the `metrics` verb: not ported yet."""
-        raise NotImplementedError(A11B_ERROR)
+        """The HTTP twin of the `metrics` verb: GET /metrics returns the
+        same Prometheus text. It listens on 127.0.0.1 unless ``host``
+        says otherwise; returns the bound port (ephemeral when 0)."""
+        from spark_rapids_tpu_torch.telemetry import prometheus as _prom
+        self._metrics_httpd = _prom.serve_http_metrics(
+            self.metrics_text, port, host=host or "127.0.0.1")
+        return self._metrics_httpd.server_address[1]
 
     def shutdown(self, timeout: float = 60.0) -> bool:
         """Graceful drain (docs/serving.md "Query lifecycle"): stop
@@ -200,6 +243,17 @@ class QueryServer:
         self._stopping.set()
         self._admission.begin_shutdown()
         self._watchdog.stop()
+        if self._tuning is not None:
+            self._tuning.stop()
+        from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
+        _telemetry.set_stats_provider(None)
+        if self._metrics_httpd is not None:
+            try:
+                self._metrics_httpd.shutdown()
+                self._metrics_httpd.server_close()
+            except Exception:
+                pass
+            self._metrics_httpd = None
         if self._sock is not None:
             try:
                 self._sock.close()
@@ -342,6 +396,27 @@ class QueryServer:
                                       if x.is_alive() or x is t]
             t.start()
 
+    # -- tuning conf hooks -------------------------------------------------
+
+    def _get_conf_key(self, key: str):
+        """Current server-wide value of a conf knob (None = unset)."""
+        return self._base_conf.get(key)
+
+    def _set_conf_key(self, key: str, value) -> None:
+        """Server-wide conf write for TuningController actions: the base
+        conf covers future sessions, live sessions update in place."""
+        with self._sessions_lock:
+            if value is None:
+                self._base_conf.pop(key, None)
+            else:
+                self._base_conf[key] = str(value)
+            sessions = list(self._sessions.values())
+        for c in [self._conf_obj] + [x.conf_obj for x in sessions]:
+            if value is None:
+                c.settings.pop(key, None)
+            else:
+                c.set(key, str(value))
+
     def _handle_conn(self, conn: socket.socket) -> None:
         try:
             while True:
@@ -360,9 +435,14 @@ class QueryServer:
                     protocol.send_msg(conn, {"status": "ok",
                                              "stats": self.stats()})
                 elif op in ("metrics", "stats-stream"):
-                    # the Prometheus exposition comes with A11b
-                    protocol.send_msg(conn, {"status": "error",
-                                             "error": A11B_ERROR})
+                    # the Prometheus text exposition as the frame payload
+                    # (one scrape a request; `stats-stream` is the
+                    # poll-me alias `top` uses)
+                    protocol.send_msg(
+                        conn,
+                        {"status": "ok",
+                         "contentType": "text/plain; version=0.0.4"},
+                        self.metrics_text().encode("utf-8"))
                 elif op == "ping":
                     protocol.send_msg(conn, {"status": "ok"})
                 elif op == "shutdown":
@@ -514,19 +594,37 @@ class QueryServer:
         except Exception as e:  # noqa: BLE001 - reported to the client
             protocol.send_msg(conn, {"status": "error", "error": str(e)})
 
-    def _cancelled_queued(self, conn, tenant: str, e,
+    def _cancelled_queued(self, conn, tenant: str, e, session, token,
                           where: str = "queued") -> None:
         """A query cancelled (or past its deadline) before it ran: no
-        slot held, no session run. (The JAX package's server writes the
-        query-history record here: A11b.)"""
+        slot held, and the session never started, so the server writes
+        its query-history record."""
+        from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch.telemetry import history as _h
         self._count_cancel(e.reason)
+        _h.record_query_close(
+            session.conf_obj,
+            status=(_h.STATUS_TIMED_OUT if e.reason == LC.REASON_DEADLINE
+                    else _h.STATUS_CANCELLED),
+            reason=e.reason, tenant=tenant, query_id=token.query_id,
+            queue_wait_s=token.elapsed())
         protocol.send_msg(conn, {
             "status": "cancelled", "tenant": tenant,
             "reason": e.reason, "where": where})
 
+    @staticmethod
+    def _end_trace(session, trace_tok: List, **kwargs) -> None:
+        """Close the request's trace scope once (``trace_tok`` holds the
+        ``begin_query`` token; it is None afterwards)."""
+        from spark_rapids_tpu_torch import trace as TR
+        tok, trace_tok[0] = trace_tok[0], None
+        if tok is not None:
+            TR.end_query(session.conf_obj, tok, **kwargs)
+
     def _handle_sql(self, conn: socket.socket, header: Dict) -> None:
         from spark_rapids_tpu_torch import lifecycle as LC
         from spark_rapids_tpu_torch import plan_cache as PC
+        from spark_rapids_tpu_torch import trace as TR
         tenant = str(header.get("tenant") or "default")
         sql = header.get("sql") or ""
         t_req = time.perf_counter()
@@ -543,22 +641,34 @@ class QueryServer:
         if timeout_ms > 0:
             token.set_deadline(timeout_ms / 1000.0)
         self._track(conn, token)
+        # the trace scope opens BEFORE admission, so the queue wait (the
+        # scheduler's serveQueueWait span) is inside it; execute_plan's
+        # own scope folds in as a nested one
+        trace_tok = [TR.begin_query(session.conf_obj)]
+        sig_hint = None
         try:
             # result cache: consulted BEFORE admission AND before fusion:
             # a hit serves the stored Arrow payload with no device work,
             # no queue wait and no admission slot
             if self._result_cache is not None and \
-                    self._try_result_cache(conn, tenant, sql, token, t_req):
+                    self._try_result_cache(conn, tenant, sql, session,
+                                           token, trace_tok, t_req):
                 return
             if self._fusion is not None:
                 # batch fusion: join/wait on a same-signature batch
                 # INSTEAD of acquiring a per-query slot; the batch's raced
                 # executor acquires the one slot for everyone
                 self._handle_sql_fused(conn, tenant, sql, session, token,
-                                       t_req)
+                                       trace_tok, t_req)
                 return
+            # per-signature admission shaping: the signature resolves
+            # only at planning, so the tuning controller supplies a hint
+            # from shapes it has seen
+            sig_hint = (self._tuning.signature_hint(sql)
+                        if self._tuning is not None else None)
             try:
-                wait_s = self._admission.acquire(tenant, token=token)
+                wait_s = self._admission.acquire(tenant, token=token,
+                                                 signature=sig_hint)
                 # the watchdog measures RUNNING time from here
                 token.mark_admitted()
             except QueryRejected as e:
@@ -569,19 +679,27 @@ class QueryServer:
             except LC.TorchQueryCancelled as e:
                 # cancelled / past its deadline while still QUEUED: the
                 # slot was never acquired, nothing to release
-                self._cancelled_queued(conn, tenant, e)
+                self._end_trace(session, trace_tok, error=True)
+                self._cancelled_queued(conn, tenant, e, session, token)
                 return
             try:
                 t0 = time.perf_counter()
                 with LC.token_scope(token):
                     batch = session.sql(sql)._execute()
                 exec_s = time.perf_counter() - t0
+                self._end_trace(session, trace_tok, wall_s=exec_s,
+                                rows=batch.num_rows)
                 payload = protocol.batch_to_ipc(batch)
                 # this thread planned and executed: its signature and
                 # pre-execution fingerprints admit the exact payload
                 # bytes the client is about to receive
                 self._maybe_cache_result(session, sql, payload,
                                          batch.num_rows)
+                if self._tuning is not None:
+                    # sql <-> signature learning: feeds the admission
+                    # hint above and the pre-warm ledger's replay
+                    self._tuning.observe(
+                        sql, session.thread_plan_signature(), tenant)
                 resp = {
                     "status": "ok",
                     "tenant": tenant,
@@ -595,21 +713,29 @@ class QueryServer:
                 }
                 if token.query_id is not None:
                     resp["queryId"] = token.query_id
+                ppath = session.thread_profile_path()
+                if ppath:
+                    resp["profilePath"] = ppath
                 protocol.send_msg(conn, resp, payload)
                 # counted AFTER the successful send: a query whose
                 # response delivery fails must not land in both ok/err
                 with self._lat_lock:
                     self.queries_ok += 1
                 self._record_latency(tenant, time.perf_counter() - t_req)
+                # SLO burn: the finished history record landed during
+                # execute, so the window now includes this query
+                self._slo.on_query_close(tenant)
             except Exception as e:  # noqa: BLE001 - reported to client
+                self._end_trace(session, trace_tok, error=True)
                 self._send_failure(conn, tenant, e, wait_s)
             finally:
-                self._admission.release(tenant)
+                self._admission.release(tenant, signature=sig_hint)
         finally:
+            self._end_trace(session, trace_tok, error=True)
             self._untrack(conn, token)
 
-    def _try_result_cache(self, conn, tenant: str, sql: str, token,
-                          t_req: float) -> bool:
+    def _try_result_cache(self, conn, tenant: str, sql: str, session,
+                          token, trace_tok: List, t_req: float) -> bool:
         """Serve ``sql`` from the result cache when a fingerprint-valid
         entry exists. True when the request was fully handled here (an
         identical payload served with no device work, no queue wait and
@@ -617,6 +743,8 @@ class QueryServer:
         was cancelled at the pre-serve checkpoint; False falls through to
         admission and execution."""
         from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch import trace as TR
+        from spark_rapids_tpu_torch.telemetry import history as _h
         entry = self._result_cache.lookup(sql)
         if entry is None:
             return False
@@ -625,29 +753,44 @@ class QueryServer:
             # its deadline) between receipt and the probe returns cleanly
             LC.checkpoint_token(token, "admission")
         except LC.TorchQueryCancelled as e:
-            self._cancelled_queued(conn, tenant, e, where="cached")
+            self._end_trace(session, trace_tok, error=True)
+            self._cancelled_queued(conn, tenant, e, session, token,
+                                   where="cached")
             return True
-        # a real admitted query on the tenant's ledger, served off the
-        # cache: billed with a ZERO queue wait, no slot taken
-        self._admission.bill_cache_hit(tenant)
-        exec_s = time.perf_counter() - t_req
-        resp = {
-            "status": "ok",
-            "tenant": tenant,
-            "rows": entry.rows,
-            "queueWaitMs": 0.0,
-            "execMs": round(exec_s * 1e3, 3),
-            # the entry exists because this shape planned and executed
-            # before; no planning happened at all
-            "planCacheHit": True,
-            "resultCacheHit": True,
-        }
-        if token.query_id is not None:
-            resp["queryId"] = token.query_id
-        protocol.send_msg(conn, resp, entry.payload)
+        with TR.span("resultCacheHit", tenant=tenant,
+                     signature=entry.signature, rows=entry.rows,
+                     bytes=len(entry.payload)):
+            # a real admitted query on the tenant's ledger, served off
+            # the cache: billed with a ZERO queue wait, no slot taken
+            self._admission.bill_cache_hit(tenant)
+            exec_s = time.perf_counter() - t_req
+            resp = {
+                "status": "ok",
+                "tenant": tenant,
+                "rows": entry.rows,
+                "queueWaitMs": 0.0,
+                "execMs": round(exec_s * 1e3, 3),
+                # the entry exists because this shape planned and
+                # executed before; no planning happened at all
+                "planCacheHit": True,
+                "resultCacheHit": True,
+            }
+            if token.query_id is not None:
+                resp["queryId"] = token.query_id
+            protocol.send_msg(conn, resp, entry.payload)
+        self._end_trace(session, trace_tok, wall_s=exec_s, rows=entry.rows)
         with self._lat_lock:
             self.queries_ok += 1
         self._record_latency(tenant, time.perf_counter() - t_req)
+        # the session never ran, so the server writes the history
+        # record; resultCacheHit keeps the near-zero wall out of the
+        # doctor's baselines and the SLO windows
+        _h.record_query_close(
+            session.conf_obj, status=_h.STATUS_FINISHED,
+            signature=entry.signature, tenant=tenant,
+            query_id=token.query_id, wall_s=exec_s, rows=entry.rows,
+            result_cache_hit=True)
+        self._slo.on_query_close(tenant)
         return True
 
     def _maybe_cache_result(self, session, sql: str, payload,
@@ -663,7 +806,7 @@ class QueryServer:
             RC.current_execution_fingerprints(), payload, rows)
 
     def _handle_sql_fused(self, conn, tenant: str, sql: str, session,
-                          token, t_req: float) -> None:
+                          token, trace_tok: List, t_req: float) -> None:
         """The batch-fusion twin of ``_handle_sql``'s admission and
         execute seam. This member joins its fusion batch instead of
         taking an admission slot; the batch's raced executor acquires
@@ -697,11 +840,13 @@ class QueryServer:
         except LC.TorchQueryCancelled as e:
             # cancelled / past its deadline while waiting on the batch:
             # the member is EVICTED, the batch runs on without it
-            self._cancelled_queued(conn, tenant, e)
+            self._end_trace(session, trace_tok, error=True)
+            self._cancelled_queued(conn, tenant, e, session, token)
             return
         wait_s = member.queue_wait_s
         err = member.error
         if err is not None:
+            self._end_trace(session, trace_tok, error=True)
             self._send_failure(conn, tenant, err, wait_s)
             return
         batch = member.result
@@ -715,6 +860,8 @@ class QueryServer:
                 "error": "fused batch executor failed"})
             return
         exec_s = max(0.0, time.perf_counter() - t_req - wait_s)
+        self._end_trace(session, trace_tok, wall_s=exec_s,
+                        rows=batch.num_rows)
         payload = protocol.batch_to_ipc(batch)
         if role == "execute" and member.fused_size == 1:
             # only a size-1 executor ran exactly its OWN sql on this
@@ -722,6 +869,11 @@ class QueryServer:
             # its own; multi-member batches skip population
             self._maybe_cache_result(session, sql, payload,
                                      batch.num_rows)
+            if self._tuning is not None:
+                # sql <-> signature learning (the same thread-locality
+                # constraint as the result-cache capture)
+                self._tuning.observe(
+                    sql, session.thread_plan_signature(), tenant)
         resp = {
             "status": "ok",
             "tenant": tenant,
@@ -738,10 +890,14 @@ class QueryServer:
             resp["fusedWith"] = member.fused_size
         if token.query_id is not None:
             resp["queryId"] = token.query_id
+        ppath = session.thread_profile_path()
+        if ppath:
+            resp["profilePath"] = ppath
         protocol.send_msg(conn, resp, payload)
         with self._lat_lock:
             self.queries_ok += 1
         self._record_latency(tenant, time.perf_counter() - t_req)
+        self._slo.on_query_close(tenant)
 
     def _send_failure(self, conn, tenant: str, err: BaseException,
                       wait_s: float) -> None:
@@ -780,20 +936,26 @@ class QueryServer:
     # -- observability -----------------------------------------------------
 
     def metrics_text(self) -> str:
-        """The Prometheus exposition: not ported yet (A11b)."""
-        raise NotImplementedError(A11B_ERROR)
+        """The Prometheus exposition of this server's stats plus the
+        process registries (the `metrics` verb and the HTTP twin share
+        it)."""
+        from spark_rapids_tpu_torch.telemetry import prometheus as _prom
+        return _prom.render_prometheus(server_stats=self.stats())
 
     def stats(self) -> Dict:
         """Server metrics, under the JAX package's keys: admission
         counters and per-tenant queue-wait/latency percentiles, the
         plan and stage cache hit rates, the store's per-tenant ledger
-        (``tenantsHBM``: device bytes), the lifecycle counters, batch
-        fusion and the serve caches, and the semaphore (``semaphore``,
-        a port addition: permits and ``inUse``)."""
+        (``tenantsHBM``: device bytes), the lifecycle counters, the
+        telemetry triggers, batch fusion and the serve caches, the query
+        history with its warm start, SLO burn and the tuning controller
+        when configured, and the semaphore (``semaphore``, a port
+        addition: permits and ``inUse``)."""
         from spark_rapids_tpu_torch import lifecycle as LC
         from spark_rapids_tpu_torch import memory
         from spark_rapids_tpu_torch import resource
         from spark_rapids_tpu_torch.jit_cache import cache_stats
+        from spark_rapids_tpu_torch.telemetry import triggers as _triggers
         adm = self._admission.stats()
         with self._lat_lock:
             for t, lat in self._tenant_lat.items():
@@ -809,6 +971,7 @@ class QueryServer:
             ok, err = self.queries_ok, self.queries_err
         uptime = max(1e-9, time.perf_counter() - self._started)
         sem = resource._SEMAPHORE
+        tstats = _triggers.engine().stats()
         out = {
             "host": self.host,
             "port": self.port,
@@ -828,6 +991,11 @@ class QueryServer:
                 "watchdogCancelled": self._watchdog.cancelled,
                 **LC.lifecycle_stats(),
             },
+            "telemetry": {
+                "triggersFired": tstats["fired"],
+                "triggersRateLimited": tstats["rateLimited"],
+                "bundlesPruned": tstats["pruned"],
+            },
             "semaphore": ({"permits": sem.permits, "inUse": sem.in_use}
                           if sem is not None else None),
         }
@@ -842,4 +1010,11 @@ class QueryServer:
             cache["subplan"] = sp
         if cache:
             out["cache"] = cache
+        if self._history is not None:
+            out["history"] = {**self._history.stats(),
+                              "warmStart": self.warm_start_summary}
+        if self._slo.enabled:
+            out["slo"] = self._slo.evaluate()
+        if self._tuning is not None:
+            out["tuning"] = self._tuning.stats()
         return out

@@ -37,10 +37,15 @@ query's signature up in the cross-query plan cache
 ``execute_plan`` runs under the calling thread's lifecycle token: a
 cancelled query closes its plan's handles and returns its permit, a
 quarantined signature fails before touching the device, and each
-finished query's wall feeds its signature's history. The trace, profile,
-event-log, telemetry trigger and query-history hooks of the JAX
-package's ``execute_plan`` come with the observability slice (ROADMAP
-A11b).
+finished query's wall feeds its signature's history. Around each query
+``execute_plan`` opens and closes its span trace
+(``spark.rapids.sql.trace.*``) and, once it ends, writes its profile
+(``profile.*``), its event-log line (``eventLog.dir``), runs the
+telemetry triggers' query-close check and appends its query-history
+record (``telemetry.history.dir``), as the JAX package's does; a
+cancelled, quarantined or failed query writes its event-log line and
+history record too. A session that sets a ``telemetry.*`` key arms the
+process trigger engine.
 
 The device is an explicit ``torch.device`` threaded through every
 operator. It is the CUDA card unless the caller asks for the CPU
@@ -100,9 +105,7 @@ class TorchSparkSession:
 
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device: Union[None, str, torch.device] = None):
-        from spark_rapids_tpu_torch.conf import (SERVE_TENANT_ID,
-                                                 refuse_unported)
-        refuse_unported(conf or {})
+        from spark_rapids_tpu_torch.conf import SERVE_TENANT_ID
         self.conf_obj = TorchConf(conf)
         self.device = resolve_device(device)
         # the serving tenant this session runs for (None outside serving)
@@ -113,6 +116,12 @@ class TorchSparkSession:
         # terminal outcomes other than success, by status
         self.terminal_counts: Dict[str, int] = {}
         self._terminal_lock = threading.Lock()
+        # a session that sets any spark.rapids.sql.telemetry.* key arms
+        # the process trigger engine's conf-less hooks (store watermark,
+        # admission saturation, retry storm); others never disarm it
+        from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
+        _telemetry.configure(self.conf_obj)
+        self.last_profile_path: Optional[str] = None
         self.conf = RuntimeConfApi(self.conf_obj)
         self.catalog_views: Dict[str, L.LogicalPlan] = {}
         self.last_plan = None  # the executed physical plan, for tests
@@ -356,24 +365,37 @@ class TorchSparkSession:
 
         from spark_rapids_tpu_torch import lifecycle as LC
         from spark_rapids_tpu_torch import memory as _mem
+        from spark_rapids_tpu_torch import profile as PROF
         from spark_rapids_tpu_torch import retry as _retry
+        from spark_rapids_tpu_torch import trace as TR
         from spark_rapids_tpu_torch.conf import (RESULT_CACHE_ENABLED,
                                                  SERVE_QUARANTINE_THRESHOLD,
                                                  SUBPLAN_CACHE_ENABLED,
                                                  TASK_PARALLELISM)
         from spark_rapids_tpu_torch.overrides import has_device_op
         from spark_rapids_tpu_torch.serve import result_cache as _RC
+        # a profile's memory section covers this query: the store's
+        # watermarks start again here (concurrent queries still share the
+        # process store, as in the JAX package)
+        if bool(self.conf_obj.get(PROF.PROFILE_ENABLED)):
+            _mem.reset_store_peaks()
         # the injector exists before the first checkpoint, so a
         # site:cancel schedule counts from the query's start
         _retry.get_fault_injector(self.conf_obj)
         quar_thr = int(self.conf_obj.get(SERVE_QUARANTINE_THRESHOLD))
         sig = None
         physical = None
+        report = None
+        t_begin = _time.perf_counter()
+        # the trace opens before planning, so stage captures and plan
+        # rewrites are in it; a nested or concurrent query folds in
+        tok = TR.begin_query(self.conf_obj)
         try:
             physical = self.plan_physical(plan, use_plan_cache=True)
             self.last_plan = physical
             self._tls.last_plan = physical
             sig = self.thread_plan_signature()
+            report = self.thread_rewrite_report()
             if quar_thr > 0 and sig is not None and LC.is_quarantined(sig):
                 # fail before touching the device: the signature already
                 # failed quar_thr consecutive times
@@ -400,38 +422,145 @@ class TorchSparkSession:
                 result = physical.execute_collect(tasks)
             wall_s = _time.perf_counter() - t0
         except LC.TorchQueryCancelled as e:
+            TR.end_query(self.conf_obj, tok, error=True)
             # never counts toward quarantine: not a runtime failure
             self._record_terminal(
                 "timed-out" if e.reason == LC.REASON_DEADLINE
-                else "cancelled")
+                else "cancelled", e.reason, physical, sig,
+                _time.perf_counter() - t_begin)
             raise
         except LC.TorchQueryQuarantined:
-            self._record_terminal("quarantined")
+            TR.end_query(self.conf_obj, tok, error=True)
+            self._record_terminal("quarantined", None, physical, sig,
+                                  _time.perf_counter() - t_begin)
             raise  # never ran: neither a failure nor a success
         except BaseException:
+            TR.end_query(self.conf_obj, tok, error=True)
             if quar_thr > 0 and sig is not None:
                 LC.record_runtime_failure(sig, quar_thr)
-            self._record_terminal("failed")
+            self._record_terminal("failed", None, physical, sig,
+                                  _time.perf_counter() - t_begin)
             raise
         finally:
             # a finished, failed or cancelled query's device memory frees
             # now, not at plan GC
             _mem.release_plan_handles(physical)
+        trace_path = TR.end_query(self.conf_obj, tok, wall_s=wall_s,
+                                  rows=result.num_rows)
         if sig is not None:
             # the watchdog's wall history; a success clears the streak
             LC.record_wall(sig, wall_s)
             if quar_thr > 0:
                 LC.record_success(sig)
+        self._observe_close(physical, report, sig, wall_s,
+                            result.num_rows, trace_path)
         return result
 
-    def _record_terminal(self, status: str) -> None:
+    def _observe_close(self, physical, report, sig, wall_s: float,
+                       rows: int, trace_path: Optional[str]) -> None:
+        """The sinks of a finished query, in the JAX package's order: the
+        profile, the event-log line (one query id for both), the
+        telemetry triggers' query-close check (after the profile, so a
+        bundle can name it), then the query-history record."""
+        from spark_rapids_tpu_torch import event_log
+        from spark_rapids_tpu_torch import memory as _mem
+        from spark_rapids_tpu_torch import profile as PROF
+        from spark_rapids_tpu_torch.conf import (EVENT_LOG_DIR,
+                                                 TELEMETRY_HISTORY_DIR)
+        from spark_rapids_tpu_torch.telemetry import history as _history
+        from spark_rapids_tpu_torch.telemetry import triggers as _telemetry
+        log_dir = str(self.conf_obj.get(EVENT_LOG_DIR))
+        profiling = bool(self.conf_obj.get(PROF.PROFILE_ENABLED))
+        history_on = bool(str(
+            self.conf_obj.get(TELEMETRY_HISTORY_DIR) or ""))
+        qid = event_log.next_query_id() \
+            if (log_dir or profiling or history_on) else None
+        self.last_profile_path = PROF.write_profile(
+            self.conf_obj, physical, report, wall_s, rows, query_id=qid)
+        self._tls.profile_path = self.last_profile_path
+        if log_dir:
+            store = _mem._STORE
+            event_log.write_event(
+                log_dir, id(self) & 0xFFFF, physical, report, wall_s, rows,
+                store.stats() if store is not None else None,
+                conf=self.conf_obj,
+                memory_by_op=(store.owner_stats()
+                              if store is not None else None),
+                query_id=qid, tenant=self.tenant)
+        _telemetry.on_query_end(
+            self.conf_obj, wall_s, plan=physical, tenant=self.tenant,
+            query_id=qid, profile_path=self.thread_profile_path())
+        # the wire queryId wins when the server supplied one: the id the
+        # client saw must resolve in the history
+        wire_qid = self._wire_query_id()
+        _history.record_query_close(
+            self.conf_obj, status=_history.STATUS_FINISHED,
+            signature=sig, tenant=self.tenant,
+            query_id=(wire_qid if wire_qid is not None else qid),
+            wall_s=wall_s, queue_wait_s=self._queue_wait(), rows=rows,
+            physical=physical, report=report,
+            profile_path=self.thread_profile_path(),
+            trace_path=trace_path)
+
+    @staticmethod
+    def _queue_wait() -> float:
+        """The calling thread's admission-queue wait (0 outside a served
+        query): the lifecycle token records admission time."""
+        from spark_rapids_tpu_torch import lifecycle as LC
+        tok = LC.current_token()
+        if tok is None or tok.admitted is None:
+            return 0.0
+        return max(0.0, tok.admitted - tok.started)
+
+    @staticmethod
+    def _wire_query_id():
+        from spark_rapids_tpu_torch import lifecycle as LC
+        tok = LC.current_token()
+        return tok.query_id if tok is not None else None
+
+    def thread_profile_path(self) -> Optional[str]:
+        """The profile written by the calling thread's last query on this
+        session (None when none): race-free when the server's threads
+        share a tenant's session."""
+        return getattr(self._tls, "profile_path", None)
+
+    def _record_terminal(self, status: str, reason, physical, sig,
+                         wall_s: float) -> None:
         """Count one non-finished outcome (cancelled, timed-out,
-        quarantined, failed). The JAX package also writes it to its event
-        log and query history; those sinks come with the observability
-        slice (ROADMAP A11b)."""
+        quarantined, failed) and write it to the event log and the query
+        history, so the two agree on query outcomes. Never raises: the
+        original exception is already propagating."""
         with self._terminal_lock:
             self.terminal_counts[status] = \
                 self.terminal_counts.get(status, 0) + 1
+        try:
+            from spark_rapids_tpu_torch import event_log
+            from spark_rapids_tpu_torch import memory
+            from spark_rapids_tpu_torch.conf import (EVENT_LOG_DIR,
+                                                     TELEMETRY_HISTORY_DIR)
+            from spark_rapids_tpu_torch.telemetry import history as _history
+            log_dir = str(self.conf_obj.get(EVENT_LOG_DIR))
+            history_on = bool(str(
+                self.conf_obj.get(TELEMETRY_HISTORY_DIR) or ""))
+            # one id for both sinks; the wire queryId wins when the
+            # server supplied one
+            qid = self._wire_query_id()
+            if qid is None and (log_dir or history_on):
+                qid = event_log.next_query_id()
+            if log_dir:
+                store = memory._STORE
+                event_log.write_event(
+                    log_dir, id(self) & 0xFFFF, physical, None, wall_s, 0,
+                    store.stats() if store is not None else None,
+                    conf=self.conf_obj, tenant=self.tenant,
+                    query_id=qid, status=status, reason=reason)
+            _history.record_query_close(
+                self.conf_obj, status=status, reason=reason,
+                signature=sig, tenant=self.tenant, query_id=qid,
+                wall_s=wall_s, queue_wait_s=self._queue_wait(), rows=0,
+                physical=physical)
+        except Exception:
+            pass  # observability must not mask the real failure
 
     def explain_string(self, plan: L.LogicalPlan, physical=None) -> str:
         """The logical and physical plans, then the rewrite's placement:

@@ -166,6 +166,8 @@ def test_host_only_layout_decodes_without_a_launch(corpus, tmp_path):
     snap = scan.metrics.snapshot()
     # the host decode's walls beside the counters
     assert snap.pop("decodeTime") > 0 and snap.pop("convertTime") > 0
+    # the device planner's host wall, which found nothing to decode
+    assert snap.pop("deviceDecodeTime") > 0
     assert snap == {"deviceFallbackUnits": 1}
     assert KR.LAUNCHES["decodeFused"] == 0
 

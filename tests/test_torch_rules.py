@@ -212,3 +212,43 @@ def test_table_slots_power_of_two():
     small = TorchConf({"spark.rapids.sql.kernel.groupbyHash.tableSlots":
                        "100"})
     assert KR.table_slots(small, 786432) == 128
+
+
+def _recorded_kinds():
+    """(span kinds, instant kinds) recorded as string literals anywhere
+    in the port: ``span("k")``, ``dispatch_end`` (a ``kernelDispatch``),
+    ``qt.add("k", ...)``, ``instant("k")`` and ``qt.mark("k")``."""
+    spans, instants = set(), set()
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", "")
+            first = node.args[0] if node.args else None
+            lit = first.value if isinstance(first, ast.Constant) \
+                and isinstance(first.value, str) else None
+            if name == "dispatch_end":
+                spans.add("kernelDispatch")
+            elif lit is None:
+                continue
+            elif name == "span" or (name == "add" and len(node.args) >= 3):
+                spans.add(lit)
+            elif name in ("instant", "mark"):
+                instants.add(lit)
+    return spans, instants
+
+
+def test_every_recorded_span_and_instant_kind_is_catalogued():
+    """The counterpart of the JAX package's ``span-kind`` lint rule: a
+    literal kind recorded in the port is in ``SPAN_CATALOG`` or
+    ``INSTANT_CATALOG``."""
+    from spark_rapids_tpu_torch import trace as TR
+    spans, instants = _recorded_kinds()
+    assert {"kernelDispatch", "compile", "retryBlock", "semaphoreWait",
+            "serveQueueWait"} <= spans
+    assert {"retryOOM", "queryCancelled", "telemetryTrigger"} <= instants
+    assert spans - set(TR.SPAN_CATALOG) == set()
+    assert instants - set(TR.INSTANT_CATALOG) == set()

@@ -7,19 +7,23 @@ once), the same admission outcomes (rejection at ``maxQueued``, the
 per-tenant cap), same-shape batch fusion (one batch, one slot, the same
 sizes), the wire in both directions (the JAX client against the port's
 server and the port's client against the JAX server), the stats verb's
-keys, clean shutdown, ``QueryServer()`` resolving to CUDA (raising
-here), the A11b keys refused, and the ``metrics`` verb's error."""
+keys (the telemetry, history, SLO and tuning sections included), clean
+shutdown, ``QueryServer()`` resolving to CUDA (raising here), the
+observability keys taking effect in a server and a session, and the
+``metrics`` verb and ``start_metrics_http`` answering the Prometheus
+exposition."""
 
 from __future__ import annotations
 
+import os
 import threading
+import urllib.request
 
 import pytest
 import torch
 
 from spark_rapids_tpu_torch.serve import QueryServer
-from spark_rapids_tpu_torch.serve.client import (ServeError,
-                                                 ServeRejected)
+from spark_rapids_tpu_torch.serve.client import ServeRejected
 from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
 from tests.torch_serve_support import (Q1S, Q3S, TIMEOUT, clients, in_thread,
@@ -226,18 +230,21 @@ def test_wire_in_both_directions(root, server_pkg, client_pkg):
             assert st["admission"]["tenants"]["w"]["admitted"] == 1
 
 
-def test_stats_keys_match_jax(root):
+def test_stats_keys_match_jax(root, tmp_path):
     keys = {}
     for pkg in PACKAGES:
-        with serving(pkg, root) as srv:
+        conf = {"spark.rapids.sql.telemetry.history.dir":
+                str(tmp_path / pkg),
+                "spark.rapids.sql.serve.slo.p99Ms": "60000",
+                "spark.rapids.sql.serve.tuning.enabled": "true"}
+        with serving(pkg, root, **conf) as srv:
             with clients()[pkg](srv.port, tenant="s", timeout=TIMEOUT) as c:
                 c.collect(Q1S)
                 keys[pkg] = c.stats()
-    # the JAX package's telemetry, history, SLO and tuning sections come
-    # with the observability slice (A11b)
-    a11b = {"telemetry", "history", "slo", "tuning"}
-    assert set(keys["jax"]) - a11b <= set(keys["port"])
-    for section in ("admission", "lifecycle"):
+    assert {"telemetry", "history", "slo", "tuning"} <= set(keys["jax"])
+    assert set(keys["jax"]) <= set(keys["port"])
+    for section in ("admission", "lifecycle", "telemetry", "history",
+                    "tuning"):
         assert set(keys["jax"][section]) <= set(keys["port"][section])
     assert keys["port"]["tenantsHBM"]["s"]["liveBytes"] == 0
     assert keys["port"]["semaphore"]["inUse"] == 0
@@ -253,13 +260,32 @@ def test_shutdown_drains_and_leaves_nothing(root):
 
 
 def test_metrics_verb_names_a11b(root):
-    with serving("port", root) as srv:
-        with clients()["port"](srv.port, timeout=TIMEOUT) as c:
-            with pytest.raises(ServeError, match="A11b"):
-                c.metrics()
-            assert c.ping()
-        with pytest.raises(NotImplementedError, match="A11b"):
-            srv.start_metrics_http(0)
+    """The ``metrics`` verb (refused before the observability slice)
+    answers the Prometheus exposition, as the JAX server's does, and
+    ``start_metrics_http`` serves the same families on the loopback."""
+    families = {}
+    for pkg in PACKAGES:
+        with serving(pkg, root) as srv:
+            with clients()[pkg](srv.port, tenant="m", timeout=TIMEOUT) as c:
+                c.collect(Q1S)
+                text = c.metrics()
+                assert c.ping()
+            families[pkg] = {line.split()[2] for line in text.splitlines()
+                             if line.startswith("# TYPE ")}
+            if pkg == "port":
+                hport = srv.start_metrics_http(0)
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{hport}/metrics",
+                        timeout=TIMEOUT) as r:
+                    scraped = r.read().decode()
+                assert "srt_queries_ok_total 1" in scraped
+                assert "srt_undescribed_metric_keys 0" in scraped
+    assert "srt_queries_ok_total" in families["port"]
+    assert "srt_kernel_dispatch_count_total" in families["port"]
+    # the server's and the process's families (the engine's metric
+    # families follow each package's own metric names)
+    from spark_rapids_tpu.telemetry.prometheus import SERVER_FAMILY_HELP
+    assert families["jax"] & set(SERVER_FAMILY_HELP) <= families["port"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
@@ -277,12 +303,42 @@ def test_server_without_device_needs_cuda():
     "spark.rapids.sql.telemetry.history.dir",
 ])
 @pytest.mark.parametrize("entry", ["server", "session"])
-def test_a11b_keys_raise(key, entry):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        if entry == "server":
-            QueryServer({key: "1"}, device="cpu")
-        else:
-            TorchSparkSession({key: "1"}, device="cpu")
+def test_a11b_keys_raise(key, entry, root, tmp_path):
+    """Each key of the observability slice (refused before it) now takes
+    the JAX package's effect, in a server and in a session."""
+    from spark_rapids_tpu_torch.telemetry import history as H
+    from spark_rapids_tpu_torch.telemetry import triggers as TRG
+    hist = str(tmp_path / "history")
+    value = {"spark.rapids.sql.serve.slo.p99Ms": "1",
+             "spark.rapids.sql.serve.slo.p99Ms.tenant1": "1",
+             "spark.rapids.sql.serve.tuning.enabled": "true",
+             "spark.rapids.sql.telemetry.dir": str(tmp_path / "tel"),
+             "spark.rapids.sql.telemetry.history.dir": hist}[key]
+    conf = {key: value, "spark.rapids.sql.telemetry.history.dir": hist}
+    tenant = "tenant1"
+    if entry == "server":
+        with serving("port", root, **conf) as srv:
+            with clients()["port"](srv.port, tenant=tenant,
+                                   timeout=TIMEOUT) as c:
+                c.collect(Q1S)
+                st = c.stats()
+        assert st["history"]["warmStart"]["enabled"]
+        if "slo" in key:
+            assert st["slo"][tenant]["objectiveP99Ms"] == 1
+        if "tuning" in key:
+            assert st["tuning"]["actionsApplied"] == 0
+    else:
+        s = TorchSparkSession(dict(conf, **{
+            "spark.rapids.sql.serve.tenantId": tenant}), device="cpu")
+        s.read.parquet(os.path.join(root, "lineitem")) \
+            .createOrReplaceTempView("lineitem")
+        s.sql(Q1S).collect()
+        if key == "spark.rapids.sql.telemetry.dir":
+            # a session that sets a telemetry key arms the trigger engine
+            assert TRG.engine().armed
+    recs = H.read_records(hist)
+    assert [r["status"] for r in recs] == ["finished"]
+    assert recs[0]["tenant"] == tenant
 
 
 def test_tenant_sessions_share_one_plan_cache(root):

@@ -188,7 +188,17 @@ def reset_state() -> None:
     from spark_rapids_tpu_torch import retry as R
     from spark_rapids_tpu_torch.plan_cache import PLAN_CACHE
     from spark_rapids_tpu_torch.serve import result_cache as RC
+    from spark_rapids_tpu.telemetry import history as JH
+    from spark_rapids_tpu.telemetry import triggers as JT
+    from spark_rapids_tpu_torch import trace as TR
+    from spark_rapids_tpu_torch.telemetry import history as H
+    from spark_rapids_tpu_torch.telemetry import triggers as T
     JTR.reset_tracing()
+    JT.engine().reset()
+    JH.reset_history()
+    TR.reset_tracing()
+    T.engine().reset()
+    H.reset_history()
     JR.reset_fault_injection()
     JRC.reset_subplan_cache()
     JLC.reset_lifecycle()
