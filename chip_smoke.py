@@ -109,7 +109,7 @@ absent or any phase fails. Output, one line per phase:
      the join's route, the wall and the device's idle share; q1 at SF1
      in its double form (``q1_double``), sums and averages within 1e-12
      of a ``math.fsum`` reference; and every expression family over
-     1,000,000 seeded rows with nulls (``exprs_card``), each held
+     500,000 seeded rows with nulls (``exprs_card``), each held
      against the same port code on the CPU, the filter/project and
      aggregate families as fused stages captured as CUDA graphs;
   14. residual join conditions and adaptive execution (``joins_phases``):
@@ -263,6 +263,21 @@ absent or any phase fails. Output, one line per phase:
      over the same history after a reset of the lifecycle layer
      warm-starts and its first q1 is a plan-cache hit) and q1's metric
      names at ESSENTIAL and DEBUG (``observe_levels``);
+  22. tooling (``tools_phases``): q1 from phase 7's Parquet with the
+     kernel autotuner on over a fresh table (``tools_autotune``: the
+     sweeps of groupbyHash and decodeFused at q1's buckets, each
+     candidate's oracle outcome and card ms, the winners with
+     ``applied``; after a restart of the autotuner, zero sweeps, rows
+     exact and the launches of phase 21's q1), two broken candidates
+     rejected and never recorded (``tools_broken_candidate``), q1 on the
+     tuned table and on defaults in turns (``tools_walls``), every
+     candidate at q1's shapes exact against the plain versions and timed
+     (``tools_knobs``), phase 14's skew leg on defaults, swept and with
+     ``slotsMult`` 2 pinned (``tools_skew_slots``: its overflow re-runs
+     each way), and the CLI (``tools_cli``: ``tools qualify`` in
+     a subprocess, ``profile``, ``trace``, ``hotspots``, ``docs`` and
+     ``lint`` in process, each exit 0, the docs identical to
+     docs/torch/);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -281,14 +296,17 @@ absent or any phase fails. Output, one line per phase:
   (``fallback_only``); with ``--formats``, only the build and phase 19
   (``formats_only``); with ``--serve``, only the build and phase 20
   (``serve_only``); with ``--observe``, only the build and phase 21
-  (``observe_only``);
+  (``observe_only``); with ``--tools``, only the build and phase 22
+  (``tools_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's and 21's legs,
-  and those phases' shapes among its cases)
+  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's and 22's
+  legs, and those phases' shapes among its cases; groupbyHash and
+  decodeFused also with their tuned knobs a bucket and each autotune
+  candidate's card ms at q1's shapes)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -3676,9 +3694,15 @@ def q1_double_phase(card: str, arrays) -> dict:
     return launches
 
 
-def exprs_card_phase(device, card: str, n: int = BATTERY_ROWS) -> dict:
-    """Every expression family of the battery over 1,000,000 seeded rows
-    on the card, held against the same port code on the CPU; each
+# rows of phase 13's expression battery on the card (half of
+# BATTERY_ROWS since phase 22 joined the script: the CPU reference run
+# of each family is most of the phase's time)
+EXPRS_CARD_ROWS = 500_000
+
+
+def exprs_card_phase(device, card: str, n: int = EXPRS_CARD_ROWS) -> dict:
+    """Every expression family of the battery over ``n`` seeded rows on
+    the card, held against the same port code on the CPU; each
     filter/project family runs as a fused stage captured as a CUDA graph
     (a handler that synchronised with the host would fail its
     capture)."""
@@ -5553,7 +5577,8 @@ def cache_udf_phases(device, card: str, arrays, q1_dir: str) -> tuple:
         q9_launches = dict(KR.LAUNCHES)
         check_ranked(q9_rows, want["q9"], 1, f"clickbench_q9_{source}")
         all_torch(plan_names(spark.last_plan), "q9")
-        turns = in_turns({"q10": spark.sql(Q10), "q9": spark.sql(Q9)})
+        turns = in_turns({"q10": spark.sql(Q10), "q9": spark.sql(Q9)},
+                         rounds=1)
         phase(leg, card=card, rows_in=HITS_ROWS, generate_s=gen_s,
               tolerance="avg within 1e-12 relative, the rest exact",
               **extra, **info, **{k: v for k, v in out.items()
@@ -6069,14 +6094,19 @@ def host_seconds(spark, df, what: str, card: str) -> tuple:
             "transition_pairs": pairs}, prof
 
 
+# timed runs of a phase-18 leg after its profiled warm run (one since
+# phase 22 joined the script: its legs are host-bound and seconds long)
+FALLBACK_TIMED_RUNS = 1
+
+
 def fallback_leg(spark, card: str, what: str, make_df, check,
                  expect) -> dict:
     """One leg of phase 18: the first collect (launches counted), its rows
     through ``check(rows)``, ``expect(plan, host_operators, launches)``
     for the leg's placement and routes, the plan with its host operators,
     the explain lines under ``spark.rapids.sql.explain=ALL``, one warm
-    run timed by operator under the profiler (``host_seconds``), and the
-    mean of two timed runs."""
+    run timed by operator under the profiler (``host_seconds``), and
+    ``FALLBACK_TIMED_RUNS`` timed runs (their median)."""
     import torch
     from spark_rapids_tpu_torch import kernels as KR
     df = make_df()
@@ -6099,7 +6129,7 @@ def fallback_leg(spark, card: str, what: str, make_df, check,
     split, prof = host_seconds(spark, df, what, card)
     steps["profiled_run_and_tables"] = time.perf_counter() - t0
     walls = []
-    for _ in range(2):
+    for _ in range(FALLBACK_TIMED_RUNS):
         t0 = time.perf_counter()
         df.collect()
         torch.cuda.synchronize()
@@ -7665,6 +7695,418 @@ def observe_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "tools")
+
+
+def knob_cases(spark, q1_dir: str, device, log: dict) -> dict:
+    """Each autotune candidate of groupbyHash and decodeFused at q1's own
+    shapes (the first batch q1's partial aggregate updates with, at the
+    slots the candidate's slotsMult gives; the first row group of phase
+    7's files), each held exactly against the plain version and timed on
+    the card (``cuda_ms``); ``log`` is ``AT.sweep_log()`` keyed by
+    kernel, for the winners."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.columnar import transfer as X
+    from spark_rapids_tpu_torch.exec.agg import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.kernels import autotune as AT
+    from spark_rapids_tpu_torch.kernels import decode_fused as DF
+    from spark_rapids_tpu_torch.kernels import groupby_hash as KG
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    out = {"groupbyHash": {}, "decodeFused": {}}
+    plan = spark.plan_physical(spark.sql(Q1).plan)
+    try:
+        agg = find_exec(plan, lambda n: isinstance(n, TorchHashAggregateExec)
+                        and n.mode == "partial" and bool(n.grouping))
+        b = first_batch(agg.child.device_partitions(), "tools q1")
+        key_cols, vals, prims, active = agg.update_inputs(b)
+        kw, h, add, mn, mx, _d = KG.table_inputs(
+            key_cols, [(v, p, dt) for v, (p, dt) in zip(vals, prims)],
+            active)
+        ins = (kw, h, active, add, mn, mx)
+        for params in AT._GRIDS["groupbyHash"]:
+            slots = KR.table_slots(spark.conf_obj, b.capacity,
+                                   int(params.get("slotsMult", 1)))
+
+            def launch(params=params, slots=slots):
+                return KG.groupby_table(
+                    *ins, slots, block_rows=int(params.get("blockRows", 0)),
+                    lane_groups=int(params.get("laneGroups", 1)))
+            got = launch()
+            want = KG.groupby_table_plain(*ins, slots)
+            torch.cuda.synchronize()
+            if int(got[4].item()) or int(want[4].item()):
+                raise AssertionError(f"tools groupbyHash {params} overflowed")
+            err = compare_tables(table_rows(*got[:4]), table_rows(*want[:4]))
+            if err:
+                raise AssertionError(f"groupbyHash {params} != plain: {err}")
+            out["groupbyHash"][json.dumps(params, sort_keys=True)] = {
+                "rows": b.capacity, "slots": slots, "max_abs_err": err,
+                "ms": cuda_ms(launch, 20)}
+    finally:
+        release_plan_handles(plan)
+    path = os.path.join(q1_dir, sorted(
+        f for f in os.listdir(q1_dir) if f.endswith(".parquet"))[0])
+    layout, cap, n, w, ex, _in_bytes = staged_on_card(path, device)
+    p_active, p_outs = X._encoded_decode_body(layout, cap, w, n, ex)
+    plain = (p_active,) + tuple(p_outs)
+    for params in AT._GRIDS["decodeFused"]:
+        rpt = int(params.get("rowsPerThread", 0))
+
+        def launch(rpt=rpt):
+            return DF.decode_fused(layout, cap, n, w, ex, rows_per_thread=rpt)
+        k_active, k_outs = launch()
+        torch.cuda.synchronize()
+        errs = [max_abs_diff(a, c) for a, c in
+                zip((k_active,) + tuple(k_outs), plain)]
+        if len(k_outs) != len(p_outs) or any(errs):
+            raise AssertionError(f"decodeFused {params} != plain: {errs}")
+        out["decodeFused"][json.dumps(params, sort_keys=True)] = {
+            "rows": n, "cap": cap, "max_abs_err": max(errs),
+            "ms": cuda_ms(launch, 20)}
+    for k, cases in out.items():
+        for sweep in log.get(k, []):
+            win = json.dumps(sweep["winner"], sort_keys=True)
+            if win in cases:
+                cases[win]["won_bucket"] = sweep["bucket"]
+    return out
+
+
+def skew_overflow_leg(card: str, device) -> dict:
+    """Phase 14's skew leg (``Q_SKEW``, inner join, 4 device partitions)
+    three ways: on defaults, with the autotuner sweeping a fresh table,
+    and on a table that pins ``slotsMult`` 2 at each bucket the sweep
+    saw; rows exact each time, and the partial aggregates'
+    ``overflow_reruns`` (batches re-run sorted after the table
+    overflowed) of each run."""
+    import torch
+    from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+    from spark_rapids_tpu_torch.kernels import autotune as AT
+    from spark_rapids_tpu_torch.sql import types as T
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    stables, _hot = skew_tables()
+    want = skew_reference(stables)
+    kinds = {"long": T.LongT, "int": T.IntegerT, "str": T.StringT,
+             "dec72": T.DecimalType(7, 2)}
+    batches = {name: host_batch_from_numpy(
+        [(c, kinds[k]) for c, k, _a in stables[name]],
+        [a for _c, _k, a in stables[name]]) for name in ("store_sales",
+                                                         "item")}
+    sweep_dir = os.path.join(TOOLS_DIR, "skew_sweep")
+    pin_dir = os.path.join(TOOLS_DIR, "skew_pinned")
+
+    def run(extra: dict) -> dict:
+        s = TorchSparkSession(dict({
+            "spark.sql.shuffle.partitions": str(N_PARTITIONS),
+            "spark.rapids.sql.autoBroadcastJoinThreshold": "-1",
+            "spark.rapids.sql.shuffle.devicePartitions": "4"}, **extra))
+        for name, b in batches.items():
+            s.createDataFrame(b, num_partitions=Q3_PARTITIONS[name]) \
+                .createOrReplaceTempView(name)
+        t0 = time.perf_counter()
+        rows = [tuple(r) for r in s.sql(Q_SKEW.format(jt="")).collect()]
+        wall = time.perf_counter() - t0
+        if rows != want:
+            raise AssertionError(f"tools skew: {rows[:4]} != {want[:4]}")
+        reruns = [getattr(n, "overflow_reruns", 0)
+                  for p in plan_nodes_of(s.last_plan)
+                  for n in [p] + list(getattr(p, "fused_ops", []))
+                  if hasattr(n, "overflow_reruns")]
+        s.stop()
+        return {"wall_s": wall, "groupby_overflow_reruns": reruns}
+
+    AT.reset_for_tests()
+    out = {"defaults": run({})}
+    out["swept"] = run({"spark.rapids.sql.kernel.autotune.enabled": "true",
+                        "spark.rapids.sql.kernel.autotune.dir": sweep_dir})
+    swept = [sw for sw in AT.sweep_log() if sw["kernel"] == "groupbyHash"]
+    out["swept"]["winners"] = {sw["bucket"]: sw["winner"] for sw in swept}
+    os.makedirs(pin_dir, exist_ok=True)
+    with open(os.path.join(pin_dir, "kernel-autotune.jsonl"), "w") as f:
+        for sw in swept:
+            f.write(json.dumps({
+                "kernel": "groupbyHash", "bucket": sw["bucket"],
+                "device": torch.cuda.get_device_name(device),
+                "params": {"slotsMult": 2}, "applied": True,
+                "defaultMs": None, "bestMs": None, "ts": time.time()})
+                + "\n")
+    AT.reset_for_tests()
+    out["pinned_slotsMult_2"] = run({
+        "spark.rapids.sql.kernel.autotune.dir": pin_dir})
+    out["pinned_slotsMult_2"]["buckets"] = [sw["bucket"] for sw in swept]
+    AT.reset_for_tests()
+    phase("tools_skew_slots", card=card, reference="exact", **out)
+    return out
+
+
+def tools_phases(card: str, arrays, q1_dir: str, want_launches=None
+                 ) -> tuple:
+    """Phase 22: the tooling slice on the card. ``tools_autotune``: the
+    autotuner on over a fresh ``kernel.autotune.dir`` runs TPC-H q1 at SF1
+    from phase 7's Parquet (rows exact): groupbyHash and decodeFused
+    sweep at q1's buckets, every candidate validated against its oracle
+    before it is timed; then ``AT.reset_for_tests()`` (a restart) and a
+    new session on the same directory: zero sweeps, table hits, rows
+    exact, and the launches equal phase 21's q1 (or, alone, this phase's
+    untuned q1). A broken candidate (one the kernel refuses, one whose
+    output is corrupted) is rejected and never recorded. ``tools_walls``:
+    q1 on the tuned table and on defaults in turns, a warm run each and
+    the mean of two. ``tools_knobs``: every candidate at q1's shapes,
+    exact against the plain versions, timed. ``tools_skew_slots``:
+    ``skew_overflow_leg``. ``tools_cli``: ``python -m
+    spark_rapids_tpu_torch.tools qualify`` in a subprocess over phase 7's
+    files (exit 0, placement equal to the plan's), then in process
+    ``profile`` live, ``trace`` and ``hotspots`` over a traced q1,
+    ``docs --out`` identical to docs/torch/ and ``lint`` (exit 0).
+    Returns ``(launches a leg, {kernel: tuned knobs a bucket},
+    kernel cases)``."""
+    import contextlib as _ctx
+    import io
+    import shutil
+
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import tools as TL
+    from spark_rapids_tpu_torch import trace as TR
+    from spark_rapids_tpu_torch.kernels import autotune as AT
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    tune = os.path.join(TOOLS_DIR, "autotune")
+    q1_want = q1_reference(arrays)
+    legs = {}
+
+    def since(snap: dict) -> dict:
+        now = KR.launch_counts()
+        return {k: now[k] - snap[k] for k in now if now[k] - snap[k]}
+
+    def session(conf: dict):
+        s = TorchSparkSession(dict(
+            {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}, **conf))
+        s.read.parquet(q1_dir).createOrReplaceTempView("lineitem")
+        return s
+
+    def timed_q1(s):
+        t0 = time.perf_counter()
+        rows = [tuple(r) for r in s.sql(Q1).collect()]
+        wall = time.perf_counter() - t0
+        check_q1_rows(rows, q1_want)
+        return wall
+
+    tuned_conf = {"spark.rapids.sql.kernel.autotune.enabled": "true",
+                  "spark.rapids.sql.kernel.autotune.dir": tune}
+
+    # -- a. the cold sweep ------------------------------------------------
+    AT.reset_for_tests()
+    snap = KR.launch_counts()
+    cold_wall = timed_q1(session(tuned_conf))
+    cold = since(snap)
+    st = AT.stats()
+    log = AT.sweep_log()
+    sweep_launches = {}
+    for sw in log:
+        # each candidate: its oracle check, a warm launch, the timed ones
+        n = sum(1 + (1 + AT.TIMED_LAUNCHES if c["ok"] else 0)
+                for c in sw["candidates"])
+        sweep_launches[sw["kernel"]] = sweep_launches.get(sw["kernel"],
+                                                          0) + n
+        if not all(c["ok"] for c in sw["candidates"]):
+            raise AssertionError(f"tools: a grid candidate failed: {sw}")
+    kernels_swept = sorted({sw["kernel"] for sw in log})
+    if kernels_swept != ["decodeFused", "groupbyHash"] \
+            or st["sweeps"] != len(log) or st["rejected"]:
+        raise AssertionError(f"tools cold sweep: {st}, {kernels_swept}")
+    with open(os.path.join(tune, "kernel-autotune.jsonl")) as f:
+        table = [json.loads(line) for line in f if line.strip()]
+    if len(table) != len(log) or any(
+            sorted(e) != ["applied", "bestMs", "bucket", "defaultMs",
+                          "device", "kernel", "params", "ts"]
+            or e["device"] != torch.cuda.get_device_name(0) for e in table):
+        raise AssertionError(f"tools table: {table}")
+    # q1's own launches: the cold run's minus the sweeps'
+    cold_query = {k: v - sweep_launches.get(k, 0) for k, v in cold.items()}
+    tuned = {e["kernel"]: {} for e in table}
+    for e in table:
+        tuned[e["kernel"]][e["bucket"]] = e["params"] if e["applied"] else {}
+
+    # -- b. a restart on the same table ------------------------------------
+    AT.reset_for_tests()
+    s_tuned = session(tuned_conf)
+    snap = KR.launch_counts()
+    timed_q1(s_tuned)
+    warm = since(snap)
+    st2 = AT.stats()
+    if st2["sweeps"] or not st2["hits"] or st2["loaded"] != len(table):
+        raise AssertionError(f"tools restart: {st2}")
+    if warm != cold_query:
+        raise AssertionError(f"tools restart launches {warm} != the cold "
+                             f"run's query launches {cold_query}")
+    s_plain = session({})
+    snap = KR.launch_counts()
+    timed_q1(s_plain)
+    plain_launches = since(snap)
+    want = want_launches or plain_launches
+    if warm != want or plain_launches != want:
+        raise AssertionError(f"tools launches: tuned {warm}, defaults "
+                             f"{plain_launches}, phase 21 {want_launches}")
+    legs["tools_cold"], legs["tools_restart"] = cold, warm
+    phase("tools_autotune", card=card, reference="exact",
+          cold_wall_s=cold_wall, sweeps=log, table=table,
+          stats_cold=st, stats_restart=st2, launches_cold=cold,
+          launches_sweeps=sweep_launches, launches_restart=warm,
+          launches_phase21=want_launches,
+          seconds=time.perf_counter() - t_phase)
+
+    # -- c. broken candidates: rejected, never recorded --------------------
+    broken_dir = os.path.join(TOOLS_DIR, "broken")
+    grid = list(AT._GRIDS["groupbyHash"])
+    real_launch = AT._GroupbyProbe.launch
+
+    def corrupted(self, params):
+        out = real_launch(self, {k: v for k, v in params.items()
+                                 if k != "corrupt"})
+        if params.get("corrupt"):  # one lane of one group off by one
+            add_out = out[1].clone()
+            add_out[int(torch.nonzero(out[0] >= 0)[0, 0]), 0] += 1
+            out = (out[0], add_out) + tuple(out[2:])
+        return out
+    AT.reset_for_tests()
+    AT._GRIDS["groupbyHash"] = grid + [{"laneGroups": 3},
+                                       {"corrupt": 1}]
+    AT._GroupbyProbe.launch = corrupted
+    try:
+        from spark_rapids_tpu_torch.conf import TorchConf
+        params, was_tuned = AT.params_for(TorchConf({
+            "spark.rapids.sql.kernel.autotune.enabled": "true",
+            "spark.rapids.sql.kernel.autotune.dir": broken_dir}),
+            "groupbyHash", 1 << 16, device=device)
+    finally:
+        AT._GRIDS["groupbyHash"] = grid
+        AT._GroupbyProbe.launch = real_launch
+    bst = AT.stats()
+    blog = AT.sweep_log()[-1]
+    with open(os.path.join(broken_dir, "kernel-autotune.jsonl")) as f:
+        btable = [json.loads(line) for line in f if line.strip()]
+    outcomes = {json.dumps(c["params"], sort_keys=True): c["ok"]
+                for c in blog["candidates"]}
+    if bst["rejected"] != 2 or outcomes.get('{"laneGroups": 3}') is not \
+            False or outcomes.get('{"corrupt": 1}') is not False \
+            or len(btable) != 1 or btable[0]["params"] in (
+                {"laneGroups": 3}, {"corrupt": 1}):
+        raise AssertionError(f"tools broken candidate: {bst}, {blog}, "
+                             f"{btable}")
+    phase("tools_broken_candidate", card=card, bucket=1 << 16,
+          outcomes=outcomes, rejected=bst["rejected"], recorded=btable,
+          winner=params, tuned=was_tuned)
+
+    # -- d. walls: tuned and defaults in turns -----------------------------
+    walls = {"tuned": [], "defaults": []}
+    sessions = {"tuned": s_tuned, "defaults": s_plain}
+    AT.reset_for_tests()
+    for which in ("tuned", "defaults", "defaults", "tuned"):
+        walls[which].append(timed_q1(sessions[which]))
+    phase("tools_walls", card=card, reference="exact", walls_s=walls,
+          mean_s={k: statistics.mean(v) for k, v in walls.items()},
+          tuned_over_defaults=statistics.mean(walls["tuned"])
+          / statistics.mean(walls["defaults"]) - 1)
+
+    # -- e. each knob at q1's shapes, against the plain versions -----------
+    by_kernel = {}
+    for sw in log:
+        by_kernel.setdefault(sw["kernel"], []).append(sw)
+    knobs = knob_cases(s_plain, q1_dir, device, by_kernel)
+    phase("tools_knobs", card=card, tolerance="exact", cases=knobs,
+          tuned=tuned)
+
+    # -- e2. does slotsMult 2 clear the skew leg's overflow? ---------------
+    skew_slots = skew_overflow_leg(card, device)
+
+    # -- f. the CLI on the card --------------------------------------------
+    # the subprocess runs beside the in-process commands (it only plans
+    # q1: host work and the probe launch, no kernel timed meanwhile)
+    t_sub = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_rapids_tpu_torch.tools", "qualify",
+         Q1, "--view", f"lineitem={q1_dir}"], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    try:
+        def cli(*argv) -> tuple:
+            buf = io.StringIO()
+            with _ctx.redirect_stdout(buf):
+                rc = TL._main(list(argv))
+            return rc, buf.getvalue()
+        prof = TL.profile(s_plain, s_plain.sql(Q1))
+        if prof.rows != len(q1_want):
+            raise AssertionError(f"tools profile: {prof.rows} rows")
+        tdir = os.path.join(TOOLS_DIR, "trace")
+        TR.reset_tracing()
+        s_traced = session(dict(tuned_conf, **{
+            "spark.rapids.sql.trace.enabled": "true",
+            "spark.rapids.sql.trace.dir": tdir}))
+        timed_q1(s_traced)
+        TR.reset_tracing()
+        rc_trace, trace_out = cli("trace", tdir)
+        rc_hot, hot_out = cli("hotspots", tdir, "--top", "40")
+        docs_tmp = os.path.join(TOOLS_DIR, "docs")
+        rc_docs, _o = cli("docs", "--out", docs_tmp)
+        docs_same = all(
+            open(os.path.join(docs_tmp, f)).read()
+            == open(os.path.join(repo, "docs", "torch", f)).read()
+            for f, _g in TL.doc_generators())
+        rc_lint, lint_out = cli("lint", "--root", repo)
+        sub_out, sub_err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:  # never leave the subprocess running
+            proc.kill()
+            proc.wait()
+    sub_s = time.perf_counter() - t_sub
+    if proc.returncode != 0:
+        raise AssertionError(f"tools qualify exited {proc.returncode}: "
+                             f"{sub_err[-2000:]}")
+    placed = [ln[4:] for ln in sub_out.splitlines() if ln.startswith("  + ")]
+    rep = TL.qualify_sql(s_plain, Q1)
+    if placed != rep.device_ops or not placed:
+        raise AssertionError(f"tools qualify: {placed} != {rep.device_ops}")
+    hot = [ln.strip() for ln in hot_out.splitlines()
+           if "kernelDispatch[" in ln or "Exec.dispatch[" in ln]
+    if (rc_trace, rc_hot, rc_docs, rc_lint) != (0, 0, 0, 0) \
+            or not docs_same or "critical path" not in trace_out:
+        raise AssertionError(
+            f"tools CLI: trace {rc_trace}, hotspots {rc_hot}, docs "
+            f"{rc_docs} (same {docs_same}), lint {rc_lint}: "
+            f"{lint_out[-1500:]}")
+    phase("tools_cli", card=card, qualify_rc=proc.returncode,
+          qualify_placement=placed, qualify_subprocess_s=sub_s,
+          profile_operators=len(prof.operators), trace_rc=rc_trace,
+          hotspots_rc=rc_hot, hotspots_kernel_rows=hot, docs_rc=rc_docs,
+          docs_identical=docs_same, lint_rc=rc_lint,
+          lint_summary=lint_out.strip().splitlines()[-1],
+          seconds=time.perf_counter() - t_phase)
+    AT.reset_for_tests()
+    return legs, tuned, knobs
+
+
+def tools_only(card: str) -> None:
+    """``--tools``: the kernels' build and phase 22."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs, tuned, _k = tools_phases(card, arrays, q1_dir)
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs,
+          tuned=tuned)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7967,6 +8409,8 @@ def main() -> int:
     formats = formats_phases(device, card, arrays, dfu["q1_dir"])
     serve = serve_phases(card, arrays, dfu["q1_dir"])
     observe, oshapes = observe_phases(card, arrays, dfu["q1_dir"])
+    tools, tuned, knobs = tools_phases(card, arrays, dfu["q1_dir"],
+                                       observe["observe_traced_q1"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -7984,6 +8428,8 @@ def main() -> int:
         {"name": "groupbyHash", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/groupby_hash.cu",
          "replaces": "spark_rapids_tpu/kernels/groupby_hash.py:311",
+         # one CUDA kernel serves the tiled Pallas kernel too
+         "also_replaces": "spark_rapids_tpu/kernels/groupby_hash.py:429",
          "launches": launches["groupbyHash"],
          "max_abs_err": max([gb_err, jp["groupby_q3"]["max_abs_err"]]
                             + [c["max_abs_err"]
@@ -8102,6 +8548,13 @@ def main() -> int:
         k["launches_serve"] = {leg: serve[leg][name] for leg in serve}
         k["launches_observe"] = {leg: observe[leg].get(name, 0)
                                  for leg in observe}
+        k["launches_tools"] = {leg: tools[leg].get(name, 0)
+                               for leg in tools}
+        if name in knobs:
+            # the autotuner's winners a capacity bucket, and every
+            # candidate at q1's shapes (exact, card ms)
+            k["tuned"] = tuned.get(name, {})
+            k["autotune_cases"] = knobs[name]
     if any(leak.poll() is None for leak in worker_processes()):
         raise AssertionError("a Python worker outlived its session")
     phase("total", seconds=time.perf_counter() - T_START)
@@ -8369,7 +8822,8 @@ if __name__ == "__main__":
                                        "--exprs", "--joins", "--windows",
                                        "--nested", "--cache-udf",
                                        "--fallback", "--formats",
-                                       "--serve", "--observe")):
+                                       "--serve", "--observe",
+                                       "--tools")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8399,6 +8853,8 @@ if __name__ == "__main__":
             serve_only(card)
         elif "--observe" in sys.argv[1:]:
             observe_only(card)
+        elif "--tools" in sys.argv[1:]:
+            tools_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -265,7 +265,7 @@ def wire_layout(staged) -> Tuple[List[Wire], List[int], int]:
     """A staged token's buffers, their byte offsets in the one staging
     buffer, and its size."""
     if staged[0] == "encoded":
-        _t, _s, _n, _cap, words, extras, _layout, _spec = staged
+        words, extras = staged[4], staged[5]
         wires = [_wire(words)] + [_wire(np.ascontiguousarray(e))
                                   for e in extras]
     else:
@@ -479,13 +479,22 @@ def _stage_direct(batch, cap: int):
             tuple(spec))
 
 
-def prepare_upload(batch, cap: int):
-    """Host half of an upload (no device touch): the staged token of a
-    HostBatch (``packed`` or ``direct``) or of an EncodedBatch
-    (``encoded``)."""
+def prepare_upload(batch, cap: int, conf=None, device=None):
+    """Host half of an upload: the staged token of a HostBatch
+    (``packed`` or ``direct``) or of an EncodedBatch (``encoded``). With
+    a ``conf``, an encoded token carries a ninth item, the autotuner's
+    ``(params, tuned)`` for decodeFused at this capacity on ``device``,
+    resolved here, on the staging thread, so the decode itself never
+    reads a conf (a first lookup at a new bucket may sweep the kernel on
+    ``device``)."""
     from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
     if isinstance(batch, EncodedBatch):
-        return prepare_encoded_upload(batch, cap)
+        staged = prepare_encoded_upload(batch, cap)
+        if conf is None:
+            return staged
+        from spark_rapids_tpu_torch.kernels import autotune as AT
+        return staged + (AT.params_for(conf, "decodeFused", cap,
+                                       device=device),)
     n = batch.num_rows
     # nested columns stage directly, as in the JAX package: the packed
     # codec has no layout for them
@@ -513,8 +522,12 @@ def decode_staged(staged, dev: torch.Tensor, offsets: Sequence[int]):
                              views[-1], n)
     if mode == "encoded":
         from spark_rapids_tpu_torch.kernels import decode_fused as DF
-        _t, _s, _n, _c, _w, _e, layout, spec = staged
-        active, outs = DF.decode_fused(layout, cap, n, views[0], views[1:])
+        layout, spec = staged[6], staged[7]
+        params, tuned = staged[8] if len(staged) > 8 else ({}, False)
+        active, outs = DF.decode_fused(
+            layout, cap, n, views[0], views[1:],
+            rows_per_thread=int(params.get("rowsPerThread", 0)),
+            tuned=tuned)
         return D.DeviceBatch(schema, D.rebuild_columns(list(spec), outs),
                              active, n)
     active, outs = decode_packed(staged[5], n, cap, views[0], views[1:])

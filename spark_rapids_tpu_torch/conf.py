@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 import tempfile
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclass
@@ -108,6 +108,36 @@ KERNEL_GROUPBY_TABLE_SLOTS = _entry(
     "the table holds overflows and re-runs on the sort-based partial "
     "aggregate (counted as overflowReruns).",
     1024, int)
+
+KERNEL_AUTOTUNE_ENABLED = _entry(
+    "spark.rapids.sql.kernel.autotune.enabled",
+    "Per-kernel launch-parameter autotuner (kernels/autotune.py): the "
+    "first launch of groupbyHash or decodeFused at a new (kernel, "
+    "capacity bucket, card) sweeps a small bounded grid of launch "
+    "parameters (table-size multiplier, rows a block walks, local-table "
+    "divisor; rows a thread decodes), validates every candidate against "
+    "its oracle and persists the winner under kernel.autotune.dir. Off "
+    "(the default) = read-only: recorded winners still apply, but no "
+    "sweep runs.",
+    False, _to_bool)
+
+KERNEL_AUTOTUNE_DIR = _entry(
+    "spark.rapids.sql.kernel.autotune.dir",
+    "Directory of the autotuner's persistent winner table "
+    "(kernel-autotune.jsonl, append-only JSON lines, fsynced): loaded "
+    "once per process at first use, so a second session against the "
+    "same directory runs zero sweeps. Torn lines are skipped and "
+    "counted; the last entry for a key wins. Empty = the table lives "
+    "in memory only, for this process.",
+    "", str)
+
+KERNEL_AUTOTUNE_BUDGET_MS = _entry(
+    "spark.rapids.sql.kernel.autotune.budgetMs",
+    "Wall budget in milliseconds for one autotune sweep (one kernel at "
+    "one capacity bucket): candidates stop once it is spent and the "
+    "best validated candidate so far wins; the default candidate "
+    "always runs.",
+    2000, int)
 
 
 def parse_bytes(s: str) -> int:
@@ -903,6 +933,32 @@ PROFILE_DIR = _entry(
     'Directory for per-query profile artifacts '
     '(profile-<pid>-q<n>.json).',
     os.path.join(tempfile.gettempdir(), 'srt_profiles'), str)
+
+
+def registered_entries() -> List[ConfEntry]:
+    return list(_REGISTRY.values())
+
+
+def generate_docs() -> str:
+    """The Markdown table of every registered key (``docs/torch/
+    configs.md``, written by ``python -m spark_rapids_tpu_torch.tools
+    docs``)."""
+    lines = ["# spark-rapids-tpu PyTorch/CUDA port configuration", "",
+             "| Key | Default | Description |", "|---|---|---|"]
+    for e in sorted(_REGISTRY.values(), key=lambda e: e.key):
+        lines.append(f"| {e.key} | {doc_default(e)} | {e.doc} |")
+    return "\n".join(lines) + "\n"
+
+
+def doc_default(e: ConfEntry) -> str:
+    """An entry's default as the generated docs print it: a directory
+    under the process's temporary directory reads ``$TMPDIR/...``, so
+    the docs do not depend on the machine that wrote them."""
+    d = e.default
+    tmp = tempfile.gettempdir() + os.sep
+    if isinstance(d, str) and d.startswith(tmp):
+        return "$TMPDIR/" + d[len(tmp):]
+    return str(d)
 
 
 class TorchConf:

@@ -910,7 +910,9 @@ decode_tiles(const int32_t* __restrict__ words, i64 nb,
 }
 
 // a batch of fewer values than this decodes one row a thread (more
-// blocks in flight where the tiles' setup dominates), else two
+// blocks in flight where the tiles' setup dominates), else two; the
+// autotuner's rowsPerThread overrides the choice (1, 2 or 4), which
+// trades live registers for parallelism without changing a byte
 constexpr i64 kSmallBatch = 1 << 21;
 
 // decode_tiles<kRows> on as many blocks as fit on the SMs, at most one a
@@ -948,14 +950,18 @@ cudaError_t launch_tiles(const int32_t* words, i64 nb, const i64* desc,
 // (ncols, NF) int64 column descriptors on the device; n rows of capacity
 // cap. part: (n_slots, cap) int64 and bsum: (n_slots, nblk) int64 scan
 // scratch, nblk = ceil(cap / 1024), unused (null) when n_slots is 0.
-// active: (cap,) bool. Returns cudaGetLastError() after the launches, or
-// the error that refused one.
+// active: (cap,) bool. rows_per_thread: 1, 2 or 4 rows a thread decodes
+// in each chunk, or 0 for the choice by batch size. Returns
+// cudaGetLastError() after the launches, or the error that refused one.
 extern "C" int decode_fused_launch(const void* words, long long nb,
                                    const void* desc, int ncols, long long n,
                                    long long cap, int n_slots, void* part,
-                                   void* bsum, void* active, void* stream) {
+                                   void* bsum, void* active,
+                                   int rows_per_thread, void* stream) {
   if (ncols <= 0 || ncols > 65535 || cap <= 0 || n < 0 || n > cap ||
-      nb <= 0 || (nb & 3) != 0)
+      nb <= 0 || (nb & 3) != 0 ||
+      (rows_per_thread != 0 && rows_per_thread != 1 &&
+       rows_per_thread != 2 && rows_per_thread != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -971,7 +977,11 @@ extern "C" int decode_fused_launch(const void* words, long long nb,
                                            (i64*)bsum);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  return (int)(cap * ncols < kSmallBatch ? launch_tiles<1> : launch_tiles<2>)(
-      (const int32_t*)words, nb, (const i64*)desc, ncols, n, cap,
-      (const i64*)part, (const i64*)bsum, nblk, (bool*)active, s);
+  if (rows_per_thread == 0) rows_per_thread = cap * ncols < kSmallBatch ? 1 : 2;
+  auto launch = rows_per_thread == 1   ? launch_tiles<1>
+                : rows_per_thread == 2 ? launch_tiles<2>
+                                       : launch_tiles<4>;
+  return (int)launch((const int32_t*)words, nb, (const i64*)desc, ncols, n,
+                     cap, (const i64*)part, (const i64*)bsum, nblk,
+                     (bool*)active, s);
 }

@@ -323,7 +323,10 @@ groupby_kernel(const i64* __restrict__ kw, int K, const i64* __restrict__ h,
 // (n_rows,) bool; add/mn/mx: (n_*, n_rows) int64 lanes, lane-major (may
 // be null when n_* is 0). L: entries of each block's shared-memory table
 // (a power of two <= T, or 0), L * (8 * lanes + 8) bytes of dynamic
-// shared memory. Outputs: owner (T,) int32 (-1 = unused), add_out/
+// shared memory. block_rows: the rows each block walks, which sets the
+// grid to ceil(n_rows / block_rows) blocks, capped at the blocks that fit
+// on the SMs at once (0 = kThreads, one row a thread); the autotuner's
+// blockRows. Outputs: owner (T,) int32 (-1 = unused), add_out/
 // min_out/max_out (T, n_*) int64, overflow (1,) int32. T is a power of
 // two. Returns cudaGetLastError() after the two launches, or the error
 // that refused the shared-memory size or the launch.
@@ -332,12 +335,14 @@ extern "C" int groupby_hash_launch(const void* kw, int K, const void* h,
                                    const void* add, int n_add,
                                    const void* mn, int n_min,
                                    const void* mx, int n_max, int T, int L,
-                                   void* owner, void* add_out,
-                                   void* min_out, void* max_out,
-                                   void* overflow, void* stream) {
+                                   int block_rows, void* owner,
+                                   void* add_out, void* min_out,
+                                   void* max_out, void* overflow,
+                                   void* stream) {
   if (T <= 0 || (T & (T - 1)) != 0 || K <= 0 || L < 0 || L > T ||
-      (L & (L - 1)) != 0)
+      (L & (L - 1)) != 0 || block_rows < 0)
     return (int)cudaErrorInvalidValue;
+  if (block_rows == 0) block_rows = kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   int init_n = T;
   if (T * n_add > init_n) init_n = T * n_add;
@@ -364,7 +369,7 @@ extern "C" int groupby_hash_launch(const void* kw, int K, const void* h,
            &per_sm, groupby_kernel, kThreads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-  i64 blocks = ((i64)n_rows + kThreads - 1) / kThreads;
+  i64 blocks = ((i64)n_rows + block_rows - 1) / block_rows;
   if (blocks > (i64)per_sm * sms) blocks = (i64)per_sm * sms;
   groupby_kernel<<<(int)blocks, kThreads, smem, s>>>(
       (const i64*)kw, K, (const i64*)h, (const bool*)valid, n_rows,

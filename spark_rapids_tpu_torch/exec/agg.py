@@ -59,6 +59,7 @@ from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.exec import fused as F
 from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
                                               TorchExec, device_channel)
+from spark_rapids_tpu_torch.kernels import autotune as AT
 from spark_rapids_tpu_torch.kernels import groupby_hash as KG
 from spark_rapids_tpu_torch.ops import decimal_ops as DD
 from spark_rapids_tpu_torch.ops import exprs as X
@@ -247,7 +248,8 @@ def _sort_path(key_cols, vals, prims, active: torch.Tensor, hashed: bool):
 
 def _update_program(kind: str, prelude_steps, key_bound, slot_srcs, prims,
                     slots: Optional[int], spec, layout,
-                    device: torch.device) -> F.ProgramFn:
+                    device: torch.device, params: Optional[dict] = None,
+                    tuned: bool = False) -> F.ProgramFn:
     """One batch's partial-mode program over flat inputs (columns, active,
     literal tensors): the absorbed filter/project prelude, the key and
     value expressions, then the groupbyHash table (``kind`` "kernel") or
@@ -255,7 +257,9 @@ def _update_program(kind: str, prelude_steps, key_bound, slot_srcs, prims,
     buffers), and the compaction of the groups to the front. Outputs:
     the compacted columns, their active mask, the group count and, for
     the kernel, its overflow flag, then the prelude's per-step row
-    counts, all on the device: nothing here reads a value on the host."""
+    counts, all on the device: nothing here reads a value on the host.
+    ``params`` are the kernel's tuned launch knobs for the batch's
+    bucket (``tuned``: a recorded winner is in force)."""
     n = sum(arity for _dt, arity in spec)
     all_exprs = list(key_bound) + list(slot_srcs)
 
@@ -273,7 +277,7 @@ def _update_program(kind: str, prelude_steps, key_bound, slot_srcs, prims,
         if kind == "kernel":
             entries = [(v, p, dt) for v, (p, dt) in zip(vals, prims)]
             key_out, buffers, keep, overflow = KG.hash_groupby(
-                key_cols, entries, active, slots)
+                key_cols, entries, active, slots, params, tuned)
             out_cols = list(key_out) + list(buffers)
             extra = [overflow]
         else:
@@ -414,10 +418,18 @@ class TorchHashAggregateExec(TorchExec):
         steps, key_bound, slot_srcs, prims, flat_lits, layout, skey = \
             programs["merge" if kind == "merge" else "update"]
         flat, spec = flatten_columns(batch.columns)
-        slots = (KR.table_slots(self.conf, batch.capacity)
-                 if kind == "kernel" else None)
+        slots, params, tuned = None, {}, False
+        if kind == "kernel":
+            # the bucket's tuned launch knobs (the defaults when untuned),
+            # resolved before any graph capture: a first lookup at a new
+            # bucket may sweep the kernel; slotsMult scales the table
+            # bound before the batch clamp
+            params, tuned = AT.params_for(self.conf, "groupbyHash",
+                                          batch.capacity, device=self.device)
+            slots = KR.table_slots(self.conf, batch.capacity,
+                                   int(params.get("slotsMult", 1)))
         fn = _update_program(kind, steps, key_bound, slot_srcs, prims,
-                             slots, spec, layout, self.device)
+                             slots, spec, layout, self.device, params, tuned)
         flat_in = flat + [batch.active] + flat_lits
         if kind == "kernel":
             KR.count_dispatch(self.metrics, "groupbyHash")
@@ -430,9 +442,13 @@ class TorchHashAggregateExec(TorchExec):
                 qt.add("TorchHashAggregateExec.dispatch", t0,
                        time.perf_counter_ns(), chip=TR.chip_of(batch),
                        mode=kind, compile=False,
-                       kernel="groupbyHash" if kind == "kernel" else None)
+                       kernel="groupbyHash" if kind == "kernel" else None,
+                       bucket=batch.capacity if kind == "kernel" else None,
+                       tuned=tuned if kind == "kernel" else None)
         else:
-            key = ("agg", kind, skey, slots,
+            # every tuned knob keys the captured graph: a replay runs the
+            # launch it captured
+            key = ("agg", kind, skey, slots, tuple(sorted(params.items())),
                    tuple((repr(dt), a) for dt, a in spec))
             outs, ospec = F.run_program(key, fn, flat_in, self.metrics)
         # the program's host enqueue wall (the JAX package's

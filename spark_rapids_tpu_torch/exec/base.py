@@ -323,7 +323,8 @@ class TorchRowToColumnarExec(TorchExec):
             whole = unit  # an EncodedBatch stages as itself
         cap = bucket_capacity(max(1, whole.num_rows))
         with self.metrics.timed(M.PACK_TIME):
-            return ring.place(prepare_upload(whole, cap)), whole
+            return ring.place(prepare_upload(whole, cap, self.conf,
+                                             self.device)), whole
 
     def _start(self, ring, placed):
         """Issue a placed unit's copy, counting it in

@@ -25,6 +25,7 @@ from typing import Iterator, List
 import torch
 
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
                                                     DeviceColumn,
                                                     bucket_capacity,
@@ -219,11 +220,18 @@ class TorchRangeExec(TorchExec):
                 off = lo
                 while off < hi:
                     n = min(goal, hi - off)
-                    idx = torch.arange(bucket_capacity(n), dtype=torch.int64,
-                                       device=device)
-                    active = idx < n
-                    data = torch.where(
-                        active, (idx + off) * self.step + self.start, 0)
+
+                    def chunk(n=n, off=off):
+                        idx = torch.arange(bucket_capacity(n),
+                                           dtype=torch.int64, device=device)
+                        active = idx < n
+                        data = torch.where(
+                            active, (idx + off) * self.step + self.start, 0)
+                        return data, active
+                    # the chunk is this source's allocation: under the OOM
+                    # protocol, as an upload is
+                    data, active = R.with_retry(chunk, self.conf,
+                                                self.metrics)
                     yield DeviceBatch(schema,
                                       [DeviceColumn(T.LongT, data, active)],
                                       active, n)

@@ -22,6 +22,7 @@ from typing import Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch import metrics as M
+from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch.columnar.device import (DeviceArrayColumn,
                                                     DeviceBatch,
                                                     DeviceColumn,
@@ -136,8 +137,10 @@ class TorchGenerateExec(TorchExec):
             def run() -> Iterator[DeviceBatch]:
                 for b in thunk():
                     with metrics.timed(M.OP_TIME):
-                        cols, active, total = explode_batch(
-                            b, ordinal, position, outer, shared)
+                        cols, active, total = R.with_retry(
+                            lambda b=b: explode_batch(
+                                b, ordinal, position, outer, shared),
+                            self.conf, metrics)
                     if shared:  # the count was read on the host
                         yield DeviceBatch(schema, cols, active, total)
                     else:

@@ -40,7 +40,19 @@ from spark_rapids_tpu_torch import trace as _trace
 DEFAULT_CAPACITY = 256
 
 _CACHES: Dict[str, "JitCache"] = {}
+# stats sources that are not a JitCache (the kernel autotuner's winner
+# table) surfaced beside the caches: a provider returns a JitCache-shaped
+# dict (size/capacity/hits/misses/evictions/contention at least: the
+# Prometheus renderer reads those keys of every entry)
+_EXTRA_STATS: Dict[str, Callable[[], Dict[str, int]]] = {}
 _REG_LOCK = threading.Lock()
+
+
+def register_stats_provider(name: str,
+                            fn: Callable[[], Dict[str, int]]) -> None:
+    """Expose an auxiliary stats source under ``cache_stats()[name]``."""
+    with _REG_LOCK:
+        _EXTRA_STATS[name] = fn
 
 
 class JitCache:
@@ -183,10 +195,17 @@ def release_values(values) -> None:
 
 
 def cache_stats() -> Dict[str, Dict[str, int]]:
-    """Snapshot of every registered cache."""
+    """Snapshot of every registered cache and stats provider."""
     with _REG_LOCK:
         caches = list(_CACHES.values())
-    return {c.name: c.stats() for c in caches}
+        extras = list(_EXTRA_STATS.items())
+    out = {c.name: c.stats() for c in caches}
+    for name, fn in extras:
+        try:
+            out[name] = fn()
+        except Exception:  # a broken provider leaves the others readable
+            continue
+    return out
 
 
 def mirror_to_metrics(metrics, was_miss: bool) -> None:

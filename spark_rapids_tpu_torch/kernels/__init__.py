@@ -240,12 +240,14 @@ def require_cuda(tensors, what: str) -> None:
             raise KernelError(f"{what}: tensors on {dev} and {t.device}")
 
 
-def table_slots(conf, cap: int) -> int:
-    """Group-by table capacity: the conf bound shrunk toward the batch (a
-    64-row batch cannot have 1024 groups), rounded up to a power of two
-    (the kernel masks slot indices)."""
+def table_slots(conf, cap: int, slots_mult: int = 1) -> int:
+    """Group-by table capacity: the conf bound (scaled by the autotuner's
+    per-bucket ``slotsMult``), shrunk toward the batch (a 64-row batch
+    cannot have 1024 groups), rounded up to a power of two (the kernel
+    masks slot indices)."""
     from spark_rapids_tpu_torch.conf import KERNEL_GROUPBY_TABLE_SLOTS
-    want = min(int(conf.get(KERNEL_GROUPBY_TABLE_SLOTS)), max(2 * cap, 64))
+    want = min(int(conf.get(KERNEL_GROUPBY_TABLE_SLOTS))
+               * max(1, int(slots_mult)), max(2 * cap, 64))
     t = 64
     while t < want:
         t <<= 1

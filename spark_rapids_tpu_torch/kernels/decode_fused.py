@@ -54,9 +54,14 @@ def _out_dtype(kind: str, np_dt: str) -> torch.dtype:
 
 
 def decode_fused(layout: Tuple, cap: int, n: int, words: torch.Tensor,
-                 extras: Sequence[torch.Tensor]):
+                 extras: Sequence[torch.Tensor], rows_per_thread: int = 0,
+                 tuned: bool = False):
     """Packed page words + plan tables -> ``(active, outs)`` at capacity
-    ``cap`` for ``n`` rows, outs in the layout's column order."""
+    ``cap`` for ``n`` rows, outs in the layout's column order.
+    ``rows_per_thread`` (1, 2 or 4; 0 = chosen by the batch's size) is
+    the autotuner's launch knob: it changes the launch, never a byte, and
+    the plain version has no launch to change. ``tuned`` marks the
+    dispatch span of a launch that runs a recorded winner."""
     from spark_rapids_tpu_torch.columnar.transfer import (
         _encoded_decode_body, walk_layout)
     if not words.is_cuda:
@@ -64,9 +69,10 @@ def decode_fused(layout: Tuple, cap: int, n: int, words: torch.Tensor,
         t0 = KR.dispatch_start()
         out = _encoded_decode_body(layout, cap, words, n, extras)
         if t0 is not None:
-            KR.dispatch_end(t0, "decodeFused", bucket=cap)
+            KR.dispatch_end(t0, "decodeFused", bucket=cap, tuned=tuned)
         return out
-    return _launch(list(walk_layout(layout, extras)), cap, n, words)
+    return _launch(list(walk_layout(layout, extras)), cap, n, words,
+                   int(rows_per_thread), tuned)
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, shape, what: str) -> int:
@@ -79,7 +85,8 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape, what: str) -> int:
     return t.data_ptr()
 
 
-def _launch(entries, cap: int, n: int, words: torch.Tensor):
+def _launch(entries, cap: int, n: int, words: torch.Tensor,
+            rows_per_thread: int, tuned: bool):
     device = words.device
     tensors = [words] + [x for _e, t in entries for x in _tensors_of(t)]
     KR.require_cuda(tensors, "decodeFused")
@@ -165,7 +172,7 @@ def _launch(entries, cap: int, n: int, words: torch.Tensor):
     active = torch.empty(cap, dtype=torch.bool, device=device)
     fn = KR.library("decode_fused").decode_fused_launch
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, cl, vp, ci, cl, cl, ci, vp, vp, vp, vp]
+    fn.argtypes = [vp, cl, vp, ci, cl, cl, ci, vp, vp, vp, ci, vp]
     fn.restype = ci
     t0 = KR.dispatch_start()
     KR.count_launch("decodeFused")
@@ -173,9 +180,11 @@ def _launch(entries, cap: int, n: int, words: torch.Tensor):
                 len(descs), n, cap, n_slots,
                 part.data_ptr() if n_slots else None,
                 bsum.data_ptr() if n_slots else None, active.data_ptr(),
-                KR.stream_handle(device)), "decodeFused launch")
+                rows_per_thread, KR.stream_handle(device)),
+             "decodeFused launch")
     if t0 is not None:
-        KR.dispatch_end(t0, "decodeFused", chip=device.index, bucket=cap)
+        KR.dispatch_end(t0, "decodeFused", chip=device.index, bucket=cap,
+                        tuned=tuned)
     return active, tuple(outs)
 
 

@@ -33,7 +33,7 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -290,16 +290,25 @@ def groupby_table_plain(kw, h, valid, add, mn, mx, slots: int):
     return owner, add_out, min_out, max_out, overflow
 
 
-def groupby_table(kw, h, valid, add, mn, mx, slots: int):
+def groupby_table(kw, h, valid, add, mn, mx, slots: int,
+                  block_rows: int = 0, lane_groups: int = 1,
+                  tuned: bool = False):
     """The partial group-by table pass: ``(owner int32[T], add_out,
     min_out, max_out int64[T, n], overflow int32[1])``; ``owner`` is -1
-    for unused slots, else the group's first row."""
+    for unused slots, else the group's first row. ``block_rows`` (the
+    rows each kernel block walks; 0 = one a thread) and ``lane_groups``
+    (the divisor of the shared-memory table's entries) are the
+    autotuner's launch knobs: they change the launch, never a result,
+    and the plain version has no launch to change. ``tuned`` marks the
+    dispatch span of a launch that runs a recorded winner."""
+    bucket = kw.shape[0]
     if not kw.is_cuda:
         # the plain version's call takes the kernel's span on the CPU
         t0 = KR.dispatch_start()
         out = groupby_table_plain(kw, h, valid, add, mn, mx, slots)
         if t0 is not None:
-            KR.dispatch_end(t0, "groupbyHash", slots=slots)
+            KR.dispatch_end(t0, "groupbyHash", slots=slots, bucket=bucket,
+                            tuned=tuned)
         return out
     ins = [kw, h, valid, add, mn, mx]
     KR.require_cuda(ins, "groupbyHash")
@@ -319,7 +328,7 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
     n_add, n_min, n_max = add.shape[0], mn.shape[0], mx.shape[0]
     fn = KR.library("groupby_hash").groupby_hash_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci,
+    fn.argtypes = [vp, ci, vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci, ci,
                    vp, vp, vp, vp, vp, vp]
     fn.restype = ci
     device = kw.device
@@ -333,13 +342,15 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int):
     KR.check(fn(kw.data_ptr(), K, h.data_ptr(), valid.data_ptr(), n,
                 add.data_ptr(), n_add, mn.data_ptr(), n_min,
                 mx.data_ptr(), n_max, slots,
-                local_table_entries(n_add + n_min + n_max, slots),
+                local_table_entries(n_add + n_min + n_max, slots)
+                // max(1, int(lane_groups)), int(block_rows),
                 owner.data_ptr(), add_out.data_ptr(), min_out.data_ptr(),
                 max_out.data_ptr(), overflow.data_ptr(),
                 KR.stream_handle(device)),
              "groupbyHash launch")
     if t0 is not None:
-        KR.dispatch_end(t0, "groupbyHash", chip=device.index, slots=slots)
+        KR.dispatch_end(t0, "groupbyHash", chip=device.index, slots=slots,
+                        bucket=bucket, tuned=tuned)
     return owner, add_out, min_out, max_out, overflow
 
 
@@ -359,16 +370,22 @@ def table_inputs(key_cols, entries, active: torch.Tensor):
             decode)
 
 
-def hash_groupby(key_cols, entries, active: torch.Tensor, slots: int):
+def hash_groupby(key_cols, entries, active: torch.Tensor, slots: int,
+                 params: Optional[dict] = None, tuned: bool = False):
     """Single-pass group-by: ``(key_out, buffers, used, overflow)``, all
     at capacity ``slots``. ``entries`` are ``(col, prim, out_type)``;
     callers pre-check ``agg_kernel_eligible``. Keys are gathered from
-    the batch by each group's first row."""
+    the batch by each group's first row. ``params`` are the autotuner's
+    launch knobs for this batch's bucket (``slotsMult`` is already in
+    ``slots``)."""
     from spark_rapids_tpu_torch.columnar.device import take_columns
     cap = active.shape[0]
+    params = params or {}
     kw, h, add, mn, mx, decode = table_inputs(key_cols, entries, active)
     owner, add_out, min_out, max_out, overflow = groupby_table(
-        kw, h, active, add, mn, mx, slots)
+        kw, h, active, add, mn, mx, slots,
+        block_rows=int(params.get("blockRows", 0)),
+        lane_groups=int(params.get("laneGroups", 1)), tuned=tuned)
     used = owner >= 0
     key_out = take_columns(key_cols,
                            owner.clamp(0, cap - 1).to(torch.int64),

@@ -1,0 +1,152 @@
+"""The port's lint configuration (the counterpart of
+``spark_rapids_tpu.lint.config``).
+
+The defaults describe the port's own tree: its scopes, the allocation and
+launch sites the retry rule tracks, the critical locks and the sanctioned
+sites. A ``torch-lint.json`` at the repo root can merge overrides for the
+file-based knobs (no runtime conf keys: lint config lives outside the
+spark.rapids.* registry)::
+
+    {
+      "check_docs": false,
+      "retry_allowlist": {"pkg/mod.py::fn": "why this site is exempt"},
+      "baseline": "torch-lint-baseline.json"
+    }
+
+Every allowlist entry maps ``<repo-relative-path>::<qualname>`` to a
+written reason, as the suppression grammar demands a reason.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Tuple
+
+CONFIG_FILENAME = "torch-lint.json"
+
+
+@dataclasses.dataclass
+class LintConfig:
+    # directories (relative to the lint root) scanned for *.py
+    scan_roots: Tuple[str, ...] = ("spark_rapids_tpu_torch",)
+
+    # -- retry-coverage ----------------------------------------------------
+    # files whose device allocation and kernel launch sites must sit
+    # inside the OOM retry protocol (retry.py)
+    retry_scope: Tuple[str, ...] = (
+        "spark_rapids_tpu_torch/exec/",
+        "spark_rapids_tpu_torch/columnar/transfer.py",
+        "spark_rapids_tpu_torch/columnar/device.py",
+    )
+    retry_wrappers: Tuple[str, ...] = (
+        "with_retry", "with_split_retry", "io_with_retry")
+    # device allocation / upload / kernel-launch entry points the rule
+    # tracks: the upload protocol's halves, and the wrappers of the
+    # hand-written kernels
+    alloc_entrypoints: Tuple[str, ...] = (
+        "finish_upload", "finish_started", "upload_batch",
+        "groupby_table", "hash_groupby", "build_probe", "murmur3_columns",
+        "decode_fused")
+    # torch allocators the rule tracks when they are handed a device=,
+    # in the operators (alloc_scope); the columnar helpers below them are
+    # the batch programs the operators run, under the protocol there
+    alloc_scope: Tuple[str, ...] = ("spark_rapids_tpu_torch/exec/",)
+    alloc_calls: Tuple[str, ...] = (
+        "torch.empty", "torch.zeros", "torch.full", "torch.ones",
+        "torch.arange", "torch.tensor", "torch.empty_like",
+        "torch.zeros_like", "torch.full_like")
+    # "<rel>::<qualname>" -> reason. The protocol's own implementation
+    # layer: the wrapped sites wrap their CALLERS, so the raw calls
+    # inside them are the sanctioned copies.
+    retry_allowlist: Dict[str, str] = dataclasses.field(
+        default_factory=lambda: {
+            "spark_rapids_tpu_torch/columnar/transfer.py::upload_batch":
+                "composition of the upload's halves; every call site "
+                "runs it under with_retry or with_split_retry",
+            "spark_rapids_tpu_torch/exec/basic.py::_part_ctx":
+                "two 0-d scalars made once a partition, before its batch "
+                "loop (spark_partition_id and the row offset)",
+            "spark_rapids_tpu_torch/columnar/transfer.py::decode_staged":
+                "the decode of a staged token, reached only through "
+                "finish_upload and finish_started, whose callers wrap "
+                "them in with_retry",
+            "spark_rapids_tpu_torch/columnar/device.py::DeviceBatch"
+            ".from_host":
+                "the test and tool entry that uploads one HostBatch; "
+                "every exec uploads through the ring's retry protocol",
+        })
+
+    # -- concurrency -------------------------------------------------------
+    concurrency_scope: Tuple[str, ...] = (
+        "spark_rapids_tpu_torch/memory.py",
+        "spark_rapids_tpu_torch/resource.py",
+        "spark_rapids_tpu_torch/jit_cache.py",
+        "spark_rapids_tpu_torch/kernels/",
+        "spark_rapids_tpu_torch/serve/",
+    )
+    # holding one of these, a blocking call is a stall for every task or
+    # query in the process (the device store, the semaphore, the
+    # scheduler and the stage-program cache)
+    critical_locks: Tuple[str, ...] = (
+        "DeviceStore._lock", "TorchSemaphore._cv",
+        "AdmissionController._cv", "JitCache._lock")
+
+    # -- cancellation discipline -------------------------------------------
+    # files whose blocking waits must be cancellable: a bounded timeout
+    # (re-checked in a loop) or a lifecycle-aware helper
+    cancel_scope: Tuple[str, ...] = (
+        "spark_rapids_tpu_torch/serve/",
+        "spark_rapids_tpu_torch/retry.py",
+        "spark_rapids_tpu_torch/jit_cache.py",
+    )
+
+    # -- drift -------------------------------------------------------------
+    metrics_rel: str = "spark_rapids_tpu_torch/metrics.py"
+    trace_rel: str = "spark_rapids_tpu_torch/trace.py"
+    # the telemetry endpoint module whose SERVER_FAMILY_HELP table the
+    # prom-family rule checks emissions against
+    prometheus_rel: str = "spark_rapids_tpu_torch/telemetry/prometheus.py"
+    # the query-history module whose HISTORY_FIELD_CATALOG the
+    # history-field rule checks record construction against
+    history_rel: str = "spark_rapids_tpu_torch/telemetry/history.py"
+    # the feedback-control module whose ACTION_CATALOG the tuning-action
+    # rule checks action construction against
+    tuning_rel: str = "spark_rapids_tpu_torch/telemetry/tuning.py"
+    # the call that registers a conf key (conf.py's ``_entry``)
+    conf_registrar: str = "_entry"
+    # generated docs compared against `tools docs` regeneration
+    check_docs: bool = True
+
+    # -- engine ------------------------------------------------------------
+    baseline: str = "torch-lint-baseline.json"
+    # total lint wall budget in seconds: `tools lint` exits 2 when a run
+    # exceeds it
+    time_budget_s: float = 60.0
+
+
+def load_config(root: str) -> LintConfig:
+    """Defaults, merged with an optional ``torch-lint.json`` at root."""
+    cfg = LintConfig()
+    path = os.path.join(root, CONFIG_FILENAME)
+    if not os.path.exists(path):
+        return cfg
+    with open(path, "r", encoding="utf-8") as f:
+        data = json.load(f)
+    for key in ("check_docs", "baseline", "metrics_rel",
+                "trace_rel", "prometheus_rel", "history_rel", "tuning_rel",
+                "conf_registrar", "time_budget_s"):
+        if key in data:
+            setattr(cfg, key, data[key])
+    for key in ("scan_roots", "retry_scope", "retry_wrappers",
+                "alloc_entrypoints", "alloc_scope", "alloc_calls",
+                "concurrency_scope",
+                "critical_locks", "cancel_scope"):
+        if key in data:
+            setattr(cfg, key, tuple(data[key]))
+    if "retry_allowlist" in data:
+        merged = dict(cfg.retry_allowlist)
+        merged.update(data["retry_allowlist"])
+        cfg.retry_allowlist = merged
+    return cfg

@@ -622,7 +622,10 @@ def _default_budget() -> int:
     dev = torch.cuda.current_device()
     total = _CARD_BYTES.get(dev)
     if total is None:
-        total = _CARD_BYTES[dev] = torch.cuda.mem_get_info(dev)[1]
+        from spark_rapids_tpu_torch.device_manager import \
+            device_memory_bytes
+        total = _CARD_BYTES[dev] = device_memory_bytes(
+            torch.device("cuda", dev))
     return int(total * 0.8)
 
 

@@ -465,8 +465,10 @@ class ExecRule:
     (``gap``, where it has one)."""
 
     def __init__(self, name: str, jax: Callable, convert: Callable,
-                 sig: str = X.FLAT, gap: Optional[Callable] = None):
+                 sig: str = X.FLAT, gap: Optional[Callable] = None,
+                 desc: str = ""):
         self.name = name
+        self.desc = desc
         self.jax = jax
         self.gap = gap
         self.convert = convert
@@ -477,37 +479,58 @@ class ExecRule:
         return f"spark.rapids.sql.exec.{self.name}"
 
 
-def _rule(cls: Type, jax: Callable, convert: Callable,
+def _rule(cls: Type, desc: str, jax: Callable, convert: Callable,
           sig: str = X.FLAT, gap: Optional[Callable] = None):
     return cls, ExecRule(cls.__name__.replace("Cpu", ""), jax, convert,
-                         sig, gap)
+                         sig, gap, desc)
 
 
+# the descriptions are the JAX rule table's, so the two support matrices
+# (docs/supported_ops.md, docs/torch/supported_ops.md) agree row for row
 _EXEC_RULES: Dict[Type, ExecRule] = dict([
-    _rule(P.CpuProjectExec, _jax_project, _conv_project, X.NESTED),
-    _rule(P.CpuFilterExec, _jax_filter, _conv_filter, X.NESTED),
-    _rule(P.CpuGenerateExec, _jax_generate, _conv_generate, X.NESTED),
-    _rule(P.CpuRangeExec, _jax_none, _conv_range),
-    _rule(P.CpuUnionExec, _jax_none, _conv_union),
-    _rule(P.CpuLocalLimitExec, _jax_none, _conv_local_limit),
-    _rule(P.CpuGlobalLimitExec, _jax_none, _conv_global_limit),
-    _rule(P.CpuShuffleExchangeExec, _jax_exchange, _conv_exchange,
-          X.STRUCT),
-    _rule(P.CpuBroadcastExchangeExec, _jax_none, _conv_broadcast_exchange),
-    _rule(P.CpuHashAggregateExec, _jax_aggregate, _conv_aggregate,
-          X.STRUCT, gap=_gap_aggregate),
-    _rule(P.CpuExpandExec, _jax_expand, _conv_expand),
-    _rule(P.CpuSortExec, _jax_sort, _conv_sort, X.STRUCT),
-    _rule(CpuWindowExec, _jax_window, _conv_window),
-    _rule(P.CpuShuffledHashJoinExec, _jax_join,
-          _conv_join("TorchShuffledHashJoinExec")),
-    _rule(P.CpuBroadcastHashJoinExec, _jax_join,
+    _rule(P.CpuProjectExec, "projection onto device columns",
+          _jax_project, _conv_project, X.NESTED),
+    _rule(P.CpuFilterExec, "device predicate filter (mask update)",
+          _jax_filter, _conv_filter, X.NESTED),
+    _rule(P.CpuGenerateExec, "device explode over segmented arrays",
+          _jax_generate, _conv_generate, X.NESTED),
+    _rule(P.CpuRangeExec, "device iota range source", _jax_none,
+          _conv_range),
+    _rule(P.CpuUnionExec, "union of device partitions", _jax_none,
+          _conv_union),
+    _rule(P.CpuLocalLimitExec, "per-partition limit by mask", _jax_none,
+          _conv_local_limit),
+    _rule(P.CpuGlobalLimitExec, "global limit by mask", _jax_none,
+          _conv_global_limit),
+    _rule(P.CpuShuffleExchangeExec, "device-partitioned exchange",
+          _jax_exchange, _conv_exchange, X.STRUCT),
+    _rule(P.CpuBroadcastExchangeExec,
+          "device-resident reusable broadcast "
+          "(GpuBroadcastExchangeExec.scala:280)", _jax_none,
+          _conv_broadcast_exchange),
+    _rule(P.CpuHashAggregateExec, "sort-segmented device aggregation",
+          _jax_aggregate, _conv_aggregate, X.STRUCT, gap=_gap_aggregate),
+    _rule(P.CpuExpandExec, "device grouping-sets expansion", _jax_expand,
+          _conv_expand),
+    _rule(P.CpuSortExec, "device lexsort over encoded sort keys",
+          _jax_sort, _conv_sort, X.STRUCT),
+    _rule(CpuWindowExec, "segment-scan device window functions",
+          _jax_window, _conv_window),
+    _rule(P.CpuShuffledHashJoinExec, "count-then-gather device equi-join",
+          _jax_join, _conv_join("TorchShuffledHashJoinExec")),
+    _rule(P.CpuBroadcastHashJoinExec,
+          "device equi-join with HBM-resident build side", _jax_join,
           _conv_join("TorchBroadcastHashJoinExec")),
     # the surrounding plan stays on the device around the Python worker
-    _rule(CpuArrowEvalPythonExec, _jax_none,
+    _rule(CpuArrowEvalPythonExec,
+          "scalar pandas UDFs via the python worker pool; the "
+          "surrounding plan stays on device "
+          "(GpuArrowEvalPythonExec.scala:487)", _jax_none,
           lambda node, kids, conf, device:
           TorchArrowEvalPythonExec(node, kids[0], conf, device)),
-    _rule(CpuMapInPandasExec, _jax_none,
+    _rule(CpuMapInPandasExec,
+          "mapInPandas via the python worker pool "
+          "(GpuMapInPandasExec role)", _jax_none,
           lambda node, kids, conf, device:
           TorchMapInPandasExec(node, kids[0], conf, device)),
 ])

@@ -182,9 +182,11 @@ def plan_signature(plan, conf) -> str:
             "spark.rapids.sql.adaptive.",
             "spark.rapids.sql.resultCache.",
             "spark.rapids.sql.subplanCache.",
+            # tpu-lint: disable=conf-key(prefix over the test.inject* key family, not a key literal)
             "spark.rapids.sql.test.inject",
             "spark.rapids.sql.kernel.autotune.",
             "spark.rapids.sql.kernel.groupbyHash.tableSlots",
+            # tpu-lint: disable=conf-key(the JAX package's joinProbe key, left out of the signature as the JAX package leaves it out; the port registers and reads no such key)
             "spark.rapids.sql.kernel.joinProbe.maxBuildRows"))))
     return "".join(parts)
 

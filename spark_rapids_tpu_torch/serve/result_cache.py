@@ -347,6 +347,7 @@ def subplan_signature(node, conf) -> str:
             "spark.rapids.sql.adaptive.",
             "spark.rapids.sql.resultCache.",
             "spark.rapids.sql.subplanCache.",
+            # tpu-lint: disable=conf-key(prefix over the test.inject* key family, not a key literal)
             "spark.rapids.sql.test.inject")))
     body = (walk(node) + "||conf:" + settings
             + f"||device:{getattr(node, 'device', None)}")
@@ -417,7 +418,7 @@ class SubplanCache:
         try:
             # store-handle access, not a queue: get() unspills or
             # raises, it never blocks on a producer
-            batch = entry.handle.get()
+            batch = entry.handle.get()  # tpu-lint: disable=cancel-checkpoint(a store handle's get unspills or raises; it never waits on a producer)
         except Exception:
             # raced a pool drop between the closed check and the access
             with self._lock:

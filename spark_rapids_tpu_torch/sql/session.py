@@ -108,6 +108,9 @@ class TorchSparkSession:
         from spark_rapids_tpu_torch.conf import SERVE_TENANT_ID
         self.conf_obj = TorchConf(conf)
         self.device = resolve_device(device)
+        # the kernels built and probed once per process on a card
+        from spark_rapids_tpu_torch import device_manager
+        device_manager.initialize(self.conf_obj, self.device)
         # the serving tenant this session runs for (None outside serving)
         self.tenant: Optional[str] = \
             str(self.conf_obj.get(SERVE_TENANT_ID) or "") or None

@@ -28,6 +28,9 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+# the one copy of the trace's exclusive self-times (the doctor's stage
+# evidence and `tools trace` read the same numbers)
+from spark_rapids_tpu_torch.tools import exclusive_times
 from spark_rapids_tpu_torch.telemetry.history import (STATUS_FINISHED,
                                                       find_record,
                                                       read_records,
@@ -144,37 +147,6 @@ def _profile_exchange_skew(profile_path: str) -> Dict[str, Any]:
     if isinstance(plan, dict):
         visit(plan)
     return worst
-
-
-def exclusive_times(spans: List[dict]) -> Dict[str, Dict[str, float]]:
-    """Per span name: count, total us, and EXCLUSIVE us (total minus
-    directly nested child spans on the same lane): the ``retryBlock``
-    span nested inside an operator's timer span comes off the
-    operator's self-time. (A copy of the JAX package's
-    ``tools.exclusive_times``.)"""
-    out: Dict[str, Dict[str, float]] = {}
-    by_tid: Dict[int, List[dict]] = {}
-    for s in spans:
-        by_tid.setdefault(s["tid"], []).append(s)
-    for ss in by_tid.values():
-        ss.sort(key=lambda s: (s["t0"], -(s["t1"] - s["t0"])))
-        stack: List[dict] = []
-        for s in ss:
-            s["_child"] = 0.0
-            while stack and stack[-1]["t1"] <= s["t0"] + 1e-9:
-                stack.pop()
-            if stack:
-                stack[-1]["_child"] += s["t1"] - s["t0"]
-            stack.append(s)
-        for s in ss:
-            d = out.setdefault(s["name"],
-                               {"count": 0, "total": 0.0,
-                                "exclusive": 0.0})
-            d["count"] += 1
-            dur = s["t1"] - s["t0"]
-            d["total"] += dur
-            d["exclusive"] += max(0.0, dur - s.pop("_child"))
-    return out
 
 
 def _trace_self_times(trace_path: str) -> Dict[str, float]:

@@ -101,12 +101,19 @@ SPAN_CATALOG: Dict[str, str] = {
     "resultCacheHit": "a query served verbatim from the result cache "
                       "— zero device work, zero queue wait, zero "
                       "admission slot (docs/caching.md)",
+    "autotuneSweep": "one kernel autotune sweep at a new (kernel, "
+                     "bucket, card) key: every candidate validated, then "
+                     "timed (kernel=/bucket=/candidates=/applied=; "
+                     "kernels/autotune.py)",
     "cacheEntryDrop": "the device pool dropped a cache-tier entry "
                       "under pressure instead of spilling a live "
                       "query's batch (docs/caching.md)",
 }
 
 INSTANT_CATALOG: Dict[str, str] = {
+    "autotuneTableUnwritable": "the autotuner could not append to its "
+                               "table under kernel.autotune.dir: this "
+                               "process keeps its winners in memory",
     "retryOOM": "an OOM retry re-attempted the operation",
     "splitRetry": "an input batch split in half after OOM exhaustion",
     "ioRetry": "a transient reader IO error was retried",

@@ -176,8 +176,13 @@ def test_kernel_fallback_verdict_takes_no_action_in_the_port(tmp_path):
                               "false"}, ["kernelFallback"])
     assert writes["port"] == ({}, [])
     assert "kernelFallback" not in T.ACTION_CATALOG
-    assert not any(k.startswith("spark.rapids.sql.kernel.")
-                   and k.endswith(".enabled") for k in _REGISTRY)
+    # no kernel has an enable key (the autotuner's own key is not one)
+    assert not any(f"spark.rapids.sql.kernel.{name}.enabled" in _REGISTRY
+                   for name in ("murmur3", "groupbyHash", "joinProbe",
+                                "decodeFused"))
+    assert [k for k in _REGISTRY if k.startswith("spark.rapids.sql.kernel.")
+            and k.endswith(".enabled")] == [
+        "spark.rapids.sql.kernel.autotune.enabled"]
 
 
 def test_catalog_is_the_jax_catalog_less_kernel_fallback():
