@@ -278,6 +278,16 @@ absent or any phase fails. Output, one line per phase:
      a subprocess, ``profile``, ``trace``, ``hotspots``, ``docs`` and
      ``lint`` in process, each exit 0, the docs identical to
      docs/torch/);
+  23. the sync audit (``sync_audit_phases``): TPC-H q1 from phase 7's
+     Parquet and TPC-DS q3's pushed form from phase 20's files, each run
+     once warm and once under ``torch.cuda.set_sync_debug_mode("warn")``
+     (``sync_audit``: rows exact, the launches, every sync PyTorch
+     reports attributed to the innermost function of the package on its
+     thread's stack, counted per function, per calling function and per
+     line; the run fails when one falls in a function of the linter's
+     ``hot_scope`` that ``sync_allowlist`` does not cover, or when a
+     query records none), after ``sync_probe`` (where this build puts a
+     sync's warning, and which explicit ``synchronize()`` calls warn);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -297,14 +307,15 @@ absent or any phase fails. Output, one line per phase:
   (``formats_only``); with ``--serve``, only the build and phase 20
   (``serve_only``); with ``--observe``, only the build and phase 21
   (``observe_only``); with ``--tools``, only the build and phase 22
-  (``tools_only``);
+  (``tools_only``); with ``--sync-audit``, only the build and phase 23
+  (``sync_audit_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's and 22's
-  legs, and those phases' shapes among its cases; groupbyHash and
+  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's, 22's and
+  23's legs, and those phases' shapes among its cases; groupbyHash and
   decodeFused also with their tuned knobs a bucket and each autotune
   candidate's card ms at q1's shapes)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
@@ -8107,6 +8118,239 @@ def tools_only(card: str) -> None:
           tuned=tuned)
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def enclosing_qualnames(root: str, rel: str, line: int, memo: dict) -> list:
+    """The qualnames of the defs in ``rel`` that enclose ``line``, innermost
+    first, named as the linter names them (``lint.astutil.qualname``);
+    ``memo`` keeps each file's defs."""
+    import ast
+    from spark_rapids_tpu_torch.lint import astutil as LA
+    defs = memo.get(rel)
+    if defs is None:
+        tree = LA.FileCtx(root, rel).tree
+        defs = memo[rel] = [
+            (n.lineno, n.end_lineno, LA.qualname(n)) for n in ast.walk(tree)
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    return [q for a, _b, q in sorted(((a, b, q) for a, b, q in defs
+                                      if a <= line <= b), reverse=True)]
+
+
+class SyncRecorder:
+    """Every synchronisation PyTorch reports under
+    ``torch.cuda.set_sync_debug_mode("warn")``, attributed to the innermost
+    frame of the port's package on the stack of the thread that issued it
+    (the calling line of the op, or, for an op that runs inside PyTorch's
+    own Python code, the port's line that called into it). Installed as
+    ``warnings.showwarning`` inside ``warnings.catch_warnings``; other
+    warnings pass through."""
+
+    def __init__(self, root: str):
+        import collections
+        import threading
+        self.root = root
+        self.pkg = os.path.join(root, "spark_rapids_tpu_torch") + os.sep
+        self.lines = collections.Counter()  # "<rel>:<line>"
+        # ("<rel>:<line>", the calling frame's "<rel>:<line>" or None)
+        self.calls = collections.Counter()
+        self.threads = collections.Counter()
+        self.outside = collections.Counter()  # syncs with no package frame
+        self.passed = []
+        self._lock = threading.Lock()
+
+    def hook(self, message, category, filename, lineno, file=None,
+             line=None):
+        import threading
+        import traceback
+        if SYNC_WARNING not in str(message):
+            self.passed.append((str(message), filename, lineno))
+            return
+        ours = []
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            path = os.path.abspath(fr.filename)
+            if path.startswith(self.pkg):
+                rel = os.path.relpath(path, self.root).replace(os.sep, "/")
+                ours.append(f"{rel}:{fr.lineno}")
+                if len(ours) == 2:
+                    break
+        with self._lock:
+            self.threads[threading.current_thread().name] += 1
+            if not ours:
+                self.outside[f"{os.path.basename(filename)}:{lineno}"] += 1
+            else:
+                self.lines[ours[0]] += 1
+                self.calls[(ours[0], ours[1] if len(ours) > 1
+                            else None)] += 1
+
+
+def sync_probe(device) -> dict:
+    """How this PyTorch build reports a synchronisation: whether one
+    ``.item()`` warns with the calling line as the warning's location, and
+    which explicit ``synchronize()`` calls pass through the detector."""
+    import warnings
+    import torch
+    x = torch.ones(4, device=device)
+    ev = torch.cuda.Event()
+    counts = {}
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            line = sys._getframe().f_lineno + 1
+            x.sum().item()
+            counts["item"] = len(rec)
+            torch.cuda.synchronize(device)
+            counts["torch.cuda.synchronize"] = len(rec) - sum(counts.values())
+            torch.cuda.current_stream(device).synchronize()
+            counts["Stream.synchronize"] = len(rec) - sum(counts.values())
+            ev.record()
+            ev.synchronize()
+            counts["Event.synchronize"] = len(rec) - sum(counts.values())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    first = rec[0] if rec else None
+    return {"warns": counts,
+            "warning_location": None if first is None else
+            f"{os.path.basename(first.filename)}:{first.lineno}",
+            "location_is_caller": first is not None
+            and os.path.basename(first.filename) == os.path.basename(
+                __file__) and first.lineno == line}
+
+
+def sync_audit_phases(card: str, arrays, q1_dir: str) -> dict:
+    """Phase 23: every runtime synchronisation of the main path held
+    against the linter's ``sync_allowlist``. TPC-H q1 at SF1 from phase
+    7's Parquet (decodeFused, groupbyHash inside a CUDA graph) and TPC-DS
+    q3's pushed form from phase 20's files (joinProbe) run once warm, then
+    once more under ``torch.cuda.set_sync_debug_mode("warn")``, each sync
+    recorded with its stack (``SyncRecorder``; the upload ring's producer
+    thread records too) and attributed to ``<rel>::<qualname>`` through
+    the linter's own ``FileCtx``. ``sync_audit`` prints, per query, the
+    rows (exact), the syncs per function and per line, and the launches;
+    the run fails when a sync falls in a function of the linter's
+    ``hot_scope`` that no ``sync_allowlist`` entry covers (the entry names
+    the function or one enclosing it), and when a query records no sync
+    at all. ``sync_probe`` says first where this build puts a sync's
+    warning (not at the calling line on PyTorch 2.11, hence the stacks).
+    Explicit ``torch.cuda.synchronize()`` and ``Event.synchronize()``
+    calls do not pass through the detector (``Stream.synchronize()``
+    does; the probe shows which): the static ``hidden-sync`` rule alone
+    covers them, and so the columnar-to-row download, which copies into
+    pinned memory on its own stream and waits on an event
+    (``finish_to_host``), takes no sync the detector sees. Returns the
+    launches a query in the audited runs."""
+    import warnings
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch.lint.config import LintConfig
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = LintConfig()
+    probe = sync_probe(device)
+    tables = q3_tables()
+    q3_dir, _w = write_q3_parquet(TorchSparkSession(), tables)
+    dims_dir, _w = write_q3_parquet(
+        TorchSparkSession(), tables,
+        {k: Q3_PARTITIONS[k] for k in ("item", "date_dim")},
+        name="tpcds_q3_dims4")
+    queries = (
+        ("q1", {"lineitem": q1_dir}, Q1,
+         lambda rows: check_q1_rows(rows, q1_reference(arrays))),
+        ("q3", {"store_sales": os.path.join(q3_dir, "store_sales"),
+                "item": os.path.join(dims_dir, "item"),
+                "date_dim": os.path.join(dims_dir, "date_dim")}, Q3_PUSHED,
+         lambda rows: check_q3_rows(rows, q3_reference(tables),
+                                    "sync_audit q3")))
+    memo: dict = {}
+    legs, failures = {}, []
+    for q, views, sql, check in queries:
+        s = TorchSparkSession({"spark.sql.shuffle.partitions":
+                               str(N_PARTITIONS)})
+        for name, path in views.items():
+            s.read.parquet(path).createOrReplaceTempView(name)
+        df = s.sql(sql)
+        check([tuple(r) for r in df.collect()])  # warm, not audited
+        torch.cuda.synchronize()
+        rec = SyncRecorder(root)
+        snap = KR.launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            warnings.showwarning = rec.hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rows = [tuple(r) for r in df.collect()]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+        now = KR.launch_counts()
+        launches = {k: now[k] - snap[k] for k in now if now[k] - snap[k]}
+        check(rows)
+        def function_of(site):
+            rel, line = site.rsplit(":", 1)
+            quals = enclosing_qualnames(root, rel, int(line), memo) \
+                or ["<module>"]
+            return rel, quals
+
+        by_function: dict = {}
+        by_caller: dict = {}
+        unsanctioned = {}
+        for (site, caller), n in sorted(rec.calls.items(),
+                                        key=lambda kv: str(kv[0])):
+            rel, quals = function_of(site)
+            key = f"{rel}::{quals[0]} <- " + (
+                "?" if caller is None else
+                "{0}::{1[0]}".format(*function_of(caller)))
+            by_caller[key] = by_caller.get(key, 0) + n
+        for site, n in sorted(rec.lines.items()):
+            rel, quals = function_of(site)
+            fn = f"{rel}::{quals[0]}"
+            by_function[fn] = by_function.get(fn, 0) + n
+            hot = any(rel.startswith(h) for h in cfg.hot_scope)
+            if hot and not any(f"{rel}::{qn}" in cfg.sync_allowlist
+                               for qn in quals):
+                unsanctioned[site] = fn
+        total = sum(rec.lines.values()) + sum(rec.outside.values())
+        legs[q] = launches
+        phase("sync_audit", card=card, query=q, rows=len(rows),
+              reference="exact", syncs=total, by_function=by_function,
+              by_caller=by_caller, by_line=dict(sorted(rec.lines.items())),
+              outside_package=dict(rec.outside), threads=dict(rec.threads),
+              unsanctioned=unsanctioned, launches=launches,
+              audited_wall_s=wall, probe=probe,
+              seconds=time.perf_counter() - t_phase)
+        if unsanctioned:
+            failures.append(f"{q}: syncs in hot-scope functions outside "
+                            f"sync_allowlist: {unsanctioned}")
+        if total == 0:
+            failures.append(f"{q}: no sync recorded (the columnar-to-row "
+                            "download must show)")
+    if not probe["warns"].get("item"):
+        failures.append(f".item() did not warn: {probe}")
+    if failures:
+        raise AssertionError("sync_audit: " + "; ".join(failures))
+    return legs
+
+
+def sync_audit_only(card: str) -> None:
+    """``--sync-audit``: the kernels' build and phase 23."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs = sync_audit_phases(card, arrays, q1_dir)
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8411,6 +8655,7 @@ def main() -> int:
     observe, oshapes = observe_phases(card, arrays, dfu["q1_dir"])
     tools, tuned, knobs = tools_phases(card, arrays, dfu["q1_dir"],
                                        observe["observe_traced_q1"])
+    audit = sync_audit_phases(card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -8550,6 +8795,8 @@ def main() -> int:
                                  for leg in observe}
         k["launches_tools"] = {leg: tools[leg].get(name, 0)
                                for leg in tools}
+        k["launches_sync_audit"] = {leg: audit[leg].get(name, 0)
+                                    for leg in audit}
         if name in knobs:
             # the autotuner's winners a capacity bucket, and every
             # candidate at q1's shapes (exact, card ms)
@@ -8823,7 +9070,7 @@ if __name__ == "__main__":
                                        "--nested", "--cache-udf",
                                        "--fallback", "--formats",
                                        "--serve", "--observe",
-                                       "--tools")):
+                                       "--tools", "--sync-audit")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8855,6 +9102,8 @@ if __name__ == "__main__":
             observe_only(card)
         elif "--tools" in sys.argv[1:]:
             tools_only(card)
+        elif "--sync-audit" in sys.argv[1:]:
+            sync_audit_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -621,6 +621,15 @@ def concat_columns(parts: Sequence[AnyDeviceColumn], cap: int
     return make_column(first.dtype, arrs)
 
 
+def active_rows(active: torch.Tensor, n: int) -> torch.Tensor:
+    """The positions of the ``n`` active rows of ``active`` in order, where
+    ``n`` is its active count already known on the host: what
+    ``torch.nonzero(active)`` gives, without the host read that sizes
+    nonzero's output (a stable sort puts the active rows first, as
+    ``compact_arrays`` does)."""
+    return torch.sort((~active).to(torch.int8), stable=True)[1][:n]
+
+
 def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
     """Device Table.concatenate: compact all actives into one batch at
     the bucket of the total row count. String char matrices of differing
@@ -634,8 +643,8 @@ def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
     total = sum(counts)
     cap = bucket_capacity(max(1, total))
     dev = batches[0].device
-    compacted = [take_columns(b.columns, torch.nonzero(b.active).flatten())
-                 for b in batches]
+    compacted = [take_columns(b.columns, active_rows(b.active, n))
+                 for b, n in zip(batches, counts)]
     cols = [concat_columns([cb[i] for cb in compacted], cap)
             for i in range(len(schema.fields))]
     active = torch.arange(cap, device=dev) < total

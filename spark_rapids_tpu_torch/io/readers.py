@@ -157,6 +157,7 @@ class ScanUnit:
 # file's size and mtime, so planning the same DataFrame again (every
 # collect) reads no footer twice, and a rewritten file is planned anew. A
 # bounded LRU: a session reading many datasets keeps the newest.
+# tpu-lint: disable=jit-module-cache(a footer memo of scan units bounded at _UNITS_CACHE_MAX; it holds no built program)
 _UNITS_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _UNITS_CACHE_MAX = 64
 _UNITS_LOCK = threading.Lock()

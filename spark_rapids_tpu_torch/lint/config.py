@@ -26,6 +26,67 @@ from typing import Dict, Tuple
 
 CONFIG_FILENAME = "torch-lint.json"
 
+_PKG = "spark_rapids_tpu_torch/"
+_PLAIN = ("runs on CPU tensors only; on the card the kernel launches "
+          "instead, so this never syncs there")
+_ORACLE = ("autotune oracle validation, not a query path: it runs once "
+           "per (kernel, bucket, device) sweep and must resolve the "
+           "bit-equality verdict before timing")
+_C2R = ("the columnar-to-row download: the rows leave the card here, "
+        "once per batch the consumer reads")
+
+_SYNC_ALLOWLIST: Dict[str, str] = {
+    _PKG + "exec/exchange.py::split_by_pid":
+        "the ONE documented counts sync per input batch (contiguousSplit):"
+        " partition row counts are attached so downstream consumers never "
+        "re-sync",
+    _PKG + "ops/join.py::device_join":
+        "the ONE sizing sync per probe: all three scalars ride one "
+        "stacked fetch, and the FK fast path (run_fast without a count) "
+        "skips it entirely",
+    _PKG + "exec/agg.py::TorchHashAggregateExec._run_partial":
+        "pipelineDrainTime: every batch's group count and overflow flag "
+        "of a partition read in one copy after the partition is drained",
+    _PKG + "kernels/groupby_hash.py::groupby_table_plain": _PLAIN,
+    _PKG + "kernels/join_probe.py::build_probe_plain": _PLAIN,
+    _PKG + "ops/hashing.py::murmur3_columns": _PLAIN,
+    _PKG + "columnar/transfer.py::_encoded_decode_body": _PLAIN,
+    _PKG + "kernels/autotune.py::_launch_ms": _ORACLE,
+    _PKG + "kernels/autotune.py::_GroupbyProbe.__init__": _ORACLE,
+    _PKG + "kernels/autotune.py::_GroupbyProbe.check": _ORACLE,
+    _PKG + "kernels/autotune.py::_DecodeProbe.__init__": _ORACLE,
+    _PKG + "kernels/autotune.py::_DecodeProbe.check": _ORACLE,
+    _PKG + "columnar/device.py::DeviceBatch.to_host": _C2R,
+    _PKG + "columnar/device.py::finish_to_host": _C2R,
+    _PKG + "columnar/device.py::_col_to_host": _C2R,
+    _PKG + "columnar/device.py::_array_to_host": _C2R,
+    _PKG + "columnar/transfer.py::StagingRing.place":
+        "the upload ring's slot wait: a pinned slot is refilled only "
+        "after the copy that last read it has completed",
+    _PKG + "exec/fused.py::StageProgram.build":
+        "the stage build's one side-stream synchronize, once per capture "
+        "and never once per batch",
+    _PKG + "columnar/device.py::DeviceBatch.row_count":
+        "the host row count a caller asks for (concatenation sizing, the "
+        "coalescer's goal, empty-batch skips), read once and kept in "
+        "_num_rows; the JAX package's row_count takes the same read, and "
+        "operators count rows with row_count_lazy",
+    _PKG + "ops/join.py::build_key_max_multiplicity":
+        "the build side's key multiplicity, read once per broadcast build "
+        "side: 1 certifies every stream chunk for the FK fast path with no "
+        "per-chunk sizing read (the JAX package's sanctioned drain point, "
+        "which prefetches it)",
+}
+
+_PURITY_ALLOWLIST: Dict[str, str] = {
+    _PKG + "kernels/groupby_hash.py::groupby_table_plain": _PLAIN,
+    _PKG + "ops/exprs.py::_literal_tensors":
+        "dev_eval makes a literal's tensors here only for a literal that "
+        "is not among the program's inputs, in eager evaluation; a stage "
+        "program takes every literal as an input tensor "
+        "(stage_literal_values), so no capture reaches it",
+}
+
 
 @dataclasses.dataclass
 class LintConfig:
@@ -102,6 +163,41 @@ class LintConfig:
         "spark_rapids_tpu_torch/jit_cache.py",
     )
 
+    # -- compile discipline ------------------------------------------------
+    # the bounded single-flight cache module (module dict caches of
+    # built programs are sanctioned only here)
+    jit_home: str = "spark_rapids_tpu_torch/jit_cache.py"
+    # the one module that builds CUDA graphs, under run_program's stage
+    # cache
+    graph_home: str = "spark_rapids_tpu_torch/exec/fused.py"
+
+    # -- data-flow tier ----------------------------------------------------
+    # hot-path scopes where a hidden device->host sync stalls the host's
+    # queue of work for the card
+    hot_scope: Tuple[str, ...] = (
+        "spark_rapids_tpu_torch/exec/",
+        "spark_rapids_tpu_torch/ops/",
+        "spark_rapids_tpu_torch/kernels/",
+        "spark_rapids_tpu_torch/columnar/",
+    )
+    # "<rel>::<qualname>" -> reason: the SANCTIONED drain points, each a
+    # deliberate sync the design is built around (an entry covers the
+    # function and the defs nested in it). chip_smoke.py's sync_audit
+    # phase holds this list against the syncs q1 and q3 take on the card.
+    sync_allowlist: Dict[str, str] = dataclasses.field(
+        default_factory=lambda: dict(_SYNC_ALLOWLIST))
+    # registration entry points whose returned handle must reach a
+    # close/release_*/finish_* call or escape to a tracked container:
+    # a bare name matches the call's name; "recv.name" matches it on a
+    # receiver whose last name contains "recv" (the upload ring's
+    # place and start, which stand where the JAX package's start_upload
+    # stands); `<store>.register` is matched by receiver too
+    handle_sources: Tuple[str, ...] = (
+        "register_spillable", "ring.place", "ring.start")
+    # "<rel>::<qualname>" -> reason for capture-purity exemptions
+    purity_allowlist: Dict[str, str] = dataclasses.field(
+        default_factory=lambda: dict(_PURITY_ALLOWLIST))
+
     # -- drift -------------------------------------------------------------
     metrics_rel: str = "spark_rapids_tpu_torch/metrics.py"
     trace_rel: str = "spark_rapids_tpu_torch/trace.py"
@@ -134,19 +230,20 @@ def load_config(root: str) -> LintConfig:
         return cfg
     with open(path, "r", encoding="utf-8") as f:
         data = json.load(f)
-    for key in ("check_docs", "baseline", "metrics_rel",
-                "trace_rel", "prometheus_rel", "history_rel", "tuning_rel",
-                "conf_registrar", "time_budget_s"):
+    for key in ("check_docs", "baseline", "jit_home", "graph_home",
+                "metrics_rel", "trace_rel", "prometheus_rel", "history_rel",
+                "tuning_rel", "conf_registrar", "time_budget_s"):
         if key in data:
             setattr(cfg, key, data[key])
     for key in ("scan_roots", "retry_scope", "retry_wrappers",
                 "alloc_entrypoints", "alloc_scope", "alloc_calls",
-                "concurrency_scope",
-                "critical_locks", "cancel_scope"):
+                "concurrency_scope", "critical_locks", "cancel_scope",
+                "hot_scope", "handle_sources"):
         if key in data:
             setattr(cfg, key, tuple(data[key]))
-    if "retry_allowlist" in data:
-        merged = dict(cfg.retry_allowlist)
-        merged.update(data["retry_allowlist"])
-        cfg.retry_allowlist = merged
+    for key in ("retry_allowlist", "sync_allowlist", "purity_allowlist"):
+        if key in data:
+            merged = dict(getattr(cfg, key))
+            merged.update(data[key])
+            setattr(cfg, key, merged)
     return cfg

@@ -276,6 +276,11 @@ class QueryServer:
         if self._disco_thread is not None:
             self._disco_thread.join(timeout=5.0)
             self._disco_thread = None
+        if drained:
+            # a fused batch's executor frees its admission slot before
+            # its members' connection threads write their responses: the
+            # connections close only once those are on the wire
+            self._await_responses(max(5.0, min(30.0, timeout * 0.25)))
         # after the drain, close remaining connections: idle clients
         # (pollers parked between requests) observe EOF and exit
         # cleanly instead of holding conn threads alive forever
@@ -503,6 +508,20 @@ class QueryServer:
         LC.register_query(token)
         with self._live_lock:
             self._inflight[conn] = token
+
+    def _await_responses(self, timeout: float) -> bool:
+        """Wait, at most ``timeout`` seconds, until no request is tracked:
+        each is untracked once its response is on the wire."""
+        end = time.monotonic() + timeout
+        tick = threading.Event()
+        while True:
+            with self._live_lock:
+                if not self._inflight:
+                    return True
+            left = end - time.monotonic()
+            if left <= 0:
+                return False
+            tick.wait(min(0.005, left))
 
     def _untrack(self, conn, token) -> None:
         from spark_rapids_tpu_torch import lifecycle as LC

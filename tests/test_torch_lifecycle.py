@@ -286,6 +286,25 @@ def test_cancelled_session_query_releases_everything(root):
 # Through both servers: the statuses on the wire
 # ---------------------------------------------------------------------------
 
+def _close_after_responses(srv) -> None:
+    """Both servers run the parked query as a one-member fused batch,
+    whose executor frees the admission slot before the member's
+    connection thread writes the cancelled response. The JAX server's
+    shutdown closes the connections as soon as the slot is free, so its
+    client can read EOF instead of the response (ROADMAP C); the port's
+    waits for the responses itself (``QueryServer._await_responses``). The
+    scenario gives both servers that wait inside the drain, so both close
+    on the same schedule."""
+    drain = srv._admission.drain
+
+    def drained_then_answered(timeout: float = 60.0) -> bool:
+        ok = drain(timeout)
+        if ok:
+            wait_until(lambda: not srv._inflight, "the responses")
+        return ok
+    srv._admission.drain = drained_then_answered
+
+
 def _scenario(pkg: str, root: str, case: str) -> dict:
     """One lifecycle case on one package's server: the wire's outcome,
     whether the client survived (its next query's rows), and, for the
@@ -324,6 +343,7 @@ def _scenario(pkg: str, root: str, case: str) -> dict:
                 "the disconnect monitor")
             out["by_reason"] = srv.stats()["lifecycle"]["cancelledByReason"]
         elif case == "shutdown":
+            _close_after_responses(srv)
             out["drained"] = srv.shutdown(0.2)
         if t is not None:
             join(t)
@@ -361,6 +381,34 @@ def test_statuses_on_the_wire_match_jax(root, case):
         assert port["broken"] is False
     if case not in ("shutdown", "injected"):
         assert port["next"]
+
+
+def test_port_shutdown_delivers_a_fused_members_response(root):
+    """The port's drain closes a connection only after its response is on
+    the wire: the parked member's connection thread writes its cancelled
+    response only once the shutdown has drained the admission slot and
+    joined its disconnect monitor (the last step before the connections
+    close), and the client still reads ``ServeCancelled`` (not EOF)."""
+    client = clients()["port"]
+    started, release = threading.Event(), threading.Event()
+    with serving("port", root) as srv:
+        park_tenant(srv, "port", "held", started, release)
+        send = srv._send_failure
+
+        def send_at_close(*args, **kwargs):
+            wait_until(lambda: srv._disco_thread is None,
+                       "the shutdown to reach its connections")
+            return send(*args, **kwargs)
+        srv._send_failure = send_at_close
+        c = client(srv.port, tenant="held", timeout=TIMEOUT)
+        t, res = in_thread(lambda: c.sql(Q1S, query_id="victim"))
+        assert started.wait(TIMEOUT)
+        assert srv.shutdown(0.2) is True
+        join(t)
+        err = res.get("error")
+        assert (type(err).__name__, getattr(err, "reason", None)) == \
+            ("ServeCancelled", "shutdown")
+        c.close()
 
 
 def _quarantine(pkg: str, root: str) -> list:

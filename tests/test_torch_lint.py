@@ -25,8 +25,8 @@ from spark_rapids_tpu_torch.lint import (LintConfig, load_config,
 from spark_rapids_tpu_torch.lint.engine import (RULES, default_root,
                                                 write_baseline)
 
-# the rules the two linters share (the port's has no jit or data-flow
-# rules yet)
+# the rules the two linters share with the same fixtures here (the jit and
+# data-flow tiers are compared in test_torch_lint_dataflow.py)
 SHARED = {"retry-coverage", "lock-order", "lock-blocking-call",
           "check-then-act", "metric-key", "conf-key", "span-scope",
           "span-kind", "prom-family", "history-field", "tuning-action",
@@ -326,10 +326,12 @@ def test_device_allocations_in_the_operators(tmp_path):
 
 def test_allowlist_entries_carry_reasons():
     cfg = LintConfig()
-    assert cfg.retry_allowlist
-    for key, reason in cfg.retry_allowlist.items():
-        assert "::" in key and key.startswith("spark_rapids_tpu_torch/")
-        assert len(reason.split()) >= 5, key
+    for allow in (cfg.retry_allowlist, cfg.sync_allowlist,
+                  cfg.purity_allowlist):
+        assert allow
+        for key, reason in allow.items():
+            assert "::" in key and key.startswith("spark_rapids_tpu_torch/")
+            assert len(reason.split()) >= 5, key
 
 
 def test_docs_drift_finds_a_stale_doc(monkeypatch):
