@@ -12,7 +12,9 @@ cached Parquet read and pandas UDFs, TPC-H q13 and TPC-DS q28 with
 their joins on the host and q1 with its aggregate on the host (the
 per-operator CPU fallback), q1 from delimited text, under each reader
 strategy and from a partitioned tree, q3 from ORC and YSB from JSON
-lines (the readers and writers), and check the rows against exact
+lines (the readers and writers), q1 and q3 over a mesh of 4 chips
+emulated on the card (the all-to-all exchange, the mesh scan, chip
+failures, the external shuffle), and check the rows against exact
 references, then time the queries, the upload and each kernel.
 
     python3 chip_smoke.py
@@ -288,6 +290,21 @@ absent or any phase fails. Output, one line per phase:
      ``hot_scope`` that ``sync_allowlist`` does not cover, or when a
      query records none), after ``sync_probe`` (where this build puts a
      sync's warning, and which explicit ``synchronize()`` calls warn);
+  24. multi-chip execution (``multichip_phases``) over 4 chips emulated
+     on the card (``parallel.mesh.emulate_chips``): q1 at SF1 from phase
+     7's Parquet and q3's pushed form from phase 20's files under
+     ``spark.rapids.shuffle.mode=ici`` (``multichip_q1``,
+     ``multichip_q3``: rows exact, the plan all ``Torch*``,
+     ``numIciExchanges``, every chip's ``meshScanUnits`` and
+     ``dispatchCount``, ``meshPadWaste``, each kernel's launches equal
+     to the plan's own counts, the mesh exchange's murmur3 launch held
+     against its plain version on chip 0's slot), q1 with chip 1 and
+     then chips 0, 1 and 2 failing (``multichip_degrade``), q1 under
+     ``shuffle.mode=external`` (``multichip_external``),
+     ``sum_count_step`` over the 4 chips against a host reduction
+     (``multichip_step``) and q1's wall under ``ici`` and ``inprocess``
+     in turns (``multichip_walls``; emulated chips share one card, so no
+     scaling claim);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -308,14 +325,15 @@ absent or any phase fails. Output, one line per phase:
   (``serve_only``); with ``--observe``, only the build and phase 21
   (``observe_only``); with ``--tools``, only the build and phase 22
   (``tools_only``); with ``--sync-audit``, only the build and phase 23
-  (``sync_audit_only``);
+  (``sync_audit_only``); with ``--multichip``, only the build and phase
+  24 (``multichip_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
-  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's, 22's and
-  23's legs, and those phases' shapes among its cases; groupbyHash and
+  and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's, 22's,
+  23's and 24's legs, and those phases' shapes among its cases; groupbyHash and
   decodeFused also with their tuned knobs a bucket and each autotune
   candidate's card ms at q1's shapes)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
@@ -8351,6 +8369,217 @@ def sync_audit_only(card: str) -> None:
     phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
+def mesh_counters(plan) -> dict:
+    """The mesh counters of an executed plan: per-chip scan units and
+    dispatches, mesh exchanges, padding, demoted chips and the external
+    leg's bytes."""
+    from spark_rapids_tpu_torch.metrics import plan_metrics
+    m = plan_metrics(plan)
+    keep = ("meshScanUnits.chip", "dispatchCount.chip", "numIciExchanges",
+            "meshPadWaste", "degradedChips", "externalShuffle")
+    return {k: v for k, v in sorted(m.items()) if k.startswith(keep)}
+
+
+def multichip_phases(card: str, arrays, q1_dir: str) -> tuple:
+    """Phase 24: multi-chip execution over 4 chips emulated on the card
+    (``parallel.mesh.emulate_chips(4, cuda:0)``: one process, every chip
+    a slot of the same card, as the JAX package's tests force 8 host
+    devices). TPC-H q1 at SF1 from phase 7's 8 Parquet files and TPC-DS
+    q3's pushed form from phase 20's files under
+    ``spark.rapids.shuffle.mode=ici`` and ``ici.devices=4``
+    (``multichip_q1``, ``multichip_q3``): rows exact, the plan all
+    ``Torch*``, ``numIciExchanges`` at least 1, every chip's
+    ``meshScanUnits`` (q1: 2 row groups each) and ``dispatchCount``
+    above 0, ``meshPadWaste``, and each kernel's launches (the counters
+    set to 0 just before the collect) equal to the plan's own counts.
+    The murmur3 launch of each mesh exchange is held against its plain
+    version on chip 0's padded slot (``mesh_murmur3``). Then q1 with
+    ``injectChipFailure`` ``1`` (``degradedChips`` 1) and ``0,1,2``
+    (down to the single-chip path; ``multichip_degrade``), q1 under
+    ``shuffle.mode=external`` (``multichip_external``:
+    ``externalShuffleBytes`` above 0), ``sum_count_step`` over the 4
+    chips against a host reduction (``multichip_step``), and q1's wall
+    under ``ici`` and ``inprocess`` in turns (``multichip_walls``: one
+    warm run, then the mean of two; emulated chips share one card, so
+    this claims nothing about scaling). Returns ``(launches a leg,
+    murmur3 cases)``."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import retry as R
+    from spark_rapids_tpu_torch.parallel import ici as ICI
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.parallel.step import dryrun_multichip
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    n_chips = 4
+    tables = q3_tables()
+    q3_dir, _w = write_q3_parquet(TorchSparkSession(), tables)
+    dims_dir, _w = write_q3_parquet(
+        TorchSparkSession(), tables,
+        {k: Q3_PARTITIONS[k] for k in ("item", "date_dim")},
+        name="tpcds_q3_dims4")
+    q1_want = q1_reference(arrays)
+    q3_want = q3_reference(tables)
+    q1_views = {"lineitem": q1_dir}
+    q3_views = {"store_sales": os.path.join(q3_dir, "store_sales"),
+                "item": os.path.join(dims_dir, "item"),
+                "date_dim": os.path.join(dims_dir, "date_dim")}
+    check_q1 = lambda rows: check_q1_rows(rows, q1_want)  # noqa: E731
+    check_q3 = lambda rows: check_q3_rows(rows, q3_want,  # noqa: E731
+                                          "multichip q3")
+    ici = {"spark.rapids.shuffle.mode": "ici",
+           "spark.rapids.shuffle.ici.devices": str(n_chips),
+           "spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+    # the routing of every mesh exchange: chip 0's padded slot, its key
+    # expressions and partition count, for the murmur3 case
+    routed: list = []
+    route_call = ICI._Routing.__call__
+
+    def recording_route(self, padded):
+        routed.append((self, padded[0]))
+        return route_call(self, padded)
+
+    def session(conf, views):
+        s = TorchSparkSession(conf)
+        for name, path in views.items():
+            s.read.parquet(path).createOrReplaceTempView(name)
+        return s
+
+    def run(leg, conf, views, sql, check):
+        """One collect with the launch counters set to 0 just before it
+        and read just after: ``(rows' wall, plan, launches)``."""
+        R.reset_fault_injection()
+        s = session(conf, views)
+        try:
+            df = s.sql(sql)
+            torch.cuda.synchronize()
+            KR.reset_launches()
+            t0 = time.perf_counter()
+            rows = [tuple(r) for r in df.collect()]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = KR.launch_counts()
+            check(rows)
+            plan = s.last_plan
+            all_torch(plan_names(plan), leg)
+            own = execution_launches(plan)
+            if {k: launches[k] for k in own} != own:
+                raise AssertionError(f"{leg}: launches {launches} != the "
+                                     f"plan's own counts {own}")
+            return wall, plan, {k: v for k, v in launches.items() if v}
+        finally:
+            s.stop()
+
+    prev = PM.emulated_chips()
+    PM.emulate_chips(n_chips, device)
+    ICI._Routing.__call__ = recording_route
+    legs, cases = {}, {}
+    try:
+        for q, views, sql, check, units in (
+                ("q1", q1_views, Q1, check_q1, 2),
+                ("q3", q3_views, Q3_PUSHED, check_q3, None)):
+            leg = f"multichip_{q}"
+            run(leg, ici, views, sql, check)  # warm
+            routed.clear()
+            wall, plan, launches = run(leg, ici, views, sql, check)
+            mc = mesh_counters(plan)
+            scan = {c: mc.get(f"meshScanUnits.chip{c}", 0)
+                    for c in range(n_chips)}
+            disp = {c: mc.get(f"dispatchCount.chip{c}", 0)
+                    for c in range(n_chips)}
+            if mc.get("numIciExchanges", 0) < 1:
+                raise AssertionError(f"{leg}: no mesh exchange: {mc}")
+            if min(scan.values()) <= 0 or min(disp.values()) <= 0:
+                raise AssertionError(f"{leg}: a chip scanned or ran "
+                                     f"nothing: {mc}")
+            if units is not None and set(scan.values()) != {units}:
+                raise AssertionError(f"{leg}: scan units {scan}")
+            if "meshPadWaste" not in mc:
+                raise AssertionError(f"{leg}: no meshPadWaste: {mc}")
+            if launches.get("murmur3", 0) != n_chips * mc["numIciExchanges"]:
+                raise AssertionError(f"{leg}: murmur3 launches {launches} "
+                                     f"for {mc['numIciExchanges']} mesh "
+                                     f"exchanges over {n_chips} chips")
+            route, slot = routed[0]
+            cols = key_columns(route.exprs, slot)
+            case = murmur3_case(cols, slot.capacity, route.n_parts)
+            cases[f"mesh_exchange_{q}"] = case
+            legs[leg] = launches
+            phase(leg, card=card, chips=n_chips, rows="exact",
+                  wall_s=wall, counters=mc, launches=launches,
+                  mesh_murmur3=case, plan=plan_names(plan),
+                  seconds=time.perf_counter() - t_phase)
+
+        for chips, degraded in (("1", 1), ("0,1,2", 3)):
+            conf = dict(ici, **{"spark.rapids.sql.test.injectChipFailure":
+                                chips})
+            wall, plan, launches = run("multichip_degrade", conf, q1_views,
+                                       Q1, check_q1)
+            mc = mesh_counters(plan)
+            if mc.get("degradedChips", 0) != degraded:
+                raise AssertionError(f"chips {chips} failing: {mc}")
+            legs[f"multichip_degrade_{degraded}"] = launches
+            phase("multichip_degrade", card=card, failing=chips,
+                  rows="exact", wall_s=wall, counters=mc,
+                  launches=launches)
+
+        ext = {"spark.rapids.shuffle.mode": "external",
+               "spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+        wall, plan, launches = run("multichip_external", ext, q1_views, Q1,
+                                   check_q1)
+        mc = mesh_counters(plan)
+        if mc.get("externalShuffleBytes", 0) <= 0:
+            raise AssertionError(f"external leg shipped nothing: {mc}")
+        legs["multichip_external"] = launches
+        phase("multichip_external", card=card, rows="exact", wall_s=wall,
+              counters=mc, launches=launches)
+
+        KR.reset_launches()
+        got = dryrun_multichip(n_chips, cap=1 << 16)
+        step_launches = {k: v for k, v in KR.launch_counts().items() if v}
+        phase("multichip_step", card=card, chips=n_chips, keys=len(got),
+              reference="host reduction, exact", launches=step_launches)
+
+        inproc = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+        walls = {"ici": [], "inprocess": []}
+        for name, conf in (("ici", ici), ("inprocess", inproc)):
+            run(f"multichip_walls_{name}", conf, q1_views, Q1, check_q1)
+        for name, conf in (("ici", ici), ("inprocess", inproc),
+                           ("inprocess", inproc), ("ici", ici)):
+            walls[name].append(run(f"multichip_walls_{name}", conf,
+                                   q1_views, Q1, check_q1)[0])
+        phase("multichip_walls", card=card, chips=n_chips,
+              mean_wall_s={k: sum(v) / len(v) for k, v in walls.items()},
+              walls_s=walls, note="emulated chips share one card: "
+              "no scaling claim", seconds=time.perf_counter() - t_phase)
+    finally:
+        ICI._Routing.__call__ = route_call
+        PM.set_active_mesh(None)
+        if prev is None:
+            PM.emulate_chips(None)
+        else:
+            PM.emulate_chips(*prev)
+    return legs, cases
+
+
+def multichip_only(card: str) -> None:
+    """``--multichip``: the kernels' build and phase 24."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs, cases = multichip_phases(card, arrays, q1_dir)
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs,
+          murmur3_cases=cases)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8656,6 +8885,7 @@ def main() -> int:
     tools, tuned, knobs = tools_phases(card, arrays, dfu["q1_dir"],
                                        observe["observe_traced_q1"])
     audit = sync_audit_phases(card, arrays, dfu["q1_dir"])
+    multichip, mshapes = multichip_phases(card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -8716,7 +8946,9 @@ def main() -> int:
                             + [c["max_abs_err"]
                                for c in jshapes["murmur3"].values()]
                             + [c["max_abs_err"]
-                               for c in nshapes["murmur3"].values()]),
+                               for c in nshapes["murmur3"].values()]
+                            + [c["max_abs_err"]
+                               for c in mshapes.values()]),
          "ms": rp["case"]["ms"], "plain_ms": rp["case"]["plain_ms"],
          "bound_ms": rp["case"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -8741,7 +8973,9 @@ def main() -> int:
                    **{name: case_fields(c)
                       for name, c in jshapes["murmur3"].items()},
                    **{name: case_fields(c)
-                      for name, c in nshapes["murmur3"].items()}}},
+                      for name, c in nshapes["murmur3"].items()},
+                   **{name: case_fields(c)
+                      for name, c in mshapes.items()}}},
         {"name": "joinProbe", "route": "cuda",
          "source": "spark_rapids_tpu_torch/csrc/join_probe.cu",
          "replaces": "spark_rapids_tpu/kernels/join_probe.py:40",
@@ -8797,6 +9031,8 @@ def main() -> int:
                                for leg in tools}
         k["launches_sync_audit"] = {leg: audit[leg].get(name, 0)
                                     for leg in audit}
+        k["launches_multichip"] = {leg: multichip[leg].get(name, 0)
+                                   for leg in multichip}
         if name in knobs:
             # the autotuner's winners a capacity bucket, and every
             # candidate at q1's shapes (exact, card ms)
@@ -9070,7 +9306,8 @@ if __name__ == "__main__":
                                        "--nested", "--cache-udf",
                                        "--fallback", "--formats",
                                        "--serve", "--observe",
-                                       "--tools", "--sync-audit")):
+                                       "--tools", "--sync-audit",
+                                       "--multichip")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9104,6 +9341,8 @@ if __name__ == "__main__":
             tools_only(card)
         elif "--sync-audit" in sys.argv[1:]:
             sync_audit_only(card)
+        elif "--multichip" in sys.argv[1:]:
+            multichip_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

@@ -17,6 +17,14 @@
 
 The batch model is kept as it is in the JAX package so the operators port
 one to one; the static shapes it was built for cost nothing extra here.
+
+Residency on a mesh (``parallel/``): a batch carries the id of the mesh
+chip it belongs to (``chip``, None off the mesh). Emulated chips share
+one device, so ``tensor.device`` cannot tell them apart: the per-chip
+upload sets ``chip``, every per-batch operator and fused stage keeps it
+(``with_columns``, ``on_chip``), and the mesh exchange reads it
+(``batch_device``). ``batch_to_device`` moves a batch to another chip:
+a copy between cards, the same tensors between emulated chips.
 """
 
 from __future__ import annotations
@@ -299,6 +307,8 @@ class DeviceBatch:
     active: torch.Tensor
     _num_rows: Optional[int] = None
     _num_rows_dev: Optional[torch.Tensor] = None
+    # the mesh chip this batch belongs to (None off the mesh)
+    chip: Optional[int] = None
 
     @property
     def capacity(self) -> int:
@@ -326,7 +336,7 @@ class DeviceBatch:
     def with_columns(self, schema: T.StructType,
                      columns: List[AnyDeviceColumn]) -> "DeviceBatch":
         return DeviceBatch(schema, columns, self.active, self._num_rows,
-                           self._num_rows_dev)
+                           self._num_rows_dev, self.chip)
 
     def sizeof(self) -> int:
         """Device bytes this batch's tensors hold, reckoned from shapes and
@@ -572,7 +582,7 @@ def slice_compacted_to_bucket(batch: DeviceBatch) -> DeviceBatch:
         return batch
     rows = [a[:cap] for a in flatten_rows(batch.columns)]
     return DeviceBatch(batch.schema, with_row_arrays(batch.columns, rows),
-                       batch.active[:cap], n)
+                       batch.active[:cap], n, chip=batch.chip)
 
 
 def _concat_flat(parts: Sequence[torch.Tensor], cap: int) -> torch.Tensor:
@@ -648,4 +658,62 @@ def concat_device(batches: Sequence[DeviceBatch]) -> DeviceBatch:
     cols = [concat_columns([cb[i] for cb in compacted], cap)
             for i in range(len(schema.fields))]
     active = torch.arange(cap, device=dev) < total
-    return DeviceBatch(schema, cols, active, total)
+    chips = {b.chip for b in batches}
+    return DeviceBatch(schema, cols, active, total,
+                       chip=chips.pop() if len(chips) == 1 else None)
+
+
+def on_chip(out: DeviceBatch, src: DeviceBatch) -> DeviceBatch:
+    """``out``, a batch an operator made from ``src``, on ``src``'s
+    chip."""
+    if src.chip is not None:
+        out.chip = src.chip
+    return out
+
+
+def batch_device(batch: DeviceBatch) -> Optional[int]:
+    """The id of the mesh chip a batch belongs to, or None off the
+    mesh."""
+    return batch.chip
+
+
+def batch_to_device(batch: DeviceBatch, chip) -> DeviceBatch:
+    """``batch`` on mesh chip ``chip`` (a ``parallel.mesh.Chip``): its
+    tensors copied to the chip's device when they lie elsewhere (a copy
+    between cards, ordered after the source stream's work), the same
+    tensors when they lie there already (emulated chips)."""
+    if batch.device == chip.device:
+        return DeviceBatch(batch.schema, batch.columns, batch.active,
+                           batch._num_rows, batch._num_rows_dev, chip.id)
+    flat, spec = flatten_columns(batch.columns)
+    moved = copy_to_device(flat + [batch.active], batch.device,
+                           chip.device)
+    n_dev = batch._num_rows_dev
+    return DeviceBatch(batch.schema, rebuild_columns(spec, moved[:-1]),
+                       moved[-1], batch._num_rows,
+                       None if n_dev is None else n_dev.to(chip.device),
+                       chip.id)
+
+
+def copy_to_device(tensors: Sequence[torch.Tensor], src: torch.device,
+                   dst: torch.device) -> List[torch.Tensor]:
+    """Tensors on ``src`` copied to ``dst``. Between two cards the copy is
+    a peer copy issued on the destination's current stream after an
+    event recorded on the source's, so it reads what the source's queued
+    work wrote without a host synchronise. On one device they are the
+    same tensors."""
+    if src == dst:
+        return list(tensors)
+    if src.type != "cuda" or dst.type != "cuda":
+        return [t.to(dst) for t in tensors]
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(src))
+    stream = torch.cuda.current_stream(dst)
+    stream.wait_event(ev)
+    with torch.cuda.stream(stream):
+        out = [t.to(dst, non_blocking=True) for t in tensors]
+    for t in tensors:
+        # the source's caching allocator must not reuse these blocks
+        # before the copy on the destination's stream has read them
+        t.record_stream(stream)
+    return out

@@ -84,11 +84,48 @@ SHUFFLE_PARTITIONS = _entry(
 DEVICE_SHUFFLE_PARTITIONS = _entry(
     "spark.rapids.sql.shuffle.devicePartitions",
     "Partition count for device hash and range exchanges that the "
-    "planner inserted; 0 = auto, which is 1 on one card (the port has "
-    "no mesh). One card runs every partition's work one after another, "
-    "so extra in-process partitions only add splits and launches. A "
-    "user's repartition(n, ...) keeps its n.",
+    "planner inserted; 0 = auto, which is the mesh size while a mesh is "
+    "active (spark.rapids.shuffle.mode=ici), else 1. One chip runs "
+    "every partition's work one after another, so extra in-process "
+    "partitions only add splits and launches. A user's repartition(n, "
+    "...) keeps its n.",
     0, int)
+
+SHUFFLE_MODE = _entry(
+    "spark.rapids.shuffle.mode",
+    "Exchange transport: 'inprocess' (materialized partition lists), "
+    "'ici' (the mesh all-to-all: a mesh of chips activated at session "
+    "start, every hash exchange moving each row's block to the chip "
+    "that owns its partition, parallel/ici.py), or 'external' (SRTB-"
+    "serialized partitions over a shared directory, the cross-process "
+    "host-staged transport skeleton, parallel/external_shuffle.py).",
+    "inprocess", str)
+
+SHUFFLE_ICI_DEVICES = _entry(
+    "spark.rapids.shuffle.ici.devices",
+    "Number of chips in the shuffle mesh (0 = all visible chips: one "
+    "per CUDA card, or the chips parallel.mesh.emulate_chips set).",
+    0, int)
+
+MULTICHIP_SCAN_ENABLED = _entry(
+    "spark.rapids.sql.multichip.scan.enabled",
+    "Shard the scan itself across the active shuffle mesh: scan units "
+    "(Parquet row groups, ORC stripes, files) go round-robin-by-bytes to "
+    "one reader stream per chip, and each stream's batches upload to "
+    "that chip; the per-batch stages then run on each chip's resident "
+    "batches and the mesh exchange takes them where they are. Effective "
+    "only while a mesh of two or more chips is active; rows are "
+    "identical either way.",
+    True, _to_bool)
+
+MULTICHIP_SERIALIZE_SERVED = _entry(
+    "spark.rapids.sql.multichip.serializeServedQueries",
+    "Serialize the mesh exchange sections of concurrently served queries "
+    "behind a per-process mesh mutex (the JAX package's guard against "
+    "two collectives meeting at one rendezvous). Other queries keep "
+    "running their other stages, and a waiting query stays cancellable "
+    "(the meshMutex checkpoint). Non-served sessions never take it.",
+    True, _to_bool)
 
 BATCH_SIZE_ROWS = _entry(
     "spark.rapids.sql.batchSizeRows",
@@ -413,6 +450,13 @@ INJECT_IO_ERROR = _entry(
     "spark.rapids.sql.test.injectIOError",
     "Testing: deterministic synthetic IO-error schedule for the Parquet "
     "reader; the same 'N' / 'N:K' / 'seed:S:P' grammar as injectOOM.",
+    "", str)
+
+INJECT_CHIP_FAILURE = _entry(
+    "spark.rapids.sql.test.injectChipFailure",
+    "Testing: comma-separated mesh chip ids whose dispatches fail "
+    "persistently; the mesh degrades to the surviving chips, down to "
+    "the single-chip path (retry.degrade_on_chip_failure).",
     "", str)
 
 

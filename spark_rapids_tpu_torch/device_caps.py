@@ -122,8 +122,11 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    KR.check(fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                KR.stream_handle(x.device)), "probe launch")
+    # the launch goes to the calling thread's current device: make
+    # it the tensors' (a card other than 0 on a mesh)
+    with KR.on_device(x.device):
+        KR.check(fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                    KR.stream_handle(x.device)), "probe launch")
     return out
 
 

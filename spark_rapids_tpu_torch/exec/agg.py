@@ -65,6 +65,7 @@ from spark_rapids_tpu_torch.ops import decimal_ops as DD
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import int128 as I
+from spark_rapids_tpu_torch.parallel.mesh import record_chip_dispatch
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
 from spark_rapids_tpu_torch.sql import types as T
@@ -433,6 +434,7 @@ class TorchHashAggregateExec(TorchExec):
         flat_in = flat + [batch.active] + flat_lits
         if kind == "kernel":
             KR.count_dispatch(self.metrics, "groupbyHash")
+        record_chip_dispatch(self.metrics, batch)
         t0 = time.perf_counter_ns()
         if self._prelude_ops is None:
             self.metrics.create(M.DISPATCH_COUNT).add(1)
@@ -456,7 +458,7 @@ class TorchHashAggregateExec(TorchExec):
         self.metrics.create(M.AGG_TIME).add(time.perf_counter_ns() - t0)
         n = sum(a for _dt, a in ospec)
         out = DeviceBatch(self.schema, rebuild_columns(ospec, outs[:n]),
-                          outs[n], None, outs[n + 1])
+                          outs[n], None, outs[n + 1], batch.chip)
         rest = outs[n + 2:]
         overflow = None
         if kind == "kernel":

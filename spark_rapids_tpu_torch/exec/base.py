@@ -23,6 +23,15 @@ while the ring issues a copy ahead
 shrinks the ring: the older in-flight uploads complete first, then the
 unit takes the synchronous protocol.
 
+The mesh scan: while a mesh of two or more healthy chips is active the
+upload hands a file scan the mesh's chips (``set_scan_mesh``); the scan
+then returns one stream per chip (``partition_devices``), and each
+stream's batches upload to that chip's device and carry its id
+(``DeviceBatch.chip``). Each copy first passes the chip's dispatch
+checkpoint (``retry.chip_checkpoint``): an injected or real chip failure
+surfaces there as ``TorchChipFailure``, for the exchange's or the
+collect's degrade loop.
+
 Lifecycle checkpoints (``lifecycle.checkpoint``): each upload, each
 batch the root transition downloads, and each wait on the upload ring's
 queue; the ring's producer thread runs under the query's cancel token,
@@ -174,14 +183,26 @@ class TorchRowToColumnarExec(TorchExec):
         # time, so no other consumer ever sees an EncodedBatch)
         if hasattr(self.child, "emit_encoded"):
             self.child.emit_encoded = True
+        # the mesh scan handshake: one reader stream per chip, each
+        # uploading to its own chip
+        if hasattr(self.child, "set_scan_mesh"):
+            from spark_rapids_tpu_torch.parallel.mesh import \
+                mesh_scan_devices
+            self.child.set_scan_mesh(mesh_scan_devices(self.conf))
         thunks = self.child.partitions()
+        chips = list(getattr(self.child, "partition_devices", []))
+        chips += [None] * (len(thunks) - len(chips))
         depths = self.ring_depths(len(thunks))
 
-        def make(thunk: P.PartitionThunk, depth: int) -> DevicePartitionThunk:
+        def make(thunk: P.PartitionThunk, depth: int,
+                 chip) -> DevicePartitionThunk:
             if depth <= 0:
-                return lambda: self._run_sync(thunk)
-            return lambda: self._run_pipelined(thunk, depth)
-        return [make(t, d) for t, d in zip(thunks, depths)]
+                return lambda: self._run_sync(thunk, chip)
+            return lambda: self._run_pipelined(thunk, depth, chip)
+        return [make(t, d, c) for t, d, c in zip(thunks, depths, chips)]
+
+    def _device_of(self, chip) -> torch.device:
+        return self.device if chip is None else chip.device
 
     def ring_depths(self, n_parts: int) -> List[int]:
         """The upload ring's depth for each partition: the key's value
@@ -195,22 +216,24 @@ class TorchRowToColumnarExec(TorchExec):
             return [0] * n_parts
         return [depth if u > 1 else 0 for u in units()]
 
-    def _run_sync(self, thunk: P.PartitionThunk) -> Iterator[DeviceBatch]:
+    def _run_sync(self, thunk: P.PartitionThunk,
+                  chip=None) -> Iterator[DeviceBatch]:
         """maxInFlight 0: read, pack, copy and decode one unit at a time
         on the task thread."""
         from spark_rapids_tpu_torch.columnar.transfer import StagingRing
-        ring = StagingRing(self.device, 2)
+        ring = StagingRing(self._device_of(chip), 2)
         for unit in _groups(thunk(), self.goal_rows):
-            yield from self._upload_sync(ring, *self._prepare(unit, ring))
+            yield from self._upload_sync(ring, *self._prepare(unit, ring),
+                                         chip)
 
-    def _run_pipelined(self, thunk: P.PartitionThunk, depth: int
-                       ) -> Iterator[DeviceBatch]:
+    def _run_pipelined(self, thunk: P.PartitionThunk, depth: int,
+                       chip=None) -> Iterator[DeviceBatch]:
         """The producer thread and the upload-ahead ring. A producer
         error is raised on the task thread; a consumer that stops early
         (the generator closed) stops, drains and joins the producer."""
         from spark_rapids_tpu_torch.columnar.transfer import StagingRing
         # the producer holds at most one slot beside the queue's ``depth``
-        ring = StagingRing(self.device, depth + 2)
+        ring = StagingRing(self._device_of(chip), depth + 2)
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
         prefetch = self.metrics.create(M.SCAN_PREFETCH_TIME)
@@ -241,7 +264,7 @@ class TorchRowToColumnarExec(TorchExec):
                         prefetch.add(t1 - t0)
                         if qt is not None:
                             qt.add("scanPrefetch", t0, t1,
-                                   chip=self.device.index)
+                                   chip=ring.device.index)
                     if not put(("unit", prepared)):
                         return
                 put(("done", None))
@@ -287,21 +310,21 @@ class TorchRowToColumnarExec(TorchExec):
                 if kind == "error":
                     raise item
                 placed, src = item
-                started = self._start_ahead(ring, placed)
+                started = self._start_ahead(ring, placed, chip)
                 if started is None:
                     # OOM issuing the copy ahead: shrink the ring (the
                     # older in-flight uploads complete and free their
                     # buffers), then the synchronous protocol
                     while inflight:
-                        yield from self._finish(*inflight.pop(0))
-                    yield from self._upload_sync(ring, placed, src)
+                        yield from self._finish(*inflight.pop(0), chip)
+                    yield from self._upload_sync(ring, placed, src, chip)
                     continue
                 inflight.append((started, src))
                 self.metrics.create(M.UPLOAD_AHEAD_BATCHES).add(1)
                 while len(inflight) >= depth:
-                    yield from self._finish(*inflight.pop(0))
+                    yield from self._finish(*inflight.pop(0), chip)
             while inflight:
-                yield from self._finish(*inflight.pop(0))
+                yield from self._finish(*inflight.pop(0), chip)
         finally:
             stop.set()
             try:
@@ -324,40 +347,45 @@ class TorchRowToColumnarExec(TorchExec):
         cap = bucket_capacity(max(1, whole.num_rows))
         with self.metrics.timed(M.PACK_TIME):
             return ring.place(prepare_upload(whole, cap, self.conf,
-                                             self.device)), whole
+                                             ring.device)), whole
 
-    def _start(self, ring, placed):
+    def _start(self, ring, placed, chip=None):
         """Issue a placed unit's copy, counting it in
         ``pinnedStreamCopies`` when its slot is pinned and the copy runs
         on the ring's own stream, not the task's. The slot goes back to
-        the ring only once the copy is issued."""
+        the ring only once the copy is issued. On the mesh scan the
+        chip's dispatch checkpoint comes first."""
         get_semaphore(self.conf).acquire_if_necessary(self.metrics)
+        if chip is not None:
+            R.chip_checkpoint(self.conf, chip)
         started = ring.start(placed)
         if ring.cuda and placed.slot.buf.is_pinned() and \
-                ring.stream != torch.cuda.current_stream(self.device):
+                ring.stream != torch.cuda.current_stream(ring.device):
             self.metrics.create(M.PINNED_STREAM_COPIES).add(1)
         return started
 
-    def _start_ahead(self, ring, placed):
+    def _start_ahead(self, ring, placed, chip=None):
         """The ring's copy issued ahead of its decode (injection site
         ``upload``), or None on an out-of-memory error: the caller then
         shrinks the ring. Not retried here."""
         inj = R.get_fault_injector(self.conf)
         try:
             with _trace.span("uploadAhead", mode=placed.staged[0],
-                             chip=self.device.index,
+                             chip=(ring.device.index if chip is None
+                                   else chip.id),
                              bytes=placed.nbytes):
                 if inj is not None:
                     inj.on_alloc("upload")
-                return self._start(ring, placed)
+                return self._start(ring, placed, chip)
         except Exception as e:
             if not R.is_oom_error(e):
                 raise
             return None
 
-    def _finish(self, started, src) -> List[DeviceBatch]:
+    def _finish(self, started, src, chip=None) -> List[DeviceBatch]:
         """Decode a started upload under the retry protocol; when it runs
-        out, the unit degrades (``_upload_degraded``)."""
+        out, the unit degrades (``_upload_degraded``). Each batch carries
+        its stream's chip."""
         from spark_rapids_tpu_torch.columnar.transfer import finish_started
         # the per-upload cancellation point: the upload loop is the
         # highest-frequency batch loop of a plan
@@ -368,28 +396,35 @@ class TorchRowToColumnarExec(TorchExec):
                                     self.conf, self.metrics,
                                     splittable=True)]
         except R.TorchRetryOOM:
-            return self._upload_degraded(src)
+            return self._upload_degraded(src, chip)
         if started.staged[0] == "encoded":
             KR.count_dispatch(self.metrics, "decodeFused")
             # the decode is one kernel a batch (the JAX package's XLA
             # chain bills its stage count here)
             self.metrics.create("deviceDecodePrograms").add(1)
+        if chip is not None:
+            for b in out:
+                b.chip = chip.id
         return out
 
-    def _upload_sync(self, ring, placed, src) -> List[DeviceBatch]:
+    def _upload_sync(self, ring, placed, src,
+                     chip=None) -> List[DeviceBatch]:
         """The synchronous protocol: the copy issued under the retry
         protocol (injection site ``upload``; the slot stays this unit's
         until the copy is issued), then ``_finish``."""
         try:
-            started = R.with_retry(lambda: self._start(ring, placed),
+            started = R.with_retry(lambda: self._start(ring, placed, chip),
                                    self.conf, self.metrics,
                                    splittable=True, site="upload")
         except R.TorchRetryOOM:
             ring.release(placed)
-            return self._upload_degraded(src)
-        return self._finish(started, src)
+            return self._upload_degraded(src, chip)
+        except R.TorchChipFailure:
+            ring.release(placed)
+            raise
+        return self._finish(started, src, chip)
 
-    def _upload_degraded(self, src) -> List[DeviceBatch]:
+    def _upload_degraded(self, src, chip=None) -> List[DeviceBatch]:
         """OOM recovery for one upload unit: a HostBatch uploads in halves
         by rows, each half on its own (the consumer sees the halves in
         order, so rows do not change). An EncodedBatch on a CUDA device
@@ -402,12 +437,17 @@ class TorchRowToColumnarExec(TorchExec):
         from spark_rapids_tpu_torch.columnar.transfer import upload_batch
         from spark_rapids_tpu_torch.io.device_decode import EncodedBatch
 
+        device = self._device_of(chip)
+
         def upload_host(hb: HostBatch) -> DeviceBatch:
-            return upload_batch(hb, bucket_capacity(max(1, hb.num_rows)),
-                                self.device)
+            out = upload_batch(hb, bucket_capacity(max(1, hb.num_rows)),
+                               device)
+            if chip is not None:
+                out.chip = chip.id
+            return out
 
         if isinstance(src, EncodedBatch):
-            if self.device.type != "cpu":
+            if device.type != "cpu":
                 raise R.TorchRetryOOM(
                     "out of memory decoding a row group on the device, "
                     "retries exhausted")

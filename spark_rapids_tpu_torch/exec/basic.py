@@ -168,7 +168,7 @@ class TorchLocalLimitExec(TorchExec):
                         continue
                     yield DeviceBatch(b.schema, b.columns,
                                       _limit_mask(b.active, remaining),
-                                      remaining)
+                                      remaining, chip=b.chip)
                     remaining = 0
             return run
         return [make(t) for t in device_channel(self.child)]
@@ -264,7 +264,7 @@ class TorchUnionExec(TorchExec):
             def run() -> Iterator[DeviceBatch]:
                 for b in thunk():
                     yield DeviceBatch(schema, b.columns, b.active,
-                                      b._num_rows, b._num_rows_dev)
+                                      b._num_rows, b._num_rows_dev, b.chip)
             return run
         return [retag(t) for c in self.children for t in device_channel(c)]
 

@@ -25,12 +25,36 @@ partitions' exact bytes and rows (``exchange_stats``, and the
 takes any partition count (an aggregate or a sort sets
 ``allow_aqe_coalesce``) hands out adjacent partitions merged toward
 ``adaptive.targetPartitionBytes``, capped by the budget oracle's share
-(``aqeCoalescedPartitions``). The ICI/mesh and external paths are not
-ported.
+(``aqeCoalescedPartitions``).
+
+The mesh path (``spark.rapids.shuffle.mode=ici``, ``parallel/``): while a
+mesh of two or more healthy chips is active, a hash exchange drains its
+child's per-chip streams on the collecting thread, one after another,
+puts each batch in the slot of the chip it lives on (``batch_device``;
+a stream whose batches carry no chip goes to slot ``stream % n``),
+concatenates each slot on its chip and runs ``ici.mesh_exchange``
+(``numIciExchanges``): partition ``p`` lands on chip ``p % n``. The
+exchange takes ``collective_section`` once per attempt, inside
+``with_retry``. A chip failure (``TorchChipFailure``, raised by the
+per-chip checkpoints) demotes the chip and materializes again on the
+surviving mesh (``retry.degrade_on_chip_failure``), down to the
+in-process path. Adaptive coalescing and the adaptive join decisions
+stay off on the mesh, as in the JAX package. The JAX package drains the
+chips' streams on ``taskParallelism`` threads; here emulated chips
+share one stage graph per shape, whose static inputs a concurrent drain
+would race, so the drain is sequential (the rows do not depend on it).
+
+``spark.rapids.shuffle.mode=external``: every materialized partition is
+downloaded, written as SRTB files into a fresh shared directory
+(``parallel/external_shuffle.py``) and read back and uploaded
+(``externalShuffleWriteTime``, ``externalShuffleReadTime``,
+``externalShuffleBytes``).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Iterator, List, Optional
 
 import torch
@@ -207,7 +231,69 @@ class TorchShuffleExchangeExec(TorchExec):
             return self._cache
         with TR.span("exchangeMaterialize",
                      parts=self.partitioning.num_partitions):
-            return self._materialize_inner()
+            # a failed chip is demoted and the subtree runs again on the
+            # surviving mesh, in-process once too few chips remain
+            out = R.degrade_on_chip_failure(self._materialize_inner,
+                                            self.metrics)
+        from spark_rapids_tpu_torch.conf import SHUFFLE_MODE
+        if str(self.conf.get(SHUFFLE_MODE)).lower() == "external":
+            out = self._external_roundtrip(out)
+        # the exchange statistics adaptive execution reads: exact
+        # realized partition sizes, also kept as this node's metrics
+        from spark_rapids_tpu_torch import adaptive as A
+        self.exchange_stats = stats = A.capture_stats(out)
+        self.metrics.create(M.EXCHANGE_TOTAL_BYTES).add(stats.total_bytes)
+        self.metrics.create(M.EXCHANGE_MAX_PARTITION_BYTES).add(
+            stats.max_bytes)
+        self.metrics.create(M.EXCHANGE_MEDIAN_PARTITION_BYTES).add(
+            stats.median_bytes)
+        self._cache = out
+        return out
+
+    def _external_roundtrip(self, cache: List[List]) -> List[List]:
+        """``shuffle.mode=external``: every partition downloaded, written
+        as SRTB files into a fresh shared directory, and read back and
+        uploaded (the host-staged transport's loopback)."""
+        from spark_rapids_tpu_torch.columnar.transfer import upload_batch
+        from spark_rapids_tpu_torch.conf import SHUFFLE_COMPRESSION_CODEC
+        from spark_rapids_tpu_torch.memory import get_device_store
+        from spark_rapids_tpu_torch.parallel import external_shuffle as XS
+        codec = str(self.conf.get(SHUFFLE_COMPRESSION_CODEC))
+        store = get_device_store(self.conf)
+        sdir = XS.new_shuffle_dir()
+        out: List[List] = []
+        try:
+            with TR.span("externalShuffle", parts=len(cache)):
+                with self.metrics.timed("externalShuffleWriteTime"):
+                    host_parts = []
+                    for part in cache:
+                        hbs = []
+                        for h in part:
+                            hbs.append(h.get().to_host())
+                            h.close()
+                        host_parts.append(hbs)
+                    XS.write_map_output(sdir, "0", host_parts, codec)
+                with self.metrics.timed("externalShuffleReadTime"):
+                    for pid in range(len(cache)):
+                        out.append([self.register_spillable(
+                            store, R.with_retry(
+                                lambda hb=hb: upload_batch(
+                                    hb, bucket_capacity(max(1,
+                                                            hb.num_rows)),
+                                    self.device),
+                                self.conf, self.metrics))
+                            for hb in XS.read_partition(sdir, pid)])
+            self.metrics.create("externalShuffleBytes").add(
+                sum(os.path.getsize(os.path.join(sdir, f))
+                    for f in os.listdir(sdir)))
+        except BaseException:
+            for part in cache + out:
+                for h in part:
+                    h.close()
+            raise
+        finally:
+            shutil.rmtree(sdir, ignore_errors=True)
+        return out
 
     def _materialize_inner(self) -> List[List]:
         from spark_rapids_tpu_torch.memory import get_device_store
@@ -219,12 +305,17 @@ class TorchShuffleExchangeExec(TorchExec):
         def keep(pid: int, part: DeviceBatch) -> None:
             out[pid].append(self.register_spillable(store, part))
 
+        mesh = isinstance(p, P.HashPartitioning) and self._mesh_eligible()
         try:
-            if isinstance(p, P.SinglePartitioning) or n == 1:
+            if isinstance(p, P.SinglePartitioning) or (n == 1 and not mesh):
                 for thunk in device_channel(self.child):
                     for b in thunk():
                         if b.row_count():
                             keep(0, b)
+            elif mesh and self._materialize_mesh(p, n, keep):
+                # False: the mesh lost chips to another thread's demotion
+                # after the gate above, and the in-process branch runs
+                pass
             elif isinstance(p, P.HashPartitioning):
                 bound = P.bind_list(p.exprs, self.child.output)
                 for thunk in device_channel(self.child):
@@ -265,17 +356,71 @@ class TorchShuffleExchangeExec(TorchExec):
                 for h in part:
                     h.close()
             raise
-        # the exchange statistics adaptive execution reads: exact
-        # realized partition sizes, also kept as this node's metrics
-        from spark_rapids_tpu_torch import adaptive as A
-        self.exchange_stats = stats = A.capture_stats(out)
-        self.metrics.create(M.EXCHANGE_TOTAL_BYTES).add(stats.total_bytes)
-        self.metrics.create(M.EXCHANGE_MAX_PARTITION_BYTES).add(
-            stats.max_bytes)
-        self.metrics.create(M.EXCHANGE_MEDIAN_PARTITION_BYTES).add(
-            stats.median_bytes)
-        self._cache = out
         return out
+
+    def _mesh_eligible(self) -> bool:
+        """A mesh of two or more healthy chips is active (demoted chips
+        shrink it; below two the in-process transport runs)."""
+        from spark_rapids_tpu_torch.parallel.mesh import (healthy_mesh,
+                                                          mesh_size)
+        m = healthy_mesh()
+        return m is not None and mesh_size(m) > 1
+
+    def _materialize_mesh(self, p: P.HashPartitioning, n: int,
+                          keep) -> bool:
+        """The mesh path; False when fewer than two healthy chips remain
+        (a concurrent demotion after the caller's gate)."""
+        from spark_rapids_tpu_torch.columnar.device import batch_device
+        from spark_rapids_tpu_torch.parallel.ici import mesh_exchange
+        from spark_rapids_tpu_torch.parallel.mesh import (
+            collective_section, healthy_mesh, mesh_size)
+        mesh = healthy_mesh()
+        if mesh is None or mesh_size(mesh) <= 1:
+            return False
+        n_dev = mesh_size(mesh)
+        # the dispatch checkpoint of every chip before anything is
+        # staged: a failed chip raises TorchChipFailure, and the degrade
+        # loop in _materialize re-plans on the survivors
+        for chip in mesh.chips:
+            R.chip_checkpoint(self.conf, chip)
+        bound = P.bind_list(p.exprs, self.child.output)
+        # the per-chip streams drain on this thread, one after another
+        drained = [list(thunk()) for thunk in device_channel(self.child)]
+        with_dev = [(ti, b, batch_device(b))
+                    for ti, per_part in enumerate(drained)
+                    for b in per_part if b.row_count()]
+        slot_of = {c.id: i for i, c in enumerate(mesh.chips)}
+        resident = {d for _ti, _b, d in with_dev
+                    if d is not None and d in slot_of}
+        slots: List[List[DeviceBatch]] = [[] for _ in range(n_dev)]
+        for ti, b, d in with_dev:
+            if len(resident) >= 2 and d is not None and d in slot_of:
+                slots[slot_of[d]].append(b)
+            else:
+                slots[ti % n_dev].append(b)
+        schema = self.child.schema
+        slot_batches = [concat_device(bs) if bs else
+                        DeviceBatch.empty(schema, chip.device)
+                        for bs, chip in zip(slots, mesh.chips)]
+        del drained, with_dev, slots
+        self.metrics.create("numIciExchanges").add(1)
+
+        # the mutex per attempt, inside the retried thunk: the backoff
+        # between attempts runs with it released, and partitionTime
+        # never counts the wait for it
+        def locked_exchange():
+            with collective_section(self.conf), \
+                    self.metrics.timed(M.PARTITION_TIME):
+                for _chip in mesh.chips:
+                    KR.count_dispatch(self.metrics, "murmur3")
+                return mesh_exchange(slot_batches, bound, n, mesh,
+                                     self.metrics)
+
+        parts = R.with_retry(locked_exchange, self.conf, self.metrics)
+        for pid, batches in enumerate(parts):
+            for part in batches:
+                keep(pid, part)
+        return True
 
     def _materialize_range(self, p: P.RangePartitioning, n: int, store,
                            keep) -> None:
@@ -332,7 +477,8 @@ class TorchShuffleExchangeExec(TorchExec):
         return (self.allow_aqe_coalesce
                 and A.adaptive_enabled(self.conf)
                 and not getattr(self.partitioning, "user_specified", False)
-                and self.partitioning.num_partitions > 1)
+                and self.partitioning.num_partitions > 1
+                and not self._mesh_eligible())
 
     def _aqe_partition_groups(self, nparts: int) -> List[List[int]]:
         """Adjacent materialized partitions merged toward

@@ -82,6 +82,7 @@ from spark_rapids_tpu_torch.exec.basic import TorchFilterExec, TorchProjectExec
 from spark_rapids_tpu_torch.jit_cache import (JitCache, mirror_to_metrics,
                                              release_values)
 from spark_rapids_tpu_torch.ops import exprs as X
+from spark_rapids_tpu_torch.parallel.mesh import record_chip_dispatch
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
 
@@ -424,6 +425,9 @@ class TorchFusedStageExec(TorchExec):
             flat, spec = flatten_columns(b.columns)
             key = ("chain", skey, tuple((repr(dt), a) for dt, a in spec),
                    layout)
+            # the stage cache's key holds the input's torch device: chips
+            # emulated on one device share a graph, cards do not
+            record_chip_dispatch(metrics, b)
             outs, ospec = run_program(
                 key, _chain_program(steps, spec, layout, device),
                 flat + [b.active] + flat_lits, metrics)
@@ -432,9 +436,9 @@ class TorchFusedStageExec(TorchExec):
             count_steps(ops, counts)
             if has_filter:
                 return DeviceBatch(schema, rebuild_columns(ospec, outs[:n]),
-                                   outs[n], None, counts[-1])
+                                   outs[n], None, counts[-1], b.chip)
             return DeviceBatch(schema, rebuild_columns(ospec, outs[:n]),
-                               outs[n], b._num_rows, b._num_rows_dev)
+                               outs[n], b._num_rows, b._num_rows_dev, b.chip)
 
         def make(thunk: DevicePartitionThunk) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:

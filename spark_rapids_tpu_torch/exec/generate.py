@@ -142,10 +142,11 @@ class TorchGenerateExec(TorchExec):
                                 b, ordinal, position, outer, shared),
                             self.conf, metrics)
                     if shared:  # the count was read on the host
-                        yield DeviceBatch(schema, cols, active, total)
+                        yield DeviceBatch(schema, cols, active, total,
+                                          chip=b.chip)
                     else:
                         yield DeviceBatch(schema, cols, active, None,
-                                          total)
+                                          total, b.chip)
             return run
         return [make(t) for t in device_channel(self.child)]
 

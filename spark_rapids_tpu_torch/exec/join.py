@@ -35,6 +35,12 @@ a stream-side partition above ``adaptive.skewFactor`` x the median
 splits into sub-partitions, each joined against the same build
 partition (``aqeSkewSplits``).
 
+On a mesh (``parallel/``): a stream batch keeps its chip through the
+join, and the build side is copied once to each stream chip it meets
+(``_align_build``, cached per (build, chip)); the adaptive broadcast
+demotion and skew split stay off while a mesh exchange feeds the join,
+as in the JAX package.
+
 The cross-query build cache (``spark.rapids.sql.subplanCache.enabled``,
 ``serve/result_cache.py``): a broadcast join's built table, and a
 demoted join's, is kept in the device store's cache tier keyed on the
@@ -45,6 +51,7 @@ files' fingerprints at every reuse; a hit skips the build subtree
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
@@ -54,7 +61,7 @@ from spark_rapids_tpu_torch import metrics as M
 from spark_rapids_tpu_torch import retry as R
 from spark_rapids_tpu_torch import trace as TR
 from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
-                                                    concat_device)
+                                                    concat_device, on_chip)
 from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
                                               TorchExec, device_channel)
@@ -128,6 +135,42 @@ class TorchShuffledHashJoinExec(TorchExec):
         self.null_safe = list(null_safe or [False] * len(left_keys))
         self.route_counts: Dict[str, int] = {"joinProbe": 0,
                                              "fkFastPathJoins": 0}
+        # per-chip copies of a shared build side (streams over the mesh
+        # scan): a bounded LRU, since each entry holds a whole build side
+        # on its chip; values pin their source batch so id() keys never
+        # alias
+        from collections import OrderedDict
+        self._build_dev_cache: "OrderedDict" = OrderedDict()
+        self._build_dev_cap = 8
+        self._build_dev_lock = threading.Lock()
+
+    def _align_build(self, lwhole: DeviceBatch, rwhole: DeviceBatch
+                     ) -> DeviceBatch:
+        """The build side on the stream's chip: where the stream batch
+        belongs to another chip than the build side (streams over the
+        mesh scan), the build side is copied to that chip once, as the
+        reference broadcasts its build to every executor, and the copy
+        is kept per (build batch, chip)."""
+        from spark_rapids_tpu_torch.columnar.device import (batch_device,
+                                                            batch_to_device)
+        from spark_rapids_tpu_torch.parallel.mesh import get_active_mesh
+        ld = batch_device(lwhole)
+        mesh = get_active_mesh()
+        if ld is None or mesh is None or batch_device(rwhole) == ld:
+            return rwhole
+        chip = mesh.chip(ld)
+        with self._build_dev_lock:
+            key = (id(rwhole), ld)
+            hit = self._build_dev_cache.get(key)
+            if hit is None:
+                hit = (rwhole, R.with_retry(
+                    lambda: batch_to_device(rwhole, chip),
+                    self.conf, self.metrics))
+                self._build_dev_cache[key] = hit
+            self._build_dev_cache.move_to_end(key)
+            while len(self._build_dev_cache) > self._build_dev_cap:
+                self._build_dev_cache.popitem(last=False)
+            return hit[1]
 
     @property
     def left(self) -> TorchExec:
@@ -163,7 +206,8 @@ class TorchShuffledHashJoinExec(TorchExec):
                   rbatches: List[DeviceBatch],
                   fk_hint: bool = False) -> Iterator[DeviceBatch]:
         lwhole = self._whole(lbatches, self.left.schema, self.device)
-        rwhole = self._whole(rbatches, self.right.schema, self.device)
+        rwhole = self._align_build(
+            lwhole, self._whole(rbatches, self.right.schema, self.device))
         lk, rk = self._bound_keys()
         out_schema = (self.left.schema if self.join_type in MASK_JOINS
                       else self._pair_schema())
@@ -184,7 +228,7 @@ class TorchShuffledHashJoinExec(TorchExec):
         # the exec's declared output may prune/reorder pair columns
         if self.join_type not in MASK_JOINS:
             out = self._project_output(out)
-        yield out
+        yield on_chip(out, lwhole)
 
     def _project_output(self, pair: DeviceBatch) -> DeviceBatch:
         attrs = self._pair_attrs()
@@ -308,7 +352,8 @@ class TorchShuffledHashJoinExec(TorchExec):
         if threshold < 0 or self.join_type not in self._LEFT_STREAM_TYPES:
             return None
         rexch = self.right
-        if not isinstance(rexch, TorchShuffleExchangeExec):
+        if not isinstance(rexch, TorchShuffleExchangeExec) \
+                or rexch._mesh_eligible():
             return None
         handles = [h for part in rexch._materialize() for h in part]
         total = sum(h.sizeof() for h in handles)
@@ -346,7 +391,8 @@ class TorchShuffledHashJoinExec(TorchExec):
                    thresholdBytes=threshold)
         left_src = self.left
         if isinstance(left_src, TorchShuffleExchangeExec) and not getattr(
-                left_src.partitioning, "user_specified", False):
+                left_src.partitioning, "user_specified", False) \
+                and not left_src._mesh_eligible():
             # the exchange existed only for this join's co-partitioning
             left_src = self._replan_stream_side(left_src)
         return self._broadcast_stream_thunks(left_src, rwhole)
@@ -382,7 +428,8 @@ class TorchShuffledHashJoinExec(TorchExec):
             return None
         lexch, rexch = self.left, self.right
         for e in (lexch, rexch):
-            if not isinstance(e, TorchShuffleExchangeExec):
+            if not isinstance(e, TorchShuffleExchangeExec) \
+                    or e._mesh_eligible():
                 return None
         mat = lexch._materialize()
         stats = lexch.exchange_stats

@@ -23,8 +23,17 @@ otherwise, and for units the device decode cannot take, pyarrow decodes
 on the host; that host decode is also the upload's fallback for one batch
 after an out-of-memory error. The file reads of every path run under the
 IO retry protocol (``io_with_retry``: bounded backoff, the original error
-after ``spark.rapids.sql.reader.maxRetries``). The mesh scan is not
-ported yet.
+after ``spark.rapids.sql.reader.maxRetries``).
+
+The mesh scan (``spark.rapids.sql.multichip.scan.enabled`` while a mesh of
+two or more healthy chips is active): ``TorchRowToColumnarExec`` hands the
+scan the mesh's chips (``set_scan_mesh``), and ``partitions()`` returns
+one reader stream per chip, the units dealt round-robin-by-bytes
+(``shard_units_by_bytes``, counted in ``meshScanUnits.chip<N>``); each
+chip's share still bin-packs into sub-partitions read in turn under the
+configured reader. ``partition_devices`` names each stream's chip, and the
+upload lands the stream's batches there; a Parquet row group still
+stages as an EncodedBatch for ``decodeFused`` on its chip.
 """
 
 from __future__ import annotations
@@ -243,6 +252,23 @@ def _orc_units(files: List[tuple]) -> List[ScanUnit]:
         per = max(1, size // ns)
         units.extend(ScanUnit(f, per, [st], pv) for st in range(ns))
     return units
+
+
+def shard_units_by_bytes(units: List[ScanUnit], n: int
+                         ) -> List[List[ScanUnit]]:
+    """The mesh scan's unit scheduler: each unit goes to the stream with
+    the fewest bytes so far (ties to the lowest stream, so equal units
+    deal round-robin), which balances skewed row groups across chips.
+    Streams may come back empty (fewer units than chips); they are kept,
+    so the per-chip structure is stable."""
+    streams: List[List[ScanUnit]] = [[] for _ in range(n)]
+    loads = [0] * n
+    for u in units:
+        i = min(range(n), key=lambda d: (loads[d], d))
+        streams[i].append(u)
+        # +1 so zero-byte units (empty row groups) still spread
+        loads[i] += u.size_bytes + 1
+    return streams
 
 
 def pack_partitions(units: List[ScanUnit], max_bytes: int,
@@ -555,6 +581,21 @@ class CpuFileScanExec(P.PhysicalPlan):
         # direct consumer: only then may partitions() emit EncodedBatch
         # staging objects instead of HostBatches
         self.emit_encoded = False
+        # the mesh scan: set at execution time by TorchRowToColumnarExec
+        # to the mesh's chips; partitions() then returns one stream per
+        # chip and names each stream's chip in partition_devices
+        self._mesh_chips: List = []
+        self.partition_devices: List = []
+
+    def set_scan_mesh(self, chips: List) -> None:
+        self._mesh_chips = list(chips or [])
+
+    def _mesh_streams(self) -> Optional[List[List[ScanUnit]]]:
+        """The units of each chip's stream on the mesh scan, else None."""
+        if len(self._mesh_chips) < 2:
+            return None
+        units = [u for part in self._parts for u in part]
+        return shard_units_by_bytes(units, len(self._mesh_chips))
 
     def set_pushdown(self, preds: List[tuple]) -> None:
         """Install pushed-down predicates (name, op, storage value) and
@@ -577,9 +618,12 @@ class CpuFileScanExec(P.PhysicalPlan):
         return self._output
 
     def units_per_partition(self) -> List[int]:
-        """The units (row groups, stripes or files) of each partition,
-        from the footers, before any read."""
-        return [len(us) for us in self._parts]
+        """The units (row groups, stripes or files) of each partition
+        (each chip's stream on the mesh scan), from the footers, before
+        any read."""
+        streams = self._mesh_streams()
+        return [len(us) for us in (streams if streams is not None
+                                   else self._parts)]
 
     def reader_type(self) -> str:
         """The reader strategy the partitions run: the conf's, or PERFILE
@@ -726,6 +770,28 @@ class CpuFileScanExec(P.PhysicalPlan):
                 return perfile(units)
             return run
 
+        streams = self._mesh_streams()
+        if streams is not None:
+            # one reader stream per chip; an empty stream is kept, so a
+            # chip with no units still yields its (empty) partition
+            self.partition_devices = list(self._mesh_chips)
+
+            def chip_stream(st: List[ScanUnit]):
+                # a chip's share still bin-packs as the conf says (the
+                # COALESCING reader stitches one table per sub-partition)
+                subs = pack_partitions(st, self._max_bytes,
+                                       self._open_cost) if st else [[]]
+                runs = [make(us) for us in subs]
+
+                def run() -> Iterator[Any]:
+                    for r in runs:
+                        yield from r()
+                return run
+
+            for chip, st in zip(self._mesh_chips, streams):
+                metrics.add(f"meshScanUnits.chip{chip.id}", len(st))
+            return [chip_stream(st) for st in streams]
+        self.partition_devices = []
         return [make(us) for us in self._parts]
 
 

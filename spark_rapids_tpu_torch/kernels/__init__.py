@@ -220,6 +220,19 @@ def check(code: int, what: str) -> None:
         raise KernelError(f"{what}: CUDA error {code}", code=code)
 
 
+def on_device(device):
+    """The context a kernel launch runs in: ``device`` made the calling
+    thread's current CUDA device (a runtime-API launch goes to the
+    current device, which need not be the tensors' on a mesh of cards);
+    nothing on another device type."""
+    import contextlib
+
+    import torch
+    if getattr(device, "type", None) != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream_handle(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream

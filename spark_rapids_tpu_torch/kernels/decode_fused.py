@@ -176,12 +176,15 @@ def _launch(entries, cap: int, n: int, words: torch.Tensor,
     fn.restype = ci
     t0 = KR.dispatch_start()
     KR.count_launch("decodeFused")
-    KR.check(fn(words.data_ptr(), words.numel() * 4, desc.data_ptr(),
-                len(descs), n, cap, n_slots,
-                part.data_ptr() if n_slots else None,
-                bsum.data_ptr() if n_slots else None, active.data_ptr(),
-                rows_per_thread, KR.stream_handle(device)),
-             "decodeFused launch")
+    # the launch goes to the calling thread's current device: make
+    # it the tensors' (a card other than 0 on a mesh)
+    with KR.on_device(device):
+        KR.check(fn(words.data_ptr(), words.numel() * 4, desc.data_ptr(),
+                    len(descs), n, cap, n_slots,
+                    part.data_ptr() if n_slots else None,
+                    bsum.data_ptr() if n_slots else None, active.data_ptr(),
+                    rows_per_thread, KR.stream_handle(device)),
+                 "decodeFused launch")
     if t0 is not None:
         KR.dispatch_end(t0, "decodeFused", chip=device.index, bucket=cap,
                         tuned=tuned)

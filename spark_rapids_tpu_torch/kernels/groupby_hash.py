@@ -339,15 +339,18 @@ def groupby_table(kw, h, valid, add, mn, mx, slots: int,
     overflow = torch.empty(1, dtype=torch.int32, device=device)
     t0 = KR.dispatch_start()
     KR.count_launch("groupbyHash")
-    KR.check(fn(kw.data_ptr(), K, h.data_ptr(), valid.data_ptr(), n,
-                add.data_ptr(), n_add, mn.data_ptr(), n_min,
-                mx.data_ptr(), n_max, slots,
-                local_table_entries(n_add + n_min + n_max, slots)
-                // max(1, int(lane_groups)), int(block_rows),
-                owner.data_ptr(), add_out.data_ptr(), min_out.data_ptr(),
-                max_out.data_ptr(), overflow.data_ptr(),
-                KR.stream_handle(device)),
-             "groupbyHash launch")
+    # the launch goes to the calling thread's current device: make
+    # it the tensors' (a card other than 0 on a mesh)
+    with KR.on_device(device):
+        KR.check(fn(kw.data_ptr(), K, h.data_ptr(), valid.data_ptr(), n,
+                    add.data_ptr(), n_add, mn.data_ptr(), n_min,
+                    mx.data_ptr(), n_max, slots,
+                    local_table_entries(n_add + n_min + n_max, slots)
+                    // max(1, int(lane_groups)), int(block_rows),
+                    owner.data_ptr(), add_out.data_ptr(), min_out.data_ptr(),
+                    max_out.data_ptr(), overflow.data_ptr(),
+                    KR.stream_handle(device)),
+                 "groupbyHash launch")
     if t0 is not None:
         KR.dispatch_end(t0, "groupbyHash", chip=device.index, slots=slots,
                         bucket=bucket, tuned=tuned)

@@ -109,11 +109,14 @@ def build_probe(kw_r: torch.Tensor, valid_r: torch.Tensor,
     first_row = torch.empty(n_l, dtype=torch.int32, device=device)
     t0 = KR.dispatch_start()
     KR.count_launch("joinProbe")
-    KR.check(fn(kw_r.data_ptr(), valid_r.data_ptr(), n_r,
-                kw_l.data_ptr(), valid_l.data_ptr(), n_l, K, slots,
-                matched.data_ptr(), first_row.data_ptr(),
-                KR.stream_handle(device)),
-             "joinProbe launch")
+    # the launch goes to the calling thread's current device: make
+    # it the tensors' (a card other than 0 on a mesh)
+    with KR.on_device(device):
+        KR.check(fn(kw_r.data_ptr(), valid_r.data_ptr(), n_r,
+                    kw_l.data_ptr(), valid_l.data_ptr(), n_l, K, slots,
+                    matched.data_ptr(), first_row.data_ptr(),
+                    KR.stream_handle(device)),
+                 "joinProbe launch")
     if t0 is not None:
         KR.dispatch_end(t0, "joinProbe", chip=device.index)
     return matched, first_row

@@ -104,8 +104,12 @@ def murmur3_columns(cols: Sequence, capacity: int, seed: int = 42,
     out = torch.empty(capacity, dtype=torch.int32, device=device)
     t0 = KR.dispatch_start()
     KR.count_launch("murmur3")
-    KR.check(fn(words.ctypes.data, len(descs), capacity, seed, n_parts,
-                out.data_ptr(), KR.stream_handle(device)), "murmur3 launch")
+    # the launch goes to the calling thread's current device: make
+    # it the tensors' (a card other than 0 on a mesh)
+    with KR.on_device(device):
+        KR.check(fn(words.ctypes.data, len(descs), capacity, seed,
+                    n_parts, out.data_ptr(), KR.stream_handle(device)),
+                 "murmur3 launch")
     if t0 is not None:
         KR.dispatch_end(t0, "murmur3", chip=device.index)
     return out

@@ -71,6 +71,13 @@ _SYNC_ALLOWLIST: Dict[str, str] = {
         "coalescer's goal, empty-batch skips), read once and kept in "
         "_num_rows; the JAX package's row_count takes the same read, and "
         "operators count rows with row_count_lazy",
+    _PKG + "parallel/ici.py::mesh_exchange":
+        "the size-exchange handshake: one [n, n] per-(source, destination) "
+        "counts read sizes the send blocks to the real occupancy before "
+        "any block moves (the JAX package's own reason)",
+    _PKG + "parallel/step.py::dryrun_multichip":
+        "the dry run's check, not a query path: it reads the step's "
+        "outputs once to hold them against a host reduction",
     _PKG + "ops/join.py::build_key_max_multiplicity":
         "the build side's key multiplicity, read once per broadcast build "
         "side: 1 certifies every stream chunk for the FK fast path with no "
@@ -98,6 +105,7 @@ class LintConfig:
     # inside the OOM retry protocol (retry.py)
     retry_scope: Tuple[str, ...] = (
         "spark_rapids_tpu_torch/exec/",
+        "spark_rapids_tpu_torch/parallel/",
         "spark_rapids_tpu_torch/columnar/transfer.py",
         "spark_rapids_tpu_torch/columnar/device.py",
     )
@@ -133,6 +141,9 @@ class LintConfig:
                 "the decode of a staged token, reached only through "
                 "finish_upload and finish_started, whose callers wrap "
                 "them in with_retry",
+            "spark_rapids_tpu_torch/parallel/ici.py::mesh_exchange":
+                "runs under the exchange materializer's with_retry (the "
+                "mesh path of exec/exchange.py), as in the JAX package",
             "spark_rapids_tpu_torch/columnar/device.py::DeviceBatch"
             ".from_host":
                 "the test and tool entry that uploads one HostBatch; "
@@ -179,6 +190,7 @@ class LintConfig:
         "spark_rapids_tpu_torch/ops/",
         "spark_rapids_tpu_torch/kernels/",
         "spark_rapids_tpu_torch/columnar/",
+        "spark_rapids_tpu_torch/parallel/",
     )
     # "<rel>::<qualname>" -> reason: the SANCTIONED drain points, each a
     # deliberate sync the design is built around (an entry covers the

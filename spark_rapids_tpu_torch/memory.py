@@ -148,7 +148,7 @@ class _State:
 
     __slots__ = ("tier", "batch", "host", "disk_path", "device_bytes",
                  "host_bytes", "closed", "rows", "ever_spilled", "owner",
-                 "metrics_ref", "device", "tenant", "cache_entry")
+                 "metrics_ref", "device", "tenant", "cache_entry", "chip")
 
     def __init__(self, batch: DeviceBatch, owner: str, metrics,
                  cache_entry: bool = False):
@@ -157,6 +157,8 @@ class _State:
         self.host: Optional[HostBatch] = None
         self.disk_path: Optional[str] = None
         self.device = batch.device
+        # the mesh chip a re-promoted batch goes back to
+        self.chip = batch.chip
         self.device_bytes = batch.sizeof()
         self.host_bytes = 0
         self.closed = False
@@ -355,6 +357,7 @@ class DeviceStore:
                               st.host_bytes)
                 with _trace.span("promoteToDevice", bytes=st.host_bytes):
                     st.batch = DeviceBatch.from_host(st.host, st.device)
+                    st.batch.chip = st.chip
                 self.host_bytes -= st.host_bytes
                 st.host, st.host_bytes = None, 0
                 st.tier = TIER_DEVICE

@@ -68,6 +68,7 @@ IO_RETRY_COUNT = "ioRetryCount"           # transient reader IO retries
 DEVICE_DECODE_OOM_FALLBACKS = "deviceDecodeOomFallbacks"  # encoded
 #   uploads that took the host decode for that batch after an OOM
 PARTITION_TIME = "partitionTime"
+DEGRADED_CHIPS = "degradedChips"          # mesh chips demoted after failure
 # planned out-of-core (the budget oracle's decisions)
 PLANNED_PARTITIONS = "plannedPartitions"  # spill-backed partitions planned
 BUDGET_PRESSURE_PEAK = "budgetPressurePeak"  # worst estimate/share, %

@@ -2575,7 +2575,8 @@ def run_filter(cond: E.Expression, batch: DeviceBatch,
     p = dev_eval(cond, ctx)
     _raise_if_errors(ctx, batch.active)
     new_active = batch.active & p.validity & _as_bool(p)
-    return DeviceBatch(batch.schema, batch.columns, new_active, None)
+    return DeviceBatch(batch.schema, batch.columns, new_active, None,
+                       chip=batch.chip)
 
 
 def _needs_part_ctx(exprs) -> bool:

@@ -24,7 +24,8 @@ per-operator CPU fallback.
 The port has rules for Range, Union, Expand, Window, Project, Filter,
 Generate (explode), HashAggregate, ShuffleExchange (hash, range, single,
 round robin; planner-inserted hash and range exchanges coalesce to
-``spark.rapids.sql.shuffle.devicePartitions``, 1 on one card), Sort,
+``spark.rapids.sql.shuffle.devicePartitions``: the mesh size while a
+mesh is active, else 1), Sort,
 LocalLimit (over a Sort it becomes TopN), GlobalLimit,
 BroadcastExchange, the shuffled and broadcast hash joins, ArrowEvalPython
 and MapInPandas. An aggregate's, a sort's or a window's exchange child
@@ -346,11 +347,14 @@ def _conv_filter(node, kids, conf, device):
 def device_shuffle_partitions(conf: TorchConf, n: int) -> int:
     """Partition count of a planner-inserted device hash or range
     exchange: ``spark.rapids.sql.shuffle.devicePartitions``, where auto
-    (0) is 1 on one card, never above the planner's ``n``."""
+    (0) is the mesh size while a mesh is active, else 1, never above the
+    planner's ``n``."""
     from spark_rapids_tpu_torch.conf import DEVICE_SHUFFLE_PARTITIONS
     want = int(conf.get(DEVICE_SHUFFLE_PARTITIONS))
     if want <= 0:
-        want = 1
+        from spark_rapids_tpu_torch.parallel.mesh import (get_active_mesh,
+                                                          mesh_size)
+        want = mesh_size() if get_active_mesh() is not None else 1
     return max(1, min(n, want))
 
 

@@ -38,8 +38,17 @@ so a cancelled query never sleeps through its deadline, and a
 cancellation is never retried. Each recovery records a ``retryOOM``
 instant and a ``retryBlock`` span (a split a ``splitRetry``, an IO retry
 an ``ioRetry``) and feeds the telemetry retry-storm trigger; the
-``site:tuning:N`` leg counts tuning-controller ticks. Not ported: mesh
-chip-failure degrade (ROADMAP A12).
+``site:tuning:N`` leg counts tuning-controller ticks.
+
+Chip failures (``spark.rapids.sql.test.injectChipFailure``, a list of
+mesh chip ids): ``chip_checkpoint`` raises ``TorchChipFailure`` before
+work is dispatched onto a named chip (the per-chip upload, the mesh
+exchange), persistently per chip (``on_chip``, counted in
+``chipFailuresInjected``). ``degrade_on_chip_failure`` demotes the chip
+(``parallel.mesh.mark_chip_failed``, a ``chipFailure`` instant,
+``degradedChips``) and runs the attempt again on the surviving mesh,
+down to the single-chip path; the exchange's materialization and the
+collect both run under it. A chip failure is never retried as an OOM.
 """
 
 from __future__ import annotations
@@ -65,6 +74,16 @@ class TorchRetryOOM(MemoryError):
 class TorchSplitAndRetryOOM(TorchRetryOOM):
     """Retrying at the same size will not help: split the input batch in
     half by rows and process the halves on their own."""
+
+
+class TorchChipFailure(RuntimeError):
+    """Work could not be dispatched onto a mesh chip. Handled by
+    degrading the mesh to the surviving chips (the Spark analogue is a
+    fetch failure driving stage re-execution on healthy executors)."""
+
+    def __init__(self, chip_id: int, msg: str = ""):
+        super().__init__(msg or f"dispatch failure on mesh chip {chip_id}")
+        self.chip_id = chip_id
 
 
 def is_oom_error(e: BaseException) -> bool:
@@ -165,7 +184,8 @@ class FaultInjector:
     conf and process: a schedule is a property of the process's
     timeline, like the reference's RMM inject-OOM hook."""
 
-    def __init__(self, oom_spec: str = "", io_spec: str = ""):
+    def __init__(self, oom_spec: str = "", io_spec: str = "",
+                 chip_spec: str = ""):
         self._oom = _parse_schedule(oom_spec)
         # site:budget is the planning leg: it counts budget-oracle
         # queries, and its fault is a halved headroom report
@@ -183,6 +203,8 @@ class FaultInjector:
         if self._oom is not None and self._oom.site == "tuning":
             self._tuning, self._oom = self._oom, None
         self._io = _parse_schedule(io_spec)
+        self._chips = {int(p.strip()) for p in str(chip_spec or "")
+                       .split(",") if p.strip()}
         self._lock = threading.Lock()
         self._alloc_count = 0
         self._oom_streak = 0
@@ -196,6 +218,7 @@ class FaultInjector:
         self.budget_faults_injected = 0
         self._tuning_count = 0
         self.tuning_faults_injected = 0
+        self.chip_failures_injected = 0
 
     @staticmethod
     def _fire(sched: _Schedule, count: int) -> bool:
@@ -248,6 +271,16 @@ class FaultInjector:
             raise IOError(f"injected IO error reading {path!r} "
                           "(spark.rapids.sql.test.injectIOError)")
 
+    def on_chip(self, chip_id: int) -> None:
+        """Checkpoint before work is dispatched onto a mesh chip. An
+        injected failure is persistent per chip: the degrade loop stops
+        dispatching to a chip once it is demoted, which is what ends the
+        failures (a dead chip behaves the same)."""
+        if chip_id in self._chips:
+            with self._lock:
+                self.chip_failures_injected += 1
+            raise TorchChipFailure(chip_id)
+
     def on_cancel_point(self, token, site: str = "") -> None:
         """Checkpoint at one lifecycle cancellation checkpoint
         (``lifecycle.checkpoint``): a ``site:cancel:N`` schedule cancels
@@ -297,7 +330,8 @@ class FaultInjector:
                     "ioInjected": self.io_injected,
                     "budgetFaultsInjected": self.budget_faults_injected,
                     "cancelsInjected": self.cancels_injected,
-                    "tuningFaultsInjected": self.tuning_faults_injected}
+                    "tuningFaultsInjected": self.tuning_faults_injected,
+                    "chipFailuresInjected": self.chip_failures_injected}
 
 
 _INJECTOR: Optional[FaultInjector] = None
@@ -311,10 +345,12 @@ def get_fault_injector(conf) -> Optional[FaultInjector]:
     injector with fresh counters."""
     if conf is None:
         return None
-    from spark_rapids_tpu_torch.conf import INJECT_IO_ERROR, INJECT_OOM
+    from spark_rapids_tpu_torch.conf import (INJECT_CHIP_FAILURE,
+                                             INJECT_IO_ERROR, INJECT_OOM)
     key = (str(conf.get(INJECT_OOM) or ""),
-           str(conf.get(INJECT_IO_ERROR) or ""))
-    if key == ("", ""):
+           str(conf.get(INJECT_IO_ERROR) or ""),
+           str(conf.get(INJECT_CHIP_FAILURE) or ""))
+    if key == ("", "", ""):
         return None
     global _INJECTOR, _INJECTOR_KEY
     with _INJECTOR_LOCK:
@@ -330,6 +366,38 @@ def reset_fault_injection() -> None:
     with _INJECTOR_LOCK:
         _INJECTOR = None
         _INJECTOR_KEY = None
+
+
+def degrade_on_chip_failure(attempt: Callable[[], T],
+                            metrics=None) -> T:
+    """The chip-failure degrade loop, shared by the exchange's
+    materialization and the collect. The failed set is read BEFORE each
+    attempt: a failure on a chip already demoted then means the failure
+    is elsewhere and raises (which bounds the loop by the chip count); a
+    chip another thread demoted during the attempt still retries on the
+    survivors."""
+    from spark_rapids_tpu_torch.parallel.mesh import (failed_chips,
+                                                      mark_chip_failed)
+    while True:
+        already = failed_chips()
+        try:
+            return attempt()
+        except TorchChipFailure as e:
+            if e.chip_id in already:
+                raise
+            from spark_rapids_tpu_torch import trace as TR
+            TR.instant("chipFailure", chip=e.chip_id)
+            if mark_chip_failed(e.chip_id) and metrics is not None:
+                metrics.create(M.DEGRADED_CHIPS).add(1)
+
+
+def chip_checkpoint(conf, chip) -> None:
+    """Raise ``TorchChipFailure`` when dispatch onto ``chip`` (a mesh
+    chip or its id) is injected to fail: called at the per-chip upload
+    and at the mesh exchange, before work is dispatched there."""
+    inj = get_fault_injector(conf)
+    if inj is not None:
+        inj.on_chip(chip.id if hasattr(chip, "id") else int(chip))
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,16 @@ explicit cancels, and client disconnects — asserting, per round:
   lifecycle registry.
 
 The harness is a library (``run_soak``); ``tests/test_torch_soak.py``
-runs a small round on the CPU (``device="cpu"``). The JAX package's
-chip-failure round needs a device mesh, which the port does not have,
-so its schedules leave it out.
+runs a small round on the CPU (``device="cpu"``). The rounds rotate over
+``ROUND_SCHEDULES``, the JAX package's rotation: the six schedules of
+``SCHEDULES`` and then ``MESH_ROUND``, which activates the mesh
+(``spark.rapids.shuffle.mode=ici``) with chip 1 failing persistently, so
+every served query degrades to the surviving chips and its rows must
+still equal the oracle's. The mesh round runs at full concurrency:
+served sessions serialize only their mesh exchange sections
+(``serializeServedQueries``). With fewer than two visible chips (see
+``parallel.mesh.emulate_chips``) it runs ``SCHEDULES[2]`` instead, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -64,6 +71,14 @@ SCHEDULES: List[Dict[str, str]] = [
      "spark.rapids.sql.test.injectIOError": "7"},
     {"spark.rapids.sql.test.injectOOM": "site:cancel:11"},
 ]
+
+# the chip-failure round: the mesh, with chip 1 failing persistently
+MESH_ROUND: Dict[str, str] = {
+    "spark.rapids.shuffle.mode": "ici",
+    "spark.rapids.sql.test.injectChipFailure": "1"}
+
+# the rounds' rotation (the JAX package's SCHEDULES)
+ROUND_SCHEDULES: List[Dict[str, str]] = SCHEDULES + [MESH_ROUND]
 
 # per-query lifecycle action mix (seeded per (round, tenant, query))
 _ACTIONS = ("none", "none", "none", "deadline", "cancel", "disconnect")
@@ -316,10 +331,12 @@ def run_soak(rounds: int = 3, concurrency: int = 8,
              queries_per_tenant: int = 3, seed: int = 7,
              data_dir: Optional[str] = None,
              log=lambda msg: print(msg, flush=True),
-             device=None) -> Dict:
+             device=None, start_round: int = 0) -> Dict:
     """The chaos soak: returns the machine-readable report
     (``report["ok"]`` is the pass/fail verdict). ``device`` is the CUDA
-    card unless the caller asks for the CPU."""
+    card unless the caller asks for the CPU. The rounds are
+    ``start_round`` .. ``start_round + rounds - 1`` of the rotation
+    (``start_round=6`` runs the mesh round first)."""
     from spark_rapids_tpu_torch import retry as R
     tmp = None
     if data_dir is None:
@@ -332,10 +349,14 @@ def run_soak(rounds: int = 3, concurrency: int = 8,
         cpu = _oracle_rows(data_dir, "false", device)
         assert oracle == cpu, "device oracle diverged from CPU engine"
 
+        from spark_rapids_tpu_torch.parallel.mesh import visible_chips
+        multi_chip = len(visible_chips(device)) >= 2
         round_reports = []
         all_errors: list = []
-        for rnd in range(rounds):
-            schedule = SCHEDULES[rnd % len(SCHEDULES)]
+        for rnd in range(start_round, start_round + rounds):
+            schedule = ROUND_SCHEDULES[rnd % len(ROUND_SCHEDULES)]
+            if schedule is MESH_ROUND and not multi_chip:
+                schedule = SCHEDULES[2]  # no mesh: the OOM round instead
             rep = _run_round(rnd, data_dir, oracle, concurrency,
                              queries_per_tenant, seed, schedule, log,
                              device=device)

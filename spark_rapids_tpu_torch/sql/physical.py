@@ -95,7 +95,18 @@ class PhysicalPlan:
         device permit its thread holds when it ends or fails, and so does
         this thread. The query's cancel token follows the work onto the
         task threads, and every drained batch is a cancellation
-        checkpoint."""
+        checkpoint.
+
+        A ``TorchChipFailure`` that no operator recovered from (a plan
+        with no exchange between its mesh scan and this collect) demotes
+        the chip, and the collect runs again on the surviving mesh
+        (``retry.degrade_on_chip_failure``, shared with the exchange)."""
+        from spark_rapids_tpu_torch.retry import degrade_on_chip_failure
+        return degrade_on_chip_failure(
+            lambda: self._collect_once(parallelism),
+            getattr(self, "metrics", None))
+
+    def _collect_once(self, parallelism: int) -> HostBatch:
         from spark_rapids_tpu_torch import lifecycle as LC
         from spark_rapids_tpu_torch.resource import release_current_thread
         token = LC.current_token()

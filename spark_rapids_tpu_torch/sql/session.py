@@ -135,9 +135,23 @@ class TorchSparkSession:
         # the previously active session is remembered, not clobbered:
         # stop() restores it
         self._stopped = False
+        self._owns_mesh = False
+        from spark_rapids_tpu_torch.conf import (SHUFFLE_ICI_DEVICES,
+                                                 SHUFFLE_MODE)
         with TorchSparkSession._lock:
             self._prev_active = TorchSparkSession._active
             TorchSparkSession._active = self
+            if str(self.conf_obj.get(SHUFFLE_MODE)).lower() == "ici":
+                # the executor-plugin-init step: the shuffle mesh, once
+                # per process, checked and set under the class lock so
+                # two tenant sessions starting together never both build
+                # (and later both tear down) it
+                from spark_rapids_tpu_torch.parallel import mesh as PM
+                if PM.get_active_mesh() is None:
+                    n = int(self.conf_obj.get(SHUFFLE_ICI_DEVICES)) or None
+                    PM.set_active_mesh(PM.build_mesh(
+                        n, PM.visible_chips(self.device)))
+                    self._owns_mesh = True
 
     class Builder:
         """``TorchSparkSession.builder.config(k, v).getOrCreate()``; the
@@ -176,8 +190,13 @@ class TorchSparkSession:
     def stop(self) -> None:
         """Retire this session: ``active()`` returns the session that was
         active before it (skipping any already stopped), and the Python
-        worker processes end (a later pandas UDF starts new ones)."""
+        worker processes end (a later pandas UDF starts new ones). A
+        session that activated the shuffle mesh tears it down."""
         with TorchSparkSession._lock:
+            if self._owns_mesh:
+                from spark_rapids_tpu_torch.parallel import mesh as PM
+                PM.set_active_mesh(None)
+                self._owns_mesh = False
             if TorchSparkSession._active is self:
                 prev = self._prev_active
                 while prev is not None and prev._stopped:

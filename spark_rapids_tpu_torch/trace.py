@@ -105,6 +105,15 @@ SPAN_CATALOG: Dict[str, str] = {
                      "bucket, card) key: every candidate validated, then "
                      "timed (kernel=/bucket=/candidates=/applied=; "
                      "kernels/autotune.py)",
+    "meshStack": "per-chip slots padded to the common capacity bucket "
+                 "on their chips before the mesh exchange",
+    "meshSizeExchange": "the mesh exchange's [n, n] per-(source, "
+                        "destination) row-count read",
+    "meshExchange": "the mesh all-to-all: each chip's send blocks moved "
+                    "to their destination chips",
+    "externalShuffle": "one exchange's partitions written as SRTB files "
+                       "and read back (spark.rapids.shuffle.mode="
+                       "external)",
     "cacheEntryDrop": "the device pool dropped a cache-tier entry "
                       "under pressure instead of spilling a live "
                       "query's batch (docs/caching.md)",
@@ -116,6 +125,7 @@ INSTANT_CATALOG: Dict[str, str] = {
                                "process keeps its winners in memory",
     "retryOOM": "an OOM retry re-attempted the operation",
     "splitRetry": "an input batch split in half after OOM exhaustion",
+    "chipFailure": "a mesh chip was demoted after persistent failure",
     "ioRetry": "a transient reader IO error was retried",
     "compileCacheContention": "a thread blocked on another thread's "
                               "in-progress compile of the same key",
