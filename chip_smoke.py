@@ -305,6 +305,16 @@ absent or any phase fails. Output, one line per phase:
      (``multichip_step``) and q1's wall under ``ici`` and ``inprocess``
      in turns (``multichip_walls``; emulated chips share one card, so no
      scaling claim);
+  25. concurrent execution (``task_parallel_phases``): pushed q3 at 4
+     tasks from an empty stage cache (``task_parallel_cold``: one graph
+     capture a key), q1 from Parquet and pushed q3 at 1, 2 and 4
+     ``taskParallelism`` task threads (``task_parallel``: rows exact,
+     launches equal to the plans' own counts, each exchange materialized
+     once, each broadcast built once), their walls in turns
+     (``task_parallel_walls``), the 4-task legs under the sync audit
+     (``task_parallel_audit``), q1 over 4 emulated chips at 1 and 4
+     tasks (``task_parallel_mesh``) and a two-card leg that skips on
+     one card (``task_parallel_two_cards``);
   every profiled run above traces the device's activity only
   (``profile_collect``; phase 11's ``stage_profile`` also the launch
   calls), read from the profiler's raw events;
@@ -326,14 +336,16 @@ absent or any phase fails. Output, one line per phase:
   (``observe_only``); with ``--tools``, only the build and phase 22
   (``tools_only``); with ``--sync-audit``, only the build and phase 23
   (``sync_audit_only``); with ``--multichip``, only the build and phase
-  24 (``multichip_only``);
+  24 (``multichip_only``); with ``--tasks``, only the build and phase 25
+  with the mesh gap's profile at 1 and 4 tasks (``tasks_only``);
   with ``--ab DIR``, the joinProbe and murmur3 of the checkout at DIR
   (``ParentKernels``) are held against this tree's on the same inputs and
   timed beside them in turns (``ab_join_probe``, ``ab_murmur3``);
   then a ``total`` line with the script's seconds, a ``{"kernels":
   [...]}`` line (each kernel also with its launches on q12's two legs
   and on phase 14's, 15's, 16's, 17's, 18's, 19's, 20's, 21's, 22's,
-  23's and 24's legs, and those phases' shapes among its cases; groupbyHash and
+  23's, 24's and 25's legs, and those phases' shapes among its cases;
+  groupbyHash and
   decodeFused also with their tuned knobs a bucket and each autotune
   candidate's card ms at q1's shapes)
   and, last, the contract line ``{"ok": true, "device": {...}}``.
@@ -6761,7 +6773,7 @@ def execution_launches(plan) -> dict:
     out = {k: m.get(f"kernelDispatchCount.{k}", 0)
            for k in ("groupbyHash", "decodeFused", "murmur3")}
     out["joinProbe"] = sum(getattr(p, "route_counts", {}).get("joinProbe", 0)
-                           for p in plan_nodes_of(plan))
+                           for p in distinct_nodes(plan))
     return out
 
 
@@ -8236,6 +8248,66 @@ def sync_probe(device) -> dict:
                 __file__) and first.lineno == line}
 
 
+def audited_collect(df, root: str, cfg, memo: dict) -> dict:
+    """One ``df.collect()`` under ``torch.cuda.set_sync_debug_mode("warn")``,
+    every sync recorded with its stack on whichever thread issued it
+    (``SyncRecorder``) and attributed to ``<rel>::<qualname>`` through the
+    linter's own ``FileCtx``: the rows, the wall, the launches, the syncs
+    per function, caller and line, and those in a function of the
+    linter's ``hot_scope`` that no ``sync_allowlist`` entry covers
+    (``unsanctioned``; the entry names the function or one enclosing
+    it)."""
+    import warnings
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    torch.cuda.synchronize()
+    rec = SyncRecorder(root)
+    snap = KR.launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = rec.hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = [tuple(r) for r in df.collect()]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    wall = time.perf_counter() - t0
+    now = KR.launch_counts()
+    launches = {k: now[k] - snap[k] for k in now if now[k] - snap[k]}
+
+    def function_of(site):
+        rel, line = site.rsplit(":", 1)
+        quals = enclosing_qualnames(root, rel, int(line), memo) \
+            or ["<module>"]
+        return rel, quals
+
+    by_function: dict = {}
+    by_caller: dict = {}
+    unsanctioned = {}
+    for (site, caller), n in sorted(rec.calls.items(),
+                                    key=lambda kv: str(kv[0])):
+        rel, quals = function_of(site)
+        key = f"{rel}::{quals[0]} <- " + (
+            "?" if caller is None else
+            "{0}::{1[0]}".format(*function_of(caller)))
+        by_caller[key] = by_caller.get(key, 0) + n
+    for site, n in sorted(rec.lines.items()):
+        rel, quals = function_of(site)
+        fn = f"{rel}::{quals[0]}"
+        by_function[fn] = by_function.get(fn, 0) + n
+        hot = any(rel.startswith(h) for h in cfg.hot_scope)
+        if hot and not any(f"{rel}::{qn}" in cfg.sync_allowlist
+                           for qn in quals):
+            unsanctioned[site] = fn
+    return {"rows": rows, "wall_s": wall, "launches": launches,
+            "syncs": sum(rec.lines.values()) + sum(rec.outside.values()),
+            "by_function": by_function, "by_caller": by_caller,
+            "by_line": dict(sorted(rec.lines.items())),
+            "outside_package": dict(rec.outside),
+            "threads": dict(rec.threads), "unsanctioned": unsanctioned}
+
+
 def sync_audit_phases(card: str, arrays, q1_dir: str) -> dict:
     """Phase 23: every runtime synchronisation of the main path held
     against the linter's ``sync_allowlist``. TPC-H q1 at SF1 from phase
@@ -8258,9 +8330,7 @@ def sync_audit_phases(card: str, arrays, q1_dir: str) -> dict:
     pinned memory on its own stream and waits on an event
     (``finish_to_host``), takes no sync the detector sees. Returns the
     launches a query in the audited runs."""
-    import warnings
     import torch
-    from spark_rapids_tpu_torch import kernels as KR
     from spark_rapids_tpu_torch.lint.config import LintConfig
     from spark_rapids_tpu_torch.sql.session import TorchSparkSession
 
@@ -8292,55 +8362,17 @@ def sync_audit_phases(card: str, arrays, q1_dir: str) -> dict:
             s.read.parquet(path).createOrReplaceTempView(name)
         df = s.sql(sql)
         check([tuple(r) for r in df.collect()])  # warm, not audited
-        torch.cuda.synchronize()
-        rec = SyncRecorder(root)
-        snap = KR.launch_counts()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True):
-            warnings.simplefilter("always")
-            warnings.showwarning = rec.hook
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                rows = [tuple(r) for r in df.collect()]
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        wall = time.perf_counter() - t0
-        now = KR.launch_counts()
-        launches = {k: now[k] - snap[k] for k in now if now[k] - snap[k]}
-        check(rows)
-        def function_of(site):
-            rel, line = site.rsplit(":", 1)
-            quals = enclosing_qualnames(root, rel, int(line), memo) \
-                or ["<module>"]
-            return rel, quals
-
-        by_function: dict = {}
-        by_caller: dict = {}
-        unsanctioned = {}
-        for (site, caller), n in sorted(rec.calls.items(),
-                                        key=lambda kv: str(kv[0])):
-            rel, quals = function_of(site)
-            key = f"{rel}::{quals[0]} <- " + (
-                "?" if caller is None else
-                "{0}::{1[0]}".format(*function_of(caller)))
-            by_caller[key] = by_caller.get(key, 0) + n
-        for site, n in sorted(rec.lines.items()):
-            rel, quals = function_of(site)
-            fn = f"{rel}::{quals[0]}"
-            by_function[fn] = by_function.get(fn, 0) + n
-            hot = any(rel.startswith(h) for h in cfg.hot_scope)
-            if hot and not any(f"{rel}::{qn}" in cfg.sync_allowlist
-                               for qn in quals):
-                unsanctioned[site] = fn
-        total = sum(rec.lines.values()) + sum(rec.outside.values())
-        legs[q] = launches
-        phase("sync_audit", card=card, query=q, rows=len(rows),
-              reference="exact", syncs=total, by_function=by_function,
-              by_caller=by_caller, by_line=dict(sorted(rec.lines.items())),
-              outside_package=dict(rec.outside), threads=dict(rec.threads),
-              unsanctioned=unsanctioned, launches=launches,
-              audited_wall_s=wall, probe=probe,
-              seconds=time.perf_counter() - t_phase)
+        a = audited_collect(df, root, cfg, memo)
+        check(a["rows"])
+        unsanctioned, total = a["unsanctioned"], a["syncs"]
+        legs[q] = a["launches"]
+        phase("sync_audit", card=card, query=q, rows=len(a["rows"]),
+              reference="exact", syncs=total,
+              by_function=a["by_function"], by_caller=a["by_caller"],
+              by_line=a["by_line"], outside_package=a["outside_package"],
+              threads=a["threads"], unsanctioned=unsanctioned,
+              launches=a["launches"], audited_wall_s=a["wall_s"],
+              probe=probe, seconds=time.perf_counter() - t_phase)
         if unsanctioned:
             failures.append(f"{q}: syncs in hot-scope functions outside "
                             f"sync_allowlist: {unsanctioned}")
@@ -8578,6 +8610,700 @@ def multichip_only(card: str) -> None:
     legs, cases = multichip_phases(card, arrays, q1_dir)
     phase("total", seconds=time.perf_counter() - T_START, launches=legs,
           murmur3_cases=cases)
+
+
+TASK_COUNTS = (1, 2, 4)
+
+
+@contextlib.contextmanager
+def counting_materializations():
+    """Each shuffle exchange's materializations while the block runs, by
+    node id (the exchange's ``_materialize_inner`` counted)."""
+    from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+    counts: dict = {}
+    inner = TorchShuffleExchangeExec._materialize_inner
+
+    def counting(self):
+        counts[id(self)] = counts.get(id(self), 0) + 1
+        return inner(self)
+
+    TorchShuffleExchangeExec._materialize_inner = counting
+    try:
+        yield counts
+    finally:
+        TorchShuffleExchangeExec._materialize_inner = inner
+
+
+def distinct_nodes(plan) -> list:
+    """The distinct nodes of an executed plan (a reused broadcast once),
+    fused constituents included."""
+    seen, out, stack = set(), [], [plan]
+    while stack:
+        p = stack.pop()
+        if id(p) in seen:
+            continue
+        seen.add(id(p))
+        out.append(p)
+        stack.extend(getattr(p, "fused_ops", None) or [])
+        stack.extend(p.children)
+    return out
+
+
+def concurrency_counters(plan, materialized: dict) -> dict:
+    """What the concurrency guards of an executed plan counted: the scan
+    partitions its split planning made, each shuffle exchange's
+    materializations, the broadcasts and their builds, and the FK fast
+    path's joins."""
+    from spark_rapids_tpu_torch.exec.exchange import (
+        TorchBroadcastExchangeExec, TorchShuffleExchangeExec)
+    from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
+    nodes = distinct_nodes(plan)
+    bx = [n for n in nodes if isinstance(n, TorchBroadcastExchangeExec)]
+    return {"scan_partitions": [len(n._parts) for n in nodes
+                                if isinstance(n, CpuFileScanExec)],
+            "exchange_materializations": [
+                materialized.get(id(n), 0) for n in nodes
+                if isinstance(n, TorchShuffleExchangeExec)],
+            "broadcasts": len(bx),
+            "broadcastBuilds": sum(n.metrics.value("broadcastBuilds")
+                                   for n in bx),
+            "fkFastPathJoins": sum(n.route_counts.get("fkFastPathJoins", 0)
+                                   for n in nodes
+                                   if hasattr(n, "route_counts"))}
+
+
+def measured_collect(leg: str, s, df, check, materialized: dict) -> dict:
+    """One collect of ``df`` (a warm plan) with the launch counters set to
+    0 just before it and read just after: the rows checked, every kernel's
+    launches equal to the executed plan's own counts, each shuffle
+    exchange materialized once and each broadcast built once. Returns the
+    wall, the launches, the graphs captured during it and the counters."""
+    import torch
+    from spark_rapids_tpu_torch import kernels as KR
+    from spark_rapids_tpu_torch import retry as R
+    from spark_rapids_tpu_torch.exec import fused as FU
+    R.reset_fault_injection()
+    torch.cuda.synchronize()
+    captures0 = FU.GRAPH_COUNTS["captures"]
+    materialized.clear()
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    rows = [tuple(r) for r in df.collect()]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KR.launch_counts()
+    captures = FU.GRAPH_COUNTS["captures"] - captures0
+    check(rows)
+    plan = s.last_plan
+    all_torch(plan_names(plan), leg)
+    own = execution_launches(plan)
+    if {k: launches[k] for k in own} != own:
+        raise AssertionError(f"{leg}: launches {launches} != the plan's "
+                             f"own counts {own}")
+    counters = concurrency_counters(plan, materialized)
+    if any(m != 1 for m in counters["exchange_materializations"]):
+        raise AssertionError(f"{leg}: an exchange did not materialize "
+                             f"exactly once: {counters}")
+    if counters["broadcastBuilds"] != counters["broadcasts"]:
+        raise AssertionError(f"{leg}: a broadcast did not build exactly "
+                             f"once: {counters}")
+    return {"wall_s": wall, "launches": {k: v for k, v in launches.items()
+                                         if v},
+            "new_captures": captures, "counters": counters, "plan": plan}
+
+
+def mesh_gap_profile(card: str, q1_views: dict, check, tasks_list,
+                     n_chips: int = 4) -> dict:
+    """Where q1's extra time over 4 emulated chips goes, against the
+    in-process plan on the same card: at each task count, ``ici`` and
+    ``inprocess`` each run once warm, once into the flight recorder
+    (``trace.mode=ring``; each span kind's count, total and exclusive
+    seconds, summed over threads: ``flight_breakdown``) and once under
+    torch.profiler tracing the device only (device busy seconds and the
+    idle share: ``profile_collect``); then their walls in turns (ici,
+    inprocess, inprocess, ici). Returns the mean walls a task count and
+    mode."""
+    import torch
+    from spark_rapids_tpu_torch import trace as TR
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    device = torch.device("cuda", 0)
+    ici = {"spark.rapids.shuffle.mode": "ici",
+           "spark.rapids.shuffle.ici.devices": str(n_chips),
+           "spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+    inproc = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+    ring = {"spark.rapids.sql.trace.enabled": "true",
+            "spark.rapids.sql.trace.mode": "ring"}
+    prev = PM.emulated_chips()
+    PM.emulate_chips(n_chips, device)
+    out: dict = {}
+    try:
+        for tasks in tasks_list:
+            t = {"spark.rapids.sql.taskParallelism": str(tasks)}
+            profiles, walls = {}, {"ici": [], "inprocess": []}
+            for mode, conf in (("ici", ici), ("inprocess", inproc)):
+                for traced in (False, True):
+                    s = TorchSparkSession(dict(conf, **t,
+                                               **(ring if traced else {})))
+                    try:
+                        for name, path in q1_views.items():
+                            s.read.parquet(path).createOrReplaceTempView(
+                                name)
+                        df = s.sql(Q1)
+                        if traced:
+                            TR.reset_tracing()
+                            check([tuple(r) for r in df.collect()])
+                            qt = TR.ring_active()
+                            mark = time.perf_counter_ns()
+                            t0 = time.perf_counter()
+                            check([tuple(r) for r in df.collect()])
+                            torch.cuda.synchronize()
+                            ring_wall = time.perf_counter() - t0
+                            flight = flight_breakdown(qt.snapshot(), mark)
+                            TR.reset_tracing()
+                        else:
+                            check([tuple(r) for r in df.collect()])
+                            prof = profile_collect(
+                                df, f"mesh_gap_{mode}_{tasks}", card,
+                                warm=False)
+                    finally:
+                        s.stop()
+                profiles[mode] = {"ring_wall_s": ring_wall,
+                                  "flight": flight, "device": prof}
+            for mode, conf in (("ici", ici), ("inprocess", inproc),
+                               ("inprocess", inproc), ("ici", ici)):
+                s = TorchSparkSession(dict(conf, **t))
+                try:
+                    for name, path in q1_views.items():
+                        s.read.parquet(path).createOrReplaceTempView(name)
+                    df = s.sql(Q1)
+                    check([tuple(r) for r in df.collect()])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    check([tuple(r) for r in df.collect()])
+                    torch.cuda.synchronize()
+                    walls[mode].append(time.perf_counter() - t0)
+                finally:
+                    s.stop()
+            kinds = set(profiles["ici"]["flight"]["kinds"]) | set(
+                profiles["inprocess"]["flight"]["kinds"])
+
+            def ex(mode, k):
+                return profiles[mode]["flight"]["kinds"].get(
+                    k, {}).get("exclusive_s", 0.0)
+            gap = sorted(((k, round(ex("ici", k) - ex("inprocess", k), 4))
+                          for k in kinds), key=lambda kv: -abs(kv[1]))
+            mean = {m: sum(v) / len(v) for m, v in walls.items()}
+            out[tasks] = mean
+            phase("mesh_gap_profile", card=card, chips=n_chips, tasks=tasks,
+                  mean_wall_s=mean, walls_s=walls,
+                  exclusive_gap_s=dict(gap), profiles=profiles,
+                  note="emulated chips share one card; exclusive seconds "
+                  "are summed over threads")
+    finally:
+        TR.reset_tracing()
+        PM.set_active_mesh(None)
+        if prev is None:
+            PM.emulate_chips(None)
+        else:
+            PM.emulate_chips(*prev)
+    return out
+
+
+def within_or_exit(leg: str, card: str, seconds: float, fn):
+    """``fn()`` on a thread of its own, its result returned or its error
+    raised. A leg still running after ``seconds`` is a deadlock: its
+    threads can never be joined, so the script prints the leg's failure
+    and ends the process at once."""
+    import threading
+    out: dict = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # raised again on the calling thread
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        phase(leg, card=card, ok=False,
+              error=f"no end within {seconds} s: a deadlock")
+        sys.stdout.flush()
+        os._exit(1)
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def broadcast_guard_reference(tables, manufact_max: int = 500,
+                              date_min: int = 36524) -> list:
+    """Exact rows of ``broadcast_guard_query`` from the q3 tables' arrays:
+    (brand, count) of the sales whose item has ``i_manufact_id`` at most
+    ``manufact_max``, then of those sold after ``date_min``, sorted."""
+    cols = {t: {c: a for c, _k, a in tables[t]} for t in tables}
+    it, ss = cols["item"], cols["store_sales"]
+    idx = ss["ss_item_sk"] - 1
+    keep = it["i_manufact_id"][idx] <= manufact_max
+    brand = it["i_brand"][idx].astype(str)
+    out = []
+    for m in (keep, keep & (ss["ss_sold_date_sk"] > date_min)):
+        b, c = np.unique(brand[m], return_counts=True)
+        out += [(x, int(n)) for x, n in zip(b, c)]
+    return sorted(out)
+
+
+def broadcast_guard_query(s, paths: dict, build: str,
+                          manufact_max: int = 500, date_min: int = 36524):
+    """Two aggregates, each over a join with a broadcast whose build side
+    holds an exchange: ``build`` ``sort`` orders the items (a range
+    exchange), ``limit`` takes at most every item (a single-partition
+    exchange). At one shuffle partition each aggregate is one task, so
+    two task threads build the two broadcasts at once."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    d = (s.read.parquet(paths["item"])
+         .where(F.col("i_manufact_id") <= manufact_max)
+         .select("i_item_sk", "i_brand"))
+    d = d.orderBy("i_item_sk") if build == "sort" else d.limit(1 << 30)
+    ss = s.read.parquet(paths["store_sales"])
+    cond = F.col("ss_item_sk") == F.col("i_item_sk")
+    return (ss.join(d, cond).groupBy("i_brand")
+            .agg(F.count("*").alias("c"))
+            .union(ss.where(F.col("ss_sold_date_sk") > date_min)
+                   .join(d, cond).groupBy("i_brand")
+                   .agg(F.count("*").alias("c"))))
+
+
+@contextlib.contextmanager
+def late_exchanges(seconds: float = 0.3):
+    """Each shuffle exchange's materialization starts ``seconds`` late,
+    after the caller's permit went back: threads waiting for a permit
+    take it before the exchange's pull threads ask for one."""
+    from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+    inner = TorchShuffleExchangeExec._materialize_inner
+
+    def late(self):
+        time.sleep(seconds)
+        return inner(self)
+
+    TorchShuffleExchangeExec._materialize_inner = late
+    try:
+        yield
+    finally:
+        TorchShuffleExchangeExec._materialize_inner = inner
+
+
+def broadcast_guard_legs(card: str, tables, paths: dict) -> dict:
+    """Broadcasts whose build sides hold an exchange, at 4 tasks with
+    adaptive execution off and ``concurrentGpuTasks`` 1 and 2, each
+    exchange's materialization started late (``late_exchanges``), each
+    leg under ``within_or_exit``. ``task_parallel_broadcast_direct``: four
+    threads ask one broadcast over a grouped aggregate of ``item``
+    (groupbyHash over a hash exchange) at once; it builds once and every
+    thread gets its batch, exact against numpy. ``task_parallel_broadcast``:
+    ``broadcast_guard_query`` (sort and limit builds) exact against
+    ``broadcast_guard_reference``, each broadcast built once and the
+    launches equal to the plan's own counts. Returns the launches a
+    leg."""
+    import threading
+
+    import torch
+    from spark_rapids_tpu_torch.exec.exchange import (
+        TorchBroadcastExchangeExec, TorchShuffleExchangeExec)
+    from spark_rapids_tpu_torch.memory import release_plan_handles
+    from spark_rapids_tpu_torch.resource import (get_semaphore,
+                                                 release_current_thread)
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    device = torch.device("cuda", 0)
+    want = broadcast_guard_reference(tables)
+    manu = {c: a for c, _k, a in tables["item"]}["i_manufact_id"]
+    ids, counts = np.unique(manu, return_counts=True)
+    want_direct = sorted(zip(ids.tolist(), counts.tolist()))
+    legs: dict = {}
+    with late_exchanges():
+        for permits in (1, 2):
+            conf = {"spark.rapids.sql.taskParallelism": "4",
+                    "spark.sql.adaptive.enabled": "false",
+                    "spark.rapids.sql.concurrentGpuTasks": str(permits)}
+            # -- four consumers of one broadcast at once ---------------
+            s = TorchSparkSession(dict(conf))
+            try:
+                df = s.read.parquet(paths["item"]).groupBy(
+                    "i_manufact_id").agg(F.count("*").alias("c"))
+                root = s.plan_physical(df.plan, announce=False)
+                if not any(isinstance(n, TorchShuffleExchangeExec)
+                           for n in distinct_nodes(root)):
+                    raise AssertionError("broadcast_direct: no exchange "
+                                         "under the build")
+                bx = TorchBroadcastExchangeExec(root.children[0],
+                                                s.conf_obj, device)
+                got: list = [None] * 4
+
+                def consumer(i):
+                    try:
+                        got[i] = bx.materialize_device()
+                    finally:
+                        release_current_thread()
+
+                def ask_at_once():
+                    ts = [threading.Thread(target=consumer, args=(i,),
+                                           daemon=True) for i in range(4)]
+                    for t in ts:
+                        t.start()
+                    for t in ts:
+                        t.join()
+                    torch.cuda.synchronize()
+
+                t0 = time.perf_counter()
+                within_or_exit("task_parallel_broadcast_direct", card, 120,
+                               ask_at_once)
+                wall = time.perf_counter() - t0
+                if any(b is not got[0] for b in got) or got[0] is None:
+                    raise AssertionError("broadcast_direct: the consumers "
+                                         "got different batches")
+                h = got[0].to_host().to_pydict()
+                rows = sorted(zip(h["i_manufact_id"], h["c"]))
+                if rows != want_direct:
+                    raise AssertionError("broadcast_direct: rows differ "
+                                         "from numpy's")
+                builds = bx.metrics.value("broadcastBuilds")
+                if builds != 1:
+                    raise AssertionError(f"broadcast_direct: {builds} "
+                                         "builds")
+                release_plan_handles(root)
+                if get_semaphore(s.conf_obj).in_use:
+                    raise AssertionError("broadcast_direct: a permit "
+                                         "leaked")
+                phase("task_parallel_broadcast_direct", card=card,
+                      tasks=4, concurrent_gpu_tasks=permits, consumers=4,
+                      rows="exact", broadcastBuilds=builds, wall_s=wall)
+            finally:
+                s.stop()
+            # -- two builds over exchanges on two task threads ---------
+            for build in ("sort", "limit"):
+                leg = f"task_parallel_broadcast_{build}_{permits}"
+                s = TorchSparkSession(dict(conf, **{
+                    "spark.sql.shuffle.partitions": "1",
+                    "spark.rapids.sql.shuffle.devicePartitions": "1"}))
+                try:
+                    df = broadcast_guard_query(s, paths, build)
+
+                    def check(rows):
+                        if sorted(tuple(r) for r in rows) != want:
+                            raise AssertionError(f"{leg}: rows differ "
+                                                 "from numpy's")
+
+                    def legrun():
+                        check(df.collect())  # warm
+                        with counting_materializations() as mat:
+                            return measured_collect(leg, s, df, check, mat)
+
+                    m = within_or_exit(leg, card, 120, legrun)
+                finally:
+                    s.stop()
+                if m["counters"]["broadcasts"] != 2:
+                    raise AssertionError(f"{leg}: {m['counters']}")
+                legs[leg] = m["launches"]
+                phase("task_parallel_broadcast", card=card, build=build,
+                      tasks=4, concurrent_gpu_tasks=permits, rows="exact",
+                      wall_s=m["wall_s"], launches=m["launches"],
+                      **m["counters"])
+    return legs
+
+
+def stream_order_check(card: str, iters: int = 200,
+                       n: int = 1 << 24) -> dict:
+    """Two threads, each enqueuing on a ``torch.cuda.Stream`` of its own,
+    replay one cached stage key (``run_program``) over two batches of
+    their own, ``iters`` times each; every output is held against the
+    eager function on its batch, the mismatches counted on the card so
+    that no host sync orders the two streams. ``StageProgram.run`` makes
+    each run wait on the previous run's event before it writes the static
+    inputs: without that wait one thread's copy in overlaps the other's
+    replay, and outputs go wrong."""
+    import threading
+
+    import torch
+    from spark_rapids_tpu_torch import metrics as M
+    from spark_rapids_tpu_torch.exec import fused as FU
+
+    device = torch.device("cuda", 0)
+
+    def fn(xs):
+        x = xs[0]
+        y = x * 40503 + 7
+        for _ in range(6):
+            y = (y ^ (y >> 7)) * 31 + x
+        return [y], None
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    batches = [[torch.randint(0, 1 << 40, (n,), dtype=torch.int64,
+                              device=device, generator=g)
+                for _ in range(2)] for _ in range(2)]
+    expected = [[fn([b])[0][0] for b in per] for per in batches]
+    reg = M.MetricRegistry(owner="streamOrderCheck")
+    key = ("streamOrderCheck", n)
+    captures0 = FU.GRAPH_COUNTS["captures"]
+    FU.run_program(key, fn, [batches[0][0]], reg)  # the capture
+    torch.cuda.synchronize()
+    bad = [None, None]
+
+    def worker(i):
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            miss = torch.zeros((), dtype=torch.int64, device=device)
+            for it in range(iters):
+                out, _meta = FU.run_program(key, fn, [batches[i][it % 2]],
+                                            reg)
+                miss += (out[0] != expected[i][it % 2]).sum()
+        stream.synchronize()
+        bad[i] = int(miss)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    out = {"threads": 2, "replays_each": iters, "rows": n,
+           "mismatched_values": bad,
+           "captures": FU.GRAPH_COUNTS["captures"] - captures0,
+           "wall_s": wall}
+    phase("task_parallel_stream_order", card=card, **out)
+    FU.STAGE_CACHE.clear()
+    if any(bad) or out["captures"] != 1:
+        raise AssertionError(f"task_parallel_stream_order: {out}")
+    return out
+
+
+def task_parallel_phases(card: str, arrays, q1_dir: str,
+                         gap_profile: bool = False) -> dict:
+    """Phase 25: one device plan's partitions on
+    ``spark.rapids.sql.taskParallelism`` task threads, and the exchanges'
+    drains on as many pull threads. TPC-H q1 at SF1 from phase 7's
+    Parquet and TPC-DS q3's pushed form from phase 23's files, each at 1,
+    2 and 4 tasks (``concurrentGpuTasks`` at its default, 2), one warm
+    run and one measured (``task_parallel``): rows exact, each kernel's
+    launches equal to the executed plan's own counts, each exchange
+    materialized once, each broadcast built once; the scan's partitions,
+    ``fkFastPathJoins`` and the graphs captured after the warm run
+    printed; before them, q3 at 4 tasks from an empty stage cache
+    (``task_parallel_cold``: task threads capture at once, one capture
+    a key). Then the walls in turns (1, 2, 4, 4, 2, 1 tasks;
+    ``task_parallel_walls``), each 4-task leg once under the sync audit
+    (``task_parallel_audit``: no unsanctioned sync), q1 over 4 emulated
+    chips under ``shuffle.mode=ici`` at 1 and 4 tasks
+    (``task_parallel_mesh``: rows exact, each chip's ``dispatchCount``
+    equal at both), broadcasts whose build sides hold exchanges at 4
+    tasks and ``concurrentGpuTasks`` 1 and 2 (``broadcast_guard_legs``),
+    one stage key replayed from two threads on two streams
+    (``stream_order_check``), with ``gap_profile`` (``--tasks``; the
+    whole script leaves it out for time) the mesh gap's profile at 1 and
+    4 tasks
+    (``mesh_gap_profile``), and a leg over two real cards, which skips
+    with its reason on a machine with one (``task_parallel_two_cards``).
+    Returns the launches a leg."""
+    import torch
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.lint.config import LintConfig
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg, memo = LintConfig(), {}
+    tables = q3_tables()
+    q3_dir, _w = write_q3_parquet(TorchSparkSession(), tables)
+    dims_dir, _w = write_q3_parquet(
+        TorchSparkSession(), tables,
+        {k: Q3_PARTITIONS[k] for k in ("item", "date_dim")},
+        name="tpcds_q3_dims4")
+    q1_want = q1_reference(arrays)
+    q3_want = q3_reference(tables)
+    q1_views = {"lineitem": q1_dir}
+    check_q1 = lambda rows: check_q1_rows(rows, q1_want)  # noqa: E731
+    queries = {
+        "q1": (q1_views, Q1, check_q1),
+        "q3": ({"store_sales": os.path.join(q3_dir, "store_sales"),
+                "item": os.path.join(dims_dir, "item"),
+                "date_dim": os.path.join(dims_dir, "date_dim")}, Q3_PUSHED,
+               lambda rows: check_q3_rows(rows, q3_want, "task_parallel q3"))}
+    base = {"spark.sql.shuffle.partitions": str(N_PARTITIONS)}
+
+    def session(conf, views):
+        s = TorchSparkSession(conf)
+        for name, path in views.items():
+            s.read.parquet(path).createOrReplaceTempView(name)
+        return s
+
+    legs: dict = {}
+    # -- cold: q3 at 4 tasks from an empty stage cache, so task threads
+    # capture graphs at once; one capture a key all the same
+    FU.STAGE_CACHE.clear()
+    st0, c0 = FU.STAGE_CACHE.stats(), FU.GRAPH_COUNTS["captures"]
+    views, sql, check = queries["q3"]
+    s = session(dict(base, **{"spark.rapids.sql.taskParallelism": "4"}),
+                views)
+    try:
+        check([tuple(r) for r in s.sql(sql).collect()])
+    finally:
+        s.stop()
+    st1 = FU.STAGE_CACHE.stats()
+    cold = {"captures": FU.GRAPH_COUNTS["captures"] - c0,
+            "keys_built": st1["misses"] - st0["misses"],
+            "keys_cached": st1["size"],
+            "contention": st1["contention"] - st0["contention"]}
+    phase("task_parallel_cold", card=card, query="q3", tasks=4,
+          rows="exact", **cold, seconds=time.perf_counter() - t_phase)
+    if not cold["captures"] == cold["keys_built"] > 0:
+        raise AssertionError(f"task_parallel_cold: not one capture a "
+                             f"key: {cold}")
+    with counting_materializations() as materialized:
+        # -- a. each query at 1, 2 and 4 tasks, warm then measured ---------
+        prepared = {}
+        for q, (views, sql, check) in queries.items():
+            for tasks in TASK_COUNTS:
+                s = session(dict(base, **{"spark.rapids.sql.taskParallelism":
+                                          str(tasks)}), views)
+                df = s.sql(sql)
+                check([tuple(r) for r in df.collect()])  # warm
+                leg = f"task_parallel_{q}_{tasks}"
+                m = measured_collect(leg, s, df, check, materialized)
+                legs[leg] = m["launches"]
+                prepared[(q, tasks)] = (s, df, m)
+                phase("task_parallel", card=card, query=q, tasks=tasks,
+                      concurrent_gpu_tasks=2, rows="exact",
+                      wall_s=m["wall_s"], launches=m["launches"],
+                      plan_launches=execution_launches(m["plan"]),
+                      new_captures=m["new_captures"], **m["counters"],
+                      seconds=time.perf_counter() - t_phase)
+        # -- b. the walls in turns ----------------------------------------
+        for q, (_views, _sql, check) in queries.items():
+            walls = {t: [] for t in TASK_COUNTS}
+            for tasks in TASK_COUNTS + TASK_COUNTS[::-1]:
+                s, df, _m = prepared[(q, tasks)]
+                walls[tasks].append(measured_collect(
+                    f"task_parallel_walls_{q}_{tasks}", s, df, check,
+                    materialized)["wall_s"])
+            phase("task_parallel_walls", card=card, query=q,
+                  mean_wall_s={t: sum(v) / len(v) for t, v in walls.items()},
+                  walls_s=walls, order=list(TASK_COUNTS + TASK_COUNTS[::-1]))
+        # -- c. each 4-task leg under the sync audit ------------------------
+        for q, (_views, _sql, check) in queries.items():
+            s, df, _m = prepared[(q, 4)]
+            a = audited_collect(df, root, cfg, memo)
+            check(a["rows"])
+            phase("task_parallel_audit", card=card, query=q, tasks=4,
+                  rows="exact", syncs=a["syncs"],
+                  by_function=a["by_function"], threads=a["threads"],
+                  unsanctioned=a["unsanctioned"], launches=a["launches"])
+            if a["unsanctioned"]:
+                raise AssertionError(f"task_parallel {q}: syncs outside "
+                                     f"sync_allowlist: {a['unsanctioned']}")
+        for s, _df, _m in prepared.values():
+            s.stop()
+        prepared.clear()
+
+        # -- d. q1 over 4 emulated chips at 1 and 4 tasks ------------------
+        n_chips = 4
+        ici = dict(base, **{"spark.rapids.shuffle.mode": "ici",
+                            "spark.rapids.shuffle.ici.devices": str(n_chips)})
+        prev = PM.emulated_chips()
+        PM.emulate_chips(n_chips, device)
+        per_chip = {}
+        try:
+            for tasks in (1, 4):
+                s = session(dict(ici, **{"spark.rapids.sql.taskParallelism":
+                                         str(tasks)}), q1_views)
+                try:
+                    df = s.sql(Q1)
+                    check_q1([tuple(r) for r in df.collect()])  # warm
+                    leg = f"task_parallel_mesh_q1_{tasks}"
+                    m = measured_collect(leg, s, df, check_q1, materialized)
+                finally:
+                    s.stop()
+                mc = mesh_counters(m["plan"])
+                per_chip[tasks] = {k: v for k, v in mc.items()
+                                   if k.startswith("dispatchCount.chip")}
+                if mc.get("numIciExchanges", 0) < 1:
+                    raise AssertionError(f"{leg}: no mesh exchange: {mc}")
+                legs[leg] = m["launches"]
+                phase("task_parallel_mesh", card=card, chips=n_chips,
+                      tasks=tasks, rows="exact", wall_s=m["wall_s"],
+                      counters=mc, launches=m["launches"],
+                      new_captures=m["new_captures"], **m["counters"])
+        finally:
+            PM.set_active_mesh(None)
+            if prev is None:
+                PM.emulate_chips(None)
+            else:
+                PM.emulate_chips(*prev)
+        if per_chip[1] != per_chip[4] or len(per_chip[4]) != n_chips:
+            raise AssertionError(f"task_parallel_mesh: per-chip dispatches "
+                                 f"differ: {per_chip}")
+
+    # -- e. broadcasts whose build sides hold exchanges, and one stage
+    # key replayed from two streams ---------------------------------------
+    legs.update(broadcast_guard_legs(card, tables, {
+        "item": os.path.join(dims_dir, "item"),
+        "store_sales": os.path.join(q3_dir, "store_sales")}))
+    stream_order_check(card)
+
+    # -- f. where the mesh's extra time goes, at 1 task and with the
+    # concurrent drain ----------------------------------------------------
+    if gap_profile:
+        mesh_gap_profile(card, q1_views, check_q1, (1, 4))
+
+    # -- g. two real cards -------------------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        phase("task_parallel_two_cards", card=card, skipped=True,
+              device_count=n_cards,
+              reason="one card on this machine: a mesh of real cards needs "
+              "two (unverified)")
+    else:
+        s = session(dict(base, **{"spark.rapids.shuffle.mode": "ici",
+                                  "spark.rapids.shuffle.ici.devices": "2",
+                                  "spark.rapids.sql.taskParallelism": "4"}),
+                    q1_views)
+        try:
+            df = s.sql(Q1)
+            check_q1([tuple(r) for r in df.collect()])
+            with counting_materializations() as materialized:
+                m = measured_collect("task_parallel_two_cards", s, df,
+                                     check_q1, materialized)
+        finally:
+            s.stop()
+        legs["task_parallel_two_cards"] = m["launches"]
+        phase("task_parallel_two_cards", card=card, skipped=False,
+              device_count=n_cards, rows="exact", wall_s=m["wall_s"],
+              counters=mesh_counters(m["plan"]), launches=m["launches"])
+    phase("task_parallel_done", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return legs
+
+
+def tasks_only(card: str) -> None:
+    """``--tasks``: the kernels' build and phase 25."""
+    import torch
+    from spark_rapids_tpu_torch import device_caps
+    from spark_rapids_tpu_torch.sql.session import TorchSparkSession
+    device = torch.device("cuda", 0)
+    phase("build", nvcc_seconds=round(device_caps.probe(device), 3),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          pyarrow_importable=importable("pyarrow"))
+    arrays = lineitem_arrays()
+    q1_dir, _s = write_q1_parquet(TorchSparkSession(), arrays)
+    legs = task_parallel_phases(card, arrays, q1_dir, gap_profile=True)
+    phase("total", seconds=time.perf_counter() - T_START, launches=legs)
 
 
 def main() -> int:
@@ -8886,6 +9612,7 @@ def main() -> int:
                                        observe["observe_traced_q1"])
     audit = sync_audit_phases(card, arrays, dfu["q1_dir"])
     multichip, mshapes = multichip_phases(card, arrays, dfu["q1_dir"])
+    tasks = task_parallel_phases(card, arrays, dfu["q1_dir"])
 
     if "--breakdown" in sys.argv[1:]:
         breakdown(df, card)
@@ -9033,6 +9760,8 @@ def main() -> int:
                                     for leg in audit}
         k["launches_multichip"] = {leg: multichip[leg].get(name, 0)
                                    for leg in multichip}
+        k["launches_task_parallel"] = {leg: tasks[leg].get(name, 0)
+                                       for leg in tasks}
         if name in knobs:
             # the autotuner's winners a capacity bucket, and every
             # candidate at q1's shapes (exact, card ms)
@@ -9307,7 +10036,7 @@ if __name__ == "__main__":
                                        "--fallback", "--formats",
                                        "--serve", "--observe",
                                        "--tools", "--sync-audit",
-                                       "--multichip")):
+                                       "--multichip", "--tasks")):
         import torch
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9343,6 +10072,8 @@ if __name__ == "__main__":
             sync_audit_only(card)
         elif "--multichip" in sys.argv[1:]:
             multichip_only(card)
+        elif "--tasks" in sys.argv[1:]:
+            tasks_only(card)
         elif "--memory" in sys.argv[1:]:
             memory_only(card)
         else:

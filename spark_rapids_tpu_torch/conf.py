@@ -251,12 +251,14 @@ ADAPTIVE_SKEW_FACTOR = _entry(
 
 TASK_PARALLELISM = _entry(
     "spark.rapids.sql.taskParallelism",
-    "Partition-execution threads the scan plans its splits for: the "
-    "file scan sizes partitions so its bytes spread over this many "
-    "tasks (Spark's FilePartition.maxSplitBytes). A plan with no device "
-    "operator (the engine off, or every operator on the host) also "
-    "drains its partitions on this many threads; a plan with a device "
-    "operator drains them on the collecting thread.",
+    "Driver-side partition-execution threads (the executor-cores "
+    "analogue): a plan's partitions, and a hash or single-partition "
+    "exchange's drain of its child, run on this many threads, so the "
+    "host work of one task overlaps another's work on the card; "
+    "concurrentGpuTasks still bounds simultaneous device use. The file "
+    "scan also sizes its partitions so their bytes spread over this "
+    "many tasks (Spark's FilePartition.maxSplitBytes). Default 1 "
+    "(sequential).",
     1, int)
 
 MAX_READER_BATCH_SIZE_ROWS = _entry(

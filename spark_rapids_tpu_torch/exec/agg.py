@@ -41,6 +41,7 @@ over the share re-buckets at a doubled modulus.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -303,8 +304,9 @@ class TorchHashAggregateExec(TorchExec):
         self.mode = mode
         self.slots = slots
         # batches whose groupbyHash table overflowed and re-ran on the
-        # sort-based partial aggregate
+        # sort-based partial aggregate, counted from every task thread
         self.overflow_reruns = 0
+        self._reruns_lock = threading.Lock()
         # stage fusion (exec/fused.py): a filter/project prelude run
         # inside this exec's per-batch program
         self._prelude_ops = None
@@ -372,27 +374,29 @@ class TorchHashAggregateExec(TorchExec):
         if self._prelude_steps:
             cols, active, _n = X.trace_stage_steps(
                 self._prelude_steps, cols, active,
-                X.stage_literal_values(self._prelude_steps, self.device),
-                self.device)
-        ctx = X.Ctx(cols, batch.capacity, self.device)
+                X.stage_literal_values(self._prelude_steps, batch.device),
+                batch.device)
+        ctx = X.Ctx(cols, batch.capacity, batch.device)
         key_cols, vals = _eval_values(ctx, key_bound, slot_srcs)
         return key_cols, vals, prims, active
 
     def _programs(self) -> dict:
         """Per execution: for the partial update and the merge of partial
-        results, the bound inputs, the literal tensors and the program's
-        structural key."""
+        results, the bound inputs, the literal tensors (built once for
+        each device a batch arrives on) and the program's structural
+        key."""
         out = {}
         for merge in (False, True):
             key_bound, slot_srcs, prims = self._bound_inputs(merge)
             steps = None if merge else self._prelude_steps
-            lits = X.literal_values(key_bound + slot_srcs, self.device)
-            if steps:
-                lits = list(X.stage_literal_values(steps, self.device)) \
-                    + [lits]
-            else:
-                lits = [lits]
-            flat_lits, layout = F.flatten_literals(lits)
+
+            def groups_on(device, exprs=key_bound + slot_srcs, steps=steps):
+                lits = [X.literal_values(exprs, device)]
+                if steps:
+                    lits = list(X.stage_literal_values(steps, device)) + lits
+                return lits
+            lits = F.DeviceLiterals(groups_on, self.device)
+            layout = lits.layout
             # which slot sources _eval_values evaluates once for several
             # slots: it compares values, which the program key leaves out
             first: Dict[tuple, int] = {}
@@ -404,7 +408,7 @@ class TorchHashAggregateExec(TorchExec):
                     X.stage_structural_key(steps) if steps else None,
                     layout, G.kernel_salt())
             out["merge" if merge else "update"] = (
-                steps, key_bound, slot_srcs, prims, flat_lits, layout, skey)
+                steps, key_bound, slot_srcs, prims, lits, layout, skey)
         return out
 
     def _aggregate(self, batch: DeviceBatch, kind: str, programs: dict):
@@ -416,7 +420,7 @@ class TorchHashAggregateExec(TorchExec):
         otherwise it runs eagerly. Either way it counts one
         ``dispatchCount``, as the JAX package's ``_aggregate_batch``
         does for each program it runs."""
-        steps, key_bound, slot_srcs, prims, flat_lits, layout, skey = \
+        steps, key_bound, slot_srcs, prims, lits, layout, skey = \
             programs["merge" if kind == "merge" else "update"]
         flat, spec = flatten_columns(batch.columns)
         slots, params, tuned = None, {}, False
@@ -430,8 +434,9 @@ class TorchHashAggregateExec(TorchExec):
             slots = KR.table_slots(self.conf, batch.capacity,
                                    int(params.get("slotsMult", 1)))
         fn = _update_program(kind, steps, key_bound, slot_srcs, prims,
-                             slots, spec, layout, self.device, params, tuned)
-        flat_in = flat + [batch.active] + flat_lits
+                             slots, spec, layout, batch.device, params,
+                             tuned)
+        flat_in = flat + [batch.active] + lits.on(batch.device)
         if kind == "kernel":
             KR.count_dispatch(self.metrics, "groupbyHash")
         record_chip_dispatch(self.metrics, batch)
@@ -686,7 +691,8 @@ class TorchHashAggregateExec(TorchExec):
         shrunk = []
         for (h_in, h, _c, _o), n, ovf in zip(pending, host, flags):
             if ovf:
-                self.overflow_reruns += 1
+                with self._reruns_lock:
+                    self.overflow_reruns += 1
                 h.close()
                 whole = h_in.get()
                 h_in.close()

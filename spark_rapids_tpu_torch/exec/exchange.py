@@ -27,9 +27,26 @@ takes any partition count (an aggregate or a sort sets
 ``adaptive.targetPartitionBytes``, capped by the budget oracle's share
 (``aqeCoalescedPartitions``).
 
+Concurrent consumers and drains (``spark.rapids.sql.taskParallelism``),
+as in the JAX package: the single-partition, hash and mesh paths drain
+their child's partitions on that many pull threads (``_pull_split``),
+each taking its device permit through this exchange's registry
+(``semaphoreWaitTime``) and returning it when it ends, and each split
+partition registered in the store on the pull thread the moment it
+exists; results keep (input partition, batch) order, so no row moves.
+The range and round-robin paths drain on one thread. Reduce tasks race
+into ``_materialize``: it returns the caller's permit, then takes the
+exchange's lock, so the child materializes once and every pull thread
+can get a permit. At one task the drain runs on the calling thread,
+which keeps its permit. A broadcast takes the permit first and its
+build lock second, builds once and counts ``broadcastBuilds``; a
+consumer that finds another building waits for it without a permit.
+
 The mesh path (``spark.rapids.shuffle.mode=ici``, ``parallel/``): while a
 mesh of two or more healthy chips is active, a hash exchange drains its
-child's per-chip streams on the collecting thread, one after another,
+child's per-chip streams through ``_pull_split`` (on ``taskParallelism``
+threads; emulated chips share one stage graph a shape, whose replays
+``StageProgram.run`` orders across threads and streams), then
 puts each batch in the slot of the chip it lives on (``batch_device``;
 a stream whose batches carry no chip goes to slot ``stream % n``),
 concatenates each slot on its chip and runs ``ici.mesh_exchange``
@@ -39,10 +56,7 @@ exchange takes ``collective_section`` once per attempt, inside
 per-chip checkpoints) demotes the chip and materializes again on the
 surviving mesh (``retry.degrade_on_chip_failure``), down to the
 in-process path. Adaptive coalescing and the adaptive join decisions
-stay off on the mesh, as in the JAX package. The JAX package drains the
-chips' streams on ``taskParallelism`` threads; here emulated chips
-share one stage graph per shape, whose static inputs a concurrent drain
-would race, so the drain is sequential (the rows do not depend on it).
+stay off on the mesh, as in the JAX package.
 
 ``spark.rapids.shuffle.mode=external``: every materialized partition is
 downloaded, written as SRTB files into a fresh shared directory
@@ -55,6 +69,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import threading
 from typing import Iterator, List, Optional
 
 import torch
@@ -208,6 +223,8 @@ class TorchShuffleExchangeExec(TorchExec):
         self.children = [child]
         self.partitioning = partitioning
         self._cache: Optional[List[List[DeviceBatch]]] = None
+        # reduce tasks race into _materialize under taskParallelism
+        self._lock = threading.Lock()
         # set by the rewrite for consumers that take any partition count
         # (aggregate, sort): enables adaptive partition coalescing
         self.allow_aqe_coalesce = False
@@ -222,33 +239,88 @@ class TorchShuffleExchangeExec(TorchExec):
     def output(self):
         return self.child.output
 
+    def _task_threads(self) -> int:
+        from spark_rapids_tpu_torch.conf import TASK_PARALLELISM
+        return int(self.conf.get(TASK_PARALLELISM))
+
+    def _pull_split(self, thunks: List[DevicePartitionThunk],
+                    split_one) -> List[List]:
+        """Drain the child's partitions, on ``taskParallelism`` threads
+        when there are several, and split each batch with ``split_one``.
+        The results keep (input partition, batch) order, so first and
+        last stay deterministic. ``split_one`` registers whatever it
+        keeps itself, so each piece is spillable the moment it exists,
+        not after the whole child is drained."""
+        n_threads = self._task_threads()
+        if n_threads <= 1 or len(thunks) <= 1:
+            # one thread: the drain keeps whatever permit this thread
+            # holds
+            return [[split_one(b) for b in t()] for t in thunks]
+        from concurrent.futures import ThreadPoolExecutor
+
+        from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch.memory import (current_tenant,
+                                                   tenant_scope)
+        from spark_rapids_tpu_torch.resource import get_semaphore
+        sem = get_semaphore(self.conf)
+        token = LC.current_token()
+        tenant = current_tenant()
+
+        def pull(thunk: DevicePartitionThunk) -> list:
+            try:
+                with LC.token_scope(token), tenant_scope(tenant):
+                    # the pull's permit wait is the exchange's, not the
+                    # upload's it would otherwise be booked to
+                    sem.acquire_if_necessary(self.metrics)
+                    return [split_one(b) for b in thunk()]
+            finally:
+                # a pull thread never reaches a columnar-to-row
+                # transition: it returns its permit here
+                sem.release_if_necessary()
+
+        # this thread may hold a permit from an earlier subtree: it goes
+        # back before this thread waits on the pool, or the pull threads
+        # could starve of permits
+        sem.release_if_necessary()
+        with ThreadPoolExecutor(min(n_threads, len(thunks)),
+                                thread_name_prefix="torch-shuffle") as pool:
+            return list(pool.map(pull, thunks))
+
     def _materialize(self) -> List[List]:
-        """The partitions' handles, materialized once; again after the
-        session released them (``release_plan_handles``), should the plan
-        run a second time."""
-        if self._cache is not None and not any(
-                h.closed for part in self._cache for h in part):
-            return self._cache
-        with TR.span("exchangeMaterialize",
-                     parts=self.partitioning.num_partitions):
-            # a failed chip is demoted and the subtree runs again on the
-            # surviving mesh, in-process once too few chips remain
-            out = R.degrade_on_chip_failure(self._materialize_inner,
-                                            self.metrics)
-        from spark_rapids_tpu_torch.conf import SHUFFLE_MODE
-        if str(self.conf.get(SHUFFLE_MODE)).lower() == "external":
-            out = self._external_roundtrip(out)
-        # the exchange statistics adaptive execution reads: exact
-        # realized partition sizes, also kept as this node's metrics
-        from spark_rapids_tpu_torch import adaptive as A
-        self.exchange_stats = stats = A.capture_stats(out)
-        self.metrics.create(M.EXCHANGE_TOTAL_BYTES).add(stats.total_bytes)
-        self.metrics.create(M.EXCHANGE_MAX_PARTITION_BYTES).add(
-            stats.max_bytes)
-        self.metrics.create(M.EXCHANGE_MEDIAN_PARTITION_BYTES).add(
-            stats.median_bytes)
-        self._cache = out
-        return out
+        """The partitions' handles, materialized once however many
+        consumers race here; again after the session released them
+        (``release_plan_handles``), should the plan run a second time."""
+        from spark_rapids_tpu_torch.resource import release_current_thread
+        if self._task_threads() > 1:
+            # the caller's permit goes back before it waits on the lock:
+            # were every task thread parked here holding one, the
+            # materializing thread's pulls could never take a permit
+            release_current_thread()
+        with self._lock:
+            if self._cache is not None and not any(
+                    h.closed for part in self._cache for h in part):
+                return self._cache
+            with TR.span("exchangeMaterialize",
+                         parts=self.partitioning.num_partitions):
+                # a failed chip is demoted and the subtree runs again on
+                # the surviving mesh, in-process once too few chips remain
+                out = R.degrade_on_chip_failure(self._materialize_inner,
+                                                self.metrics)
+            from spark_rapids_tpu_torch.conf import SHUFFLE_MODE
+            if str(self.conf.get(SHUFFLE_MODE)).lower() == "external":
+                out = self._external_roundtrip(out)
+            # the exchange statistics adaptive execution reads: exact
+            # realized partition sizes, also kept as this node's metrics
+            from spark_rapids_tpu_torch import adaptive as A
+            self.exchange_stats = stats = A.capture_stats(out)
+            self.metrics.create(M.EXCHANGE_TOTAL_BYTES).add(
+                stats.total_bytes)
+            self.metrics.create(M.EXCHANGE_MAX_PARTITION_BYTES).add(
+                stats.max_bytes)
+            self.metrics.create(M.EXCHANGE_MEDIAN_PARTITION_BYTES).add(
+                stats.median_bytes)
+            self._cache = out
+            return out
 
     def _external_roundtrip(self, cache: List[List]) -> List[List]:
         """``shuffle.mode=external``: every partition downloaded, written
@@ -306,30 +378,45 @@ class TorchShuffleExchangeExec(TorchExec):
             out[pid].append(self.register_spillable(store, part))
 
         mesh = isinstance(p, P.HashPartitioning) and self._mesh_eligible()
+        # what the pull threads registered: closed with the rest if the
+        # attempt aborts, whichever pull raised
+        pulled: List = []
+
+        def register(part: DeviceBatch):
+            h = self.register_spillable(store, part)
+            pulled.append(h)  # list.append is atomic under the GIL
+            return h
+
         try:
             if isinstance(p, P.SinglePartitioning) or (n == 1 and not mesh):
-                for thunk in device_channel(self.child):
-                    for b in thunk():
-                        if b.row_count():
-                            keep(0, b)
+                for per_part in self._pull_split(
+                        device_channel(self.child),
+                        lambda b: register(b) if b.row_count() else None):
+                    out[0].extend(h for h in per_part if h is not None)
             elif mesh and self._materialize_mesh(p, n, keep):
                 # False: the mesh lost chips to another thread's demotion
                 # after the gate above, and the in-process branch runs
                 pass
             elif isinstance(p, P.HashPartitioning):
                 bound = P.bind_list(p.exprs, self.child.output)
-                for thunk in device_channel(self.child):
-                    for b in thunk():
-                        KR.count_dispatch(self.metrics, "murmur3")
-                        # the split is pure over b: a retry re-runs it
-                        with self.metrics.timed(M.PARTITION_TIME):
-                            parts = R.with_retry(
-                                lambda b=b: split_by_pid(
-                                    b, hash_partition_ids(bound, b, n), n),
-                                self.conf, self.metrics)
-                        for pid, part in enumerate(parts):
-                            if part is not None:
-                                keep(pid, part)
+
+                def split_one(b: DeviceBatch) -> list:
+                    KR.count_dispatch(self.metrics, "murmur3")
+                    # the split is pure over b: a retry re-runs it
+                    with self.metrics.timed(M.PARTITION_TIME):
+                        parts = R.with_retry(
+                            lambda: split_by_pid(
+                                b, hash_partition_ids(bound, b, n), n),
+                            self.conf, self.metrics)
+                    return [None if part is None else register(part)
+                            for part in parts]
+
+                for per_part in self._pull_split(device_channel(self.child),
+                                                 split_one):
+                    for handles in per_part:
+                        for pid, h in enumerate(handles):
+                            if h is not None:
+                                out[pid].append(h)
             elif isinstance(p, P.RoundRobinPartitioning):
                 start = 0
                 for thunk in device_channel(self.child):
@@ -352,6 +439,8 @@ class TorchShuffleExchangeExec(TorchExec):
                     "spark_rapids_tpu_torch")
         except BaseException:
             # an aborted attempt leaves nothing registered in the store
+            for h in pulled:
+                h.close()
             for part in out:
                 for h in part:
                     h.close()
@@ -384,8 +473,9 @@ class TorchShuffleExchangeExec(TorchExec):
         for chip in mesh.chips:
             R.chip_checkpoint(self.conf, chip)
         bound = P.bind_list(p.exprs, self.child.output)
-        # the per-chip streams drain on this thread, one after another
-        drained = [list(thunk()) for thunk in device_channel(self.child)]
+        # the per-chip streams drain on taskParallelism threads, so one
+        # chip's host work overlaps another's work on the card
+        drained = self._pull_split(device_channel(self.child), lambda b: b)
         with_dev = [(ti, b, batch_device(b))
                     for ti, per_part in enumerate(drained)
                     for b in per_part if b.row_count()]
@@ -521,6 +611,7 @@ class TorchBroadcastExchangeExec(TorchExec):
                  device: torch.device):
         super().__init__(conf, device)
         self.children = [child]
+        self._lock = threading.Lock()
         self._built: Optional[DeviceBatch] = None
 
     @property
@@ -532,13 +623,39 @@ class TorchBroadcastExchangeExec(TorchExec):
         return self.child.output
 
     def materialize_device(self) -> DeviceBatch:
-        if self._built is None:
-            batches = [b for t in device_channel(self.child)
-                       for b in t() if b._num_rows != 0]
-            self._built = (concat_device(batches) if batches else
-                           DeviceBatch.empty(self.child.schema,
-                                             self.device))
-        return self._built
+        """The built batch, built once however many consumers ask
+        (``broadcastBuilds`` counts the builds)."""
+        from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch.resource import (get_semaphore,
+                                                     release_current_thread)
+        sem = get_semaphore(self.conf)
+        # the permit before the build lock, and never held while waiting
+        # on it: a build whose subtree holds an exchange returns the
+        # builder's permit and takes permits again for its pulls, which a
+        # consumer parked on the lock with a permit would starve
+        sem.acquire_if_necessary(self.metrics)
+        while not self._lock.acquire(blocking=False):
+            release_current_thread()
+            while not self._lock.acquire(timeout=0.05):
+                LC.checkpoint("broadcastBuild")
+            self._lock.release()
+            sem.acquire_if_necessary(self.metrics)
+        try:
+            if self._built is None:
+                self.metrics.create("broadcastBuilds").add(1)
+                try:
+                    batches = [b for t in device_channel(self.child)
+                               for b in t() if b._num_rows != 0]
+                except BaseException:
+                    # a build that fails returns the permit it took
+                    release_current_thread()
+                    raise
+                self._built = (concat_device(batches) if batches else
+                               DeviceBatch.empty(self.child.schema,
+                                                 self.device))
+            return self._built
+        finally:
+            self._lock.release()
 
     def device_partitions(self) -> List[DevicePartitionThunk]:
         return [lambda: iter([self.materialize_device()])]

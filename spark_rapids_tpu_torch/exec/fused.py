@@ -27,7 +27,14 @@ static inputs, and every output is copied out after it (an output that
 is an input, like a filter's pass-through columns, is the batch's own
 tensor): a consumer that holds every batch of a partition — the partial
 aggregate's drain, a broadcast build, a sort — never sees a later replay
-overwrite an earlier batch.
+overwrite an earlier batch. Task threads (``taskParallelism``) and the
+chips of an emulated mesh share one graph a key; whatever stream each
+enqueues on, a run waits on the card for the previous run's copies out
+(a CUDA event recorded after them) before it writes the static inputs,
+so the lock orders the card's work and not only the host's enqueues.
+A stage's literal tensors are built once for each device a batch
+arrives on (``DeviceLiterals``): a batch on a second card meets its
+literals there.
 
 When the chain's top is a partial aggregate, the aggregate absorbs the
 filter/project prelude into its own per-batch program
@@ -166,6 +173,10 @@ class StageProgram:
         # graph's private pool (0 on the CPU)
         self.pool_bytes = 0
         self._lock = threading.Lock()
+        # recorded after the last run's copies out, on its stream: the
+        # next run, on any stream, waits on it before it writes the
+        # static inputs (None until the first replay)
+        self._done: Optional[torch.cuda.Event] = None
 
     @classmethod
     def build(cls, fn: ProgramFn, flat_in: List[torch.Tensor]):
@@ -231,6 +242,11 @@ class StageProgram:
             return self.fn(flat_in)
         uniq, _pos = _unique(flat_in)
         with self._lock:
+            cur = torch.cuda.current_stream(self._static_in[0].device)
+            if self._done is not None:
+                # the previous run may be on another stream, still
+                # reading the static inputs or the graph's outputs
+                cur.wait_event(self._done)
             for s, t in zip(self._static_in, uniq):
                 s.copy_(t)
             t0 = time.perf_counter_ns()
@@ -248,11 +264,19 @@ class StageProgram:
                 if c is None:
                     c = copied[id(o)] = o.clone()
                 outs.append(c)
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            self._done.record(cur)
         return outs, self.meta
 
     def release(self) -> None:
-        """Drop the graph and its buffers, so its memory pool is freed."""
+        """Drop the graph and its buffers, so its memory pool is freed,
+        once the card has finished the last run: the static buffers go
+        back to the allocator of the stream that made them, which does
+        not know the run's stream."""
         with self._lock:
+            if self._done is not None:
+                self._done.synchronize()
             if self.graph is not None:
                 self.graph.reset()
             self.graph = None
@@ -332,6 +356,34 @@ def unflatten_literals(flat: Sequence[torch.Tensor], layout: Tuple
             i += n
         out.append(g)
     return out
+
+
+class DeviceLiterals:
+    """One execution's literal tensors, flattened, built once for each
+    torch device a batch arrives on; ``layout`` (part of a program's key)
+    does not depend on the device. Built first on ``device`` (the
+    session's), so on one card, and on chips emulated on it, there is one
+    entry, as before."""
+
+    def __init__(self, groups_on: Callable[[torch.device], Sequence],
+                 device: torch.device):
+        self._groups_on = groups_on
+        flat, self.layout = flatten_literals(groups_on(device))
+        self._by_device: Dict[torch.device, List[torch.Tensor]] = {
+            device: flat}
+        self._lock = threading.Lock()
+
+    def on(self, device: torch.device) -> List[torch.Tensor]:
+        """The flat literal tensors on ``device``."""
+        flat = self._by_device.get(device)
+        if flat is not None:
+            return flat
+        with self._lock:
+            flat = self._by_device.get(device)
+            if flat is None:
+                flat = self._by_device[device] = flatten_literals(
+                    self._groups_on(device))[0]
+            return flat
 
 
 def bind_chain_steps(ops: List[TorchExec]) -> Tuple:
@@ -414,12 +466,13 @@ class TorchFusedStageExec(TorchExec):
     def _chain_partitions(self) -> List[DevicePartitionThunk]:
         steps = bind_chain_steps(self.fused_ops)
         skey = X.stage_structural_key(steps)
-        flat_lits, layout = flatten_literals(
-            X.stage_literal_values(steps, self.device))
+        lits = DeviceLiterals(
+            lambda d: X.stage_literal_values(steps, d), self.device)
+        layout = lits.layout
         schema = self.schema
         has_filter = any(k == "filter" for k, _ in steps)
         window_n = max(1, int(self.conf.get(STAGE_FUSION_MAX_IN_FLIGHT)))
-        metrics, ops, device = self.metrics, self.fused_ops, self.device
+        metrics, ops = self.metrics, self.fused_ops
 
         def run_one(b: DeviceBatch) -> DeviceBatch:
             flat, spec = flatten_columns(b.columns)
@@ -429,8 +482,8 @@ class TorchFusedStageExec(TorchExec):
             # emulated on one device share a graph, cards do not
             record_chip_dispatch(metrics, b)
             outs, ospec = run_program(
-                key, _chain_program(steps, spec, layout, device),
-                flat + [b.active] + flat_lits, metrics)
+                key, _chain_program(steps, spec, layout, b.device),
+                flat + [b.active] + lits.on(b.device), metrics)
             n = sum(a for _dt, a in ospec)
             counts = outs[n + 1:]
             count_steps(ops, counts)

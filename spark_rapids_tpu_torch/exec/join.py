@@ -68,7 +68,7 @@ from spark_rapids_tpu_torch.exec.base import (DevicePartitionThunk,
 from spark_rapids_tpu_torch.ops import exprs as X
 from spark_rapids_tpu_torch.ops.join import (MASK_JOINS, PAIR_JOINS,
                                              build_key_max_multiplicity,
-                                             device_join,
+                                             bump_count, device_join,
                                              right_extras_batch)
 from spark_rapids_tpu_torch.sql import expressions as E
 from spark_rapids_tpu_torch.sql import physical as P
@@ -266,6 +266,8 @@ class TorchShuffledHashJoinExec(TorchExec):
         goal = self.conf.batch_size_rows
         chunkable = self.join_type in self._LEFT_STREAM_TYPES
         fk_state: dict = {}
+        # stream partitions on task threads size the build keys once
+        fk_lock = threading.Lock()
 
         def fk_hint() -> bool:
             # no FK fast path under a residual condition, as in the JAX
@@ -273,14 +275,15 @@ class TorchShuffledHashJoinExec(TorchExec):
             if self.join_type not in ("inner", "left", "leftouter") \
                     or self.condition is not None:
                 return False
-            if "v" not in fk_state:
-                _lk, rk = self._bound_keys()
-                fk_state["v"] = build_key_max_multiplicity(
-                    rwhole, rk, self.null_safe) <= 1
-                if fk_state["v"]:
-                    self.route_counts["fkFastPathJoins"] += 1
-                    self.metrics.create("fkFastPathJoins").add(1)
-            return fk_state["v"]
+            with fk_lock:
+                if "v" not in fk_state:
+                    _lk, rk = self._bound_keys()
+                    fk_state["v"] = build_key_max_multiplicity(
+                        rwhole, rk, self.null_safe) <= 1
+                    if fk_state["v"]:
+                        bump_count(self.route_counts, "fkFastPathJoins")
+                        self.metrics.create("fkFastPathJoins").add(1)
+                return fk_state["v"]
 
         def make(lt: DevicePartitionThunk) -> DevicePartitionThunk:
             def run() -> Iterator[DeviceBatch]:

@@ -66,6 +66,11 @@ _SYNC_ALLOWLIST: Dict[str, str] = {
     _PKG + "exec/fused.py::StageProgram.build":
         "the stage build's one side-stream synchronize, once per capture "
         "and never once per batch",
+    _PKG + "exec/fused.py::StageProgram.release":
+        "a cached graph's release (an LRU eviction or the retry "
+        "protocol's recovery, never once per batch) waits for its last "
+        "replay, which may run on another thread's stream, before the "
+        "static buffers go back to the allocator",
     _PKG + "columnar/device.py::DeviceBatch.row_count":
         "the host row count a caller asks for (concatenation sizing, the "
         "coalescer's goal, empty-batch skips), read once and kept in "

@@ -473,7 +473,12 @@ def live_registries() -> list:
     return list(_REGISTRIES)
 
 
-def _walk_registries(plan, out: list) -> None:
+def _walk_registries(plan, out: list, seen: set) -> None:
+    # a reused broadcast is one node under several joins: its subtree's
+    # registries count once
+    if id(plan) in seen:
+        return
+    seen.add(id(plan))
     ms = getattr(plan, "metrics", None)
     if isinstance(ms, MetricRegistry):
         out.append(ms)
@@ -482,14 +487,14 @@ def _walk_registries(plan, out: list) -> None:
         if isinstance(fm, MetricRegistry):
             out.append(fm)
     for c in getattr(plan, "children", []):
-        _walk_registries(c, out)
+        _walk_registries(c, out, seen)
 
 
 def plan_registries(plan) -> list:
     """Every registry of an executed plan, fused-stage constituents
-    included."""
+    included, each node's once."""
     out: list = []
-    _walk_registries(plan, out)
+    _walk_registries(plan, out, set())
     return out
 
 

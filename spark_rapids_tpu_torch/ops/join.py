@@ -29,6 +29,7 @@ index here is clamped or masked into range first.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -53,6 +54,15 @@ _FAST_TYPES = ("inner", "left", "leftouter")
 # has twice as many slots (load factor <= 0.5), so every probe walk ends
 # at an empty slot; bigger build sides keep the sort-based plan
 _MAX_BUILD_ROWS = 8192
+# a join exec's route counts are bumped from every task thread
+_COUNTS_LOCK = threading.Lock()
+
+
+def bump_count(counts: Dict[str, int], key: str) -> None:
+    """Add one to ``counts[key]`` (a join exec's ``route_counts``), safe
+    under the task threads that share the exec."""
+    with _COUNTS_LOCK:
+        counts[key] = counts.get(key, 0) + 1
 
 
 def _pad_pair(a: AnyDeviceColumn, b: AnyDeviceColumn):
@@ -389,7 +399,7 @@ def device_join(left: DeviceBatch, right: DeviceBatch,
 
     def dispatched():
         if counts is not None:
-            counts["joinProbe"] = counts.get("joinProbe", 0) + 1
+            bump_count(counts, "joinProbe")
         KR.count_dispatch(metrics, "joinProbe")
 
     if join_type in MASK_JOINS:

@@ -97,7 +97,13 @@ def _kernel_summary(physical) -> Dict[str, Dict[str, int]]:
                     out[bucket][name] = \
                         out[bucket].get(name, 0) + metric.value
 
+    seen: set = set()
+
     def walk(p) -> None:
+        # a reused broadcast's subtree counts once
+        if id(p) in seen:
+            return
+        seen.add(id(p))
         add(p)
         for op in getattr(p, "fused_ops", []):
             add(op)

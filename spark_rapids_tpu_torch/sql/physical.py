@@ -97,6 +97,10 @@ class PhysicalPlan:
         task threads, and every drained batch is a cancellation
         checkpoint.
 
+        The query's tenant scope follows them too, so a registration
+        without a metric registry bills the right tenant on a task
+        thread; spans reach the query's trace from any thread.
+
         A ``TorchChipFailure`` that no operator recovered from (a plan
         with no exchange between its mesh scan and this collect) demotes
         the chip, and the collect runs again on the surviving mesh
@@ -108,12 +112,15 @@ class PhysicalPlan:
 
     def _collect_once(self, parallelism: int) -> HostBatch:
         from spark_rapids_tpu_torch import lifecycle as LC
+        from spark_rapids_tpu_torch.memory import (current_tenant,
+                                                   tenant_scope)
         from spark_rapids_tpu_torch.resource import release_current_thread
         token = LC.current_token()
+        tenant = current_tenant()
 
         def drain(t) -> list:
             try:
-                with LC.token_scope(token):
+                with LC.token_scope(token), tenant_scope(tenant):
                     out = []
                     for b in t():
                         LC.checkpoint("batch")

@@ -332,10 +332,11 @@ class TorchSparkSession:
         from spark_rapids_tpu_torch.overrides import (RewriteReport,
                                                       apply_overrides)
         if not self.conf_obj.sql_enabled:
-            return physical, None
+            return _reuse_broadcast_exchanges(physical), None
         report = RewriteReport()
-        return apply_overrides(physical, self.conf_obj, self.device,
-                               report, announce), report
+        physical = apply_overrides(physical, self.conf_obj, self.device,
+                                   report, announce)
+        return _reuse_broadcast_exchanges(physical), report
 
     def _assert_kernel_flags(self) -> None:
         """Apply this session's process-wide kernel flags before planning
@@ -394,7 +395,6 @@ class TorchSparkSession:
                                                  SERVE_QUARANTINE_THRESHOLD,
                                                  SUBPLAN_CACHE_ENABLED,
                                                  TASK_PARALLELISM)
-        from spark_rapids_tpu_torch.overrides import has_device_op
         from spark_rapids_tpu_torch.serve import result_cache as _RC
         # a profile's memory section covers this query: the store's
         # watermarks start again here (concurrent queries still share the
@@ -435,13 +435,12 @@ class TorchSparkSession:
                     _RC.capture_fingerprints(physical))
             else:
                 _RC.set_execution_fingerprints(None)
-            # a plan with a device operator drains its partitions on this
-            # thread; only a host-only plan spreads them over task threads
-            tasks = 1 if has_device_op(physical) else \
-                int(self.conf_obj.get(TASK_PARALLELISM))
+            # every plan drains its partitions on taskParallelism task
+            # threads (the query's tenant, trace and cancel token follow)
             t0 = _time.perf_counter()
             with _mem.tenant_scope(self.tenant):
-                result = physical.execute_collect(tasks)
+                result = physical.execute_collect(
+                    int(self.conf_obj.get(TASK_PARALLELISM)))
             wall_s = _time.perf_counter() - t0
         except LC.TorchQueryCancelled as e:
             TR.end_query(self.conf_obj, tok, error=True)
@@ -671,3 +670,62 @@ def _parse_ddl_schema(ddl: str) -> T.StructType:
         name, _, tp = part.strip().partition(" ")
         fields.append(T.StructField(name.strip(), _parse_type(tp.strip())))
     return T.StructType(fields)
+
+
+def _reuse_broadcast_exchanges(plan):
+    """Spark's ReuseExchange, as the JAX package does it: structurally
+    equal broadcast subtrees of one plan collapse onto one node, so the
+    build side materializes once however many joins read it
+    (``broadcastBuilds``)."""
+    from spark_rapids_tpu_torch.exec.exchange import \
+        TorchBroadcastExchangeExec
+    from spark_rapids_tpu_torch.sql import expressions as E
+    from spark_rapids_tpu_torch.sql import physical as P
+
+    seen: Dict[tuple, Any] = {}
+
+    def params(p) -> tuple:
+        # a node's parameters beyond simple_string: limits, ranges,
+        # expression lists (their repr holds the ids); any other object
+        # keys by identity, so equal but distinct objects are never
+        # taken for one another (they just are not reused)
+        out = []
+        for k in sorted(vars(p)):
+            if k in ("children", "conf", "metrics", "device") \
+                    or k.startswith("_"):
+                continue
+            v = vars(p)[k]
+            if isinstance(v, (int, str, bool, float, type(None))):
+                out.append((k, v))
+            elif isinstance(v, (list, tuple)) and all(
+                    isinstance(x, (int, str, bool, float)) for x in v):
+                out.append((k, tuple(v)))
+            elif isinstance(v, E.Expression) or (
+                    isinstance(v, (list, tuple)) and v and all(
+                        isinstance(x, E.Expression) for x in v)):
+                out.append((k, repr(v)))
+            else:
+                out.append((k, id(v)))
+        return tuple(out)
+
+    def sig(p) -> tuple:
+        # simple_string alone is no identity (two equal-shaped scans
+        # print alike): the output attributes' ids and the node's own
+        # parameters are
+        return (type(p).__name__, p.simple_string(), params(p),
+                tuple((a.name, a.expr_id, repr(a.data_type))
+                      for a in p.output),
+                tuple(sig(c) for c in p.children))
+
+    def walk(p):
+        p.children = [walk(c) for c in p.children]
+        if isinstance(p, (P.CpuBroadcastExchangeExec,
+                          TorchBroadcastExchangeExec)):
+            key = (type(p).__name__, sig(p.child))
+            hit = seen.get(key)
+            if hit is not None:
+                return hit
+            seen[key] = p
+        return p
+
+    return walk(plan)
